@@ -1,0 +1,40 @@
+"""Public decode entry points of the port (counterparts of
+``pyruhvro_tpu/api.py:868`` ``deserialize_array`` and ``:981``
+``deserialize_array_threaded``; upstream ``src/lib.rs:56-89``).
+
+Both run on the card by default (``device="cuda"``) and raise
+``RuntimeError`` when there is none; ``device="cpu"`` runs the plain
+PyTorch walk and is taken only when the caller asks for it. ``data`` is a
+list of Avro datums (``bytes``). Malformed input raises
+:class:`~pyruhvro_tpu_torch.errors.MalformedAvro` naming the first bad
+row; a schema or batch outside the device walk raises
+:class:`~pyruhvro_tpu_torch.ops.UnsupportedOnDevice`.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import pyarrow as pa
+
+from .ops.codec import get_device_codec
+from .schema.cache import get_or_parse_schema
+
+__all__ = ["deserialize_array", "deserialize_array_threaded"]
+
+
+def deserialize_array(data: Sequence[bytes], schema: str, *,
+                      device="cuda") -> pa.RecordBatch:
+    """Decode Avro datums into a single RecordBatch."""
+    entry = get_or_parse_schema(schema)
+    return get_device_codec(entry, device).decode(data)
+
+
+def deserialize_array_threaded(data: Sequence[bytes], schema: str,
+                               num_chunks: int, *,
+                               device="cuda") -> List[pa.RecordBatch]:
+    """Decode into ``num_chunks`` RecordBatches, one per chunk, with
+    upstream's chunk boundaries (``len // num_chunks`` rows each, the
+    remainder in the last). The batch decodes in one walk and is sliced."""
+    entry = get_or_parse_schema(schema)
+    return get_device_codec(entry, device).decode_threaded(data, num_chunks)
