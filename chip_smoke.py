@@ -14,14 +14,21 @@ exits non-zero before the last line:
 2. build: ``nvcc`` of ``pyruhvro_tpu_torch/csrc/walk_decode.cu`` (sm_90a);
 3. the kernel against the plain PyTorch walk, on the card, per fixture:
    every output buffer and ``#err`` bit-equal at every rung of the item-cap
-   ladder; the decoded columns equal to the CPU decode's; malformed
-   batches raising the same message on both;
+   ladder, under each shared-memory plan (``PLANS``); the decoded columns
+   equal to the CPU decode's; malformed
+   batches raising the same message on both. Two fixtures take the
+   kernel's device-memory paths: ``oversized_block`` (a block whose
+   records span more than the input staging budget) and
+   ``item_staging_overflow`` (rungs whose item slices exceed the output
+   staging budget);
 4. the main path: ``deserialize_array_threaded`` of 1,000,000 Kafka-style
    records in 8 chunks on the card, its kernel launches counted, its
    batches equal to the same call on the CPU (whole batches with
    ``.equals()``, a fixed 10,000-row sample with ``to_pylist()``), then
    its timings (median of several warm calls) and the kernel's, with the
-   kernel's buffers at those shapes bit-equal to the plain walk's;
+   kernel's buffers at those shapes bit-equal to the plain walk's, its
+   shared-memory plan, and the same launch with the input or the outputs
+   kept out of shared memory;
 5. one ``{"kernels": [...]}`` JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -40,10 +48,13 @@ DEVICE = "cuda"
 MAIN_ROWS = 1_000_000
 MAIN_CHUNKS = 8
 SAMPLE_ROWS = 10_000
+# shared-memory plans every fixture runs under: the launch's own, nothing
+# staged, and the output slices staged up to 48 KiB
+PLANS = {"default": {}, "unstaged": {"in_max": 0, "out_max": 0},
+         "staged": {"out_max": 48 << 10}}
 WARM_CALLS = 5              # timed warm calls of the main path
 PHASE_RUNS = 3              # decodes whose phase times give the medians
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-SECTOR = 32                 # bytes of one DRAM access
 
 LADDER_SCHEMA = """{"type":"record","name":"Big","fields":[
   {"name":"xs","type":{"type":"array","items":"long"}}]}"""
@@ -135,6 +146,22 @@ def fixtures(datagen, parse_schema):
     nulls = [zz(50) + zz(0) + zz(0), zz(0) + zz(200) + b"x" * 200,
              zz(5000) + zz(0) + zz(0), zz(-3) + zz(0) + zz(0) + zz(0)]
     cases.append(("zero_byte_items", NULLS_SCHEMA, nulls * 40, True))
+    # records of 1.9 to 2 KiB: the first blocks span ~250 KB, past the
+    # input staging budget, and read flat in device memory; the small
+    # records after them are staged
+    big = [zz(1) + zz(2) + bytes(8) + bytes(4) + b"\x01" + zz(n) + b"q" * n
+           for n in (rng.randrange(1880, 2020) for _ in range(300))]
+    cases.append(("oversized_block", flat, big + datagen.random_datums(
+        parse_schema(flat), 700, seed=17), False))
+    # up to 200 items: at caps 64 and above the item slices outgrow the
+    # output staging budget and the kernel stores them in device memory
+    deep = []
+    for _ in range(1_500):
+        xs = [rng.randrange(-10**9, 10**9)
+              for _ in range(rng.randrange(0, 201))]
+        deep.append((zz(len(xs)) + b"".join(map(zz, xs)) if xs else b"")
+                    + zz(0))
+    cases.append(("item_staging_overflow", LADDER_SCHEMA, deep, False))
     return cases
 
 
@@ -167,17 +194,28 @@ def check_fixture(torch, np, wd, name, schema, datums, must_fail, parse_schema,
     caps = card.first_caps()
     worst, rungs = 0, []
     launches0 = wd.walk_kernel.launches
+    # per plan: blocks that staged their records / read them in device
+    # memory, output buffers staged / stored directly (summed over rungs)
+    seen = {pname: [0, 0, 0, 0] for pname in PLANS}
     while True:
-        rows, lens, act, tile_r = card.launch_inputs(datums, caps)
-        kb, ke = wd.walk_kernel(rows, lens, act, prog, caps, tile_r)
-        pb, pe = wd.walk_plain(rows, lens, act, prog, caps, tile_r)
-        torch.cuda.synchronize()
-        for key, k, p in zip(prog.out_keys + ["#err"], kb + [ke], pb + [pe]):
-            diff = max_abs_diff(torch, k, p)
-            if diff:
-                raise SystemExit(f"{name}: kernel != plain walk in {key!r} at "
-                                 f"caps {caps} (max abs diff {diff})")
-            worst = max(worst, diff)
+        *args, tile_r = card.launch_inputs(datums, caps)
+        pb, pe = wd.walk_plain(*args, prog, caps, tile_r)
+        for pname, budgets in PLANS.items():
+            L = wd.KernelLaunch(*args, prog, caps, tile_r, **budgets)
+            for i, v in enumerate((L.blocks_staged, L.blocks_global,
+                                   sum(x >= 0 for x in L.stage),
+                                   sum(x < 0 for x in L.stage))):
+                seen[pname][i] += v
+            kb, ke = wd.walk_kernel.run(L)
+            torch.cuda.synchronize()
+            for key, k, p in zip(prog.out_keys + ["#err"], kb + [ke],
+                                 pb + [pe]):
+                diff = max_abs_diff(torch, k, p)
+                if diff:
+                    raise SystemExit(f"{name}: kernel ({pname} plan) != plain "
+                                     f"walk in {key!r} at caps {caps} (max "
+                                     f"abs diff {diff})")
+                worst = max(worst, diff)
         rungs.append(max(caps))
         err = pe[:n].cpu().numpy().view(np.uint32)
         if not (err & wd.ERR_ITEM_OVERFLOW).any() or max(caps) >= wd._MAX_CAP:
@@ -205,9 +243,18 @@ def check_fixture(torch, np, wd, name, schema, datums, must_fail, parse_schema,
                     a.view(np.uint8), b.view(np.uint8)):
                 raise SystemExit(f"{name}: decoded column {key!r} differs")
         detail = f"item_totals={mg['item_totals']}"
+    default, full = seen["default"], seen["staged"]
+    if name == "oversized_block" and not (default[0] and default[1]):
+        raise SystemExit(f"{name}: expected staged and unstaged blocks, got "
+                         f"{default[:2]}")
+    if name == "item_staging_overflow" and not (full[2] and full[3]):
+        raise SystemExit(f"{name}: expected staged and direct item slices "
+                         f"under the staged plan, got {full[2:]}")
     print(f"fixture {name}: rows={n} rungs={rungs} kernel_launches="
           f"{wd.walk_kernel.launches - launches0} exact=True "
-          f"max_abs_err={worst} -> {detail}")
+          f"max_abs_err={worst} blocks staged/global, buffers staged/direct "
+          + " ".join(f"{k}={v[0]}/{v[1]},{v[2]}/{v[3]}" for k, v in
+                     seen.items()) + f" -> {detail}")
     return worst
 
 
@@ -344,54 +391,90 @@ def main() -> int:
             xs.append(meta["timings"][k])
         del host, meta
     print(f"phases, ms, median (min .. max) of {PHASE_RUNS}: pack "
-          f"{spread(phases['pack_s'])}, h2d {spread(phases['h2d_s'])}, "
+          f"(concatenate) {spread(phases['pack_s'])}, h2d "
+          f"{spread(phases['h2d_s'])}, "
           f"walk+#err readback {spread(phases['walk_s'])}, d2h "
           f"{spread(phases['d2h_s'])}, host compaction "
           f"{spread(phases['compact_s'])}, Arrow assembly "
           f"{spread(phases['assembly_s'])} {card}")
 
     caps = dec.first_caps()
-    rows, lens, act, tile_r = dec.launch_inputs(data, caps)
-    launch = wd.KernelLaunch(rows, lens, act, dec.prog, caps, tile_r)
-    launch_ms = cuda_ms(torch, lambda: wd.walk_kernel.launch(launch), 5,
-                        prepare=launch.reset)
-
-    def zero_and_launch():
-        launch.reset()
-        wd.walk_kernel.launch(launch)
-
-    # the wrapper's work on the card: zero the outputs, launch
-    kernel_ms = cuda_ms(torch, zero_and_launch, 5)
-    cut = launch.cut.cpu().tolist()
-    if any(cut[1:]):
-        raise SystemExit(f"timed launch cut lanes short: {cut}")
+    *args, tile_r = dec.launch_inputs(data, caps)
+    flat, offs, act, BW, base = args
+    launch = wd.KernelLaunch(*args, dec.prog, caps, tile_r)
+    # the same launch with the record spans read from device memory, with
+    # the outputs stored there directly, and with neither staged
+    variants = {
+        "default": launch,
+        "input from global": wd.KernelLaunch(*args, dec.prog, caps, tile_r,
+                                             in_max=0),
+        "outputs direct": wd.KernelLaunch(*args, dec.prog, caps, tile_r,
+                                          out_max=0),
+        "outputs staged": wd.KernelLaunch(*args, dec.prog, caps, tile_r,
+                                          out_max=48 << 10),
+        "neither staged": wd.KernelLaunch(*args, dec.prog, caps, tile_r,
+                                          in_max=0, out_max=0),
+    }
+    # every row inactive: the blocks' copies, zero-fills and flushes alone
+    idle = wd.KernelLaunch(flat, offs, torch.zeros_like(act), BW, base,
+                           dec.prog, caps, tile_r)
+    timed = {**variants, "walk skipped": idle}
+    variant_ms = {}
+    for key in list(timed) + list(timed)[::-1]:  # in turns
+        L = timed[key]
+        ms = cuda_ms(torch, lambda: wd.walk_kernel.launch(L), 5,
+                     prepare=L.reset)
+        variant_ms[key] = min(ms, variant_ms.get(key, ms))
+    kernel_ms = variant_ms["default"]
+    del idle, timed
+    for key, L in variants.items():
+        cut = L.cut.cpu().tolist()
+        if any(cut[1:]):
+            raise SystemExit(f"timed launch ({key}) cut lanes short: {cut}")
     plain = []
 
     def run_plain():
-        plain[:] = [wd.walk_plain(rows, lens, act, dec.prog, caps, tile_r)]
+        plain[:] = [wd.walk_plain(*args, dec.prog, caps, tile_r)]
 
     plain_ms = cuda_ms(torch, run_plain, 2)
     pb, pe = plain[0]
-    for key, k, p in zip(dec.prog.out_keys + ["#err"], launch.bufs
-                         + [launch.err], pb + [pe]):
-        diff = max_abs_diff(torch, k, p)
-        if diff:
-            raise SystemExit(f"main path shapes: kernel != plain walk in "
-                             f"{key!r} (max abs diff {diff})")
+    for vkey, L in variants.items():
+        for key, k, p in zip(dec.prog.out_keys + ["#err"], L.bufs + [L.err],
+                             pb + [pe]):
+            diff = max_abs_diff(torch, k, p)
+            if diff:
+                raise SystemExit(f"main path shapes ({vkey}): kernel != plain "
+                                 f"walk in {key!r} (max abs diff {diff})")
     del plain, pb, pe
-    # what a call must move: each record's bytes up to its length, in
-    # whole sectors, lens and act once, and every output buffer once
-    read = int(((lens.to(torch.int64) + SECTOR - 1) // SECTOR).sum()) \
-        * SECTOR + lens.numel() * 4 + act.numel() * 4
+    # what a launch must move: every record's bytes once (contiguous), offs,
+    # act and base once, and every output element once
+    R = act.numel()
+    read = int(offs[-1] - offs[0]) + offs.numel() * 8 + R * 4 + R * 4
     moved = read + launch.output_bytes()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"walk_decode at the main path's shapes (R={rows.shape[0]}, "
-          f"BW={rows.shape[1] // 4}, caps={caps}, tile_r={tile_r}): zero-fill "
-          f"+ launch {kernel_ms:.3f} ms, launch alone {launch_ms:.3f} ms "
-          f"(best of 5, CUDA events), bit-equal to the plain walk "
+    occupancy = wd.walk_kernel.library().cdll.walk_decode_blocks_per_sm
+    regs = re.findall(r"Used (\d+) registers", lib.log)
+    for key, L in variants.items():
+        smem = L.smem_bytes()
+        print(f"walk_decode staging ({key}) at the main path's shapes: "
+              f"input budget {L.in_budget} B, blocks staged "
+              f"{L.blocks_staged} / read from device memory "
+              f"{L.blocks_global}, output staging {L.out_bytes} B "
+              f"({sum(x >= 0 for x in L.stage)} of {len(L.stage)} buffers; "
+              f"the rest stored directly), shared memory {smem} B per "
+              f"block, {occupancy(smem)} blocks per SM, ptxas registers "
+              f"{'/'.join(regs) or 'not reported (cached build)'}")
+    smem = launch.smem_bytes()
+    per_sm = occupancy(smem)
+    print(f"walk_decode at the main path's shapes (R={R}, BW={BW}, "
+          f"caps={caps}, tile_r={tile_r}): launch {kernel_ms:.3f} ms (best "
+          f"of 5 twice, in turns, CUDA events; no zero-fill: the kernel "
+          f"writes every output), bit-equal to the plain walk "
           f"({plain_ms:.1f} ms); bound {bound_ms:.3f} ms ({read / 1e6:.1f} MB "
           f"read + {launch.output_bytes() / 1e6:.1f} MB written at 3.35 "
-          f"TB/s) {card}")
+          f"TB/s), {kernel_ms / bound_ms:.2f}x the bound; variants "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in variant_ms.items())
+          + f" {card}")
 
     kernels = [{
         "name": "walk_decode",
@@ -404,12 +487,14 @@ def main() -> int:
         "exact": worst == 0,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
-        "launch_ms": launch_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         # integer byte walking: no float or tensor-core work to bound it
         "bound_by": "bytes",
         "library_ms": None,
+        "variant_ms": variant_ms,
+        "smem_bytes": smem,
+        "blocks_per_sm": per_sm,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@
 
 The decoder hands over dense numpy buffers in Arrow's own layout — int32
 offsets, per-lane validity bytes, (lo, hi) 64-bit halves, ``(start, len)``
-descriptors into the padded record bytes — so assembly is
+descriptors into the concatenated record bytes — so assembly is
 ``pa.Array.from_buffers`` over those plus cheap vectorized host ops:
 recombining (lo, hi) u32 pairs into int64/float64 (a numpy ``view``),
 bit-packing validity/boolean bytes (``np.packbits``), gathering string
@@ -241,8 +241,8 @@ class _Assembler:
 
     def _string_values(self, path: str, count: int):
         """Materialize one string-ish column's ``(values, voff, lens)``
-        from the walk's ``(start, len)`` descriptors into the padded
-        record bytes, with the 2 GiB int32-offset guard (the oracle's
+        from the walk's ``(start, len)`` descriptors into the
+        concatenated record bytes, with the 2 GiB int32-offset guard (the oracle's
         ``pa.array`` raises the same error class)."""
         lens = self.host[path + "#len"][:count]
         total = int(lens.sum(dtype=np.int64))
@@ -398,7 +398,7 @@ class _Assembler:
         )
 
     def _fixed(self, t, dt, path, count, valid):
-        """Avro ``fixed`` gathered from the padded record bytes;
+        """Avro ``fixed`` gathered from the concatenated record bytes;
         ``duration`` converts fixed(12) (months, days, ms u32-LE) to
         Duration(ms) with the oracle's 30-day-month convention
         (``fallback/decoder.py``)."""

@@ -41,7 +41,7 @@ Code (operands are ints; ``buf`` is an index into ``Program.out_keys``,
                           block loop; the item code follows, then
     LOOP   repeated_pc    closes one item (end_pc is just past it)
     TRAILING              ERR_TRAILING when the cursor is not at the end
-    REBASE start          row-region start += row * BW * 4
+    REBASE start          row-region start += base[row] (the row's offset)
     END
 
 ``csrc/walk_decode.cu`` defines the same opcode numbers

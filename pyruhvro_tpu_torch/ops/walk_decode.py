@@ -3,22 +3,30 @@
 The reference runs the lowered field program inside one
 ``pl.pallas_call`` (``PallasKernelDecoder._build``) over row-padded
 ``[TILE_R, BW]`` word tiles, then compacts item slots on the host. This
-module keeps that pipeline and its semantics:
+module keeps that pipeline's semantics over an unpadded input:
 
-* records are packed row-padded ``[R, BW*4]`` bytes (``BW`` = bucketed
-  max record words, at most 512); cursors are record-local;
+* the records are concatenated into one flat uint8 buffer (``flat``,
+  16 zero bytes of tail for the kernel's aligned copies) with int64
+  offsets ``offs[R+1]``; ``BW`` (bucketed max record words, at most 512)
+  still defines the reads: byte ``p`` of a record's virtual padded row is
+  its byte ``p`` below its length, else 0, and reads clip to word
+  ``BW-1``; cursors are record-local;
 * the walk writes one buffer per ``Program`` key — ``[R]`` for the row
   region, ``[R * icap]`` for item regions — plus ``#err`` ``[R]``; it
-  adds ERR_TRAILING and rebases row-region ``#start`` to ``row*BW*4``;
+  adds ERR_TRAILING and rebases row-region ``#start`` by ``base[row]``
+  (the decoder passes ``base = offs[:R]``: starts index ``flat``);
 * an ERR_ITEM_OVERFLOW lane doubles the item caps and reruns the walk
   (8 → 1024); the rung that worked is remembered in ``_caps``;
 * the host raises the first bad row as :class:`MalformedAvro`, compacts
-  strided item slots into dense arrays + ``#offsets`` and assembles Arrow.
+  strided item slots into dense arrays + ``#offsets`` (item ``#start``
+  rebased by their row's offset) and assembles Arrow.
 
 Two walks execute the program's code: :func:`walk_kernel`, the CUDA
 kernel of ``csrc/walk_decode.cu``, and :func:`walk_plain`, the same code
-as plain PyTorch over lane masks. :func:`walk` takes the kernel for a
-CUDA tensor and the plain walk only for a CPU tensor.
+as plain PyTorch over lane masks on the padded rows that one scatter
+builds from ``flat`` (:func:`walk_padded` walks such rows directly: the
+reference's layout). :func:`walk` takes the kernel for a CUDA tensor and
+the plain walk only for a CPU tensor.
 
 The array/map loop bound. The reference bounds the block loop of every
 repeated field by one value per tile: ``max(ends - cursor over the
@@ -47,7 +55,7 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, MalformedAvro
-from ..runtime.pack import bucket_len, pack_rows, record_lengths
+from ..runtime.pack import bucket_len, concat_records, record_lengths
 from . import UnsupportedOnDevice
 from .fieldprog import (
     OP_BOOL,
@@ -89,7 +97,8 @@ from .varint import (
 )
 
 __all__ = ["WalkDecoder", "KernelLaunch", "walk", "walk_plain",
-           "walk_kernel", "walk_supported", "resolve_device"]
+           "walk_padded", "walk_kernel", "walk_supported", "resolve_device",
+           "padded_rows", "block_spans", "stage_plan", "input_staging"]
 
 _LANE = 128                 # the reference's tile rows are a multiple
 _VMEM_TILE_BYTES = 1 << 21  # the reference's per-tile budget (tile rows)
@@ -97,6 +106,9 @@ _MAX_BW = 512               # widest row: 512 words = 2 KiB per record
 _MAX_CAP = 1 << 10          # item-cap ladder ceiling (per record, per region)
 _LAUNCH_BYTES = 1 << 30     # padded input of one launch (int32 offsets)
 _THREADS = 128              # kernel block size; divides every tile
+_TAIL = 16                  # zero bytes after flat (16-B copy units)
+_IN_STAGE_MAX = 32 << 10    # shared memory for one block's record span
+_OUT_STAGE_MAX = 48 << 10   # shared memory for one block's output slices
 
 
 def resolve_device(device) -> torch.device:
@@ -151,16 +163,82 @@ def _buf_len(prog: Program, key: str, R: int, caps: Tuple[int, ...]) -> int:
     return R if region == ROWS else R * caps[region]
 
 
-def _alloc_outputs(prog: Program, R: int, caps, device) -> List[torch.Tensor]:
-    """Zeroed output buffers in ``out_keys`` order: uint8 for u8 buffers,
-    int32 (bit pattern) for every 4-byte one. Lanes a walk does not write
-    must read 0, as in the reference."""
+def _alloc_outputs(prog: Program, R: int, caps, device,
+                   fill=torch.zeros) -> List[torch.Tensor]:
+    """Output buffers in ``out_keys`` order: uint8 for u8 buffers, int32
+    (bit pattern) for every 4-byte one. Lanes a walk does not write must
+    read 0, as in the reference: zeroed unless the walk writes them all
+    (``fill=torch.empty`` for the kernel)."""
     return [
-        torch.zeros(_buf_len(prog, k, R, caps),
-                    dtype=torch.uint8 if prog.buffers[k].dtype.itemsize == 1
-                    else torch.int32, device=device)
+        fill(_buf_len(prog, k, R, caps),
+             dtype=torch.uint8 if prog.buffers[k].dtype.itemsize == 1
+             else torch.int32, device=device)
         for k in prog.out_keys
     ]
+
+
+def _slice_bytes(prog: Program, key: str, caps: Tuple[int, ...]) -> int:
+    """Bytes of one kernel block's slice of a buffer (a multiple of 16)."""
+    spec = prog.buffers[key]
+    per_row = 1 if spec.region == ROWS else caps[spec.region]
+    return _THREADS * per_row * spec.dtype.itemsize
+
+
+def stage_plan(prog: Program, caps: Tuple[int, ...],
+               budget: int) -> Tuple[List[int], int]:
+    """Where each buffer's block slice lives while a kernel block walks:
+    ``(offsets, bytes)``, an offset into the block's shared-memory output
+    area per buffer in ``out_keys`` order, -1 for a buffer the block
+    stores to in device memory. Row-region buffers come first, then item
+    buffers in ``out_keys`` order, each while it fits ``budget``."""
+    keys = prog.out_keys
+    stage, used = [-1] * len(keys), 0
+    for b in sorted(range(len(keys)),
+                    key=lambda b: prog.buffers[keys[b]].region != ROWS):
+        size = _slice_bytes(prog, keys[b], caps)
+        if used + size <= budget:
+            stage[b], used = used, used + size
+    return stage, used
+
+
+def block_spans(offs: torch.Tensor):
+    """Per kernel block of 128 rows: ``(span, nonempty)``, the bytes of
+    ``flat`` its records cover widened to 16-B bounds (what its bulk copy
+    moves into shared memory), and whether it covers any byte."""
+    lo = offs[:-1:_THREADS]
+    hi = offs[_THREADS::_THREADS]
+    return ((hi + 15) & ~15) - (lo & ~15), hi > lo
+
+
+def input_staging(offs: torch.Tensor, in_max: int) -> Tuple[int, int, int]:
+    """``(in_budget, staged, unstaged)``: the shared memory a launch gives a
+    block's record span (the largest span that fits ``in_max``), and the
+    blocks whose span fits it and the others, which read ``flat`` in
+    device memory (blocks without records count in neither)."""
+    span, nonempty = block_spans(offs)
+    fits = nonempty & (span <= in_max)
+    return tuple(torch.stack([
+        torch.where(fits, span, 0).max(), fits.sum(),
+        (nonempty & ~fits).sum()]).tolist())
+
+
+def padded_rows(flat: torch.Tensor, offs: torch.Tensor, BW: int):
+    """``(rows [R, BW*4] uint8, lens [R] int32)``: the reference's
+    row-padded layout built from the flat records on their device by one
+    scatter (``pallas_decode.py:321-335``). A record's bytes past
+    ``BW*4`` are cut: the clipped reads never see them."""
+    dev = flat.device
+    R = offs.numel() - 1
+    lens = offs[1:] - offs[:-1]
+    first, last = (int(v) for v in offs[[0, -1]].tolist())
+    row_of = torch.repeat_interleave(torch.arange(R, device=dev), lens,
+                                     output_size=last - first)
+    pos = torch.arange(first, last, device=dev)
+    col = pos - offs[row_of]
+    keep = col < BW * 4
+    rows = torch.zeros((R, BW * 4), dtype=torch.uint8, device=dev)
+    rows[row_of[keep], col[keep]] = flat[pos[keep]]
+    return rows, lens.to(torch.int32)
 
 
 # -- the plain walk --------------------------------------------------------
@@ -170,9 +248,10 @@ class _PlainWalk:
     """The field-program code executed with lane masks (one lane per
     record), in the manner of the reference's JAX emitters."""
 
-    def __init__(self, rows, lens, act, prog: Program, caps, tile_r: int):
+    def __init__(self, rows, lens, act, base, prog: Program, caps,
+                 tile_r: int):
         self.words = RowWords(rows)
-        self.row_bytes = rows.shape[1]
+        self.base = base.to(torch.int64)
         self.code = prog.code.tolist()
         self.caps = caps
         self.tile_r = tile_r
@@ -309,8 +388,7 @@ class _PlainWalk:
                 pc += 1
             elif op == OP_REBASE:
                 b = code[pc + 1]
-                moved = wrap_i32(self.bufs[b].to(torch.int64)
-                                 + self.lanes * self.row_bytes)
+                moved = wrap_i32(self.bufs[b].to(torch.int64) + self.base)
                 self.bufs[b] = torch.where(mask, moved, 0).to(torch.int32)
                 pc += 2
             elif op == OP_END:
@@ -370,52 +448,86 @@ class _PlainWalk:
         self.put(count_buf, None, cnt, mask)
 
 
-def walk_plain(rows, lens, act, prog: Program, caps: Tuple[int, ...],
-               tile_r: int):
-    """The walk as plain PyTorch on any device: ``(buffers in out_keys
-    order, #err)``, every 4-byte buffer as int32 bits."""
-    w = _PlainWalk(rows, lens, act, prog, caps, tile_r)
+def walk_padded(rows, lens, act, base, prog: Program, caps: Tuple[int, ...],
+                tile_r: int):
+    """The plain walk over row-padded records (the reference's layout):
+    ``rows`` ``[R, BW*4]`` uint8, ``lens``/``act``/``base`` ``[R]``.
+    Returns ``(buffers in out_keys order, #err)``, every 4-byte buffer as
+    int32 bits."""
+    w = _PlainWalk(rows, lens, act, base, prog, caps, tile_r)
     w.run(0, len(w.code), w.active, None)
     return w.bufs, wrap_i32(w.err).to(torch.int32)
+
+
+def walk_plain(flat, offs, act, BW: int, base, prog: Program,
+               caps: Tuple[int, ...], tile_r: int):
+    """The kernel's plain version, on any device, with the kernel's
+    inputs: the records' bytes ``flat``, ``offs`` ``[R+1]`` int64,
+    ``act`` and ``base`` ``[R]`` int32. It builds the padded rows that
+    ``BW`` defines and walks them (:func:`walk_padded`)."""
+    rows, lens = padded_rows(flat, offs, BW)
+    return walk_padded(rows, lens, act, base, prog, caps, tile_r)
 
 
 # -- the CUDA kernel -------------------------------------------------------
 
 
+def _check(t, dtype, shape, dev, name: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() \
+            or t.device != dev:
+        raise ValueError(f"{name} must be contiguous {dtype} {list(shape)} "
+                         f"on {dev}")
+
+
 class KernelLaunch:
     """The device tensors of one ``walk_decode`` launch: inputs, the
-    code and buffer tables, the outputs and the span tables."""
+    packed tables, the outputs and the span tables, and the launch's use
+    of shared memory: ``in_budget`` and the blocks staged or not
+    (:func:`input_staging`), ``stage``/``out_bytes`` (:func:`stage_plan`).
 
-    def __init__(self, rows, lens, act, prog: Program, caps: Tuple[int, ...],
-                 tile_r: int):
-        R, row_bytes = rows.shape
-        dev = rows.device
+    ``in_max`` caps the record span a block stages; ``out_max`` caps its
+    output slices, and by default is the most that costs no resident
+    block: output staging saves stores to device memory, but the walk is
+    bound by latency, so blocks per SM come first."""
+
+    def __init__(self, flat, offs, act, BW: int, base, prog: Program,
+                 caps: Tuple[int, ...], tile_r: int,
+                 in_max: int = _IN_STAGE_MAX, out_max: int = None):
+        dev = flat.device
         if dev.type != "cuda":
             raise ValueError("walk_kernel takes CUDA tensors")
-        if rows.dtype != torch.uint8 or not rows.is_contiguous() \
-                or row_bytes % 4:
-            raise ValueError("rows must be contiguous uint8 [R, BW*4]")
-        for t in (lens, act):
-            if t.dtype != torch.int32 or t.shape != (R,) \
-                    or not t.is_contiguous() or t.device != dev:
-                raise ValueError("lens/act must be contiguous int32 [R] on "
-                                 "the rows' device")
+        if flat.dtype != torch.uint8 or flat.dim() != 1 \
+                or not flat.is_contiguous() or flat.data_ptr() % 16:
+            raise ValueError("flat must be contiguous 16-B aligned uint8 [N]")
+        R = act.numel()
+        _check(offs, torch.int64, (R + 1,), dev, "offs")
+        _check(act, torch.int32, (R,), dev, "act")
+        _check(base, torch.int32, (R,), dev, "base")
         if tile_r % _THREADS or R % tile_r:
             raise ValueError(f"R={R} must be a multiple of tile_r={tile_r}, "
                              f"itself a multiple of {_THREADS}")
-        self.rows, self.lens, self.act = rows, lens, act
-        self.prog, self.caps, self.tile_r = prog, caps, tile_r
+        if flat.numel() < (int(offs[-1]) + 15) & ~15:
+            raise ValueError("flat must hold offs[-1] bytes rounded up to 16")
+        self.flat, self.offs, self.act, self.base = flat, offs, act, base
+        self.BW, self.prog, self.caps, self.tile_r = BW, prog, caps, tile_r
         self.n_regions = len(prog.regions)
         self.n_tiles = R // tile_r
-        self.code = torch.from_numpy(prog.code).to(dev)
-        self.esize = torch.tensor(
-            [prog.buffers[k].dtype.itemsize for k in prog.out_keys],
-            dtype=torch.int32, device=dev)
-        self.caps_t = torch.tensor(caps, dtype=torch.int32, device=dev)
-        self.bufs = _alloc_outputs(prog, R, caps, dev)
+        self.in_budget, self.blocks_staged, self.blocks_global = \
+            input_staging(offs, in_max)
+        if out_max is None:
+            out_max = self._free_out_bytes()
+        self.stage, self.out_bytes = stage_plan(prog, caps, out_max)
+        esize = [prog.buffers[k].dtype.itemsize for k in prog.out_keys]
+        region = [prog.buffers[k].region for k in prog.out_keys]
+        self.table = torch.from_numpy(np.concatenate([
+            prog.code, np.array(esize + region + self.stage + list(caps),
+                                np.int32)]).astype(np.int32)).to(dev)
+        self.bufs = _alloc_outputs(prog, R, caps, dev, fill=torch.empty)
+        if any(b.data_ptr() % 16 for b in self.bufs):
+            raise ValueError("output buffers must be 16-B aligned")
         self.ptrs = torch.tensor([b.data_ptr() for b in self.bufs] or [0],
                                  dtype=torch.int64, device=dev)
-        self.err = torch.zeros(R, dtype=torch.int32, device=dev)
+        self.err = torch.empty(R, dtype=torch.int32, device=dev)
         shape = (self.n_tiles, self.n_regions)
         self.span_max = torch.full(shape, -(1 << 31), dtype=torch.int32,
                                    device=dev)
@@ -423,17 +535,38 @@ class KernelLaunch:
         self.cut = torch.zeros(self.n_regions, dtype=torch.int32, device=dev)
         self.fixed_upto = 0  # regions 1..fixed_upto run with tile bounds
 
+    def _free_out_bytes(self) -> int:
+        """The largest output staging area (16-B steps, at most
+        ``_OUT_STAGE_MAX``) at which as many blocks fit an SM as with
+        none, by the CUDA occupancy query."""
+        per_sm = walk_kernel.library().cdll.walk_decode_blocks_per_sm
+        want = per_sm(self.smem_bytes(0))
+        lo, hi = 0, _OUT_STAGE_MAX // 16
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if per_sm(self.smem_bytes(16 * mid)) >= want:
+                lo = mid
+            else:
+                hi = mid - 1
+        return 16 * lo
+
     def output_bytes(self) -> int:
         return sum(b.numel() * b.element_size() for b in self.bufs) \
             + self.err.numel() * 4
 
+    def smem_bytes(self, out_bytes: int = None) -> int:
+        """Dynamic shared memory of one block (at ``out_bytes`` of output
+        staging, by default the launch's)."""
+        return walk_kernel.library().cdll.walk_decode_smem_bytes(
+            len(self.prog.code), len(self.prog.out_keys), self.n_regions,
+            self.in_budget,
+            self.out_bytes if out_bytes is None else out_bytes)
+
     def reset(self) -> None:
-        """Outputs back to their pre-launch state. The span tables of
-        regions ``1..fixed_upto`` keep what a launch recorded: the kernel
-        takes their tile bounds from them."""
-        for b in self.bufs:
-            b.zero_()
-        self.err.zero_()
+        """The span tables of regions above ``fixed_upto`` and ``cut``
+        back to their pre-launch state; those of regions ``1..fixed_upto``
+        keep what a launch recorded: the kernel takes their tile bounds
+        from them. The kernel writes every output whole."""
         self.span_max[:, self.fixed_upto + 1:].fill_(-(1 << 31))
         self.in_mask[:, self.fixed_upto + 1:].zero_()
         self.cut.zero_()
@@ -456,34 +589,46 @@ class _WalkKernel:
         fn = lib.cdll.walk_decode
         if fn.argtypes is None:
             P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [P, P, P, I, I,      # rows lens act R row_words
-                           P, P, P,            # code ptrs esize
-                           P, I, I, I,         # caps n_regions tile_r
-                                               # fixed_upto
+            fn.argtypes = [P, P, P, P, I, I,   # flat offs act base R row_words
+                           P, I, I, I, P,      # table code_len n_bufs
+                                               # n_regions buf_ptrs
+                           I, I, I, I,         # tile_r fixed_upto in_budget
+                                               # out_bytes
                            P, P, P, P,         # span_max in_mask cut err
                            P]                  # stream
             fn.restype = ctypes.c_int
+            smem = lib.cdll.walk_decode_smem_bytes
+            smem.argtypes = [I, I, I, I, I]    # code_len n_bufs n_regions
+                                               # in_budget out_bytes
+            smem.restype = ctypes.c_int
+            occ = lib.cdll.walk_decode_blocks_per_sm
+            occ.argtypes = [I]                 # smem_bytes
+            occ.restype = ctypes.c_int
         return lib
 
     def launch(self, L: KernelLaunch) -> None:
         """One launch on the current stream; no synchronisation."""
         fn = self.library().cdll.walk_decode
-        R, row_bytes = L.rows.shape
-        stream = torch.cuda.current_stream(L.rows.device).cuda_stream
-        rc = fn(L.rows.data_ptr(), L.lens.data_ptr(), L.act.data_ptr(), R,
-                row_bytes // 4, L.code.data_ptr(), L.ptrs.data_ptr(),
-                L.esize.data_ptr(), L.caps_t.data_ptr(), L.n_regions,
-                L.tile_r, L.fixed_upto,
-                L.span_max.data_ptr(), L.in_mask.data_ptr(),
+        stream = torch.cuda.current_stream(L.flat.device).cuda_stream
+        rc = fn(L.flat.data_ptr(), L.offs.data_ptr(), L.act.data_ptr(),
+                L.base.data_ptr(), L.act.numel(), L.BW, L.table.data_ptr(),
+                len(L.prog.code), len(L.bufs), L.n_regions,
+                L.ptrs.data_ptr(), L.tile_r, L.fixed_upto, L.in_budget,
+                L.out_bytes, L.span_max.data_ptr(), L.in_mask.data_ptr(),
                 L.cut.data_ptr(), L.err.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"walk_decode launch failed: CUDA error {rc}")
         with self._lock:
             self.launches += 1
 
-    def __call__(self, rows, lens, act, prog: Program, caps: Tuple[int, ...],
-                 tile_r: int):
-        L = KernelLaunch(rows, lens, act, prog, caps, tile_r)
+    def __call__(self, flat, offs, act, BW: int, base, prog: Program,
+                 caps: Tuple[int, ...], tile_r: int):
+        return self.run(KernelLaunch(flat, offs, act, BW, base, prog, caps,
+                                     tile_r))
+
+    def run(self, L: KernelLaunch):
+        """``(buffers, #err)`` of the walk on ``L``'s inputs: launch, and
+        relaunch while lanes are cut short by their own loop bound."""
         while True:
             self.launch(L)
             cut = L.cut.cpu().tolist()
@@ -500,14 +645,15 @@ class _WalkKernel:
 walk_kernel = _WalkKernel()
 
 
-def walk(rows, lens, act, prog: Program, caps: Tuple[int, ...], tile_r: int):
+def walk(flat, offs, act, BW: int, base, prog: Program,
+         caps: Tuple[int, ...], tile_r: int):
     """The walk for the tensors' device: the CUDA kernel for CUDA tensors,
     the plain walk for CPU tensors."""
-    if rows.device.type == "cuda":
-        return walk_kernel(rows, lens, act, prog, caps, tile_r)
-    if rows.device.type == "cpu":
-        return walk_plain(rows, lens, act, prog, caps, tile_r)
-    raise ValueError(f"no walk for device {rows.device}")
+    if flat.device.type == "cuda":
+        return walk_kernel(flat, offs, act, BW, base, prog, caps, tile_r)
+    if flat.device.type == "cpu":
+        return walk_plain(flat, offs, act, BW, base, prog, caps, tile_r)
+    raise ValueError(f"no walk for device {flat.device}")
 
 
 # -- the decoder -------------------------------------------------------------
@@ -548,7 +694,10 @@ class WalkDecoder:
         return BW
 
     def launch_rows(self, n: int, BW: int, caps) -> Tuple[int, int]:
-        """``(tile_r, R)`` of one walk over ``n`` records at ``caps``."""
+        """``(tile_r, R)`` of one walk over ``n`` records at ``caps``. The
+        byte budget is the reference's, over its padded rows, although no
+        padded rows are built: the halving of too large batches depends
+        on it."""
         tile_r = tile_rows(self.prog, BW, caps)
         if tile_r < _LANE:
             raise UnsupportedOnDevice(
@@ -561,14 +710,22 @@ class WalkDecoder:
         return tile_r, R
 
     @staticmethod
-    def pack(data: Sequence[bytes], lens: np.ndarray, R: int, BW: int):
-        """Host arrays of one walk: padded rows, lengths, active flags."""
-        n = len(data)
-        lens_r = np.zeros(R, np.int32)
-        lens_r[:n] = lens
+    def row_arrays(offsets: np.ndarray, R: int):
+        """``(offs [R+1] int64, act [R] int32)`` of one walk over the
+        records that ``offsets`` (``[n+1]``) delimit: rows past ``n`` are
+        empty and inactive."""
+        n = len(offsets) - 1
+        offs = np.full(R + 1, offsets[-1], np.int64)
+        offs[:n + 1] = offsets
         act = np.zeros(R, np.int32)
         act[:n] = 1
-        return pack_rows(data, R, BW * 4), lens_r, act
+        return offs, act
+
+    def pack(self, data: Sequence[bytes], lens: np.ndarray, R: int):
+        """Host arrays of one walk: the concatenated records (tail-padded
+        for the device), ``offs`` and ``act``."""
+        flat, offsets = concat_records(data, lens, tail=_TAIL)
+        return (flat, *self.row_arrays(offsets, R))
 
     def to_device(self, arrays) -> List[torch.Tensor]:
         out = [torch.from_numpy(a).to(self.device) for a in arrays]
@@ -577,18 +734,20 @@ class WalkDecoder:
         return out
 
     def launch_inputs(self, data: Sequence[bytes], caps):
-        """``(rows, lens, act, tile_r)`` exactly as a decode at ``caps``
-        hands them to the walk."""
+        """``(flat, offs, act, BW, base, tile_r)`` exactly as a decode at
+        ``caps`` hands them to the walk."""
         lens = record_lengths(data)
         BW = self.row_words(lens)
         tile_r, R = self.launch_rows(len(data), BW, caps)
-        return (*self.to_device(self.pack(data, lens, R, BW)), tile_r)
+        flat, offs, act = self.to_device(self.pack(data, lens, R))
+        return flat, offs, act, BW, offs[:-1].to(torch.int32), tile_r
 
     def decode_to_columns(self, data: Sequence[bytes]):
         """``(host, n, meta)``: host holds every program buffer as numpy in
         its program dtype (item regions dense, plus ``#offsets``); meta
-        holds ``item_totals``, ``flat`` (the padded bytes the descriptors
-        index) and ``timings`` (seconds per host-visible phase)."""
+        holds ``item_totals``, ``flat`` (the concatenated records, which
+        every ``#start`` descriptor indexes) and ``timings`` (seconds per
+        host-visible phase)."""
         t0 = time.perf_counter()
         n = len(data)
         lens = record_lengths(data)
@@ -596,20 +755,26 @@ class WalkDecoder:
         prog = self.prog
         caps = self.first_caps()
         timings = {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0}
+        tile_r, R = self.launch_rows(n, BW, caps)  # may raise BatchTooLarge
+        t1 = time.perf_counter()
+        flat_np, offsets = concat_records(data, lens, tail=_TAIL)
+        t2 = time.perf_counter()
+        (flat,) = self.to_device([flat_np])
+        timings["pack_s"] += t2 - t1
+        timings["h2d_s"] += time.perf_counter() - t2
         prev_R = None
         while True:
-            tile_r, R = self.launch_rows(n, BW, caps)
             if R != prev_R:
                 t1 = time.perf_counter()
-                host_args = self.pack(data, lens, R, BW)
+                row_np = self.row_arrays(offsets, R)
                 t2 = time.perf_counter()
-                args = self.to_device(host_args)
+                offs, act = self.to_device(row_np)
+                base = offs[:-1].to(torch.int32)
                 timings["pack_s"] += t2 - t1
                 timings["h2d_s"] += time.perf_counter() - t2
-                padded = host_args[0]
                 prev_R = R
             t1 = time.perf_counter()
-            bufs, err = walk(*args, prog, caps, tile_r)
+            bufs, err = walk(flat, offs, act, BW, base, prog, caps, tile_r)
             # only #err comes back until a rung is clean
             err_np = err.cpu().numpy().view(np.uint32)
             timings["walk_s"] += time.perf_counter() - t1
@@ -621,6 +786,7 @@ class WalkDecoder:
                     f"({_MAX_CAP}/record); use the XLA pipeline"
                 )
             caps = tuple(0 if c == 0 else c * 2 for c in caps)
+            tile_r, R = self.launch_rows(n, BW, caps)
         self._caps = caps
         t1 = time.perf_counter()
         host = {
@@ -636,19 +802,21 @@ class WalkDecoder:
                 f"record {i}: {ERR_NAMES.get(bit, f'error bit {bit:#x}')}",
                 index=i, err_name=ERR_SLUGS.get(bit),
             )
-        meta = {"item_totals": {}, "flat": padded.reshape(-1)}
+        meta = {"item_totals": {}, "flat": flat_np[:offsets[-1]]}
         t1 = time.perf_counter()
-        self._compact_regions(host, n, caps, BW, meta)
+        self._compact_regions(host, n, caps, offsets, meta)
         timings["compact_s"] = time.perf_counter() - t1
         timings["total_s"] = time.perf_counter() - t0
         meta["timings"] = timings
         return host, n, meta
 
     def _compact_regions(self, host: Dict[str, np.ndarray], n: int,
-                         caps: Tuple[int, ...], BW: int, meta) -> None:
+                         caps: Tuple[int, ...], offsets: np.ndarray,
+                         meta) -> None:
         """Strided item slots → dense arrays + ``#offsets`` (the layout the
         Arrow assembly consumes; ``pallas_decode.py:413-454``). Item-region
-        ``#start`` descriptors rebase to global offsets here."""
+        ``#start`` descriptors rebase here by their row's offset in
+        ``flat``."""
         prog = self.prog
         for rid in range(1, self.n_regions):
             path = prog.regions[rid]
@@ -658,12 +826,12 @@ class WalkDecoder:
             # null / empty records) are NOT bounded by wire bytes
             if int(counts.sum(dtype=np.int64)) >= (1 << 31):
                 raise BatchTooLarge(n, -1)
-            offsets = np.zeros(n + 1, np.int32)
-            np.cumsum(counts, out=offsets[1:])
-            total = int(offsets[-1])
+            item_offsets = np.zeros(n + 1, np.int32)
+            np.cumsum(counts, out=item_offsets[1:])
+            total = int(item_offsets[-1])
             rows = np.repeat(np.arange(n, dtype=np.int64), counts)
             within = np.arange(total, dtype=np.int64) - np.repeat(
-                offsets[:-1].astype(np.int64), counts
+                item_offsets[:-1].astype(np.int64), counts
             )
             src = rows * icap + within
             for key, spec in prog.buffers.items():
@@ -671,9 +839,9 @@ class WalkDecoder:
                     continue
                 dense = host[key][src]
                 if key.endswith("#start"):
-                    dense = (dense + rows * (BW * 4)).astype(dense.dtype)
+                    dense = (dense + offsets[rows]).astype(dense.dtype)
                 host[key] = dense
-            host[path + "#offsets"] = offsets
+            host[path + "#offsets"] = item_offsets
             meta["item_totals"][path] = total
 
     def decode(self, data: Sequence[bytes], arrow_schema):

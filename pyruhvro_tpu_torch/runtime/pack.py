@@ -1,16 +1,16 @@
-"""Record packing (port of ``pyruhvro_tpu/runtime/pack.py:25``).
+"""Record packing (port of ``pyruhvro_tpu/runtime/pack.py:25,81``).
 
-The walk consumes records row-padded: one record per row of a
-``[R, BW*4]`` uint8 matrix, zero past each record's length.
+The walk consumes the records unpadded: their bytes concatenated into one
+flat uint8 buffer, record ``i`` at ``[offsets[i], offsets[i+1])``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["bucket_len", "record_lengths", "pack_rows"]
+__all__ = ["bucket_len", "record_lengths", "concat_records"]
 
 
 def bucket_len(n: int, minimum: int = 16) -> int:
@@ -26,14 +26,16 @@ def record_lengths(data: Sequence[bytes]) -> np.ndarray:
     return np.fromiter(map(len, data), dtype=np.int64, count=len(data))
 
 
-def pack_rows(data: Sequence[bytes], n_rows: int, row_bytes: int) -> np.ndarray:
-    """``[n_rows, row_bytes]`` uint8: datum ``i`` at ``[i, :len_i]``, zeros
-    elsewhere (rows past ``len(data)`` stay all zero). Every datum must
-    fit ``row_bytes``."""
-    padded = np.zeros((n_rows, row_bytes), np.uint8)
-    if data:
-        joined = b"".join(d.ljust(row_bytes, b"\0") for d in data)
-        padded[: len(data)] = np.frombuffer(joined, np.uint8).reshape(
-            len(data), row_bytes
-        )
-    return padded
+def concat_records(data: Sequence[bytes], lens: np.ndarray = None,
+                   tail: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``(flat, offsets)``: every datum's bytes in one writable uint8 array
+    followed by ``tail`` zero bytes, and ``offsets[len(data)+1]`` int64
+    (copy of ``pyruhvro_tpu/runtime/pack.py:81`` ``concat_records``, one
+    join instead of the native shim). ``lens`` are the datum lengths when
+    the caller has them."""
+    if lens is None:
+        lens = record_lengths(data)
+    offsets = np.zeros(len(data) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    joined = bytearray().join([*data, bytes(tail)])
+    return np.frombuffer(joined, np.uint8), offsets
