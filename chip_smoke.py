@@ -11,25 +11,33 @@ nothing of JAX or of ``pyruhvro_tpu``. Phases, in order — any failure
 exits non-zero before the last line:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` of ``pyruhvro_tpu_torch/csrc/walk_decode.cu`` (sm_90a);
-3. the kernel against the plain PyTorch walk, on the card, per fixture:
-   every output buffer and ``#err`` bit-equal at every rung of the item-cap
-   ladder, under each shared-memory plan (``PLANS``); the decoded columns
-   equal to the CPU decode's; malformed
-   batches raising the same message on both. Two fixtures take the
-   kernel's device-memory paths: ``oversized_block`` (a block whose
-   records span more than the input staging budget) and
-   ``item_staging_overflow`` (rungs whose item slices exceed the output
-   staging budget);
-4. the main path: ``deserialize_array_threaded`` of 1,000,000 Kafka-style
-   records in 8 chunks on the card, its kernel launches counted, its
-   batches equal to the same call on the CPU (whole batches with
-   ``.equals()``, a fixed 10,000-row sample with ``to_pylist()``), then
-   its timings (median of several warm calls) and the kernel's, with the
-   kernel's buffers at those shapes bit-equal to the plain walk's, its
-   shared-memory plan, and the same launch with the input or the outputs
-   kept out of shared memory;
-5. one ``{"kernels": [...]}`` JSON line, then
+2. build: one ``nvcc`` (sm_90a) per source of ``pyruhvro_tpu_torch/csrc``
+   (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``), all
+   started together, with ptxas registers and spills;
+3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
+   plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
+   rung of the item-cap ladder under each shared-memory plan (``PLANS``),
+   the card's decode equal to the CPU's, malformed batches raising the
+   same message on both;
+4. ``decode_walk`` (K1) and ``decode_finalize`` (K2, the default engine)
+   against their plain versions on ``pipeline_fixtures`` at every rung the
+   card decoder's ladder visits: every buffer, ``#err`` and the blob
+   bit-equal; the card's decode equal to the CPU's, or the same message
+   and bad-row indices;
+5. four main paths through ``deserialize_array_threaded(..., 8)``, each
+   with every launch count set to 0 before its cold call and read after
+   it, and its batches equal to the same call on the CPU by value: (1)
+   1,000,000 Kafka records on the default engine, (2) the same under
+   ``PYRUHVRO_TPU_PALLAS=1``, (3) 262,144 nested ``arr_rec_arr`` records,
+   (4) 16,384 Kafka records of 4 to 16 KiB; the cold call and the median
+   of ``WARM_CALLS`` warm calls of each;
+6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
+   Arrow assembly); K1 and K2 bit-equal to their plain versions at every
+   rung of a fresh decoder's ladder on paths 1, 3 and 4's data; each
+   kernel at main path 1's or 2's shapes: its CUDA-event time, bit-equal
+   to its plain version, its bound, and for the finalize ``torch.take``
+   over the same slot maps;
+7. ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -47,12 +55,14 @@ from pathlib import Path
 DEVICE = "cuda"
 MAIN_ROWS = 1_000_000
 MAIN_CHUNKS = 8
-SAMPLE_ROWS = 10_000
 # shared-memory plans every fixture runs under: the launch's own, nothing
 # staged, and the output slices staged up to 48 KiB
 PLANS = {"default": {}, "unstaged": {"in_max": 0, "out_max": 0},
          "staged": {"out_max": 48 << 10}}
-WARM_CALLS = 5              # timed warm calls of the main path
+NESTED_ROWS = 262_144       # main path 3 (Python data generation bounds it)
+LARGE_ROWS = 16_384         # main path 4: records of 4 to 16 KiB
+PIPELINE_ROWS = 2_000       # rows of the pipeline engine's fixtures
+WARM_CALLS = 5              # timed warm calls of each main path
 PHASE_RUNS = 3              # decodes whose phase times give the medians
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 
@@ -78,6 +88,66 @@ WIDE_SCHEMA = """{"type":"record","name":"Wide","fields":[
     "fields":[{"name":"a","type":["null","int"]},
               {"name":"t","type":{"type":"int","logicalType":"date"}}]}}},
   {"name":"ab","type":{"type":"array","items":"bytes"}}]}"""
+
+
+# the pipeline engine's fixture shapes: every shape of the reference's
+# device-decode tests (tests/test_device_decode.py SHAPES, kept equal by
+# tests/test_torch_decode.py) and three levels of nesting
+PIPELINE_SHAPES = {
+    "flat": """{"type":"record","name":"F","fields":[
+        {"name":"a","type":"long"},{"name":"b","type":"int"},
+        {"name":"c","type":"double"},{"name":"d","type":"float"},
+        {"name":"e","type":"boolean"},{"name":"s","type":"string"}]}""",
+    "nullable": """{"type":"record","name":"N","fields":[
+        {"name":"a","type":["null","long"]},{"name":"b","type":["string","null"]},
+        {"name":"c","type":["null","double"]},{"name":"d","type":["null","boolean"]}]}""",
+    "logical": """{"type":"record","name":"L","fields":[
+        {"name":"d","type":{"type":"int","logicalType":"date"}},
+        {"name":"tm","type":{"type":"long","logicalType":"timestamp-millis"}},
+        {"name":"tu","type":{"type":"long","logicalType":"timestamp-micros"}},
+        {"name":"e","type":{"type":"enum","name":"E","symbols":["RED","GREEN","BLUE"]}}]}""",
+    "nested": """{"type":"record","name":"O","fields":[
+        {"name":"x","type":"long"},
+        {"name":"r","type":{"type":"record","name":"I","fields":[
+            {"name":"p","type":"string"},{"name":"q","type":["null","int"]}]}},
+        {"name":"nr","type":["null",{"type":"record","name":"I2","fields":[
+            {"name":"u","type":"double"},{"name":"v","type":["null","string"]}]}]}]}""",
+    "union": """{"type":"record","name":"U","fields":[
+        {"name":"u","type":["null","string","int","boolean"]},
+        {"name":"w","type":["long","string"]}]}""",
+    "arr": """{"type":"record","name":"A","fields":[
+        {"name":"xs","type":{"type":"array","items":"string"}},
+        {"name":"ys","type":{"type":"array","items":"long"}},
+        {"name":"na","type":["null",{"type":"array","items":"int"}]}]}""",
+    "map": """{"type":"record","name":"M","fields":[
+        {"name":"m","type":{"type":"map","values":"string"}},
+        {"name":"md","type":{"type":"map","values":"double"}}]}""",
+    "arr_rec": """{"type":"record","name":"AR","fields":[
+        {"name":"rs","type":{"type":"array","items":{"type":"record","name":"P",
+            "fields":[{"name":"k","type":"string"},
+                      {"name":"v","type":["null","long"]}]}}}]}""",
+    "arr_arr": """{"type":"record","name":"AA","fields":[
+        {"name":"aa","type":{"type":"array","items":
+            {"type":"array","items":"int"}}},
+        {"name":"ms","type":{"type":"map","values":
+            {"type":"array","items":"string"}}}]}""",
+    "arr_rec_arr": """{"type":"record","name":"ARA","fields":[
+        {"name":"rs","type":{"type":"array","items":{"type":"record",
+            "name":"Q","fields":[
+                {"name":"name","type":"string"},
+                {"name":"vals","type":{"type":"array","items":"long"}},
+                {"name":"nm","type":["null",{"type":"map",
+                    "values":"double"}]}]}}}]}""",
+    "NR3": """{"type":"record","name":"NR3","fields":[{"name":"aaa","type":{
+        "type":"array","items":{"type":"array","items":{"type":"array",
+        "items":"int"}}}}]}""",
+}
+# zero-byte items inside a nested loop, and a string after them: a lane's
+# own span is far below the span of another lane at the same loop entry
+GLOBAL_BOUND_SCHEMA = """{"type":"record","name":"GB","fields":[
+  {"name":"aa","type":{"type":"array","items":{"type":"array",
+                                               "items":"null"}}},
+  {"name":"s","type":"string"}]}"""
 
 
 def zz(v: int) -> bytes:
@@ -162,6 +232,105 @@ def fixtures(datagen, parse_schema):
         deep.append((zz(len(xs)) + b"".join(map(zz, xs)) if xs else b"")
                     + zz(0))
     cases.append(("item_staging_overflow", LADDER_SCHEMA, deep, False))
+    return cases
+
+
+def pipeline_fixtures(datagen, parse_schema, rows: int):
+    """(name, schema, datums, must_fail) for the pipeline engine's kernels
+    against their plain versions; ``rows`` sizes the generated batches
+    (the CPU tests pass a small number, the card a larger one)."""
+    rng = random.Random(21)
+    shapes = PIPELINE_SHAPES
+    kafka = datagen.KAFKA_SCHEMA_JSON
+
+    def writer(schema):
+        w = datagen.compile_writer(parse_schema(schema))
+
+        def encode(value) -> bytes:
+            out = bytearray()
+            w(out, value)
+            return bytes(out)
+        return encode
+
+    cases = [(name, shapes[name], datagen.random_datums(
+        parse_schema(shapes[name]), rows, seed=11), False)
+        for name in sorted(shapes)]
+    cases.append(("kafka", kafka, datagen.kafka_style_datums(rows, seed=5),
+                  False))
+    # every region past the first rung's 8 items: items under a dropped
+    # item wrap into the first record's slots until the ladder climbs
+    ara = writer(shapes["arr_rec_arr"])
+    cases.append(("nested_overflow", shapes["arr_rec_arr"], [ara({"rs": [{
+        "name": "n" * rng.randrange(0, 6),
+        "vals": [rng.randrange(-10**6, 10**6)
+                 for _ in range(rng.randrange(0, 21))],
+        "nm": None if rng.random() < 0.3 else (1, [
+            (f"k{j}", rng.random()) for j in range(rng.randrange(0, 11))]),
+    } for _ in range(rng.randrange(0, 13))]}) for _ in range(rows)], False))
+    nr3 = writer(shapes["NR3"])
+    cases.append(("NR3_overflow", shapes["NR3"], [nr3({"aaa": [[[
+        rng.randrange(-99, 99) for _ in range(rng.randrange(0, 11))]
+        for _ in range(rng.randrange(0, 11))]
+        for _ in range(rng.randrange(0, 11))]}) for _ in range(rows)], False))
+    # records of 8 KiB and 64 KiB: their string lengths overflow the
+    # compact descriptors (sl32, then len16 once the batch passes 1 MiB)
+    flat = writer(shapes["flat"])
+
+    def flat_row(n):
+        return flat({"a": rng.randrange(-2**40, 2**40), "b": rng.randrange(
+            -2**20, 2**20), "c": rng.random(), "d": 0.5, "e": rng.random() < .5,
+            "s": "q" * n})
+    small = [flat_row(rng.randrange(0, 40)) for _ in range(rows)]
+    cases.append(("record_8KiB", shapes["flat"],
+                  small[:rows // 2] + [flat_row(8192)] + small[rows // 2:],
+                  False))
+    wide = [flat_row(rng.randrange(16_000, 24_000)) for _ in range(64)]
+    cases.append(("len16", shapes["flat"], wide, False))
+    cases.append(("record_64KiB_len16", shapes["flat"],
+                  wide[:32] + [flat_row(65536)] + wide[32:], False))
+    # more than 1024 zero-byte items in one record: no byte bounds them,
+    # and the ladder climbs one doubling per rung
+    nulls = [zz(3) + zz(0) + zz(2) + b"ab"] * rows
+    nulls[rows // 3] = zz(1100) + zz(0) + zz(0)
+    cases.append(("zero_byte_items", NULLS_SCHEMA, nulls, False))
+    # a lane cut by the global bound inside a nested loop: its own span at
+    # the inner loop's entry is 5 bytes, the other lane's over 100
+    gb = writer(GLOBAL_BOUND_SCHEMA)
+    cases.append(("nested_global_bound", GLOBAL_BOUND_SCHEMA, [
+        gb({"aa": [[None] * 3], "s": "x" * 100}),
+        gb({"aa": [[None] * 300], "s": ""}),
+        gb({"aa": [[None], [None] * 2000], "s": "y" * 3}),
+    ] + [gb({"aa": [[None] * rng.randrange(0, 4)], "s": "z"})
+         for _ in range(rows)], False))
+    # negative block counts: item count and byte size, then the items
+    block = b"".join(zz(2) + b"ab" for _ in range(3))
+    neg = zz(-3) + zz(len(block)) + block + zz(0) + zz(0) + zz(0)
+    arr = datagen.random_datums(parse_schema(shapes["arr"]), rows, seed=4)
+    cases.append(("negative_block_counts", shapes["arr"],
+                  [neg] + arr + [neg], False))
+    # malformed batches: the same message and indices on card and CPU
+    trunc = datagen.random_datums(parse_schema(shapes["flat"]), rows, seed=3)
+    trunc[rows // 2] = b"\x82"
+    cases.append(("truncated_varint", shapes["flat"], trunc, True))
+    trailing = datagen.random_datums(parse_schema(shapes["flat"]), rows,
+                                     seed=9)
+    trailing[1] = trailing[1] + b"\x00"
+    cases.append(("trailing_bytes", shapes["flat"], trailing, True))
+    flipped = datagen.kafka_style_datums(rows, seed=7)
+    for i in rng.sample(range(rows), max(1, rows // 7)):
+        d = bytearray(flipped[i])
+        d[rng.randrange(len(d))] ^= 1 << rng.randrange(8)
+        flipped[i] = bytes(d)
+    cases.append(("bit_flipped", kafka, flipped, True))
+    huge = datagen.kafka_style_datums(rows, seed=5)
+    huge[3] = b"\x02" + zz(1 << 31) + huge[3][1:]
+    huge[rows - 2] = b"\x02" + zz((1 << 31) - 1) + b"abc"
+    cases.append(("string_len_2^31", kafka, huge, True))
+    nested_bad = [ara({"rs": [{"name": "x", "vals": [1, 2], "nm": None}]})
+                  for _ in range(rows)]
+    nested_bad[rows // 4] = nested_bad[rows // 4][:-3]
+    cases.append(("nested_truncated", shapes["arr_rec_arr"], nested_bad,
+                  True))
     return cases
 
 
@@ -258,8 +427,120 @@ def check_fixture(torch, np, wd, name, schema, datums, must_fail, parse_schema,
     return worst
 
 
-def take_sample(pa, batch, idx):
-    return batch.take(pa.array(idx, pa.int64())).to_pylist()
+def pipeline_outcome(dec, datums, errors):
+    """``("ok", (host, n, meta))`` or ``("error", (message, indices))``."""
+    try:
+        return "ok", dec.decode_to_columns(datums)
+    except errors as e:
+        return "error", (f"{type(e).__name__}: {e}",
+                         getattr(e, "indices", None))
+
+
+def hold_kernels(torch, dm, dec, label):
+    """Make every rung of ``dec``'s ladder run K1 and K2 beside their plain
+    versions on the same inputs first, and fail unless every buffer,
+    ``#err`` and the blob are bit-equal. Returns the list it appends each
+    checked rung to, as (largest item cap, compact)."""
+    prog, real, rungs = dec.prog, dec.pipeline, []
+
+    def checked(packed, R, B, n_act, item_caps, tot_caps, compact,
+                timings=None):
+        words, starts, lengths = dec.launch_views(packed, R, B)
+        kb, ke = dm.walk_kernel(words, starts, lengths, n_act, prog,
+                                item_caps)
+        pb, pe = dm.walk_plain(words, starts, lengths, n_act, prog,
+                               item_caps)
+        kblob = dm.finalize_kernel(kb, ke, prog, R, B, item_caps, tot_caps,
+                                   compact)
+        pblob = dm.finalize_plain(pb, pe, prog, R, B, item_caps, tot_caps,
+                                  compact)
+        torch.cuda.synchronize()
+        for key, k, p in zip(prog.out_keys + ["#err", "blob"],
+                             list(kb) + [ke, kblob], list(pb) + [pe, pblob]):
+            diff = max_abs_diff(torch, k, p)
+            if diff:
+                raise SystemExit(f"{label}: kernel != plain in {key!r} at "
+                                 f"caps {item_caps}, totals {tot_caps}, "
+                                 f"compact={compact} (max abs diff {diff})")
+        rungs.append((max(item_caps[1:], default=0), compact))
+        del kb, ke, pb, pe, kblob, pblob
+        return real(packed, R, B, n_act, item_caps, tot_caps, compact,
+                    timings)
+
+    dec.pipeline = checked
+    return rungs
+
+
+def check_pipeline_fixture(torch, np, dm, name, schema, datums, must_fail,
+                           parse_schema, errors):
+    """K1 and K2 against their plain versions on the card at every rung the
+    card decoder's ladder visits (every buffer, ``#err`` and the blob
+    bit-equal), then the decode on the card against the decode on the
+    CPU (every host column, or the same error message and indices)."""
+    ir = parse_schema(schema)
+    card = dm.DeviceDecoder(ir, DEVICE)
+    cpu = dm.DeviceDecoder(ir, "cpu")
+    n, worst = len(datums), 0
+    walk0, fin0 = dm.walk_kernel.launches, dm.finalize_kernel.launches
+    rungs = hold_kernels(torch, dm, card, name)
+    got = pipeline_outcome(card, datums, errors)
+    want = pipeline_outcome(cpu, datums, errors)
+    if got[0] != want[0]:
+        raise SystemExit(f"{name}: card {got[0]} but CPU {want[0]}")
+    if got[0] == "error":
+        if got[1] != want[1] or not must_fail:
+            raise SystemExit(f"{name}: card raised {got[1]!r}, CPU "
+                             f"{want[1]!r}")
+        msg, indices = got[1]
+        detail = f"{msg} ({len(indices or [])} bad rows)"
+    else:
+        if must_fail:
+            raise SystemExit(f"{name}: malformed fixture decoded cleanly")
+        (hg, ng, mg), (hc, nc, mc) = got[1], want[1]
+        if ng != nc or set(hg) != set(hc) or \
+                mg["item_totals"] != mc["item_totals"]:
+            raise SystemExit(f"{name}: decoded columns differ in shape")
+        for key in hc:
+            if hg[key].dtype != hc[key].dtype or not np.array_equal(
+                    hg[key].view(np.uint8), hc[key].view(np.uint8)):
+                raise SystemExit(f"{name}: decoded column {key!r} differs")
+        detail = f"item_totals={mg['item_totals']}"
+    print(f"pipeline fixture {name}: rows={n} rungs (max cap, compact)="
+          f"{rungs} decode_walk launches={dm.walk_kernel.launches - walk0} "
+          f"decode_finalize launches={dm.finalize_kernel.launches - fin0} "
+          f"exact=True max_abs_err={worst} -> {detail}")
+    return worst
+
+
+def large_kafka_datums(datagen, parse_schema, n: int, seed: int):
+    """Kafka-schema records of 4 to 16 KiB: long names, streets and
+    e-mail addresses; the name pads each record to its drawn size (to
+    within the one byte its length's varint may grow)."""
+    rng = random.Random(seed)
+    w = datagen.compile_writer(parse_schema(datagen.KAFKA_SCHEMA_JSON))
+    out = []
+    for _ in range(n):
+        size = rng.randrange(4096, 16383)
+        rec = {
+            "name": (1, "n" * (size // 2)),
+            "age": (1, rng.randint(18, 80)) if rng.random() < .5 else None,
+            "emails": [f"{'e' * (size // 8)}{i}@example.com"
+                       for i in range(2)],
+            "address": (1, {"street": "s" * (size // 8), "city": "c",
+                            "zipcode": f"{rng.randint(10000, 99999)}"}),
+            "phone_numbers": [("home", "+1-555-0100")],
+            "preferences": None,
+            "status": (1, "active"),
+            "created_at": rng.randint(1_600_000_000, 1_800_000_000),
+            "class": rng.choice(["A", "B", "C"]),
+        }
+        buf = bytearray()
+        w(buf, rec)
+        rec["name"] = (1, "n" * (size // 2 + size - len(buf)))
+        buf = bytearray()
+        w(buf, rec)
+        out.append(bytes(buf))
+    return out
 
 
 def spread(xs) -> str:
@@ -287,117 +568,74 @@ def cuda_ms(torch, fn, repeats: int, prepare=None) -> float:
     return best
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs a "
-              "CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import numpy as np
-    import pyarrow as pa
-
-    from pyruhvro_tpu_torch import (
-        MalformedAvro,
-        UnsupportedOnDevice,
-        deserialize_array_threaded,
-    )
-    from pyruhvro_tpu_torch.ops import walk_decode as wd
-    from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
-    from pyruhvro_tpu_torch.ops.codec import get_device_codec
-    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
-    from pyruhvro_tpu_torch.schema.parser import parse_schema
-    from pyruhvro_tpu_torch.utils import datagen
-
-    # 1. device
-    name = torch.cuda.get_device_name(0)
-    cap = torch.cuda.get_device_capability(0)
-    smi = smi_name_power()
-    print(f"device: {name} capability={cap} torch={torch.__version__} "
-          f"cuda={torch.version.cuda} count={torch.cuda.device_count()}")
-    print(smi)
-    card = f"[{smi}]"
-
-    # 2. build
+def drive(label, data, schema, counters, deserialize, card):
+    """One main path: every count set to 0, the cold call, the counts read,
+    then the warm calls. Fails if a kernel of the path did not launch."""
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
-    lib = wd.walk_kernel.library()
-    print(f"build: nvcc {wd.walk_kernel.source} -> {lib.path.name} (sm_90a) "
-          f"in {lib.build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # 3. kernel against the plain walk
-    errors = (MalformedAvro, UnsupportedOnDevice)
-    worst = 0
-    for fx in fixtures(datagen, parse_schema):
-        worst = max(worst, check_fixture(torch, np, wd, *fx, parse_schema,
-                                         errors))
-
-    # 4. the main path
-    schema = datagen.KAFKA_SCHEMA_JSON
-    t0 = time.perf_counter()
-    data = datagen.kafka_style_datums(MAIN_ROWS, seed=0)
-    gen_s = time.perf_counter() - t0
-    wd.walk_kernel.launches = 0
-    t0 = time.perf_counter()
-    batches = deserialize_array_threaded(data, schema, MAIN_CHUNKS)
-    cold_s = time.perf_counter() - t0
-    launches = wd.walk_kernel.launches
-    if launches < 1:
-        raise SystemExit("main path ran without launching walk_decode")
+    batches = deserialize(data, schema, MAIN_CHUNKS)
+    cold = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for k, v in launches.items():
+        if v < 1:
+            raise SystemExit(f"{label}: the main path ran without launching "
+                             f"{k}")
     warm = []
+    for c in counters.values():
+        c.launches = 0
     for _ in range(WARM_CALLS):
         del batches
         t0 = time.perf_counter()
-        batches = deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+        batches = deserialize(data, schema, MAIN_CHUNKS)
         warm.append(time.perf_counter() - t0)
-    warm_s = statistics.median(warm)
-    t0 = time.perf_counter()
-    expect = deserialize_array_threaded(data, schema, MAIN_CHUNKS,
-                                        device="cpu")
-    cpu_s = time.perf_counter() - t0
-    if len(batches) != MAIN_CHUNKS or len(expect) != MAIN_CHUNKS:
-        raise SystemExit(f"expected {MAIN_CHUNKS} batches")
-    if sum(b.num_rows for b in batches) != MAIN_ROWS:
-        raise SystemExit("row count differs from the input")
-    rng = random.Random(0)
-    for i, (got, want) in enumerate(zip(batches, expect)):
-        if not got.equals(want):
-            raise SystemExit(f"main path batch {i} differs from the CPU decode")
-        idx = sorted(rng.sample(range(got.num_rows),
-                                SAMPLE_ROWS // MAIN_CHUNKS))
-        if take_sample(pa, got, idx) != take_sample(pa, want, idx):
-            raise SystemExit(f"main path batch {i}: sampled rows differ")
-    print(f"main path: deserialize_array_threaded({MAIN_ROWS} Kafka records, "
-          f"{MAIN_CHUNKS}) walk_decode launches={launches}; cold "
-          f"{cold_s:.3f} s, warm median of {WARM_CALLS} {warm_s:.3f} s "
-          f"({min(warm):.3f} .. {max(warm):.3f}) = {MAIN_ROWS / warm_s:,.0f} "
-          f"rec/s end to end (data generation {gen_s:.1f} s excluded); "
-          f"equal to the CPU call ({cpu_s:.1f} s) on all {MAIN_CHUNKS} batches "
-          f"and {SAMPLE_ROWS} sampled rows {card}")
+    warm_launches = {k: c.launches / WARM_CALLS for k, c in counters.items()}
+    rows = sum(b.num_rows for b in batches)
+    if rows != len(data) or len(batches) != MAIN_CHUNKS:
+        raise SystemExit(f"{label}: {len(batches)} batches of {rows} rows")
+    med = statistics.median(warm)
+    print(f"main path {label}: deserialize_array_threaded({len(data)} "
+          f"records, {MAIN_CHUNKS}) launches: cold call {launches}, per "
+          f"warm call {warm_launches}; cold "
+          f"{cold:.3f} s, warm median of {WARM_CALLS} {med:.3f} s "
+          f"({min(warm):.3f} .. {max(warm):.3f}) = {len(data) / med:,.0f} "
+          f"rec/s {card}")
+    return batches, {"launches": launches, "warm_launches": warm_launches,
+                     "cold_s": cold, "warm_s": warm}
 
-    codec = get_device_codec(get_or_parse_schema(schema), DEVICE)
-    dec = codec.decoder
-    phases = {k: [] for k in ("pack_s", "h2d_s", "walk_s", "d2h_s",
-                              "compact_s", "assembly_s")}
+
+def same_values(label, got, want):
+    """Every batch equal to the CPU call's, value by value."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not g.equals(w) or g.to_pylist() != w.to_pylist():
+            raise SystemExit(f"{label}: batch {i} differs from the CPU call")
+
+
+def phases(dec, data, build_record_batch, codec, card, label):
+    """Median per phase of ``PHASE_RUNS`` decodes (host clock, each phase
+    ending in a synchronise or a copy)."""
+    order = ("pack_s", "h2d_s", "walk_s", "finalize_s", "d2h_s", "compact_s",
+             "assembly_s")
+    got, rungs = {}, set()
     for _ in range(PHASE_RUNS):
         host, n, meta = dec.decode_to_columns(data)
         t0 = time.perf_counter()
         build_record_batch(codec.ir, codec.arrow_schema, host, n, meta)
         meta["timings"]["assembly_s"] = time.perf_counter() - t0
-        for k, xs in phases.items():
-            xs.append(meta["timings"][k])
+        for k in order:
+            if k in meta["timings"]:
+                got.setdefault(k, []).append(meta["timings"][k])
+        rungs.add(meta["timings"].get("rungs", 1))
         del host, meta
-    print(f"phases, ms, median (min .. max) of {PHASE_RUNS}: pack "
-          f"(concatenate) {spread(phases['pack_s'])}, h2d "
-          f"{spread(phases['h2d_s'])}, "
-          f"walk+#err readback {spread(phases['walk_s'])}, d2h "
-          f"{spread(phases['d2h_s'])}, host compaction "
-          f"{spread(phases['compact_s'])}, Arrow assembly "
-          f"{spread(phases['assembly_s'])} {card}")
+    print(f"phases {label}, ms, median (min .. max) of {PHASE_RUNS}: "
+          + ", ".join(f"{k[:-2]} {spread(v)}" for k, v in got.items())
+          + f"; rungs per decode {sorted(rungs)} {card}")
+    return {k: statistics.median(v) for k, v in got.items()}
 
+
+def k4_kernel(torch, wd, dec, data, lib, card):
+    """``walk_decode`` (K4) at the main path's shapes: its shared-memory
+    plans, its time beside its variants', bit-equal to the plain walk."""
     caps = dec.first_caps()
     *args, tile_r = dec.launch_inputs(data, caps)
     flat, offs, act, BW, base = args
@@ -465,7 +703,6 @@ def main() -> int:
               f"block, {occupancy(smem)} blocks per SM, ptxas registers "
               f"{'/'.join(regs) or 'not reported (cached build)'}")
     smem = launch.smem_bytes()
-    per_sm = occupancy(smem)
     print(f"walk_decode at the main path's shapes (R={R}, BW={BW}, "
           f"caps={caps}, tile_r={tile_r}): launch {kernel_ms:.3f} ms (best "
           f"of 5 twice, in turns, CUDA events; no zero-fill: the kernel "
@@ -475,28 +712,310 @@ def main() -> int:
           f"TB/s), {kernel_ms / bound_ms:.2f}x the bound; variants "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in variant_ms.items())
           + f" {card}")
+    return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "variant_ms": variant_ms,
+            "smem_bytes": smem, "blocks_per_sm": occupancy(smem)}
 
-    kernels = [{
-        "name": "walk_decode",
-        "route": "cuda",
-        "source": "pyruhvro_tpu_torch/csrc/walk_decode.cu",
-        "replaces": "pyruhvro_tpu/ops/pallas_decode.py:256",
-        "replaces_function": "PallasKernelDecoder._build",
-        "launches": launches,
-        "max_abs_err": worst,
-        "exact": worst == 0,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        # integer byte walking: no float or tensor-core work to bound it
-        "bound_by": "bytes",
-        "library_ms": None,
-        "variant_ms": variant_ms,
-        "smem_bytes": smem,
-        "blocks_per_sm": per_sm,
-    }]
-    print(json.dumps({"kernels": kernels}))
+
+def finalize_moved_bytes(dm, plan) -> int:
+    """What the finalize run just made must move: the blob written once,
+    and each source element it copies or reduces read once, over the row
+    region's ``R`` lanes and each item region's actual item total (the
+    positions past it read nothing). Its intermediates (the int64
+    offsets, the slot maps, the children's gathered counts) are not the
+    function's and are not counted."""
+    per_pos = {dm.J_COPY32: 4, dm.J_BITS8: 1, dm.J_SL32: 8,
+               dm.J_START_LENC: 8, dm.J_REDUCE: 4, dm.J_ERRFLAG: 4}
+    moved = plan.blob.numel()
+    for p in plan.passes:
+        n_read = p["n_pos"] if p["rid"] == 0 else \
+            min(p["n_pos"], int(plan.offsets[p["rid"]][-1]))
+        moved += n_read * sum(per_pos[j[0]] for j in p["jobs"])
+    return moved
+
+
+def pipeline_kernels(torch, dm, dec, data, card):
+    """``decode_walk`` (K1) and ``decode_finalize`` (K2) at the main path's
+    shapes: CUDA-event times, bit-equal to their plain versions, their
+    bounds, and ``torch.take`` over the finalize's slot maps."""
+    flat, lanes, n, R, B = dec.pack(data)
+    packed = dec.launch_buffer(flat, lanes, B, DEVICE)
+    item_caps, tot_caps = dec.caps_snapshot(R)
+    compact = (R, B) not in dec._str_full
+    prog = dec.prog
+    words, starts, lengths = dec.launch_views(packed, R, B)
+    L = dm.WalkLaunch(words, starts, lengths, n, prog, item_caps)
+    walk0 = dm.walk_kernel.launches
+    dm.walk_kernel.run(L)
+    walk_launches = dm.walk_kernel.launches - walk0
+    walk_ms = cuda_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
+    plain = []
+    plain_walk_ms = cuda_ms(torch, lambda: plain.__setitem__(
+        slice(None), [dm.walk_plain(words, starts, lengths, n, prog,
+                                    item_caps)]), 2)
+    pb, pe = plain[0]
+    for key, k, p in zip(prog.out_keys + ["#err"], L.bufs + [L.err],
+                         list(pb) + [pe]):
+        if max_abs_diff(torch, k, p):
+            raise SystemExit(f"main path shapes: decode_walk != plain walk "
+                             f"in {key!r}")
+    plan = dm.FinalizePlan(L.bufs, L.err, prog, R, B, item_caps, tot_caps,
+                           compact)
+    fin_ms = cuda_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
+    fin_launches = len(plan.passes) + 1
+    kblob = plan.blob.clone()
+    pblob = []
+    plain_fin_ms = cuda_ms(torch, lambda: pblob.__setitem__(
+        slice(None), [dm.finalize_plain(L.bufs, L.err, prog, R, B, item_caps,
+                                        tot_caps, compact)]), 2)
+    if max_abs_diff(torch, kblob, pblob[0]):
+        raise SystemExit("main path shapes: decode_finalize != plain "
+                         "finalize")
+    # torch.take over the same slot maps: the one PyTorch call that
+    # gathers what the passes gather
+    key_of = {k: i for i, k in enumerate(prog.out_keys)}
+    gathers, slot_maps = [], {}
+    for rid in range(1, len(prog.regions)):
+        parent = prog.region_parents[rid]
+        counts = L.bufs[key_of[prog.regions[rid] + "#count"]].to(torch.int64)
+        if parent == 0:
+            pslot = torch.arange(R, device=counts.device)
+        else:
+            pslot, pin = slot_maps[parent]
+            counts = torch.where(pin, dm._take_clip(counts, pslot), 0)
+        offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        j = torch.arange(tot_caps[rid], device=counts.device)
+        ent = dm._row_of(offsets, counts.numel(), tot_caps[rid])
+        slot = (pslot[ent] * item_caps[rid] + j - offsets[ent])
+        slot_maps[rid] = (slot, j < offsets[-1])
+        for k, s in prog.buffers.items():
+            if s.region == rid:
+                src = L.bufs[key_of[k]]
+                gathers.append((src, slot.clamp(0, src.numel() - 1)))
+    take_ms = cuda_ms(torch, lambda: [torch.take(src, idx)
+                                      for src, idx in gathers], 5)
+    walk_read = int(lengths.to(torch.int64).sum()) + 8 * R
+    walk_written = sum(b.numel() * b.element_size() for b in L.bufs) + 4 * R
+    walk_bound = (walk_read + walk_written) / HBM_BYTES_PER_S * 1e3
+    fin_moved = finalize_moved_bytes(dm, plan)
+    fin_bound = fin_moved / HBM_BYTES_PER_S * 1e3
+    print(f"decode_walk at the main path's shapes (R={R}, B={B}, caps="
+          f"{item_caps}, {walk_launches} launch(es) to settle): launch "
+          f"{walk_ms:.3f} ms (best of 5, CUDA events, status reset "
+          f"included), bit-equal to the plain walk ({plain_walk_ms:.1f} "
+          f"ms); bound {walk_bound:.3f} ms ({walk_read / 1e6:.1f} MB read + "
+          f"{walk_written / 1e6:.1f} MB written at 3.35 TB/s), "
+          f"{walk_ms / walk_bound:.2f}x the bound {card}")
+    print(f"decode_finalize at the main path's shapes (totals {tot_caps}, "
+          f"compact={compact}, {len(plan.passes)} passes + epilogue = "
+          f"{fin_launches} launches, cumsums included): {fin_ms:.3f} ms "
+          f"(best of 5), bit-equal to the plain finalize ({plain_fin_ms:.1f} "
+          f"ms); bound {fin_bound:.3f} ms ({fin_moved / 1e6:.1f} MB moved), "
+          f"{fin_ms / fin_bound:.2f}x the bound; torch.take over the same "
+          f"slot maps ({len(gathers)} buffers) {take_ms:.3f} ms; blob "
+          f"{plan.nbytes / 1e6:.1f} MB {card}")
+    return ({"ms": walk_ms, "plain_ms": plain_walk_ms, "bound_ms": walk_bound,
+             "library_ms": None},
+            {"ms": fin_ms, "plain_ms": plain_fin_ms, "bound_ms": fin_bound,
+             "library_ms": take_ms})
+
+
+def main() -> int:
+    import os
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a "
+              "CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import threading
+
+    import numpy as np
+
+    from pyruhvro_tpu_torch import (
+        DeviceCapacityExceeded,
+        MalformedAvro,
+        UnsupportedOnDevice,
+        deserialize_array_threaded,
+    )
+    from pyruhvro_tpu_torch.ops import decode as dm
+    from pyruhvro_tpu_torch.ops import walk_decode as wd
+    from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
+    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+    from pyruhvro_tpu_torch.schema.parser import parse_schema
+    from pyruhvro_tpu_torch.utils import datagen
+
+    os.environ.pop("PYRUHVRO_TPU_PALLAS", None)
+
+    # 1. device
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = smi_name_power()
+    print(f"device: {name} capability={cap} torch={torch.__version__} "
+          f"cuda={torch.version.cuda} count={torch.cuda.device_count()}")
+    print(smi)
+    card = f"[{smi}]"
+
+    # 2. build: one nvcc per source, all started together
+    kernels = {"walk_decode": wd.walk_kernel, "decode_walk": dm.walk_kernel,
+               "decode_finalize": dm.finalize_kernel}
+    libs, failures = {}, []
+
+    def build(key):
+        try:
+            libs[key] = kernels[key].library()
+        except Exception as e:  # reported below, the smoke then fails
+            failures.append(f"{key}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failures:
+        raise SystemExit("build failed: " + "; ".join(failures))
+    print(f"build: {len(libs)} sources in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for key, lib in libs.items():
+        print(f"build: nvcc {kernels[key].source} -> {lib.path.name} "
+              f"(sm_90a) in {lib.build_s:.2f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+    # 3. K4 against its plain walk
+    errors = (MalformedAvro, UnsupportedOnDevice)
+    worst = {"walk_decode": 0, "decode_walk": 0, "decode_finalize": 0}
+    for fx in fixtures(datagen, parse_schema):
+        worst["walk_decode"] = max(worst["walk_decode"], check_fixture(
+            torch, np, wd, *fx, parse_schema, errors))
+
+    # 4. K1 and K2 against their plain versions
+    t0 = time.perf_counter()
+    perrors = (MalformedAvro, UnsupportedOnDevice, DeviceCapacityExceeded)
+    for fx in pipeline_fixtures(datagen, parse_schema, PIPELINE_ROWS):
+        w = check_pipeline_fixture(torch, np, dm, *fx, parse_schema, perrors)
+        worst["decode_walk"] = max(worst["decode_walk"], w)
+        worst["decode_finalize"] = max(worst["decode_finalize"], w)
+    print(f"pipeline fixtures: {time.perf_counter() - t0:.1f} s")
+
+    # 5. the main paths
+    kafka = datagen.KAFKA_SCHEMA_JSON
+    t0 = time.perf_counter()
+    data = datagen.kafka_style_datums(MAIN_ROWS, seed=0)
+    print(f"data: {MAIN_ROWS} Kafka records, {sum(map(len, data)):,} bytes, "
+          f"generated in {time.perf_counter() - t0:.1f} s (excluded)")
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    results = {}
+    got1, results["kafka"] = drive("1 (Kafka, default engine)", data, kafka,
+                                   pipe, deserialize_array_threaded, card)
+    os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
+    got2, results["kafka_pallas"] = drive(
+        "2 (Kafka, PYRUHVRO_TPU_PALLAS=1)", data, kafka,
+        {"walk_decode": wd.walk_kernel}, deserialize_array_threaded, card)
+    os.environ.pop("PYRUHVRO_TPU_PALLAS")
+    t0 = time.perf_counter()
+    want = deserialize_array_threaded(data, kafka, MAIN_CHUNKS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_values("main path 1", got1, want)
+    same_values("main path 2", got2, want)
+    print(f"main paths 1 and 2 equal the CPU call ({cpu_s:.1f} s) value by "
+          f"value on all {MAIN_CHUNKS} batches")
+    del got1, got2, want
+
+    nested_schema = PIPELINE_SHAPES["arr_rec_arr"]
+    t0 = time.perf_counter()
+    nested = datagen.random_datums(parse_schema(nested_schema), NESTED_ROWS,
+                                   seed=0)
+    print(f"data: {NESTED_ROWS} arr_rec_arr records, "
+          f"{sum(map(len, nested)):,} bytes, generated in "
+          f"{time.perf_counter() - t0:.1f} s (excluded)")
+    got3, results["nested"] = drive("3 (nested arr_rec_arr)", nested,
+                                    nested_schema, pipe,
+                                    deserialize_array_threaded, card)
+    same_values("main path 3", got3, deserialize_array_threaded(
+        nested, nested_schema, MAIN_CHUNKS, device="cpu"))
+    del got3
+    t0 = time.perf_counter()
+    large = large_kafka_datums(datagen, parse_schema, LARGE_ROWS, seed=0)
+    sizes = [len(d) for d in large]
+    print(f"data: {LARGE_ROWS} Kafka records of {min(sizes)} to "
+          f"{max(sizes)} B, {sum(sizes):,} bytes, generated in "
+          f"{time.perf_counter() - t0:.1f} s (excluded)")
+    got4, results["large"] = drive("4 (Kafka records of 4-16 KiB)", large,
+                                   kafka, pipe, deserialize_array_threaded,
+                                   card)
+    same_values("main path 4", got4, deserialize_array_threaded(
+        large, kafka, MAIN_CHUNKS, device="cpu"))
+    del got4
+    print("main paths 3 and 4 equal the CPU calls value by value")
+
+    # 6. phases and kernels at the main paths' shapes
+    os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
+    k4codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
+    os.environ.pop("PYRUHVRO_TPU_PALLAS")
+    phases(k4codec.decoder, data, build_record_batch, k4codec, card,
+           "path 2 (K4 engine)")
+    k4 = k4_kernel(torch, wd, k4codec.decoder, data, libs["walk_decode"],
+                   card)
+    pipeline_paths = (("path 1 (Kafka)", data, kafka),
+                      ("path 3 (nested)", nested, nested_schema),
+                      ("path 4 (large records)", large, kafka))
+    for label, rows, schema in pipeline_paths:
+        codec = get_device_codec(get_or_parse_schema(schema), DEVICE)
+        phases(codec.decoder, rows, build_record_batch, codec, card, label)
+        host, _n, meta = codec.decoder.decode_to_columns(rows)
+        print(f"{label}: item totals per region {meta['item_totals']}, "
+              f"{sum(map(len, rows)):,} record bytes")
+        del host, meta
+    # K1 and K2 against their plain versions on the main paths' data, at
+    # every rung a fresh decoder's ladder climbs
+    for label, rows, schema in pipeline_paths:
+        t0 = time.perf_counter()
+        dec = dm.DeviceDecoder(parse_schema(schema), DEVICE)
+        rungs = hold_kernels(torch, dm, dec, label)
+        dec.decode_to_columns(rows)
+        print(f"{label}: decode_walk and decode_finalize bit-equal to their "
+              f"plain versions (every buffer, #err, the blob) at every rung "
+              f"(max cap, compact) {rungs}, in {time.perf_counter() - t0:.1f}"
+              f" s")
+        del dec
+    codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
+    k1, k2 = pipeline_kernels(torch, dm, codec.decoder, data, card)
+
+    regs = {k: "/".join(re.findall(r"Used (\d+) registers", lib.log))
+            for k, lib in libs.items()}
+    rows = [
+        {"name": "walk_decode", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/csrc/walk_decode.cu",
+         "replaces": "pyruhvro_tpu/ops/pallas_decode.py:256",
+         "replaces_function": "PallasKernelDecoder._build",
+         "launches": results["kafka_pallas"]["launches"]["walk_decode"],
+         "max_abs_err": worst["walk_decode"], **k4, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "decode_walk", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/csrc/decode_walk.cu",
+         "replaces": "pyruhvro_tpu/ops/decode.py:373",
+         "replaces_function": "DeviceDecoder._trace_walk",
+         "launches": results["kafka"]["launches"]["decode_walk"],
+         "max_abs_err": worst["decode_walk"], **k1, "bound_by": "bytes"},
+        {"name": "decode_finalize", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/csrc/decode_finalize.cu",
+         "replaces": "pyruhvro_tpu/ops/decode.py:456",
+         "replaces_function": "DeviceDecoder.build_pipeline (pipeline)",
+         "launches": results["kafka"]["launches"]["decode_finalize"],
+         "max_abs_err": worst["decode_finalize"], **k2, "bound_by": "bytes"},
+    ]
+    for r in rows:
+        r["registers"] = regs.get(r["name"], "")
+    print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
+        v["warm_s"])} for k, v in results.items()}}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

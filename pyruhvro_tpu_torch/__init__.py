@@ -1,20 +1,24 @@
 """pyruhvro_tpu_torch — the PyTorch/CUDA port of ``pyruhvro_tpu``.
 
 Avro wire bytes → Arrow RecordBatches on an NVIDIA Hopper GPU. The
-decode walk is a CUDA kernel (``csrc/walk_decode.cu``) built with ``nvcc``
-on first use; ``device="cpu"`` runs the same field program as plain
-PyTorch. The package imports torch, numpy and pyarrow, and nothing of
+default engine runs the walk and the finalize as CUDA kernels
+(``csrc/decode_walk.cu``, ``csrc/decode_finalize.cu``); under
+``PYRUHVRO_TPU_PALLAS=1`` the row-padded walk (``csrc/walk_decode.cu``)
+serves schemas without nested arrays/maps. The kernels build with
+``nvcc`` on first use; ``device="cpu"`` runs their plain PyTorch
+versions. The package imports torch, numpy and pyarrow, and nothing of
 JAX or of ``pyruhvro_tpu``.
 """
 
 from .api import deserialize_array, deserialize_array_threaded
-from .errors import BatchTooLarge, MalformedAvro
+from .errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
 from .ops import UnsupportedOnDevice
 
 __all__ = [
     "deserialize_array",
     "deserialize_array_threaded",
     "BatchTooLarge",
+    "DeviceCapacityExceeded",
     "MalformedAvro",
     "UnsupportedOnDevice",
 ]

@@ -3,12 +3,14 @@
 ``deserialize_array_threaded``; upstream ``src/lib.rs:56-89``).
 
 Both run on the card by default (``device="cuda"``) and raise
-``RuntimeError`` when there is none; ``device="cpu"`` runs the plain
-PyTorch walk and is taken only when the caller asks for it. ``data`` is a
+``RuntimeError`` when there is none; ``device="cpu"`` runs the kernels'
+plain PyTorch versions and is taken only when the caller asks for it. ``data`` is a
 list of Avro datums (``bytes``). Malformed input raises
 :class:`~pyruhvro_tpu_torch.errors.MalformedAvro` naming the first bad
-row; a schema or batch outside the device walk raises
-:class:`~pyruhvro_tpu_torch.ops.UnsupportedOnDevice`.
+row; a schema outside the device subset raises
+:class:`~pyruhvro_tpu_torch.ops.UnsupportedOnDevice`, a batch past the
+item-slot limit :class:`~pyruhvro_tpu_torch.errors.DeviceCapacityExceeded`
+(the port has no host tier to serve either).
 """
 
 from __future__ import annotations
@@ -35,6 +37,6 @@ def deserialize_array_threaded(data: Sequence[bytes], schema: str,
                                device="cuda") -> List[pa.RecordBatch]:
     """Decode into ``num_chunks`` RecordBatches, one per chunk, with
     upstream's chunk boundaries (``len // num_chunks`` rows each, the
-    remainder in the last). The batch decodes in one walk and is sliced."""
+    remainder in the last). The batch decodes once and is sliced."""
     entry = get_or_parse_schema(schema)
     return get_device_codec(entry, device).decode_threaded(data, num_chunks)

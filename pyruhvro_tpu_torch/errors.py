@@ -4,11 +4,15 @@ and ``pyruhvro_tpu/ops/decode.py:239-246``).
 ``MalformedAvro`` and ``shift_malformed`` keep the reference's messages
 (``record <index>: <why>``). ``BatchTooLarge`` is the single-launch byte
 budget signal the codec answers by halving the batch.
+``DeviceCapacityExceeded`` is the pipeline engine's item-capacity limit;
+the reference's codec serves such a batch from its host tier
+(``codec.py:289-294``), the port has none and raises it to the caller.
 """
 
 from __future__ import annotations
 
-__all__ = ["MalformedAvro", "shift_malformed", "BatchTooLarge"]
+__all__ = ["MalformedAvro", "shift_malformed", "BatchTooLarge",
+           "DeviceCapacityExceeded"]
 
 
 class MalformedAvro(ValueError):
@@ -18,10 +22,13 @@ class MalformedAvro(ValueError):
     knows it (None otherwise), ``err_name`` a short machine-stable slug
     (``ops.varint.ERR_SLUGS``)."""
 
-    def __init__(self, message: str = "", index=None, err_name=None):
+    def __init__(self, message: str = "", index=None, err_name=None,
+                 indices=None):
         super().__init__(message)
         self.index = index
         self.err_name = err_name
+        # every bad row's (index, slug) when the raiser knows them all
+        self.indices = indices
 
 
 def shift_malformed(e: MalformedAvro, base: int) -> MalformedAvro:
@@ -33,10 +40,17 @@ def shift_malformed(e: MalformedAvro, base: int) -> MalformedAvro:
     msg = str(e)
     prefix = f"record {e.index}: "
     detail = msg[len(prefix):] if msg.startswith(prefix) else msg
+    indices = None if e.indices is None else [
+        (i + base, slug) for i, slug in e.indices]
     return MalformedAvro(f"record {idx}: {detail}", index=idx,
-                         err_name=e.err_name)
+                         err_name=e.err_name, indices=indices)
 
 
 class BatchTooLarge(Exception):
     """Batch exceeds the single-launch byte budget (int32 offsets);
     the codec splits it and decodes the pieces (still on the device)."""
+
+
+class DeviceCapacityExceeded(Exception):
+    """Batch needs more per-record item slots than the device path
+    supports (copy of ``pyruhvro_tpu/ops/decode.py:239-241``)."""

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}  # guarded-by: _lock
+_source_locks: dict = {}  # guarded-by: _lock
 _lock = threading.Lock()
 
 
@@ -52,9 +53,16 @@ class KernelLibrary:
 
 
 def load_kernel_library(source: str) -> KernelLibrary:
-    """Compile ``csrc/<source>`` (once per content) and load it."""
+    """Compile ``csrc/<source>`` (once per content) and load it. Builds of
+    different sources may run at once, each in its own thread."""
     with _lock:
         lib = _libs.get(source)
+        if lib is not None:
+            return lib
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
+        with _lock:
+            lib = _libs.get(source)
         if lib is not None:
             return lib
         src = CSRC / source
@@ -75,5 +83,6 @@ def load_kernel_library(source: str) -> KernelLibrary:
                 )
             os.replace(tmp, out)
         lib = KernelLibrary(ctypes.CDLL(str(out)), out, build_s, log)
-        _libs[source] = lib
+        with _lock:
+            _libs[source] = lib
         return lib

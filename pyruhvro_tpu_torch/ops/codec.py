@@ -1,16 +1,25 @@
 """Device codec: the object ``api.py`` routes to (slim port of
-``pyruhvro_tpu/ops/codec.py:192-380``).
+``pyruhvro_tpu/ops/codec.py:192-380, 496-523``).
 
-One codec per (schema, device), memoized on the ``SchemaEntry``. It
-decodes through :class:`WalkDecoder` and keeps the reference's batch
-policy: a batch over the single-launch byte budget is halved (each half
-still decodes on the device) with the malformed row index re-based to
-the whole batch, and the threaded entry decodes once and slices the
-result per chunk, compacting sliced sparse unions.
+One codec per (schema, device, engine mode), memoized on the
+``SchemaEntry``. The engine is chosen as the reference chooses it: the
+pipeline engine (:class:`.decode.DeviceDecoder`) by default, the
+row-padded walk (:class:`.walk_decode.WalkDecoder`, the port of the
+Pallas kernel) when ``PYRUHVRO_TPU_PALLAS`` is ``1``/``true``/``mosaic``
+and the schema has no nested array/map (a nested schema takes the
+pipeline engine under that setting too). Both run on the card.
+
+The codec keeps the reference's batch policy: a batch over the engine's
+single-launch budget is halved (each half still decodes on the device)
+with the malformed row index re-based to the whole batch, and the
+threaded entry decodes once and slices the result per chunk, compacting
+sliced sparse unions. ``DeviceCapacityExceeded`` reaches the caller: the
+port has no host tier.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import pyarrow as pa
@@ -18,19 +27,38 @@ import pyarrow as pa
 from ..errors import BatchTooLarge, MalformedAvro, shift_malformed
 from ..runtime.chunking import chunk_bounds
 from ..schema.cache import SchemaEntry
+from . import UnsupportedOnDevice
 from .arrow_build import build_record_batch, compact_union_slices
+from .decode import DeviceDecoder
 from .walk_decode import WalkDecoder, resolve_device
 
-__all__ = ["DeviceCodec", "get_device_codec"]
+__all__ = ["DeviceCodec", "get_device_codec", "pallas_mode"]
+
+
+def pallas_mode() -> str:
+    """``PYRUHVRO_TPU_PALLAS`` normalized (the reference's ``_pallas_mode``,
+    ``codec.py:496-507``): ``"mosaic"`` for ``1``/``true``/``mosaic``, the
+    row-padded walk; ``"off"`` for anything else. The reference's
+    ``interpret`` has no counterpart: ``device="cpu"`` runs each kernel's
+    plain version."""
+    raw = os.environ.get("PYRUHVRO_TPU_PALLAS", "").lower()
+    return "mosaic" if raw in ("1", "true", "mosaic") else "off"
 
 
 class DeviceCodec:
     """Schema-bound decode on one torch device."""
 
-    def __init__(self, entry: SchemaEntry, device="cuda"):
+    def __init__(self, entry: SchemaEntry, device="cuda", pallas="off"):
         self.ir = entry.ir
         self.arrow_schema = entry.arrow_schema
-        self.decoder = WalkDecoder(entry.ir, device)
+        self.decoder = None
+        if pallas == "mosaic":
+            try:
+                self.decoder = WalkDecoder(entry.ir, device)
+            except UnsupportedOnDevice:
+                pass  # nested repetition: the pipeline engine serves it
+        if self.decoder is None:
+            self.decoder = DeviceDecoder(entry.ir, device)
 
     def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
         try:
@@ -69,7 +97,12 @@ def _concat_batches(batches: List[pa.RecordBatch]) -> pa.RecordBatch:
 
 
 def get_device_codec(entry: SchemaEntry, device="cuda") -> DeviceCodec:
-    """The memoized codec of this schema on ``device``."""
+    """The memoized codec of this schema on ``device``. The engine mode is
+    read once here and is part of the memo key (as in
+    ``pyruhvro_tpu/ops/codec.py:510-523``): toggling
+    ``PYRUHVRO_TPU_PALLAS`` between calls gives a codec that honours the
+    new value."""
     dev = resolve_device(device)
-    return entry.get_extra(f"device_codec:{dev}",
-                           lambda: DeviceCodec(entry, dev))
+    mode = pallas_mode()
+    return entry.get_extra(f"device_codec:{dev}:pallas={mode}",
+                           lambda: DeviceCodec(entry, dev, mode))

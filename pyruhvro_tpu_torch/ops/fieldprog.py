@@ -5,10 +5,11 @@ record. This lowering is torch-free and produces the same ``Program``
 contract — every output buffer's key, dtype (a numpy dtype) and region,
 plus ``regions``, ``region_parents`` and ``string_cols`` — and, in place
 of emitter closures, a flat int32 **field-program code**. Two walks
-execute that one code: the CUDA kernel (``csrc/walk_decode.cu``), one
-thread per record with real branches, and the plain PyTorch walk
-(``ops/walk_decode.py``), vectorized over records with lane masks like
-the reference emitters. So the CPU tests hold the code against the JAX
+execute that one code in each engine: a CUDA kernel, one thread per
+record with real branches (``csrc/walk_decode.cu``, row-level regions
+only; ``csrc/decode_walk.cu``, nested regions too), and a plain PyTorch
+walk (``ops/walk_decode.py``, ``ops/decode.py``), vectorized over
+records with lane masks like the reference emitters. So the CPU tests hold the code against the JAX
 reference, and the card holds the kernel against the plain walk.
 
 Buffers (as in the reference):
@@ -44,8 +45,10 @@ Code (operands are ints; ``buf`` is an index into ``Program.out_keys``,
     REBASE start          row-region start += base[row] (the row's offset)
     END
 
-``csrc/walk_decode.cu`` defines the same opcode numbers
-(``tests/test_torch_lowering.py`` checks that they agree).
+``csrc/walk_decode.cu`` and ``csrc/decode_walk.cu`` define the same
+opcode numbers (``tests/test_torch_lowering.py`` checks that they
+agree). REBASE serves the row-padded engine only: the pipeline's cursors
+are absolute, and its walks skip it.
 """
 
 from __future__ import annotations
@@ -126,6 +129,21 @@ class Program:
     string_cols: List[StringCol]
     out_keys: List[str]         # sorted buffer keys: the code's buffer numbering
     code: np.ndarray            # int32 field-program code
+
+    def region_depth(self, region: int) -> int:
+        """Repeated fields enclosing ``region``'s items, itself included
+        (0 for the row region, 1 for a row-level array/map)."""
+        depth = 0
+        while region != ROWS:
+            depth += 1
+            region = self.region_parents[region]
+        return depth
+
+    @property
+    def depth(self) -> int:
+        """The deepest nesting of repeated fields: the number of block
+        loops a walk keeps open at once (its loop stack)."""
+        return max(map(self.region_depth, range(len(self.regions))))
 
 
 class _Lowering:
@@ -224,7 +242,8 @@ class _Lowering:
     def lower_repeated(self, t, path: str, region: int) -> None:
         """Array/map: block loop over items written to strided slots of a
         new region. Nested repetition lowers too (the region's parent is
-        then an item region); the walks take row-level regions only."""
+        then an item region): the pipeline engine walks it, the row-padded
+        engine takes row-level regions only."""
         rid = len(self.regions)
         self.regions.append(path)
         self.region_parents.append(region)

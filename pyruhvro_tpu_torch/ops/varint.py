@@ -12,20 +12,29 @@ cursor) is an ``int64`` tensor holding the two's-complement value,
 re-wrapped with :func:`wrap_i32` after every add — the reference adds
 cursors in wrapping int32, and the port must read the same bytes.
 
-The byte source is :class:`RowWords`: records packed row-padded as
-``[R, BW*4]`` uint8 (little-endian u32 words). A read at byte ``k`` of
-the window at cursor ``c`` takes word ``min((c >> 2) + (((c & 3) + k)
->> 2), BW - 1)`` of the lane's own row — the reference's clip semantics
-(``load_window`` ``:117-133``, ``_TileWords.take_words``), with ``c``
-read as unsigned.
+Two byte sources give the readers their bytes (both little-endian u32
+words; a read at byte ``k`` of the window at cursor ``c``, read as
+unsigned, takes word ``(c >> 2) + (((c & 3) + k) >> 2)``):
+
+* :class:`RowWords`, records packed row-padded as ``[R, BW*4]`` uint8:
+  the word is clipped to ``BW - 1`` of the lane's own row (the Pallas
+  walk's ``_TileWords.take_words``);
+* :class:`FlatWords`, the pipeline's one flat word buffer of the whole
+  batch (``jnp.take(words, widx, mode="clip")``, ``varint.py:92-114``):
+  cursors are absolute, a read past a record's end sees the next
+  record's bytes, and the word is clipped to the buffer's last word (a
+  negative index would clip to word 0; the unsigned shift gives none).
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
 __all__ = [
     "RowWords",
+    "FlatWords",
     "wrap_i32",
     "get_byte",
     "load_window",
@@ -110,12 +119,31 @@ class RowWords:
         return self.flat[self.base + 4 * w + (m & 3)].to(torch.int64)
 
 
-def get_byte(words: RowWords, idx: torch.Tensor) -> torch.Tensor:
+class FlatWords:
+    """Byte source over one flat buffer of ``B`` bytes (``B % 4 == 0``),
+    indexed by absolute cursors with the pipeline's clip semantics."""
+
+    def __init__(self, flat: torch.Tensor):
+        self.flat = flat.reshape(-1).view(torch.uint8)
+        self.last_word = self.flat.numel() // 4 - 1
+
+    def window_byte(self, cursor: torch.Tensor, k: int) -> torch.Tensor:
+        """Byte ``k`` of the window at ``cursor``, one per lane, as int64."""
+        c = cursor & U32
+        m = (c & 3) + k
+        w = torch.clamp((c >> 2) + (m >> 2), 0, self.last_word)
+        return self.flat[4 * w + (m & 3)].to(torch.int64)
+
+
+Words = Union[RowWords, FlatWords]
+
+
+def get_byte(words: Words, idx: torch.Tensor) -> torch.Tensor:
     """Byte ``idx`` of each lane's row (clip semantics), as int64."""
     return words.window_byte(idx, 0)
 
 
-def load_window(words: RowWords, cursor: torch.Tensor, nwords: int):
+def load_window(words: Words, cursor: torch.Tensor, nwords: int):
     """``nwords - 1`` u32 words whose byte 0 is the byte at ``cursor``
     (the reference gathers ``nwords`` words and funnel-shifts them)."""
     out = []
@@ -127,7 +155,7 @@ def load_window(words: RowWords, cursor: torch.Tensor, nwords: int):
     return out
 
 
-def _read_varint(words: RowWords, cursor, mask, max_bytes: int):
+def _read_varint(words: Words, cursor, mask, max_bytes: int):
     lo = torch.zeros_like(cursor)
     hi = torch.zeros_like(cursor)
     more = mask.clone()
@@ -150,7 +178,7 @@ def _read_varint(words: RowWords, cursor, mask, max_bytes: int):
     return lo, hi, wrap_i32(cursor + nbytes), err
 
 
-def read_varint64(words: RowWords, cursor, mask):
+def read_varint64(words: Words, cursor, mask):
     """One unsigned LEB128 varint (≤ 10 bytes) per active lane:
     ``(lo u32, hi u32, new_cursor i32, err u32)``."""
     return _read_varint(words, cursor, mask, 10)
@@ -170,19 +198,19 @@ def zigzag_decode_pair(lo, hi):
     return lo1 ^ m, hi1 ^ m
 
 
-def read_f32(words: RowWords, cursor, mask):
+def read_f32(words: Words, cursor, mask):
     """IEEE-754 float32 bits (u32), little-endian."""
     (v,) = load_window(words, cursor, 2)
     return v, wrap_i32(cursor + torch.where(mask, 4, 0))
 
 
-def read_f64_pair(words: RowWords, cursor, mask):
+def read_f64_pair(words: Words, cursor, mask):
     """IEEE-754 float64 as a (lo, hi) u32 pair."""
     lo, hi = load_window(words, cursor, 3)
     return lo, hi, wrap_i32(cursor + torch.where(mask, 8, 0))
 
 
-def read_bool_byte(words: RowWords, cursor, mask):
+def read_bool_byte(words: Words, cursor, mask):
     """One boolean byte; bytes > 1 set ERR_BAD_BOOL."""
     b = get_byte(words, cursor)
     err = torch.where(mask & (b > 1), ERR_BAD_BOOL, 0)

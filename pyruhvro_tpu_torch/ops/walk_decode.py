@@ -300,6 +300,8 @@ class _PlainWalk:
     # the interpreter ------------------------------------------------------
 
     def run(self, pc: int, end: int, mask, slot) -> None:
+        """Execute ``code[pc:end]`` for the lanes in ``mask``; ``slot`` (None
+        for the row region) is where their values go, passed to ``put``."""
         code = self.code
         if not bool(mask.any()):
             return  # every write and cursor move below is masked
@@ -381,24 +383,28 @@ class _PlainWalk:
                         self.run(start, arm_end, mask & (branch == k), slot)
                 pc = stop
             elif op == OP_REPEATED:
-                self.repeated(pc, mask)
+                self.repeated(pc, mask, slot)
                 pc = code[pc + 3]
             elif op == OP_TRAILING:
                 self.err_where(mask & (self.cursor != self.ends), ERR_TRAILING)
                 pc += 1
             elif op == OP_REBASE:
-                b = code[pc + 1]
-                moved = wrap_i32(self.bufs[b].to(torch.int64) + self.base)
-                self.bufs[b] = torch.where(mask, moved, 0).to(torch.int32)
+                self.rebase(code[pc + 1], mask)
                 pc += 2
             elif op == OP_END:
                 return
             else:
                 raise ValueError(f"bad opcode {op} at {pc}")
 
-    def repeated(self, pc: int, mask) -> None:
+    def rebase(self, b: int, mask) -> None:
+        """Row-region string starts += the row's base (``OP_REBASE``)."""
+        moved = wrap_i32(self.bufs[b].to(torch.int64) + self.base)
+        self.bufs[b] = torch.where(mask, moved, 0).to(torch.int32)
+
+    def repeated(self, pc: int, mask, _slot) -> None:
         """The array/map block loop (``fieldprog.py:419-498``), one item per
-        live lane per iteration, bounded per tile as the reference."""
+        live lane per iteration, bounded per tile as the reference. Row
+        level only: the enclosing slot is always the row."""
         code = self.code
         count_buf, rid, stop = code[pc + 1], code[pc + 2], code[pc + 3]
         icap = self.caps[rid]

@@ -132,7 +132,10 @@ def test_malformed_names_the_row():
 
 def test_halving_rebases_the_malformed_row(monkeypatch):
     """Under a lowered launch budget the batch splits (twice here); a bad
-    row in a right half still reports its index in the whole batch."""
+    row in a right half still reports its index in the whole batch. This
+    is the row-padded engine's budget (``PYRUHVRO_TPU_PALLAS=1``);
+    ``tests/test_torch_decode.py`` holds the pipeline engine's."""
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "1")
     schema = CRITERION_SHAPES["flat_primitives"]
     datums = random_datums(ref_parse(schema), 3000, seed=4)
     whole = deserialize_array(datums, schema, device="cpu")
@@ -155,6 +158,63 @@ def test_halving_rebases_the_malformed_row(monkeypatch):
     assert ei.value.index == 2900
 
 
+NESTED_SCHEMA = """{"type":"record","name":"AA","fields":[
+  {"name":"aa","type":{"type":"array","items":{"type":"array",
+                                               "items":"int"}}}]}"""
+
+
+@pytest.mark.parametrize("setting, flat_engine, nested_engine", [
+    (None, "DeviceDecoder", "DeviceDecoder"),
+    ("0", "DeviceDecoder", "DeviceDecoder"),
+    ("1", "WalkDecoder", "DeviceDecoder"),
+    ("true", "WalkDecoder", "DeviceDecoder"),
+    ("mosaic", "WalkDecoder", "DeviceDecoder"),
+])
+def test_engine_choice_follows_the_reference(monkeypatch, setting,
+                                             flat_engine, nested_engine):
+    """The pipeline engine by default; the row-padded walk under
+    ``PYRUHVRO_TPU_PALLAS``, except for nested repetition, which the
+    pipeline engine serves (``pyruhvro_tpu/ops/codec.py:199-223``)."""
+    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    if setting is None:
+        monkeypatch.delenv("PYRUHVRO_TPU_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", setting)
+    for schema, engine in ((KAFKA_SCHEMA_JSON, flat_engine),
+                           (NESTED_SCHEMA, nested_engine)):
+        codec = get_device_codec(get_or_parse_schema(schema), "cpu")
+        assert type(codec.decoder).__name__ == engine, schema
+
+
+def test_codec_memo_key_carries_the_engine_mode(monkeypatch):
+    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    entry = get_or_parse_schema(KAFKA_SCHEMA_JSON)
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "1")
+    padded = get_device_codec(entry, "cpu")
+    assert get_device_codec(entry, "cpu") is padded
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "0")
+    pipeline = get_device_codec(entry, "cpu")
+    assert pipeline is not padded
+    assert type(pipeline.decoder).__name__ == "DeviceDecoder"
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "1")
+    assert get_device_codec(entry, "cpu") is padded
+
+
+def test_nested_schema_decodes_under_either_setting(monkeypatch):
+    """A nested schema decodes on the default engine, and under
+    ``PYRUHVRO_TPU_PALLAS=1`` too (the pipeline engine serves it)."""
+    datums = random_datums(ref_parse(NESTED_SCHEMA), 50, seed=3)
+    want = _oracle(NESTED_SCHEMA, datums).to_pylist()
+    for setting in ("0", "1"):
+        monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", setting)
+        got = deserialize_array(datums, NESTED_SCHEMA, device="cpu")
+        assert got.to_pylist() == want
+
+
 def test_default_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     datums = kafka_style_datums(4, seed=1)
@@ -172,7 +232,8 @@ def test_unknown_device_is_refused():
 def test_import_leaves_jax_and_the_reference_out():
     code = (
         "import sys, pyruhvro_tpu_torch, pyruhvro_tpu_torch.api, "
-        "pyruhvro_tpu_torch.ops.walk_decode, pyruhvro_tpu_torch.ops.codec, "
+        "pyruhvro_tpu_torch.ops.walk_decode, pyruhvro_tpu_torch.ops.decode, "
+        "pyruhvro_tpu_torch.ops.codec, "
         "pyruhvro_tpu_torch.ops._build, pyruhvro_tpu_torch.utils.datagen\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"

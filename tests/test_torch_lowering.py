@@ -32,8 +32,9 @@ from pyruhvro_tpu_torch.ops.walk_decode import walk_supported  # noqa: E402
 from pyruhvro_tpu_torch.schema.arrow_map import to_arrow_schema  # noqa: E402
 from pyruhvro_tpu_torch.schema.parser import parse_schema  # noqa: E402
 
-CU_SOURCE = (Path(__file__).resolve().parents[1] / "pyruhvro_tpu_torch"
-             / "csrc" / "walk_decode.cu")
+CSRC = Path(__file__).resolve().parents[1] / "pyruhvro_tpu_torch" / "csrc"
+# the kernels that interpret the field-program code
+CU_SOURCES = [CSRC / "walk_decode.cu", CSRC / "decode_walk.cu"]
 
 NAMED = [KAFKA_SCHEMA_JSON, WIDENED_SCHEMA_JSON,
          *(CRITERION_SHAPES[k] for k in sorted(CRITERION_SHAPES))]
@@ -140,10 +141,11 @@ def test_code_references_every_buffer_once_per_write():
 
 
 def test_cuda_source_agrees_on_opcodes_and_error_bits():
-    text = CU_SOURCE.read_text()
-    defines = {m.group(1): int(m.group(2).rstrip("u"))
-               for m in re.finditer(r"#define (\w+) (\d+u?)", text)}
-    for name, value in fieldprog.OPCODES.items():
-        assert defines[name] == value, name
-    for name in [n for n in defines if n.startswith("ERR_")]:
-        assert defines[name] == getattr(varint, name), name
+    for source in CU_SOURCES:
+        defines = {m.group(1): int(m.group(2).rstrip("u"))
+                   for m in re.finditer(r"#define (\w+) (\d+u?)",
+                                        source.read_text())}
+        for name, value in fieldprog.OPCODES.items():
+            assert defines[name] == value, (source.name, name)
+        for name in [n for n in defines if n.startswith("ERR_")]:
+            assert defines[name] == getattr(varint, name), (source.name, name)
