@@ -12,8 +12,8 @@ exits non-zero before the last line:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` (sm_90a) per source of ``pyruhvro_tpu_torch/csrc``
-   (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``), all
-   started together, with ptxas registers and spills;
+   (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``,
+   ``encode.cu``), all started together, with ptxas registers and spills;
 3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
    plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
    rung of the item-cap ladder under each shared-memory plan (``PLANS``),
@@ -23,20 +23,29 @@ exits non-zero before the last line:
    against their plain versions on ``pipeline_fixtures`` at every rung the
    card decoder's ladder visits: every buffer, ``#err`` and the blob
    bit-equal; the card's decode equal to the CPU's, or the same message
-   and bad-row indices;
-5. four main paths through ``deserialize_array_threaded(..., 8)``, each
-   with every launch count set to 0 before its cold call and read after
-   it, and its batches equal to the same call on the CPU by value: (1)
-   1,000,000 Kafka records on the default engine, (2) the same under
+   and bad-row indices; then ``encode_rows`` and ``encode_strings`` (K3)
+   against the plain encode on ``encode_fixtures`` (row sizes, every
+   ``#dst`` lane and ``[0, total)`` bit-equal), the card's encode equal
+   to the CPU's and the wire a fixed point of decode and encode;
+5. four decode main paths through ``deserialize_array_threaded(..., 8)``,
+   each with every launch count set to 0 before its cold call and read
+   after it, and its batches equal to the same call on the CPU by value:
+   (1) 1,000,000 Kafka records on the default engine, (2) the same under
    ``PYRUHVRO_TPU_PALLAS=1``, (3) 262,144 nested ``arr_rec_arr`` records,
-   (4) 16,384 Kafka records of 4 to 16 KiB; the cold call and the median
-   of ``WARM_CALLS`` warm calls of each;
+   (4) 16,384 Kafka records of 4 to 16 KiB; then the encode main path (5)
+   ``serialize_record_batch(batch, schema, 8)`` of path 1's records
+   decoded on the card into one batch, and the same re-encode of paths 3
+   and 4 (3e, 4e), the chunks equal to the input datums and to the CPU
+   call; the cold call and the median of ``WARM_CALLS`` warm calls of
+   each;
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
-   Arrow assembly); K1 and K2 bit-equal to their plain versions at every
-   rung of a fresh decoder's ladder on paths 1, 3 and 4's data; each
-   kernel at main path 1's or 2's shapes: its CUDA-event time, bit-equal
-   to its plain version, its bound, and for the finalize ``torch.take``
-   over the same slot maps;
+   Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
+   strings, d2h, wrap); K1 and K2 bit-equal to their plain versions at
+   every rung of a fresh decoder's ladder on paths 1, 3 and 4's data;
+   each kernel at main path 1's, 2's or 5's shapes: its CUDA-event time,
+   bit-equal to its plain version, its bound, and ``torch.take`` over the
+   finalize's slot maps and over the encode's payload byte map; the
+   string copy's two modes in turns on paths 5 and 4e;
 7. ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -148,6 +157,24 @@ GLOBAL_BOUND_SCHEMA = """{"type":"record","name":"GB","fields":[
   {"name":"aa","type":{"type":"array","items":{"type":"array",
                                                "items":"null"}}},
   {"name":"s","type":"string"}]}"""
+
+
+# encode fixtures: every extra logical type (uuid text, duration, fixed,
+# enum, decimals over bytes and over a 16-byte fixed; the int128 minimum
+# and maximum replace two rows, the minimum's bytes decimal takes 17 bytes)
+LOGICAL_SCHEMA = """{"type":"record","name":"Lg","fields":[
+  {"name":"u","type":{"type":"string","logicalType":"uuid"}},
+  {"name":"du","type":{"type":"fixed","name":"Du","size":12,
+                       "logicalType":"duration"}},
+  {"name":"f","type":{"type":"fixed","name":"F5","size":5}},
+  {"name":"e","type":{"type":"enum","name":"E3","symbols":["X","Y","Z"]}},
+  {"name":"d","type":{"type":"bytes","logicalType":"decimal",
+                      "precision":38,"scale":2}},
+  {"name":"df","type":{"type":"fixed","name":"D16","size":16,
+                       "logicalType":"decimal","precision":38,"scale":2}},
+  {"name":"nd","type":["null",{"type":"bytes","logicalType":"decimal",
+                               "precision":12,"scale":3}]},
+  {"name":"nf","type":["null",{"type":"fixed","name":"F2","size":2}]}]}"""
 
 
 def zz(v: int) -> bytes:
@@ -331,6 +358,84 @@ def pipeline_fixtures(datagen, parse_schema, rows: int):
     nested_bad[rows // 4] = nested_bad[rows // 4][:-3]
     cases.append(("nested_truncated", shapes["arr_rec_arr"], nested_bad,
                   True))
+    return cases
+
+
+def int128_extremes(pa, batch, names):
+    """``batch`` with rows 0 and 1 of each decimal column ``names`` set to
+    the int128 minimum and maximum (raw Decimal128 buffers: the values lie
+    past the declared precision, as the wire allows)."""
+    import numpy as np
+
+    cols = list(batch.columns)
+    for name in names:
+        i = batch.schema.get_field_index(name)
+        col = cols[i]
+        raw = np.frombuffer(col.buffers()[1], np.uint8,
+                            count=16 * len(col)).copy().reshape(-1, 16)
+        raw[0], raw[1] = 0, 0xFF
+        raw[0, 15], raw[1, 15] = 0x80, 0x7F
+        cols[i] = pa.Array.from_buffers(col.type, len(col), [
+            col.buffers()[0], pa.py_buffer(raw.reshape(-1))])
+    return pa.RecordBatch.from_arrays(cols, schema=batch.schema)
+
+
+def encode_fixtures(pa, datagen, parse_schema, decode, rows: int):
+    """(name, schema, batch) for K3 against its plain version: the CPU
+    decodes of the well-formed pipeline fixtures, every extra logical
+    type, extreme varints, empty and long collections, a sliced batch
+    (its sparse union at a non-zero offset) and an empty batch.
+    ``decode(datums, schema)`` gives one RecordBatch."""
+    def written(writer, values):
+        out = []
+        for v in values:
+            buf = bytearray()
+            writer(buf, v)
+            out.append(bytes(buf))
+        return out
+
+    cases = []
+    for name, schema, datums, bad in pipeline_fixtures(datagen, parse_schema,
+                                                       rows):
+        # arrays of null items do not encode: the extractor rejects their
+        # null values at a non-nullable position, as the reference's does
+        if not bad and schema not in (NULLS_SCHEMA, GLOBAL_BOUND_SCHEMA):
+            cases.append((name, schema, decode(datums, schema)))
+    lir = parse_schema(LOGICAL_SCHEMA)
+    wl, rng = datagen.compile_writer(lir), random.Random(19)
+    values = []
+    for _ in range(max(rows, 2)):
+        v = datagen.random_value(lir, rng)
+        # a duration whose months, days and ms fit Duration(ms) int64
+        v["du"] = b"".join(rng.randrange(k).to_bytes(4, "little")
+                           for k in (1200, 40_000, 86_400_000))
+        values.append(v)
+    logical = int128_extremes(pa, decode(written(wl, values),
+                                         LOGICAL_SCHEMA), ("d", "df"))
+    cases.append(("logical_types", LOGICAL_SCHEMA, logical))
+    flat = PIPELINE_SHAPES["flat"]
+    w = datagen.compile_writer(parse_schema(flat))
+    cases.append(("extreme_varints", flat, decode(written(w, [
+        {"a": a, "b": b, "c": c, "d": d, "e": e, "s": s}
+        for a, b, c, d, e, s in [
+            ((1 << 63) - 1, (1 << 31) - 1, 1e308, 3.4e38, True, ""),
+            (-(1 << 63), -(1 << 31), -1e-308, -1.2e-38, False, "x" * 300),
+            (0, 0, 0.0, -0.0, False, "h\u00e9llo w\u00f6rld \u4e2d\u6587"),
+            (-1, -1, float("inf"), float("-inf"), True, "y"),
+            (1, 1, float("nan"), 0.0, False, ""),
+        ]]), flat)))
+    arr = PIPELINE_SHAPES["arr"]
+    wa = datagen.compile_writer(parse_schema(arr))
+    cases.append(("empty_and_long_collections", arr, decode(written(wa, [
+        {"xs": [], "ys": [], "na": None},
+        {"xs": [f"item-{j}" for j in range(200)], "ys": list(range(100)),
+         "na": (1, [])},
+        {"xs": [""], "ys": [0], "na": (1, [1, -1])},
+    ]), arr)))
+    kafka = datagen.KAFKA_SCHEMA_JSON
+    whole = decode(datagen.kafka_style_datums(max(rows, 60), seed=73), kafka)
+    cases.append(("sliced", kafka, whole.slice(17, max(rows, 60) // 2)))
+    cases.append(("empty", kafka, decode([], kafka)))
     return cases
 
 
@@ -820,6 +925,316 @@ def pipeline_kernels(torch, dm, dec, data, card):
              "library_ms": take_ms})
 
 
+def wire_of(arrays):
+    """The datums of a list of BinaryArrays, concatenated."""
+    out = []
+    for a in arrays:
+        out.extend(a.to_pylist())
+    return out
+
+
+def check_encode_fixture(torch, em, name, schema, batch, parse_schema,
+                         decode):
+    """K3 (``encode_rows``, ``encode_strings``) against the plain version
+    on the same launch buffer on the card: the row sizes, every ``#dst``
+    lane and ``[0, total)`` bit-equal; then the card's encode equal to
+    the CPU's, and the wire a fixed point of decode and encode."""
+    ir = parse_schema(schema)
+    from pyruhvro_tpu_torch.schema.arrow_map import to_arrow_schema
+
+    card = em.DeviceEncoder(ir, to_arrow_schema(ir), DEVICE)
+    cpu = em.DeviceEncoder(ir, to_arrow_schema(ir), "cpu")
+    rows0 = em.encode_kernel.rows.launches
+    strings0 = em.encode_kernel.strings.launches
+    worst = 0
+    if batch.num_rows:
+        L = card.launch(batch)
+        dv = L.dv()
+        p_out, p_sizes, p_dst = em.rows_plain(dv, card.prog, L.cap)
+        em.strings_plain(p_out, dv, card.prog, p_dst)
+        k_out, k_sizes = em.encode_kernel.run(L)
+        torch.cuda.synchronize()
+        worst = max_abs_diff(torch, k_sizes, p_sizes)
+        for path, dst in L.dst().items():
+            worst = max(worst, max_abs_diff(torch, dst, p_dst[path]))
+        total = int(p_sizes.to(torch.int64).sum())
+        worst = max(worst, max_abs_diff(torch, k_out[:total], p_out[:total]))
+        if worst:
+            raise SystemExit(f"encode fixture {name}: kernel != plain "
+                             f"(max abs diff {worst})")
+        del L, dv, p_out, k_out
+    got, want = card.encode(batch), cpu.encode(batch)
+    if not got.equals(want):
+        raise SystemExit(f"encode fixture {name}: card encode != CPU encode")
+    wire = got.to_pylist()
+    back = batch.slice(2) if name == "logical_types" else batch
+    once = card.encode(back)
+    again = card.encode(decode(once.to_pylist(), schema))
+    if not again.equals(once):
+        raise SystemExit(f"encode fixture {name}: the wire is not a fixed "
+                         f"point of decode and encode")
+    mode = "-" if not batch.num_rows else (
+        "warp" if card.launch(batch).strings_per_warp else "thread")
+    print(f"encode fixture {name}: rows={batch.num_rows} (string copy: a "
+          f"{mode} per element) encode_rows "
+          f"launches={em.encode_kernel.rows.launches - rows0} encode_strings "
+          f"launches={em.encode_kernel.strings.launches - strings0} "
+          f"exact=True max_abs_err={worst} bytes={sum(map(len, wire))}, "
+          f"card == CPU, fixed point")
+    return worst
+
+
+def drive_encode(label, batch, datums, schema, counters, serialize, card):
+    """One encode main path: every count set to 0, the cold call, the
+    counts read, then the warm calls; the chunks' datums must equal
+    ``datums`` (the canonical input wire)."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    arrays = serialize(batch, schema, MAIN_CHUNKS)
+    cold = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for k, v in launches.items():
+        if v < 1:
+            raise SystemExit(f"{label}: the main path ran without launching "
+                             f"{k}")
+    for c in counters.values():
+        c.launches = 0
+    warm = []
+    for _ in range(WARM_CALLS):
+        del arrays
+        t0 = time.perf_counter()
+        arrays = serialize(batch, schema, MAIN_CHUNKS)
+        warm.append(time.perf_counter() - t0)
+    warm_launches = {k: c.launches / WARM_CALLS for k, c in counters.items()}
+    if len(arrays) != MAIN_CHUNKS or wire_of(arrays) != datums:
+        raise SystemExit(f"{label}: the encoded chunks differ from the "
+                         f"input datums")
+    med = statistics.median(warm)
+    print(f"main path {label}: serialize_record_batch({batch.num_rows} "
+          f"rows, {MAIN_CHUNKS}) launches: cold call {launches}, per warm "
+          f"call {warm_launches}; cold {cold:.3f} s, warm median of "
+          f"{WARM_CALLS} {med:.3f} s ({min(warm):.3f} .. {max(warm):.3f}) = "
+          f"{batch.num_rows / med:,.0f} rec/s; chunks equal the input "
+          f"datums {card}")
+    return arrays, {"launches": launches, "warm_launches": warm_launches,
+                    "cold_s": cold, "warm_s": warm}
+
+
+def encode_phases(encoder, batch, card, label):
+    """Median per phase of ``PHASE_RUNS`` encodes (host clock, each
+    device phase ending in a synchronise)."""
+    order = ("extract_s", "pack_s", "h2d_s", "size_s", "cumsum_s",
+             "write_s", "strings_s", "d2h_s", "wrap_s")
+    got = {}
+    for _ in range(PHASE_RUNS):
+        timings = {}
+        encoder.encode(batch, timings)
+        for k in order:
+            got.setdefault(k, []).append(timings[k])
+    print(f"encode phases {label}, ms, median (min .. max) of {PHASE_RUNS}: "
+          + ", ".join(f"{k[:-2]} {spread(v)}" for k, v in got.items())
+          + f" {card}")
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def rows_traffic(np, em, L):
+    """The bytes ``encode_rows`` must move on ``L``'s data, by a walk of
+    the encode code with one mask per axis (the rows below ``n``, then
+    each collection's items under its parent's mask): ``"lanes"``, each
+    extractor lane entry the code reaches, read once; ``"off"``, the
+    ``#off`` entry of each non-empty collection reached; ``"dst"``, 4 B
+    of ``#dst`` per payload placed."""
+    prog, dv = L.prog, L.dv_np
+    code = prog.code.tolist()
+    moved = {"lanes": 0, "off": 0, "dst": 0}
+
+    def read(lane, mask):
+        key = prog.lanes[lane]
+        width = 16 if key.endswith("#dec") else dv[key].itemsize
+        moved["lanes"] += width * int(np.count_nonzero(mask))
+
+    def block(pc, stop, mask):
+        """From ``pc`` to ``stop`` or the JUMP, LOOP or END that closes
+        the block; returns where it stopped."""
+        while pc != stop and code[pc] not in (em.OP_JUMP, em.OP_LOOP,
+                                              em.OP_END):
+            op = code[pc]
+            if op in (em.OP_VARINT32, em.OP_F32, em.OP_BOOL):
+                read(code[pc + 1], mask)
+                pc += 2
+            elif op in (em.OP_VARINT64, em.OP_F64, em.OP_DEC_BYTES):
+                read(code[pc + 1], mask)
+                read(code[pc + 2], mask)
+                pc += 3
+            elif op in (em.OP_STRING, em.OP_PAYLOAD):
+                if op == em.OP_STRING:
+                    read(code[pc + 1], mask)
+                moved["dst"] += 4 * int(np.count_nonzero(mask))
+                pc += 3
+            elif op == em.OP_DEC_FIXED:
+                read(code[pc + 2], mask)
+                pc += 3
+            elif op == em.OP_NULLABLE:
+                read(code[pc + 1], mask)
+                valid = dv[prog.lanes[code[pc + 1]]] != 0
+                pc = block(pc + 4, code[pc + 3], mask & valid)
+            elif op == em.OP_UNION:
+                read(code[pc + 1], mask)
+                tid = dv[prog.lanes[code[pc + 1]]]
+                for k in range(code[pc + 2]):
+                    if code[pc + 4 + k] >= 0:
+                        block(code[pc + 4 + k], code[pc + 3],
+                              mask & (tid == k))
+                pc = code[pc + 3]
+            elif op == em.OP_REPEATED:
+                read(code[pc + 1], mask)
+                counts = dv[prog.lanes[code[pc + 1]]]
+                nonempty = mask & (counts > 0)
+                moved["off"] += 4 * int(np.count_nonzero(nonempty))
+                rid = prog.regions.index(prog.lanes[code[pc + 2]][:-4])
+                items = np.zeros(dv["#active:%d" % rid].shape[0], bool)
+                spread = np.repeat(nonempty, np.maximum(counts, 0))
+                items[:spread.size] = spread
+                block(pc + 4, code[pc + 3], items)
+                pc = code[pc + 3]
+            else:
+                raise AssertionError(f"opcode {op} at {pc}")
+        return pc
+
+    block(0, len(code), np.arange(L.R) < L.n)
+    return moved
+
+
+def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
+    """K3 at the main path's shapes: CUDA-event times of each entry and of
+    the whole program, bit-equal to the plain version, the byte bounds
+    of what this data needs moved, and ``torch.take`` over the payload
+    byte map (the copy alone). ``max_abs_err`` also covers the fixtures'
+    ``fixture_err``."""
+    L = encoder.launch(batch)
+    prog, R = encoder.prog, L.R
+    dev = L.buf.device
+    out, sizes = em.encode_kernel.run(L)
+    cum = torch.cumsum(sizes, 0, dtype=torch.int32)
+    total = int(sizes.to(torch.int64).sum())
+    k3_ms = cuda_ms(torch, lambda: em.encode_kernel.run(L), 5)
+    size_ms = cuda_ms(torch, lambda: em.encode_kernel.launch_rows(
+        L, False, sizes), 5)
+    write_ms = cuda_ms(torch, lambda: em.encode_kernel.launch_rows(
+        L, True, sizes, cum, out), 5, prepare=L.clear_dst)
+    strings_ms = cuda_ms(torch, lambda: em.encode_kernel.launch_strings(
+        L, out), 5)
+    dv = L.dv()
+    plain = []
+    rows_plain_ms = cuda_ms(torch, lambda: plain.__setitem__(
+        slice(None), [em.rows_plain(dv, prog, L.cap)]), 2)
+    p_out, p_sizes, p_dst = plain[0]
+    strings_plain_ms = cuda_ms(torch, lambda: em.strings_plain(
+        p_out, dv, prog, p_dst), 2)
+    worst = max(max_abs_diff(torch, sizes, p_sizes),
+                max_abs_diff(torch, out[:total], p_out[:total]))
+    dst = L.dst()
+    for path, d in dst.items():
+        worst = max(worst, max_abs_diff(torch, d, p_dst[path]))
+    if worst:
+        raise SystemExit(f"main path shapes: encode kernels != plain "
+                         f"(max abs diff {worst})")
+    del plain, p_out, p_dst
+    # the payload byte map: each written payload byte's position in the
+    # launch buffer, gathered by one torch.take
+    pieces = []
+    for col in prog.string_cols:
+        d = dst[col.path]
+        keep = d >= 0
+        src = L.view(col.path + "#src")[keep].to(torch.int64)
+        lens = L.view(col.path + "#len")[keep].to(torch.int64)
+        base = L.layout[col.path + "#bytes"][0]
+        starts = torch.repeat_interleave(base + src, lens)
+        within = torch.arange(starts.numel(), device=dev) - torch.repeat_interleave(
+            torch.cumsum(lens, 0) - lens, lens)
+        pieces.append(starts + within)
+    payload = int(sum(p.numel() for p in pieces))
+    idx = torch.cat(pieces) if pieces else torch.zeros(0, dtype=torch.int64,
+                                                       device=dev)
+    take_ms = cuda_ms(torch, lambda: torch.take(L.buf, idx), 5)
+    placed = sum(int((d >= 0).sum()) for d in dst.values())
+    traffic = rows_traffic(np, em, L)
+    # encode_rows: the lane entries its code reaches and #off in, the
+    # non-payload bytes, #dst and the row sizes out; encode_strings:
+    # #src, #len and #dst of each placed payload in, its bytes in and
+    # out; all of K3: the lane entries and #src in, the payload, the
+    # rows' other bytes and the row sizes out (#off and #dst are its own
+    # scratch)
+    rows_moved = (traffic["lanes"] + traffic["off"] + traffic["dst"]
+                  + (total - payload) + 4 * R)
+    strings_moved = 12 * placed + 2 * payload
+    k3_moved = traffic["lanes"] + 4 * placed + payload + total + 4 * R
+    hbm = HBM_BYTES_PER_S / 1e3
+    rows_bound, strings_bound, k3_bound = (rows_moved / hbm,
+                                           strings_moved / hbm,
+                                           k3_moved / hbm)
+    print(f"encode at the main path's shapes (R={R}, rows={L.n}, cap="
+          f"{L.cap}, {len(prog.string_cols)} payload columns, "
+          f"{L.n_elems} payload lanes, {payload:,} payload bytes, string "
+          f"copy a {'warp' if L.strings_per_warp else 'thread'} per element, "
+          f"total "
+          f"{total:,} B): all of K3 (cumsums, fill, 3 launches) "
+          f"{k3_ms:.3f} ms, bound {k3_bound:.3f} ms ({k3_moved / 1e6:.1f} "
+          f"MB at 3.35 TB/s: {traffic['lanes'] / 1e6:.1f} MB of lane "
+          f"entries reached of the {L.input_bytes() / 1e6:.1f} MB packed, "
+          f"{4 * placed / 1e6:.1f} MB of #src, {payload / 1e6:.1f} MB of "
+          f"payload, {(total + 4 * R) / 1e6:.1f} MB written), "
+          f"{k3_ms / k3_bound:.2f}x; encode_rows size {size_ms:.3f} "
+          f"ms + write {write_ms:.3f} ms, bound {rows_bound:.3f} ms "
+          f"({rows_moved / 1e6:.1f} MB); encode_strings {strings_ms:.3f} "
+          f"ms, bound {strings_bound:.3f} ms ({strings_moved / 1e6:.1f} "
+          f"MB, {placed:,} payloads placed), torch.take over the payload byte map {take_ms:.3f} ms; "
+          f"plain rows {rows_plain_ms:.1f} ms, plain strings "
+          f"{strings_plain_ms:.1f} ms; bit-equal (sizes, #dst, [0, total)) "
+          f"{card}")
+    del L, out, idx, pieces
+    err = max(worst, fixture_err)
+    return ({"ms": size_ms + write_ms, "size_ms": size_ms,
+             "write_ms": write_ms, "plain_ms": rows_plain_ms,
+             "bound_ms": rows_bound, "library_ms": None,
+             "max_abs_err": err},
+            {"ms": strings_ms, "plain_ms": strings_plain_ms,
+             "bound_ms": strings_bound, "library_ms": take_ms,
+             "max_abs_err": err},
+            {"k3_ms": k3_ms, "k3_bound_ms": k3_bound,
+             "k3_plain_ms": rows_plain_ms + strings_plain_ms,
+             "payload_bytes": payload, "total_bytes": total})
+
+
+def string_copy_modes(torch, em, encoder, batch, card, label):
+    """``encode_strings`` in both modes on one launch, in turns (a thread
+    per element, a warp per element, twice), each bit-equal to the
+    launch's own copy; and the mode the wrapper picks."""
+    L = encoder.launch(batch)
+    picked = L.strings_per_warp
+    out, sizes = em.encode_kernel.run(L)
+    total = int(sizes.to(torch.int64).sum())
+    want = out[:total].clone()
+    ms = {}
+    for per_warp in (False, True, True, False):
+        L.strings_per_warp = per_warp
+        t = cuda_ms(torch, lambda: em.encode_kernel.launch_strings(L, out), 5)
+        key = "warp" if per_warp else "thread"
+        ms[key] = min(t, ms.get(key, t))
+        torch.cuda.synchronize()
+        if not torch.equal(out[:total], want):
+            raise SystemExit(f"{label}: encode_strings a {key} per element "
+                             f"differs")
+    ms["picked"] = "warp" if picked else "thread"
+    print(f"encode_strings modes {label}: a thread per element "
+          f"{ms['thread']:.3f} ms, a warp per element {ms['warp']:.3f} ms "
+          f"(best of 5, twice in turns, both bit-equal); the wrapper picks "
+          f"a {ms['picked']} per element {card}")
+    del L, out, want
+    return ms
+
+
 def main() -> int:
     import os
 
@@ -829,18 +1244,28 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
               "CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    here = Path(__file__).resolve().parent
+    if not (here / "pyruhvro_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no pyruhvro_tpu_torch package beside {here}; run "
+              f"it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(here))
     import threading
 
     import numpy as np
+    import pyarrow as pa
 
     from pyruhvro_tpu_torch import (
         DeviceCapacityExceeded,
         MalformedAvro,
         UnsupportedOnDevice,
+        deserialize_array,
         deserialize_array_threaded,
+        serialize_record_batch,
     )
     from pyruhvro_tpu_torch.ops import decode as dm
+    from pyruhvro_tpu_torch.ops import encode as em
     from pyruhvro_tpu_torch.ops import walk_decode as wd
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
     from pyruhvro_tpu_torch.ops.codec import get_device_codec
@@ -861,7 +1286,8 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     kernels = {"walk_decode": wd.walk_kernel, "decode_walk": dm.walk_kernel,
-               "decode_finalize": dm.finalize_kernel}
+               "decode_finalize": dm.finalize_kernel,
+               "encode": em.encode_kernel}
     libs, failures = {}, []
 
     def build(key):
@@ -902,6 +1328,22 @@ def main() -> int:
         worst["decode_walk"] = max(worst["decode_walk"], w)
         worst["decode_finalize"] = max(worst["decode_finalize"], w)
     print(f"pipeline fixtures: {time.perf_counter() - t0:.1f} s")
+
+    # 4b. K3 against its plain version
+    t0 = time.perf_counter()
+    worst["encode"] = 0
+
+    def cpu_decode(datums, schema):
+        return deserialize_array(datums, schema, device="cpu")
+
+    def card_decode(datums, schema):
+        return deserialize_array(datums, schema)
+
+    for fx in encode_fixtures(pa, datagen, parse_schema, cpu_decode,
+                              PIPELINE_ROWS):
+        worst["encode"] = max(worst["encode"], check_encode_fixture(
+            torch, em, *fx, parse_schema, card_decode))
+    print(f"encode fixtures: {time.perf_counter() - t0:.1f} s")
 
     # 5. the main paths
     kafka = datagen.KAFKA_SCHEMA_JSON
@@ -955,6 +1397,37 @@ def main() -> int:
     del got4
     print("main paths 3 and 4 equal the CPU calls value by value")
 
+    # 5b. the encode main path: path 1's records decoded into one batch,
+    # then serialize_record_batch; the chunks must be the input datums
+    enc_counters = {"encode_rows": em.encode_kernel.rows,
+                    "encode_strings": em.encode_kernel.strings}
+    encode_paths = (("5 (Kafka encode)", "kafka_encode", data, kafka),
+                    ("3e (nested re-encode)", "nested_encode", nested,
+                     nested_schema),
+                    ("4e (large records re-encode)", "large_encode", large,
+                     kafka))
+    enc_batches = {}
+    for label, key, rows, schema in encode_paths:
+        t0 = time.perf_counter()
+        batch = deserialize_array(rows, schema)
+        print(f"encode input {key}: {batch.num_rows} rows decoded on the "
+              f"card in {time.perf_counter() - t0:.1f} s (excluded)")
+        got, results[key] = drive_encode(label, batch, rows, schema,
+                                         enc_counters,
+                                         serialize_record_batch, card)
+        t0 = time.perf_counter()
+        want = serialize_record_batch(batch, schema, MAIN_CHUNKS,
+                                      device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not g.equals(w):
+                raise SystemExit(f"main path {label}: chunk {i} differs from "
+                                 f"the CPU call")
+        print(f"main path {label}: equal to the CPU call ({cpu_s:.1f} s) on "
+              f"all {MAIN_CHUNKS} chunks")
+        enc_batches[key] = (batch, schema)
+        del got, want
+
     # 6. phases and kernels at the main paths' shapes
     os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
     k4codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
@@ -987,8 +1460,24 @@ def main() -> int:
         del dec
     codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
     k1, k2 = pipeline_kernels(torch, dm, codec.decoder, data, card)
+    for key, (batch, schema) in enc_batches.items():
+        enc = get_device_codec(get_or_parse_schema(schema), DEVICE)._encoder
+        results[key]["phases_ms"] = {
+            k: v * 1e3 for k, v in encode_phases(enc, batch, card,
+                                                 key).items()}
+    kbatch, _schema = enc_batches["kafka_encode"]
+    kenc = get_device_codec(get_or_parse_schema(kafka), DEVICE)._encoder
+    k3_rows, k3_strings, k3 = encode_kernels(torch, np, em, kenc, kbatch,
+                                             card, worst["encode"])
+    results["kafka_encode"]["k3"] = k3
+    for key in ("kafka_encode", "large_encode"):
+        batch, schema = enc_batches[key]
+        enc = get_device_codec(get_or_parse_schema(schema), DEVICE)._encoder
+        results[key]["string_copy_ms"] = string_copy_modes(
+            torch, em, enc, batch, card, key)
 
-    regs = {k: "/".join(re.findall(r"Used (\d+) registers", lib.log))
+    regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
+            "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
     rows = [
         {"name": "walk_decode", "route": "cuda",
@@ -1010,9 +1499,23 @@ def main() -> int:
          "replaces_function": "DeviceDecoder.build_pipeline (pipeline)",
          "launches": results["kafka"]["launches"]["decode_finalize"],
          "max_abs_err": worst["decode_finalize"], **k2, "bound_by": "bytes"},
+        {"name": "encode_rows", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/csrc/encode.cu",
+         "replaces": "pyruhvro_tpu/ops/encode.py:1328",
+         "replaces_function": "DeviceEncoder._program (size and write "
+                              "passes)",
+         "launches": results["kafka_encode"]["launches"]["encode_rows"],
+         **k3_rows, "bound_by": "bytes"},
+        {"name": "encode_strings", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/csrc/encode.cu",
+         "replaces": "pyruhvro_tpu/ops/encode.py:579",
+         "replaces_function": "_write_string_bytes (in "
+                              "DeviceEncoder._program)",
+         "launches": results["kafka_encode"]["launches"]["encode_strings"],
+         **k3_strings, "bound_by": "bytes"},
     ]
     for r in rows:
-        r["registers"] = regs.get(r["name"], "")
+        r["registers"] = regs[r["source"]]
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

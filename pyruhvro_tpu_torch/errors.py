@@ -2,7 +2,8 @@
 and ``pyruhvro_tpu/ops/decode.py:239-246``).
 
 ``MalformedAvro`` and ``shift_malformed`` keep the reference's messages
-(``record <index>: <why>``). ``BatchTooLarge`` is the single-launch byte
+(``record <index>: <why>``) and fields (``index``, ``err_name``, ``tier``,
+``indices``, kept across a pickle round trip). ``BatchTooLarge`` is the single-launch byte
 budget signal the codec answers by halving the batch.
 ``DeviceCapacityExceeded`` is the pipeline engine's item-capacity limit;
 the reference's codec serves such a batch from its host tier
@@ -20,15 +21,30 @@ class MalformedAvro(ValueError):
 
     ``index`` is the row index of the offending datum when the raiser
     knows it (None otherwise), ``err_name`` a short machine-stable slug
-    (``ops.varint.ERR_SLUGS``)."""
+    (``ops.varint.ERR_SLUGS``), ``tier`` the tier that found it
+    (``"device"`` for a row error of a device walk, None otherwise)."""
 
     def __init__(self, message: str = "", index=None, err_name=None,
-                 indices=None):
+                 tier=None, indices=None):
         super().__init__(message)
         self.index = index
         self.err_name = err_name
+        self.tier = tier
         # every bad row's (index, slug) when the raiser knows them all
         self.indices = indices
+
+    def __reduce__(self):
+        # ValueError's own reduce rebuilds from args alone and would drop
+        # the structured fields across a pickle round trip
+        return (_rebuild_malformed,
+                (self.args, self.index, self.err_name, self.tier,
+                 self.indices))
+
+
+def _rebuild_malformed(args, index, err_name, tier, indices):
+    e = MalformedAvro(*args)
+    e.index, e.err_name, e.tier, e.indices = index, err_name, tier, indices
+    return e
 
 
 def shift_malformed(e: MalformedAvro, base: int) -> MalformedAvro:
@@ -43,7 +59,7 @@ def shift_malformed(e: MalformedAvro, base: int) -> MalformedAvro:
     indices = None if e.indices is None else [
         (i + base, slug) for i, slug in e.indices]
     return MalformedAvro(f"record {idx}: {detail}", index=idx,
-                         err_name=e.err_name, indices=indices)
+                         err_name=e.err_name, tier=e.tier, indices=indices)
 
 
 class BatchTooLarge(Exception):

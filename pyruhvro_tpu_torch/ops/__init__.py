@@ -1,10 +1,13 @@
-"""Device decode ops of the PyTorch/CUDA port (counterpart of
+"""Device decode and encode ops of the PyTorch/CUDA port (counterpart of
 ``pyruhvro_tpu/ops/``).
 
 * :mod:`.varint`      — error bits and the plain PyTorch wire readers
 * :mod:`.fieldprog`   — Avro schema IR → field program (buffers + code)
 * :mod:`.walk_decode` — the walk: CUDA kernel on the card, plain walk on CPU
+* :mod:`.decode`      — the pipeline engine: walk and finalize kernels
 * :mod:`.arrow_build` — walk outputs → ``pyarrow`` arrays
+* :mod:`.encode_extract` — Arrow batch → the encoder's input lanes
+* :mod:`.encode`      — the encode program: CUDA kernels on the card
 * :mod:`.codec`       — ``get_device_codec(entry, device)``, used by ``api.py``
 
 Submodules import torch; importing this package does not.

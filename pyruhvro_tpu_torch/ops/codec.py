@@ -15,6 +15,15 @@ with the malformed row index re-based to the whole batch, and the
 threaded entry decodes once and slices the result per chunk, compacting
 sliced sparse unions. ``DeviceCapacityExceeded`` reaches the caller: the
 port has no host tier.
+
+Encode (``codec.py:382-430``): the encoder (:class:`.encode.DeviceEncoder`,
+K3) is built on the first call; a batch whose output bound passes the
+launch budget is halved (each half still encodes on the device), and
+``BatchTooLarge(n, -1)`` is raised when the halves' concatenation would
+overflow int32 offsets; ``encode_threaded`` encodes once and slices.
+Where the reference serves from its host tier (a schema outside the
+encode subset, one row over the budget, a backend fault), the port
+raises.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ class DeviceCodec:
                 pass  # nested repetition: the pipeline engine serves it
         if self.decoder is None:
             self.decoder = DeviceDecoder(entry.ir, device)
+        self.device = device
+        self._encoder = None
 
     def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
         try:
@@ -87,6 +98,38 @@ class DeviceCodec:
             compact_union_slices(batch.slice(a, b - a))
             for a, b in chunk_bounds(len(data), num_chunks)
         ]
+
+
+    def encode(self, batch: pa.RecordBatch) -> pa.Array:
+        """Every row as one Avro datum, in one ``BinaryArray``."""
+        if self._encoder is None:
+            from .encode import DeviceEncoder
+
+            self._encoder = DeviceEncoder(self.ir, self.arrow_schema,
+                                          self.device)
+        try:
+            return self._encoder.encode(batch)
+        except BatchTooLarge:
+            # the output would pass the launch budget: halve the batch,
+            # each half still on the device
+            if batch.num_rows < 2:
+                raise
+            mid = batch.num_rows // 2
+            try:
+                return pa.concat_arrays([self.encode(batch.slice(0, mid)),
+                                         self.encode(batch.slice(mid))])
+            except pa.lib.ArrowInvalid:
+                # the halves fit, their concatenation overflows int32
+                # offsets
+                raise BatchTooLarge(batch.num_rows, -1) from None
+
+    def encode_threaded(self, batch: pa.RecordBatch,
+                        num_chunks: int) -> List[pa.Array]:
+        """Encode the whole batch once and slice the ``BinaryArray`` with
+        the reference's chunk bounds (``serialize.rs:38-66``)."""
+        arr = self.encode(batch)
+        return [arr.slice(a, b - a)
+                for a, b in chunk_bounds(batch.num_rows, num_chunks)]
 
 
 def _concat_batches(batches: List[pa.RecordBatch]) -> pa.RecordBatch:

@@ -1120,7 +1120,8 @@ class DeviceDecoder:
             f"record {base_row + i}: "
             f"{ERR_NAMES.get(bit, f'error bit {bit:#x}')}",
             index=base_row + i,
-            err_name=ERR_SLUGS.get(bit, f"bit_{bit:#x}"), indices=indices)
+            err_name=ERR_SLUGS.get(bit, f"bit_{bit:#x}"), tier="device",
+            indices=indices)
 
     @staticmethod
     def pack(data: Sequence[bytes]):

@@ -806,7 +806,7 @@ class WalkDecoder:
             bit = int(err[i]) & -int(err[i])
             raise MalformedAvro(
                 f"record {i}: {ERR_NAMES.get(bit, f'error bit {bit:#x}')}",
-                index=i, err_name=ERR_SLUGS.get(bit),
+                index=i, err_name=ERR_SLUGS.get(bit), tier="device",
             )
         meta = {"item_totals": {}, "flat": flat_np[:offsets[-1]]}
         t1 = time.perf_counter()

@@ -158,6 +158,52 @@ def test_halving_rebases_the_malformed_row(monkeypatch):
     assert ei.value.index == 2900
 
 
+def test_device_row_errors_name_their_tier():
+    """A row error of a device walk carries ``tier="device"``, in the port
+    (either engine) and in the reference alike."""
+    import pyruhvro_tpu as ref
+
+    with pytest.raises(ValueError) as want:
+        ref.deserialize_array([b"\x01"], KAFKA_SCHEMA_JSON, backend="tpu")
+    assert want.value.tier == "device"
+    for setting in ("0", "1"):
+        os.environ["PYRUHVRO_TPU_PALLAS"] = setting
+        try:
+            with pytest.raises(MalformedAvro) as got:
+                deserialize_array([b"\x01"], KAFKA_SCHEMA_JSON, device="cpu")
+        finally:
+            os.environ.pop("PYRUHVRO_TPU_PALLAS")
+        assert got.value.tier == "device"
+        assert str(got.value) == str(want.value)
+
+
+def test_halving_keeps_the_tier(monkeypatch):
+    from pyruhvro_tpu_torch.errors import shift_malformed
+
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "1")
+    schema = CRITERION_SHAPES["flat_primitives"]
+    datums = random_datums(ref_parse(schema), 3000, seed=4)
+    monkeypatch.setattr(walk_decode, "_LAUNCH_BYTES", 100_000)
+    datums[2900] = b"\x82"
+    with pytest.raises(MalformedAvro) as ei:
+        deserialize_array(datums, schema, device="cpu")
+    assert ei.value.index == 2900 and ei.value.tier == "device"
+    moved = shift_malformed(ei.value, 7)
+    assert (moved.index, moved.tier) == (2907, "device")
+
+
+def test_malformed_survives_a_pickle_round_trip():
+    import pickle
+
+    e = MalformedAvro("record 3: varint too long", index=3,
+                      err_name="varint", tier="device",
+                      indices=[(3, "varint"), (9, "overrun")])
+    back = pickle.loads(pickle.dumps(e))
+    assert type(back) is MalformedAvro and str(back) == str(e)
+    assert (back.index, back.err_name, back.tier, back.indices) == (
+        3, "varint", "device", [(3, "varint"), (9, "overrun")])
+
+
 NESTED_SCHEMA = """{"type":"record","name":"AA","fields":[
   {"name":"aa","type":{"type":"array","items":{"type":"array",
                                                "items":"int"}}}]}"""
@@ -233,7 +279,8 @@ def test_import_leaves_jax_and_the_reference_out():
     code = (
         "import sys, pyruhvro_tpu_torch, pyruhvro_tpu_torch.api, "
         "pyruhvro_tpu_torch.ops.walk_decode, pyruhvro_tpu_torch.ops.decode, "
-        "pyruhvro_tpu_torch.ops.codec, "
+        "pyruhvro_tpu_torch.ops.codec, pyruhvro_tpu_torch.ops.encode, "
+        "pyruhvro_tpu_torch.ops.encode_extract, "
         "pyruhvro_tpu_torch.ops._build, pyruhvro_tpu_torch.utils.datagen\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"
@@ -267,8 +314,9 @@ def test_sources_import_neither_jax_nor_the_reference():
 
 def test_public_names():
     assert set(pyruhvro_tpu_torch.__all__) >= {
-        "deserialize_array", "deserialize_array_threaded", "MalformedAvro",
-        "UnsupportedOnDevice", "BatchTooLarge"}
+        "deserialize_array", "deserialize_array_threaded",
+        "serialize_record_batch", "MalformedAvro", "UnsupportedOnDevice",
+        "BatchTooLarge"}
     assert isinstance(pyruhvro_tpu_torch.deserialize_array(
         [], CRITERION_SHAPES["flat_primitives"], device="cpu"),
         pa.RecordBatch)
