@@ -946,7 +946,7 @@ def check_encode_fixture(torch, em, name, schema, batch, parse_schema,
     cpu = em.DeviceEncoder(ir, to_arrow_schema(ir), "cpu")
     rows0 = em.encode_kernel.rows.launches
     strings0 = em.encode_kernel.strings.launches
-    worst = 0
+    worst, spans, windows = 0, (0, 0), 0
     if batch.num_rows:
         L = card.launch(batch)
         dv = L.dv()
@@ -954,6 +954,8 @@ def check_encode_fixture(torch, em, name, schema, batch, parse_schema,
         em.strings_plain(p_out, dv, card.prog, p_dst)
         k_out, k_sizes = em.encode_kernel.run(L)
         torch.cuda.synchronize()
+        spans = em.span_plan(k_sizes, L.n, L.span_budget)
+        windows = L.n_windows
         worst = max_abs_diff(torch, k_sizes, p_sizes)
         for path, dst in L.dst().items():
             worst = max(worst, max_abs_diff(torch, dst, p_dst[path]))
@@ -973,15 +975,13 @@ def check_encode_fixture(torch, em, name, schema, batch, parse_schema,
     if not again.equals(once):
         raise SystemExit(f"encode fixture {name}: the wire is not a fixed "
                          f"point of decode and encode")
-    mode = "-" if not batch.num_rows else (
-        "warp" if card.launch(batch).strings_per_warp else "thread")
-    print(f"encode fixture {name}: rows={batch.num_rows} (string copy: a "
-          f"{mode} per element) encode_rows "
-          f"launches={em.encode_kernel.rows.launches - rows0} encode_strings "
+    print(f"encode fixture {name}: rows={batch.num_rows} encode_rows "
+          f"launches={em.encode_kernel.rows.launches - rows0} (write blocks: "
+          f"{spans[0]} staged, {spans[1]} direct) encode_strings "
           f"launches={em.encode_kernel.strings.launches - strings0} "
-          f"exact=True max_abs_err={worst} bytes={sum(map(len, wire))}, "
-          f"card == CPU, fixed point")
-    return worst
+          f"({windows} windows) exact=True max_abs_err={worst} "
+          f"bytes={sum(map(len, wire))}, card == CPU, fixed point")
+    return worst, spans
 
 
 def drive_encode(label, batch, datums, schema, counters, serialize, card):
@@ -1141,24 +1141,32 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
         raise SystemExit(f"main path shapes: encode kernels != plain "
                          f"(max abs diff {worst})")
     del plain, p_out, p_dst
-    # the payload byte map: each written payload byte's position in the
-    # launch buffer, gathered by one torch.take
-    pieces = []
-    for col in prog.string_cols:
-        d = dst[col.path]
-        keep = d >= 0
-        src = L.view(col.path + "#src")[keep].to(torch.int64)
-        lens = L.view(col.path + "#len")[keep].to(torch.int64)
-        base = L.layout[col.path + "#bytes"][0]
-        starts = torch.repeat_interleave(base + src, lens)
-        within = torch.arange(starts.numel(), device=dev) - torch.repeat_interleave(
-            torch.cumsum(lens, 0) - lens, lens)
-        pieces.append(starts + within)
-    payload = int(sum(p.numel() for p in pieces))
-    idx = torch.cat(pieces) if pieces else torch.zeros(0, dtype=torch.int64,
-                                                       device=dev)
+    want = out[:total].clone()
+    want_dst = {path: d.clone() for path, d in dst.items()}
+    spans = em.span_plan(sizes, L.n, L.span_budget)
+    # the write pass at other budgets, in turns (each bit-equal): none
+    # staged, what costs no resident block, the launch's (at least the
+    # floor), then back
+    free = em.encode_kernel.free_span_bytes(L)
+    budgets = {"none": 0, "free": max(free, 16), "launch": L.span_budget}
+    write_variants = {}
+    for key in ("launch", "free", "none", "none", "free", "launch"):
+        b = budgets[key]
+        t = cuda_ms(torch, lambda: em.encode_kernel.launch_rows(
+            L, True, sizes, cum, out, budget=b), 5, prepare=L.clear_dst)
+        write_variants[key] = min(t, write_variants.get(key, t))
+    em.encode_kernel.launch_strings(L, out)
+    torch.cuda.synchronize()
+    if max_abs_diff(torch, out[:total], want) or any(
+            max_abs_diff(torch, d, want_dst[path]) for path, d in dst.items()):
+        raise SystemExit("main path shapes: encode_rows at another span "
+                         "budget differs")
+    del want, want_dst
+    write_note = ", ".join(
+        f"{k} ({budgets[k]} B: {'/'.join(map(str, em.span_plan(sizes, L.n, budgets[k])))} "
+        f"staged/direct) {v:.3f} ms" for k, v in write_variants.items())
+    idx, payload, placed = payload_map(torch, L)
     take_ms = cuda_ms(torch, lambda: torch.take(L.buf, idx), 5)
-    placed = sum(int((d >= 0).sum()) for d in dst.values())
     traffic = rows_traffic(np, em, L)
     # encode_rows: the lane entries its code reaches and #off in, the
     # non-payload bytes, #dst and the row sizes out; encode_strings:
@@ -1176,9 +1184,9 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
                                            k3_moved / hbm)
     print(f"encode at the main path's shapes (R={R}, rows={L.n}, cap="
           f"{L.cap}, {len(prog.string_cols)} payload columns, "
-          f"{L.n_elems} payload lanes, {payload:,} payload bytes, string "
-          f"copy a {'warp' if L.strings_per_warp else 'thread'} per element, "
-          f"total "
+          f"{L.n_elems} payload lanes, {payload:,} payload bytes, "
+          f"{L.n_windows} string windows, write blocks {spans[0]} staged "
+          f"and {spans[1]} direct at a {L.span_budget} B span budget, total "
           f"{total:,} B): all of K3 (cumsums, fill, 3 launches) "
           f"{k3_ms:.3f} ms, bound {k3_bound:.3f} ms ({k3_moved / 1e6:.1f} "
           f"MB at 3.35 TB/s: {traffic['lanes'] / 1e6:.1f} MB of lane "
@@ -1187,16 +1195,21 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
           f"payload, {(total + 4 * R) / 1e6:.1f} MB written), "
           f"{k3_ms / k3_bound:.2f}x; encode_rows size {size_ms:.3f} "
           f"ms + write {write_ms:.3f} ms, bound {rows_bound:.3f} ms "
-          f"({rows_moved / 1e6:.1f} MB); encode_strings {strings_ms:.3f} "
+          f"({rows_moved / 1e6:.1f} MB), the write pass at span budgets "
+          f"in turns (best of 5 each, bit-equal): {write_note}; "
+          f"encode_strings {strings_ms:.3f} "
           f"ms, bound {strings_bound:.3f} ms ({strings_moved / 1e6:.1f} "
           f"MB, {placed:,} payloads placed), torch.take over the payload byte map {take_ms:.3f} ms; "
           f"plain rows {rows_plain_ms:.1f} ms, plain strings "
           f"{strings_plain_ms:.1f} ms; bit-equal (sizes, #dst, [0, total)) "
           f"{card}")
-    del L, out, idx, pieces
+    del L, out, idx
     err = max(worst, fixture_err)
     return ({"ms": size_ms + write_ms, "size_ms": size_ms,
-             "write_ms": write_ms, "plain_ms": rows_plain_ms,
+             "write_ms": write_ms, "staged_blocks": spans[0],
+             "direct_blocks": spans[1], "span_budget": budgets["launch"],
+             "free_span_bytes": free,
+             "write_ms_by_budget": write_variants, "plain_ms": rows_plain_ms,
              "bound_ms": rows_bound, "library_ms": None,
              "max_abs_err": err},
             {"ms": strings_ms, "plain_ms": strings_plain_ms,
@@ -1207,32 +1220,76 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
              "payload_bytes": payload, "total_bytes": total})
 
 
-def string_copy_modes(torch, em, encoder, batch, card, label):
-    """``encode_strings`` in both modes on one launch, in turns (a thread
-    per element, a warp per element, twice), each bit-equal to the
-    launch's own copy; and the mode the wrapper picks."""
+def payload_map(torch, L):
+    """``(idx, payload, placed)``: each placed payload byte's position in
+    the launch buffer, in output order (what one ``torch.take`` gathers
+    to do ``encode_strings``' work), the payload bytes and the payloads
+    placed."""
+    pieces, placed = [], 0
+    for col in L.prog.string_cols:
+        d = L.view(col.path + "#dst")
+        keep = d >= 0
+        placed += int(keep.sum())
+        src = L.view(col.path + "#src")[keep].to(torch.int64)
+        lens = L.view(col.path + "#len")[keep].to(torch.int64)
+        base = L.layout[col.path + "#bytes"][0]
+        starts = torch.repeat_interleave(base + src, lens)
+        within = torch.arange(starts.numel(), device=L.buf.device) - \
+            torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+        pieces.append(starts + within)
+    idx = torch.cat(pieces) if pieces else torch.zeros(
+        0, dtype=torch.int64, device=L.buf.device)
+    return idx, idx.numel(), placed
+
+
+def hold_encode_path(torch, em, encoder, batch, card, label):
+    """K3 against its plain version on one encode main path's launch (row
+    sizes, every ``#dst``, ``[0, total)`` bit-equal), the ``encode_rows``
+    write blocks that staged their span and those that stored directly,
+    and ``encode_strings`` beside ``torch.take`` over this path's payload
+    byte map, timed in turns (strings, take, take, strings; best of 5
+    each), the copy bit-equal after every turn."""
     L = encoder.launch(batch)
-    picked = L.strings_per_warp
     out, sizes = em.encode_kernel.run(L)
-    total = int(sizes.to(torch.int64).sum())
-    want = out[:total].clone()
+    dv = L.dv()
+    p_out, p_sizes, p_dst = em.rows_plain(dv, L.prog, L.cap)
+    em.strings_plain(p_out, dv, L.prog, p_dst)
+    total = int(p_sizes.to(torch.int64).sum())
+    worst = max(max_abs_diff(torch, sizes, p_sizes),
+                max_abs_diff(torch, out[:total], p_out[:total]))
+    for path, d in L.dst().items():
+        worst = max(worst, max_abs_diff(torch, d, p_dst[path]))
+    if worst:
+        raise SystemExit(f"{label}: encode kernels != plain (max abs diff "
+                         f"{worst})")
+    want = p_out[:total]
+    del p_out, p_dst, dv
+    spans = em.span_plan(sizes, L.n, L.span_budget)
+    idx, payload, placed = payload_map(torch, L)
     ms = {}
-    for per_warp in (False, True, True, False):
-        L.strings_per_warp = per_warp
-        t = cuda_ms(torch, lambda: em.encode_kernel.launch_strings(L, out), 5)
-        key = "warp" if per_warp else "thread"
+    for key in ("strings", "take", "take", "strings"):
+        fn = (lambda: em.encode_kernel.launch_strings(L, out)) \
+            if key == "strings" else (lambda: torch.take(L.buf, idx))
+        t = cuda_ms(torch, fn, 5)
         ms[key] = min(t, ms.get(key, t))
-        torch.cuda.synchronize()
         if not torch.equal(out[:total], want):
-            raise SystemExit(f"{label}: encode_strings a {key} per element "
-                             f"differs")
-    ms["picked"] = "warp" if picked else "thread"
-    print(f"encode_strings modes {label}: a thread per element "
-          f"{ms['thread']:.3f} ms, a warp per element {ms['warp']:.3f} ms "
-          f"(best of 5, twice in turns, both bit-equal); the wrapper picks "
-          f"a {ms['picked']} per element {card}")
-    del L, out, want
-    return ms
+            raise SystemExit(f"{label}: encode_strings differs after "
+                             f"repeated launches")
+    moved = 12 * placed + 2 * payload
+    bound = moved / (HBM_BYTES_PER_S / 1e3)
+    print(f"encode kernels {label}: bit-equal to the plain version (sizes, "
+          f"#dst, [0, total), {total:,} B); encode_rows write blocks "
+          f"{spans[0]} staged, {spans[1]} direct (span budget "
+          f"{L.span_budget} B); encode_strings {L.n_windows} windows "
+          f"{ms['strings']:.3f} ms, torch.take over the payload byte map "
+          f"({payload:,} B, {placed:,} payloads) {ms['take']:.3f} ms (best "
+          f"of 5, in turns), bound {bound:.3f} ms {card}")
+    windows = L.n_windows
+    del L, out, want, idx
+    return {"staged_blocks": spans[0], "direct_blocks": spans[1],
+            "windows": windows, "strings_ms": ms["strings"],
+            "take_ms": ms["take"], "strings_bound_ms": bound,
+            "payload_bytes": payload, "max_abs_err": worst}
 
 
 def main() -> int:
@@ -1339,11 +1396,16 @@ def main() -> int:
     def card_decode(datums, schema):
         return deserialize_array(datums, schema)
 
+    spans = [0, 0]
     for fx in encode_fixtures(pa, datagen, parse_schema, cpu_decode,
                               PIPELINE_ROWS):
-        worst["encode"] = max(worst["encode"], check_encode_fixture(
-            torch, em, *fx, parse_schema, card_decode))
-    print(f"encode fixtures: {time.perf_counter() - t0:.1f} s")
+        w, (staged, direct) = check_encode_fixture(torch, em, *fx,
+                                                   parse_schema, card_decode)
+        worst["encode"] = max(worst["encode"], w)
+        spans[0] += staged
+        spans[1] += direct
+    print(f"encode fixtures: {time.perf_counter() - t0:.1f} s; encode_rows "
+          f"write blocks {spans[0]} staged, {spans[1]} direct")
 
     # 5. the main paths
     kafka = datagen.KAFKA_SCHEMA_JSON
@@ -1470,11 +1532,15 @@ def main() -> int:
     k3_rows, k3_strings, k3 = encode_kernels(torch, np, em, kenc, kbatch,
                                              card, worst["encode"])
     results["kafka_encode"]["k3"] = k3
-    for key in ("kafka_encode", "large_encode"):
-        batch, schema = enc_batches[key]
+    for key, (batch, schema) in enc_batches.items():
         enc = get_device_codec(get_or_parse_schema(schema), DEVICE)._encoder
-        results[key]["string_copy_ms"] = string_copy_modes(
+        held = results[key]["k3_held"] = hold_encode_path(
             torch, em, enc, batch, card, key)
+        spans[0] += held["staged_blocks"]
+        spans[1] += held["direct_blocks"]
+    if not all(spans):
+        raise SystemExit(f"encode_rows ran {spans[0]} staged and {spans[1]} "
+                         f"direct write blocks: both paths must run")
 
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))

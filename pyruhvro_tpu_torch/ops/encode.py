@@ -16,9 +16,12 @@ Two implementations of the one program:
 
 * K3, ``csrc/encode.cu``: ``encode_rows``, one thread per row
   interpreting the flat int32 **encode code** of :func:`lower_encoder`
-  (size mode, then write mode at the row starts), and ``encode_strings``,
-  one thread per payload element (a warp together for payloads of 32
-  bytes or more). :data:`encode_kernel` launches them;
+  (size mode, then write mode at the row starts, each block of rows
+  whose output span fits :meth:`_EncodeKernel.span_budget` storing it
+  whole from shared memory), and ``encode_strings``, a persistent grid
+  that copies each payload column's ``#bytes`` window by window of
+  ``STRING_WINDOW`` bytes, staged by bulk asynchronous copies.
+  :data:`encode_kernel` launches them;
 * the plain version, :func:`encode_plain` (= :func:`rows_plain`, the
   ``cumsum`` and :func:`strings_plain`): the reference's emitters
   (``encode.py:160-613``) in PyTorch, vectorised over every lane with
@@ -96,9 +99,24 @@ __all__ = ["DeviceEncoder", "EncProgram", "EncodeLaunch", "lower_encoder",
 # halves a batch whose bound reaches it
 MAX_OUTPUT_BYTES = 1 << 30
 MAX_DEPTH = 16  # open loops a row keeps (csrc/encode.cu kMaxDepth)
-# mean payload-buffer bytes per payload lane from which encode_strings
-# copies with a warp per element (csrc/encode.cu kWarpCopy)
-STRINGS_PER_WARP_BYTES = 32
+ROW_BLOCK = 128  # rows of one encode_rows block (kThreads)
+# an encode_rows block stages its output span in shared memory when it
+# fits the launch's budget: the largest that costs no resident block, at
+# least SPAN_FLOOR, at most SPAN_MAX (kSpanFloor, kSpanMax)
+SPAN_FLOOR = 16384
+SPAN_MAX = 65536
+# encode_strings copies each payload column's #bytes in windows of
+# STRING_WINDOW bytes, a block of STRING_THREADS threads staging a
+# window's elements STRING_CHUNK at a time; a window stages a quarter
+# more elements than the window before it held, and STRING_AHEAD
+# (kWindow, kStringThreads, kChunk, kAhead)
+STRING_WINDOW = 4096
+STRING_THREADS = 256
+STRING_CHUNK = 1024
+STRING_AHEAD = 64
+# a window of at most STRING_FEW elements copies them payload by payload
+# with 16-byte stores (kFew); any other maps its bytes one by one
+STRING_FEW = 32
 
 OP_END = 0
 OP_VARINT32 = 1
@@ -731,8 +749,38 @@ def encode_plain(dv: Dict[str, torch.Tensor], prog: EncProgram,
 
 # -- one launch: the packed buffer and its tables -------------------------------
 
+
+def payload_extent(src: np.ndarray, lens: np.ndarray, nbytes: int) -> int:
+    """The bytes of a payload column's ``#bytes`` that ``strings_plain``
+    may copy: ``[0, extent)``. Every byte past the start of the last
+    element that starts inside the buffer belongs to that element
+    (``#src`` is non-decreasing, its pads ``_BIG``), so the bytes past its
+    end are never copied."""
+    k = int(np.searchsorted(src, nbytes, side="left"))
+    if k == 0:
+        return 0
+    return min(nbytes, int(src[k - 1]) + int(lens[k - 1]))
+
+
+def span_plan(row_sizes: torch.Tensor, n: int, budget: int) -> Tuple[int,
+                                                                       int]:
+    """``(staged, direct)``: the ``encode_rows`` write blocks whose output
+    span, widened down to a 16-B bound, fits ``budget`` (stored whole from
+    shared memory) and the others (stored row by row); blocks without
+    rows below ``n`` count in neither. The kernel decides the same way."""
+    if n == 0:
+        return 0, 0
+    sizes = row_sizes[:n].to(torch.int64)
+    end = torch.cumsum(sizes, 0)
+    first = torch.arange(0, n, ROW_BLOCK, device=sizes.device)
+    last = torch.clamp(first + ROW_BLOCK, max=n) - 1
+    start = end[first] - sizes[first]
+    fits = end[last] - (start & ~15) <= budget
+    staged = int(fits.sum())
+    return staged, first.numel() - staged
+
 _ALIGN = 16
-_COL_WORDS = 6  # src len bytes dst lanes, elements, first element
+_COL_WORDS = 8  # src len bytes dst lanes, elements, extent, first window, 0
 
 
 def _aligned(nbytes: int) -> int:
@@ -775,21 +823,21 @@ class EncodeLaunch:
             layout[prog.regions[rid] + "#off"] = (pos, "int32", ln)
             pos += _aligned(4 * ln)
         self.dst_at = pos
-        cols, base = [], 0
+        cols, n_elems, n_windows = [], 0, 0
         for col in prog.string_cols:
             ln = dv[col.path + "#len"].shape[0]
             layout[col.path + "#dst"] = (pos, "int32", ln)
             pos += _aligned(4 * ln)
+            extent = payload_extent(dv[col.path + "#src"],
+                                    dv[col.path + "#len"],
+                                    dv[col.path + "#bytes"].nbytes)
             cols.append([prog.lane_id(col.path + s) for s in
-                         ("#src", "#len", "#bytes", "#dst")] + [ln, base])
-            base += ln
-        self.n_elems = base
-        # the copy's mode, from the payload words per lane: a warp per
-        # element where payloads are long, else a thread per element
-        payload_words = sum(dv[c.path + "#bytes"].nbytes
-                            for c in prog.string_cols)
-        self.strings_per_warp = payload_words >= STRINGS_PER_WARP_BYTES * max(
-            base, 1)
+                         ("#src", "#len", "#bytes", "#dst")]
+                        + [ln, extent, n_windows, 0])
+            n_elems += ln
+            n_windows += -(-extent // STRING_WINDOW)
+        self.n_elems, self.n_windows = n_elems, n_windows
+        self.span_budget: Optional[int] = None  # set by the write launch
         self.total_bytes = pos
         self.layout = layout
         self.lanes_at, self.cols_at = lanes_at, cols_at
@@ -890,6 +938,7 @@ class _EncodeKernel:
         self.rows = _Entry("encode_rows")
         self.strings = _Entry("encode_strings")
         self._lock = threading.Lock()
+        self._free: Dict[Tuple[int, int], int] = {}
 
     def library(self):
         from ._build import load_kernel_library
@@ -900,33 +949,75 @@ class _EncodeKernel:
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             rows.argtypes = [P, P, I, P, I,  # base code code_len lanes
                                              # n_lanes
-                             I, I, I, I,     # n R depth write
+                             I, I, I, I, I,  # n R depth write span_budget
                              P, P, P, P]     # cum row_sizes out stream
             rows.restype = ctypes.c_int
             strings = lib.cdll.encode_strings
-            strings.argtypes = [P, P, I, P, I,  # base lanes n_lanes cols
-                                                # n_cols
-                                LL, I, P, P]    # n_elems per_warp out
-                                                # stream
+            strings.argtypes = [P, P, P, I,  # base lanes cols n_cols
+                                LL, P, P]    # n_windows out stream
             strings.restype = ctypes.c_int
+            smem = lib.cdll.encode_rows_smem_bytes
+            smem.argtypes = [I, I, I]        # n_lanes code_len span_budget
+            smem.restype = ctypes.c_int
+            occ = lib.cdll.encode_rows_blocks_per_sm
+            occ.argtypes = [I]               # smem_bytes
+            occ.restype = ctypes.c_int
         return lib
 
     def _count(self, entry: _Entry) -> None:
         with self._lock:
             entry.launches += 1
 
+    def free_span_bytes(self, L: EncodeLaunch) -> int:
+        """The largest span staging (16-B steps, at most ``SPAN_MAX``) at
+        which as many ``encode_rows`` blocks fit an SM as with none, by
+        the CUDA occupancy query; kept per table size."""
+        key = (len(L.prog.lanes), len(L.prog.code))
+        free = self._free.get(key)
+        if free is None:
+            cdll = self.library().cdll
+            smem = cdll.encode_rows_smem_bytes
+            per_sm = cdll.encode_rows_blocks_per_sm
+            want = per_sm(smem(*key, 0))
+            if want <= 0:
+                raise RuntimeError(f"encode_rows occupancy query failed: "
+                                   f"CUDA error {-want}")
+            lo, hi = 0, SPAN_MAX // 16
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if per_sm(smem(*key, 16 * mid)) >= want:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            with self._lock:
+                free = self._free.setdefault(key, 16 * lo)
+        return free
+
+    def span_budget(self, L: EncodeLaunch) -> int:
+        """The span staging of ``L``'s write launch:
+        :meth:`free_span_bytes`, at least ``SPAN_FLOOR`` (a block of 128
+        Kafka rows needs a little more than costs no block, and staging
+        every block at one block fewer an SM beats storing some row by
+        row)."""
+        return max(self.free_span_bytes(L), SPAN_FLOOR)
+
     def launch_rows(self, L: EncodeLaunch, write: bool, row_sizes,
-                    cum=None, out=None) -> None:
+                    cum=None, out=None, budget: int = None) -> None:
         """One ``encode_rows`` launch: size mode writes ``row_sizes``;
         write mode writes every non-payload byte of ``out`` at the row
-        starts ``cum - row_sizes`` and the ``#dst`` lanes."""
+        starts ``cum - row_sizes`` and the ``#dst`` lanes, each block
+        whose span fits ``budget`` (by default :meth:`span_budget`)
+        through shared memory."""
         if L.buf.device.type != "cuda":
             raise ValueError("encode_kernel takes CUDA tensors")
+        if write and budget is None:
+            budget = L.span_budget = self.span_budget(L)
         fn = self.library().cdll.encode_rows
         stream = torch.cuda.current_stream(L.buf.device).cuda_stream
         rc = fn(L.buf.data_ptr(), L.code_view().data_ptr(),
                 len(L.prog.code), L.lanes_view().data_ptr(),
                 len(L.prog.lanes), L.n, L.R, L.prog.depth, int(write),
+                budget if write else 0,
                 None if cum is None else cum.data_ptr(),
                 row_sizes.data_ptr(), None if out is None else out.data_ptr(),
                 stream)
@@ -936,15 +1027,16 @@ class _EncodeKernel:
 
     def launch_strings(self, L: EncodeLaunch, out) -> None:
         """One ``encode_strings`` launch: every written payload element's
-        bytes from ``#bytes`` at ``#src`` to ``out`` at ``#dst``, one
-        thread or one warp per element (``L.strings_per_warp``)."""
+        bytes from ``#bytes`` at ``#src`` to ``out`` at ``#dst``, over
+        ``L.n_windows`` windows of ``STRING_WINDOW`` source bytes, each
+        block of the grid walking a run of them."""
         if L.buf.device.type != "cuda":
             raise ValueError("encode_kernel takes CUDA tensors")
         fn = self.library().cdll.encode_strings
         stream = torch.cuda.current_stream(L.buf.device).cuda_stream
         rc = fn(L.buf.data_ptr(), L.lanes_view().data_ptr(),
-                len(L.prog.lanes), L.cols_view().data_ptr(), len(L.cols),
-                L.n_elems, int(L.strings_per_warp), out.data_ptr(), stream)
+                L.cols_view().data_ptr(), len(L.cols), L.n_windows,
+                out.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"encode_strings launch failed: CUDA error "
                                f"{rc}")
@@ -967,7 +1059,7 @@ class _EncodeKernel:
         L.clear_dst()
         self.launch_rows(L, True, row_sizes, cum, out)
         clock.lap("write_s")
-        if L.n_elems:
+        if L.n_windows:
             self.launch_strings(L, out)
         clock.lap("strings_s")
         return out, row_sizes

@@ -218,33 +218,38 @@ def _typed(buf: np.ndarray, at: int, dtype) -> np.ndarray:
 
 
 def model_encode_rows(L, write: bool, row_sizes, cum=None, out=None,
-                      reads=None):
-    """What one ``encode_rows`` launch writes, one row at a time, step by
-    step as the kernel's ``RowWalk::run``. ``reads``, where given, gathers
+                      reads=None, budget: int = 0, seed: int = 0):
+    """What one ``encode_rows`` launch writes, block by block of
+    ``ROW_BLOCK`` rows and row by row as the kernel's ``RowWalk::run``.
+    In write mode a block whose span ``[S, E)``, widened down to a 16-B
+    bound, fits ``budget`` writes into a shared-memory stand-in filled
+    with random bytes (the payload positions keep them) and stores the
+    span whole: bytes over the head and tail, 16-B pieces between;
+    returns ``(staged, direct)`` blocks. ``reads``, where given, gathers
     each ``(lane, index)`` the walk reads and each ``#dst`` it writes."""
     buf = L.buf.numpy()
     code = L.code_view().numpy().tolist()
     lanes = L.lanes_view().numpy().tolist()
     sizes = row_sizes.numpy()
     outb = None if out is None else out.numpy()
+    cumv = None if cum is None else cum.numpy().astype(np.int64)
+    rng = np.random.default_rng(seed)
+    blocks = [0, 0]
 
     def at(lane, idx, dtype):
         if reads is not None:
             reads.add((lane, idx))
         return int(_typed(buf, lanes[lane], dtype)[idx])
 
-    for row in range(L.R):
-        if row >= L.n:
-            if not write:
-                sizes[row] = 0
-            continue
-        start = int(cum.numpy()[row]) - int(sizes[row]) if write else 0
+    def walk(row, target, origin, start):
+        """One row's walk; ``target[start + pos]`` takes its bytes and
+        each ``#dst`` the output position ``origin + start + pos``."""
         pos = 0
 
         def put(b):
             nonlocal pos
             if write:
-                outb[start + pos] = b & 0xFF
+                target[start + pos] = b & 0xFF
             pos += 1
 
         def varint(z):
@@ -297,7 +302,7 @@ def model_encode_rows(L, write: bool, row_sizes, cum=None, out=None,
                     reads.add((code[pc + 2], idx))
                 if write:
                     _typed(buf, lanes[code[pc + 2]], np.int32)[idx] = \
-                        start + pos
+                        origin + start + pos
                 pos += size
                 pc += 3
             elif op == encode.OP_DEC_BYTES:
@@ -341,33 +346,243 @@ def model_encode_rows(L, write: bool, row_sizes, cum=None, out=None,
                     pc += 2
             else:
                 assert op == encode.OP_END, op
-                break
+                return pos
+
+    for r0 in range(0, L.R, encode.ROW_BLOCK):
+        rows = range(r0, min(r0 + encode.ROW_BLOCK, L.n))
         if not write:
-            sizes[row] = pos
+            for row in range(r0, min(r0 + encode.ROW_BLOCK, L.R)):
+                sizes[row] = walk(row, None, 0, 0) if row < L.n else 0
+            continue
+        if not rows:
+            continue
+        S = int(cumv[r0] - sizes[r0])
+        E = int(cumv[rows[-1]])
+        S0 = S & ~15
+        if E - S0 > budget:
+            blocks[1] += 1
+            for row in rows:
+                walk(row, outb, 0, int(cumv[row] - sizes[row]))
+            continue
+        blocks[0] += 1
+        smem = rng.integers(0, 256, budget, dtype=np.uint8)
+        for row in rows:
+            walk(row, smem, S0, int(cumv[row] - sizes[row]) - S0)
+        A = min((S + 15) & ~15, E)
+        B = max(E & ~15, A)
+        assert A - S < 16 and E - B < 16 and (B - A) % 16 == 0
+        outb[S:A] = smem[S - S0:A - S0]
+        outb[B:E] = smem[B - S0:E - S0]
+        for g in range(A, B, 16):
+            outb[g:g + 16] = smem[g - S0:g - S0 + 16]
+    return tuple(blocks)
 
 
-def model_encode_strings(L, out) -> None:
-    """What one ``encode_strings`` launch writes: element by element of
-    the column table, its bytes from ``#bytes`` at ``#src`` to ``#dst``."""
+INT_MAX = 2**31 - 1
+
+
+def _count_le(src, n, x, samples):
+    """The kernel's ``count_le``: the elements of ``src[0, n)`` at or below
+    ``x``, each step sampling ``samples`` points of the range left."""
+    lo, hi = 0, n
+    t = np.arange(1, samples + 1, dtype=np.int64)
+    while lo < hi:
+        span = hi - lo
+        c = int(np.count_nonzero(src[lo + span * t // (samples + 1)] <= x))
+        new_lo = lo + span * c // (samples + 1) + 1 if c else lo
+        hi = lo + span * (c + 1) // (samples + 1) if c < samples else hi
+        lo = new_lo
+    return lo
+
+
+def _slot_carry(tops, threads):
+    """Each thread's carry into its slot: the largest mark of the slots
+    before it, as the kernel's warp scan (``__shfl_up_sync``) and its
+    per-warp totals give it."""
+    tops = np.asarray(tops).reshape(-1, min(32, threads))
+    inclusive = np.maximum.accumulate(tops, axis=1)
+    before = np.concatenate([np.full((tops.shape[0], 1), -1),
+                             inclusive[:, :-1]], axis=1)
+    totals = inclusive[:, -1]
+    warps_before = np.concatenate([[-1], np.maximum.accumulate(totals)[:-1]])
+    return np.maximum(before, warps_before[:, None]).reshape(-1)
+
+
+def _map_chunk(src, lens, dst, mc, nxt, ws, we, slot, threads, tgt):
+    """The kernel's ``map_chunk``: marks, the slots' carries, each mapped
+    byte's target into ``tgt`` (window order)."""
+    mark = np.full(threads * slot, -1, np.int64)
+    # the kernel's threads mark in no set order: one mark per byte, so
+    # any order gives the same marks (here, the last element first)
+    for i in reversed(range(mc)):
+        p = max(int(src[i]), ws)
+        if p != max(int(src[i + 1]) if i + 1 < mc else nxt, ws):
+            mark[p - ws] = i
+    slots = mark.reshape(threads, slot)
+    carry = _slot_carry(slots.max(axis=1), threads)
+    b0, b1 = max(ws, int(src[0])), min(we, nxt)
+    for t in range(threads):
+        run = carry[t]
+        for k in range(slot):
+            run = max(run, slots[t, k])
+            j = ws + t * slot + k
+            if b0 <= j < b1:
+                pos = j - int(src[run])
+                tgt[t * slot + k] = dst[run] + pos if (
+                    dst[run] >= 0 and pos < lens[run]) else -1
+
+
+def _copy_run(outb, t0, win, s0, n):
+    """The kernel's ``copy_run``: ``out[t0, t0 + n) = win[s0, s0 + n)``,
+    bytes over the head and tail, 16-B pieces between."""
+    A = min((t0 + 15) & ~15, t0 + n)
+    B = max((t0 + n) & ~15, A)
+    assert A - t0 < 16 and t0 + n - B < 16 and (B - A) % 16 == 0
+    outb[t0:A] = win[s0:s0 + A - t0]
+    outb[B:t0 + n] = win[s0 + B - t0:s0 + n]
+    for g in range(A, B, 16):
+        i = s0 + g - t0
+        outb[g:g + 16] = win[i:i + 16]
+
+
+def model_encode_strings(L, out, window=None, chunk=None, threads=None,
+                         grid=3, few=None):
+    """What one ``encode_strings`` launch writes, as the kernel walks it:
+    ``grid`` blocks, each a contiguous run of the launch's windows in
+    order. A window's set holds its bytes and up to ``chunk`` + 4
+    elements from ``c0`` (rounded down to 4), where ``c0`` is the owner
+    of the byte before the window (found by the search at a block's first
+    window in a column, else counted by the window before); the elements
+    that start before the window's end are mapped, and any past the set
+    are loaded and mapped ``chunk`` at a time; then every mapped byte is
+    copied. A window after another of its column stages a quarter more
+    elements than that one held, and ``STRING_AHEAD``, unless that one
+    held more than it staged; where the set before holds that many from
+    the window's first element, the window keeps it. ``window``, ``chunk`` and ``threads``
+    default to the kernel's;
+    other values renumber the windows from the table's extents."""
+    window = window or encode.STRING_WINDOW
+    chunk = chunk or encode.STRING_CHUNK
+    threads = threads or encode.STRING_THREADS
+    few_max = encode.STRING_FEW if few is None else few
+    slot = window // threads
     buf = L.buf.numpy()
     lanes = L.lanes_view().numpy().tolist()
     outb = out.numpy()
-    for src_l, len_l, bytes_l, dst_l, n_el, _base in \
-            L.cols_view().numpy().reshape(-1, 6).tolist():
-        src = _typed(buf, lanes[src_l], np.int32)
-        lens = _typed(buf, lanes[len_l], np.int32)
-        data = _typed(buf, lanes[bytes_l], np.uint8)
-        dst = _typed(buf, lanes[dst_l], np.int32)
-        for j in range(n_el):
-            if dst[j] >= 0:
-                outb[dst[j]:dst[j] + lens[j]] = data[src[j]:src[j] + lens[j]]
+    cols, first = [], 0
+    for src_l, len_l, bytes_l, dst_l, n_el, extent, first_w, _ in \
+            L.cols_view().numpy().reshape(-1, encode._COL_WORDS).tolist():
+        if window == encode.STRING_WINDOW:
+            assert first_w == first
+        cols.append((_typed(buf, lanes[src_l], np.int32)[:n_el],
+                     _typed(buf, lanes[len_l], np.int32)[:n_el],
+                     _typed(buf, lanes[bytes_l], np.uint8),
+                     _typed(buf, lanes[dst_l], np.int32)[:n_el],
+                     n_el, extent, first))
+        first += -(-extent // window)
+    n_windows = first
+    if window == encode.STRING_WINDOW:
+        assert n_windows == L.n_windows
+    grid = max(1, min(grid, n_windows))
+    starts = [col[6] for col in cols]
+
+    def column_of(c, w):
+        while c + 1 < len(cols) and starts[c + 1] <= w:
+            c += 1
+        return c
+
+    def elements(src, n, lo, hi):
+        e = np.arange(lo, hi)
+        return np.where(e < n, src[np.minimum(e, n - 1)], INT_MAX)
+
+    for blk in range(grid):
+        w_lo, w_hi = blk * n_windows // grid, (blk + 1) * n_windows // grid
+        c = column_of(0, w_lo)
+        src, lens, data, dst, n, extent, first_w = cols[c]
+        c0 = max(_count_le(src, n, (w_lo - first_w) * window - 1,
+                           threads) - 1, 0)
+        want, kept = chunk + 4, None
+        for w in range(w_lo, w_hi):
+            src, lens, data, dst, n, extent, first_w = cols[c]
+            ws = (w - first_w) * window
+            wl = min(window, extent - ws)
+            we = ws + wl
+            window_bytes = data[ws:we].copy()
+            if kept is None:
+                c0a = c0 & ~3
+                cnt = min(want, ((n + 3) & ~3) - c0a)
+            else:  # the window before's set still holds these elements
+                c0a, cnt = kept
+            kept = None
+            avail = min(cnt - (c0 - c0a), n - c0)
+            mc = int(np.count_nonzero(src[c0:c0 + avail] <= we - 1))
+            nxt = int(elements(src, n, c0 + mc, c0 + mc + 1)[0])
+            # the next window of the column stages by this one's count,
+            # unless this one had more than it staged
+            want = chunk + 4 if nxt <= we - 1 else min(
+                chunk + 4, (mc + (mc >> 2) + encode.STRING_AHEAD + 3) & ~3)
+            tgt = np.full(threads * slot, -1, np.int64)
+            few = nxt > we - 1 and mc <= few_max
+            runs = [(int(src[i]), int(lens[i]), int(dst[i]),
+                     int(src[i + 1]) if i + 1 < c0 + mc else nxt)
+                    for i in range(c0, c0 + mc)] if few else []
+            if not few:
+                _map_chunk(src[c0:c0 + mc], lens[c0:c0 + mc],
+                           dst[c0:c0 + mc], mc, nxt, ws, we, slot, threads,
+                           tgt)
+            cursor = c0 + mc
+            while nxt <= we - 1:
+                sv = elements(src, n, cursor, cursor + chunk)
+                mc = int(np.count_nonzero(sv <= we - 1))
+                nxt = int(elements(src, n, cursor + mc, cursor + mc + 1)[0])
+                _map_chunk(sv, lens[cursor:cursor + mc],
+                           dst[cursor:cursor + mc], mc, nxt, ws, we, slot,
+                           threads, tgt)
+                cursor += mc
+            if w + 1 < w_hi:
+                c_next = column_of(c, w + 1)
+                if c_next != c:
+                    c, want = c_next, chunk + 4
+                    src, lens, data, dst, n, extent, first_w = cols[c]
+                    c0 = max(_count_le(src, n, (w + 1 - first_w) * window
+                                       - 1, threads) - 1, 0)
+                else:
+                    c0 = max(cursor - 1, 0)
+                    if nxt > we - 1 and c0 - c0a + want <= cnt:
+                        kept = (c0a, cnt)
+            for start, size, to, after in runs:
+                lo, hi = max(start, ws), min(after, start + size, we)
+                if to >= 0 and lo < hi:
+                    _copy_run(outb, to + lo - start, window_bytes, lo - ws,
+                              hi - lo)
+            if not few:
+                keep = tgt[:wl] >= 0
+                outb[tgt[:wl][keep]] = window_bytes[keep]
 
 
 class _ModelEncodeKernel(encode._EncodeKernel):
-    """``_EncodeKernel`` with the models in place of the launches."""
+    """``_EncodeKernel`` with the models in place of the launches, at a
+    span budget of ``budget`` (the kernel's floor by default)."""
 
-    def launch_rows(self, L, write, row_sizes, cum=None, out=None):
-        model_encode_rows(L, write, row_sizes, cum, out)
+    def __init__(self, budget: int = encode.SPAN_FLOOR):
+        super().__init__()
+        self.budget = budget
+        self.blocks = (0, 0)
+
+    def free_span_bytes(self, L):
+        return self.budget
+
+    def span_budget(self, L):
+        return self.budget
+
+    def launch_rows(self, L, write, row_sizes, cum=None, out=None,
+                    budget=None):
+        if write and budget is None:
+            budget = L.span_budget = self.span_budget(L)
+        got = model_encode_rows(L, write, row_sizes, cum, out,
+                                budget=budget or 0)
+        if write:
+            self.blocks = got
         self._count(self.rows)
 
     def launch_strings(self, L, out):
@@ -394,7 +609,12 @@ def test_kernel_model_matches_plain_version(name):
     for path, dst in L.dst().items():
         assert torch.equal(dst, plain_dst[path]), path
     assert kernel.rows.launches == 2
-    assert kernel.strings.launches == (1 if L.n_elems else 0)
+    assert kernel.strings.launches == (1 if L.n_windows else 0)
+    # one block of rows at this size, its span [0, total): staged when
+    # it fits the budget (not the records of kilobytes)
+    assert kernel.blocks == encode.span_plan(sizes, L.n, L.span_budget)
+    assert kernel.blocks == ((1, 0) if total <= encode.SPAN_FLOOR
+                             else (0, 1))
     # the tables the kernel reads: each #off the exclusive running sum of
     # its #count over every lane of the parent axis
     for rid in range(1, len(enc.prog.regions)):
@@ -451,7 +671,9 @@ def test_kernel_library_declares_every_argument(monkeypatch):
 
     src = (Path(_build.CSRC) / "encode.cu").read_text()
     entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
-    assert set(entries) == {"encode_rows", "encode_strings"}
+    assert set(entries) == {"encode_rows", "encode_strings",
+                            "encode_rows_smem_bytes",
+                            "encode_rows_blocks_per_sm"}
     fns = {name: ctypes.CDLL(None).strlen for name in entries}
     lib = types.SimpleNamespace(cdll=types.SimpleNamespace(**fns))
     monkeypatch.setattr(_build, "load_kernel_library", lambda s: lib)
@@ -470,20 +692,254 @@ def test_source_agrees_on_opcodes_and_limits():
     src = (Path(_build.CSRC) / "encode.cu").read_text()
     defined = dict(re.findall(r"#define (OP_\w+) (\d+)", src))
     assert {k: int(v) for k, v in defined.items()} == encode.OPCODES
-    assert re.search(r"kMaxDepth = (\d+)", src).group(1) == \
-        str(encode.MAX_DEPTH)
-    assert re.search(r"kWarpCopy = (\d+)", src).group(1) == \
-        str(encode.STRINGS_PER_WARP_BYTES)
+    constants = {k: int(v) for k, v in
+                 re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert constants["kMaxDepth"] == encode.MAX_DEPTH
+    assert constants["kThreads"] == encode.ROW_BLOCK
+    assert constants["kSpanFloor"] == encode.SPAN_FLOOR
+    assert constants["kSpanMax"] == encode.SPAN_MAX
+    assert constants["kColWords"] == encode._COL_WORDS
+    assert constants["kWindow"] == encode.STRING_WINDOW
+    assert constants["kStringThreads"] == encode.STRING_THREADS
+    assert constants["kChunk"] == encode.STRING_CHUNK
+    assert constants["kAhead"] == encode.STRING_AHEAD
+    assert constants["kFew"] == encode.STRING_FEW
 
 
-@pytest.mark.parametrize("name, per_warp", [
-    ("kafka", False), ("sliced", False), ("len16", True),
-    ("record_64KiB_len16", True)])
-def test_string_copy_mode_follows_the_payload_size(name, per_warp):
-    """A warp per payload element where the payload buffers hold 32 bytes
-    or more per lane (records of kilobytes), else a thread per element."""
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_src_is_non_decreasing_per_column(name):
+    """``encode_strings`` finds a window's elements by searching ``#src``
+    and counting the staged ones that start before the window's end: it
+    needs every payload column's ``#src`` non-decreasing, pads included
+    (the reference assumes the same, ``encode.py:586``)."""
     schema, batch = FIXTURES[name]
-    assert _encoder(schema).launch(batch).strings_per_warp is per_warp
+    enc = _encoder(schema)
+    if batch.num_rows == 0:
+        return
+    dv = enc.launch(batch).dv_np
+    for col in enc.prog.string_cols:
+        src = dv[col.path + "#src"].astype(np.int64)
+        assert (np.diff(src) >= 0).all(), col.path
+        real = src[src != encode_extract._BIG]
+        assert real.size == 0 or real[-1] < encode_extract._BIG
+
+
+def _payload_launch(columns, window):
+    """A launch stand-in holding payload columns ``(src, lens, data,
+    dst)`` as the launch buffer lays them out (16-byte aligned lanes, the
+    column table with each column's extent and first window), and the
+    plain version's inputs for the same columns."""
+    pieces, lanes, rows, dv, dst, first = [], [], [], {}, {}, 0
+    pos = 0
+
+    def lane(arr):
+        nonlocal pos
+        raw = np.ascontiguousarray(arr).view(np.uint8)
+        pieces.append((pos, raw))
+        lanes.append(pos)
+        pos += (raw.size + 15) // 16 * 16
+        return len(lanes) - 1
+
+    for k, (src, lens, data, dsts) in enumerate(columns):
+        src = np.asarray(src, np.int32)
+        lens = np.asarray(lens, np.int32)
+        data = np.asarray(data, np.uint8)
+        data = np.concatenate([data, np.zeros(-data.size % 4, np.uint8)])
+        dsts = np.asarray(dsts, np.int32)
+        extent = encode.payload_extent(src, lens, data.size)
+        rows.append([lane(src), lane(lens), lane(data), lane(dsts),
+                     src.size, extent, first, 0])
+        first += -(-extent // window)
+        path = f"c{k}"
+        dv[path + "#src"] = torch.from_numpy(src)
+        dv[path + "#len"] = torch.from_numpy(lens)
+        dv[path + "#bytes"] = torch.from_numpy(data.view(np.int32))
+        dst[path] = torch.from_numpy(dsts)
+    buf = np.zeros(pos + 16, np.uint8)
+    for at, raw in pieces:
+        buf[at:at + raw.size] = raw
+    cols = np.asarray(rows, np.int32).reshape(-1, encode._COL_WORDS)
+    L = types.SimpleNamespace(
+        buf=torch.from_numpy(buf),
+        lanes_view=lambda: torch.tensor(lanes, dtype=torch.int64),
+        cols_view=lambda: torch.from_numpy(cols.reshape(-1)),
+        n_windows=first)
+    prog = types.SimpleNamespace(string_cols=[
+        types.SimpleNamespace(path=f"c{k}") for k in range(len(columns))])
+    return L, prog, dv, dst
+
+
+def _column(lens, placed=None, empty_at=(), seed=0):
+    """``(src, lens, data, dst, size)``: one payload column of elements of
+    ``lens`` bytes back to back, random bytes, each placed at its own
+    output run unless ``placed`` says otherwise; ``empty_at`` puts empty
+    elements before the element that starts at each of those offsets;
+    ``size`` bounds the output."""
+    rng = np.random.default_rng(seed)
+    src, out_lens, pos = [], [], 0
+    for n in lens:
+        src.append(pos)
+        out_lens.append(n)
+        pos += n
+    for at in empty_at:
+        k = int(np.searchsorted(src, at, side="left"))
+        src.insert(k, at)
+        out_lens.insert(k, 0)
+    data = rng.integers(0, 256, pos, dtype=np.uint8)
+    dsts, at = [], 3
+    for k, n in enumerate(out_lens):
+        keep = placed is None or placed[k]
+        dsts.append(at if keep else -1)
+        at += n + 5
+    return src, out_lens, data, dsts, at
+
+
+STRING_CASES = {
+    # a payload over a window bound
+    "straddle": [_column([10] * 20, seed=1)],
+    # a payload longer than two windows
+    "over_two_windows": [_column([5, 200, 7], seed=2)],
+    # a window that starts inside an unplaced element
+    "unplaced_at_window_start": [_column(
+        [30, 100, 9, 40], placed=[True, False, True, True], seed=3)],
+    # empty payloads that start where a window starts
+    "empties_at_window_start": [_column(
+        [64, 3, 20, 11], empty_at=[64, 64, 64, 67], seed=4)],
+    # more elements in a window than a chunk stages (the loaded chunks)
+    # and than the run copy takes (the byte map)
+    "many_in_a_window": [_column(
+        [1, 0, 2] * 90, placed=[k % 7 != 3 for k in range(270)], seed=5)],
+    # lengths shorter than the gap to the next start, and a length past
+    # it (the next element owns those bytes)
+    "gaps_and_overlaps": [(
+        [0, 10, 10, 30, 31, 90], [4, 25, 8, 0, 70, 3],
+        np.arange(120, dtype=np.uint8), [500, 300, 200, 100, -1, 0], 0)],
+    # two columns, the first with no element inside its buffer
+    "no_element_then_one": [
+        ([1 << 30] * 4, [0] * 4, np.zeros(16, np.uint8), [-1] * 4, 0),
+        _column([70], seed=6)],
+}
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("few", [0, encode.STRING_FEW])
+@pytest.mark.parametrize("case", sorted(STRING_CASES))
+def test_string_windows_match_plain_version(case, few, grid):
+    """``model_encode_strings`` at 64-byte windows, 4 threads and chunks
+    of 8 elements, with every window mapped byte by byte (``few`` 0) or
+    the kernel's run copies, on one block or three, against
+    ``strings_plain`` on columns built to put payloads, empties and
+    unplaced elements at window bounds."""
+    columns = [c[:4] for c in STRING_CASES[case]]
+    L, prog, dv, dst = _payload_launch(columns, 64)
+    size = max([c[4] for c in STRING_CASES[case]] + [
+        int(max(d)) + 300 for *_, d in columns if len(d)]) + 64
+    want = torch.zeros(size, dtype=torch.uint8)
+    encode.strings_plain(want, dv, prog, dst)
+    got = torch.zeros(size, dtype=torch.uint8)
+    model_encode_strings(L, got, window=64, chunk=8, threads=4, grid=grid,
+                         few=few)
+    assert torch.equal(got, want)
+    assert int(want.count_nonzero()) > 0 or case == "no_element_then_one"
+
+
+@pytest.mark.parametrize("src, lens, nbytes, extent", [
+    ([0, 5, 9], [5, 4, 2], 16, 11),        # the last element's end
+    ([0, 5, 9], [5, 4, 30], 16, 16),       # clipped to the buffer
+    ([0, 0, 1 << 30], [0, 0, 0], 16, 0),   # only empties, then a pad
+    ([1 << 30] * 3, [0] * 3, 16, 0),       # no element in the buffer
+])
+def test_payload_extent(src, lens, nbytes, extent):
+    assert encode.payload_extent(np.asarray(src, np.int32),
+                                 np.asarray(lens, np.int32),
+                                 nbytes) == extent
+
+
+@pytest.mark.parametrize("fits", [True, False])
+def test_block_span_just_under_and_just_over_the_budget(fits):
+    """A 300-row Kafka batch (three write blocks) at the budget that
+    just holds its first block's span, and one byte less: that block
+    staged or direct, the rest alike, and the bytes the plain version's
+    either way (the staged block's payload positions start as random
+    bytes and the copy overwrites every one)."""
+    schema = KAFKA_SCHEMA_JSON
+    batch = _batch("kafka", 300, seed=29)
+    enc = _encoder(schema)
+    L = enc.launch(batch)
+    plain_out, plain_sizes, plain_dst = encode.rows_plain(L.dv(), enc.prog,
+                                                          L.cap)
+    encode.strings_plain(plain_out, L.dv(), enc.prog, plain_dst)
+    first = int(plain_sizes[:encode.ROW_BLOCK].to(torch.int64).sum())
+    kernel = _ModelEncodeKernel(budget=first if fits else first - 1)
+    out, sizes = kernel.run(L)
+    total = int(sizes.to(torch.int64).sum())
+    assert torch.equal(out[:total], plain_out[:total])
+    staged, direct = kernel.blocks
+    assert (staged, direct) == encode.span_plan(sizes, L.n, kernel.budget)
+    assert staged + direct == 3
+    widened = [int(s) for s in _block_spans(sizes, L.n)]
+    assert widened[0] == first
+    assert staged == sum(w <= kernel.budget for w in widened)
+    assert (widened[0] <= kernel.budget) is fits
+
+
+def _block_spans(sizes, n):
+    """Each write block's span widened down to a 16-B bound."""
+    end = np.cumsum(sizes[:n].numpy().astype(np.int64))
+    spans = []
+    for r0 in range(0, n, encode.ROW_BLOCK):
+        r1 = min(r0 + encode.ROW_BLOCK, n) - 1
+        start = end[r0] - int(sizes[r0])
+        spans.append(end[r1] - (start & ~15))
+    return spans
+
+
+OCCUPANCY = {
+    # blocks an SM holds at s bytes of shared memory: 16 while a block
+    # takes at most 14 KiB, so what costs no block is under the floor
+    "floor": lambda s: min(16, 233472 // (s + 1024)),
+    # registers allow 4 blocks: staging up to about 56 KiB costs none
+    "free": lambda s: min(4, 233472 // (s + 1024)),
+    "fails": lambda s: -1,
+}
+
+
+@pytest.mark.parametrize("case", sorted(OCCUPANCY))
+def test_span_budget_follows_the_occupancy_query(monkeypatch, case):
+    """The write launch's budget: the largest staging (16-B steps, at most
+    ``SPAN_MAX``) at which the query holds as many blocks an SM as with
+    none, at least ``SPAN_FLOOR``, kept per table size; a failed query
+    raises."""
+    from pyruhvro_tpu_torch.ops import _build
+
+    schema, batch = FIXTURES["kafka"]
+    L = _encoder(schema).launch(batch)
+    tables = (8 * len(L.prog.lanes) + 4 * len(L.prog.code) + 15) // 16 * 16
+    asked = []
+
+    def occupancy(s):
+        asked.append(s)
+        return per_sm(s)
+
+    per_sm = OCCUPANCY[case]
+    lib = types.SimpleNamespace(cdll=types.SimpleNamespace(
+        encode_rows=types.SimpleNamespace(argtypes=[]),
+        encode_rows_smem_bytes=lambda n_lanes, code_len, b: tables + b,
+        encode_rows_blocks_per_sm=occupancy))
+    monkeypatch.setattr(_build, "load_kernel_library", lambda s: lib)
+    kernel = encode._EncodeKernel()
+    if case == "fails":
+        with pytest.raises(RuntimeError, match="occupancy"):
+            kernel.span_budget(L)
+        return
+    got = kernel.span_budget(L)
+    free = max(b for b in range(0, encode.SPAN_MAX + 1, 16)
+               if per_sm(tables + b) >= per_sm(tables))
+    assert got == max(free, encode.SPAN_FLOOR)
+    assert (got == encode.SPAN_FLOOR) is (case == "floor")
+    assert got % 16 == 0 and asked[0] == tables
+    n = len(asked)
+    assert kernel.span_budget(L) == got and len(asked) == n  # kept
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
