@@ -22,8 +22,8 @@ exits non-zero before the last line:
 4. ``decode_walk`` (K1) and ``decode_finalize`` (K2, the default engine)
    against their plain versions on ``pipeline_fixtures`` at every rung the
    card decoder's ladder visits: every buffer, ``#err`` and the blob
-   bit-equal; the card's decode equal to the CPU's, or the same message
-   and bad-row indices; then ``encode_rows`` and ``encode_strings`` (K3)
+   bit-equal (K2's blob filled with 0xA5 first); the card's decode equal
+   to the CPU's, or the same message and bad-row indices; then ``encode_rows`` and ``encode_strings`` (K3)
    against the plain encode on ``encode_fixtures`` (row sizes, every
    ``#dst`` lane and ``[0, total)`` bit-equal), the card's encode equal
    to the CPU's and the wire a fixed point of decode and encode;
@@ -44,7 +44,9 @@ exits non-zero before the last line:
    every rung of a fresh decoder's ladder on paths 1, 3 and 4's data;
    each kernel at main path 1's, 2's or 5's shapes: its CUDA-event time,
    bit-equal to its plain version, its bound, and ``torch.take`` over the
-   finalize's slot maps and over the encode's payload byte map; the
+   finalize's slot maps and over the encode's payload byte map; K2's
+   breakdown at path 1's shapes (each pass, each item region's offsets,
+   the epilogue, the host's enqueue, ``torch.take`` per item pass); the
    string copy's two modes in turns on paths 5 and 4e;
 7. ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -97,6 +99,15 @@ WIDE_SCHEMA = """{"type":"record","name":"Wide","fields":[
     "fields":[{"name":"a","type":["null","int"]},
               {"name":"t","type":{"type":"int","logicalType":"date"}}]}}},
   {"name":"ab","type":{"type":"array","items":"bytes"}}]}"""
+
+# more job descriptors in one gather pass than K2's blocks resolve at once
+# (kJobChunk = 32 in csrc/decode_finalize.cu): 36 longs in the row pass,
+# a record of 20 longs in an item pass
+MANY_FIELDS_SCHEMA = json.dumps({"type": "record", "name": "Many", "fields": [
+    *({"name": f"l{i}", "type": "long"} for i in range(36)),
+    {"name": "rs", "type": {"type": "array", "items": {
+        "type": "record", "name": "M", "fields": [
+            {"name": f"m{i}", "type": "long"} for i in range(20)]}}}]})
 
 
 # the pipeline engine's fixture shapes: every shape of the reference's
@@ -284,6 +295,8 @@ def pipeline_fixtures(datagen, parse_schema, rows: int):
         for name in sorted(shapes)]
     cases.append(("kafka", kafka, datagen.kafka_style_datums(rows, seed=5),
                   False))
+    cases.append(("many_fields", MANY_FIELDS_SCHEMA, datagen.random_datums(
+        parse_schema(MANY_FIELDS_SCHEMA), rows, seed=13), False))
     # every region past the first rung's 8 items: items under a dropped
     # item wrap into the first record's slots until the ladder climbs
     ara = writer(shapes["arr_rec_arr"])
@@ -555,8 +568,10 @@ def hold_kernels(torch, dm, dec, label):
                                 item_caps)
         pb, pe = dm.walk_plain(words, starts, lengths, n_act, prog,
                                item_caps)
-        kblob = dm.finalize_kernel(kb, ke, prog, R, B, item_caps, tot_caps,
-                                   compact)
+        plan = dm.FinalizePlan(kb, ke, prog, R, B, item_caps, tot_caps,
+                               compact)
+        plan.blob.fill_(0xA5)  # every byte must be written by K2
+        kblob = dm.finalize_kernel.run(plan)
         pblob = dm.finalize_plain(pb, pe, prog, R, B, item_caps, tot_caps,
                                   compact)
         torch.cuda.synchronize()
@@ -568,7 +583,7 @@ def hold_kernels(torch, dm, dec, label):
                                  f"caps {item_caps}, totals {tot_caps}, "
                                  f"compact={compact} (max abs diff {diff})")
         rungs.append((max(item_caps[1:], default=0), compact))
-        del kb, ke, pb, pe, kblob, pblob
+        del kb, ke, pb, pe, plan, kblob, pblob
         return real(packed, R, B, n_act, item_caps, tot_caps, compact,
                     timings)
 
@@ -822,21 +837,82 @@ def k4_kernel(torch, wd, dec, data, lib, card):
             "smem_bytes": smem, "blocks_per_sm": occupancy(smem)}
 
 
+def finalize_pass_bytes(dm, plan, p, written: bool = True) -> int:
+    """What one gather pass must move: each source element it copies or
+    reduces read once, over the row region's ``R`` lanes or the item
+    region's actual item total (the positions past it read nothing), and,
+    if ``written``, the blob bytes it writes once (an item pass's
+    ``#offsets`` included). Its intermediates (the int64 offsets, the slot
+    maps, the children's gathered counts) are not the function's."""
+    read = {dm.J_COPY32: 4, dm.J_BITS8: 1, dm.J_SL32: 8,
+            dm.J_START_LENC: 8, dm.J_REDUCE: 4, dm.J_ERRFLAG: 4}
+    bits_out = {dm.J_COPY32: 32, dm.J_BITS8: 1, dm.J_SL32: 32,
+                dm.J_START_LENC: 48, dm.J_REDUCE: 0, dm.J_ERRFLAG: 0}
+    n_pos = p["n_pos"]
+    n_read = n_pos if p["rid"] == 0 else \
+        min(n_pos, int(plan.offsets[p["rid"]][-1]))
+    moved = sum(n_read * read[j[0]] for j in p["jobs"])
+    if written:
+        moved += sum(n_pos * bits_out[j[0]] // 8 for j in p["jobs"])
+        moved += 4 * (p["n_entries"] + 1) if p["rid"] else 0
+    return moved
+
+
 def finalize_moved_bytes(dm, plan) -> int:
     """What the finalize run just made must move: the blob written once,
-    and each source element it copies or reduces read once, over the row
-    region's ``R`` lanes and each item region's actual item total (the
-    positions past it read nothing). Its intermediates (the int64
-    offsets, the slot maps, the children's gathered counts) are not the
-    function's and are not counted."""
-    per_pos = {dm.J_COPY32: 4, dm.J_BITS8: 1, dm.J_SL32: 8,
-               dm.J_START_LENC: 8, dm.J_REDUCE: 4, dm.J_ERRFLAG: 4}
-    moved = plan.blob.numel()
+    and what each pass reads (:func:`finalize_pass_bytes`)."""
+    return plan.blob.numel() + sum(
+        finalize_pass_bytes(dm, plan, p, written=False) for p in plan.passes)
+
+
+def finalize_breakdown(torch, dm, plan, takes, card):
+    """K2's parts at one plan's shapes, each by CUDA events (best of 5):
+    the reduction slots' zero-fill, the row pass, each item pass's offsets
+    (fill + ``torch.cumsum``) and its gather pass, the epilogue; the host's
+    enqueue of ``finalize_kernel.run(plan)`` (``perf_counter``, no
+    synchronise inside); ``torch.take`` over each item pass's own gathers
+    (``takes``: region id -> [(source, index), ...])."""
+    fk = dm.finalize_kernel
+    out = {"zero_red": cuda_ms(torch, plan.red.zero_, 5)}
+    passes, jobs = {}, {}
     for p in plan.passes:
-        n_read = p["n_pos"] if p["rid"] == 0 else \
-            min(p["n_pos"], int(plan.offsets[p["rid"]][-1]))
-        moved += n_read * sum(per_pos[j[0]] for j in p["jobs"])
-    return moved
+        rid = p["rid"]
+        name = "rows" if rid == 0 else plan.prog.regions[rid]
+        got = {"ms": cuda_ms(torch, lambda: fk.launch_pass(plan, p), 5),
+               "bound_ms": finalize_pass_bytes(dm, plan, p)
+               / HBM_BYTES_PER_S * 1e3}
+        if rid:
+            got["offsets_ms"] = cuda_ms(
+                torch, lambda: fk.prepare_offsets(plan, p), 5)
+            got["take_ms"] = cuda_ms(torch, lambda: [
+                torch.take(src, idx) for src, idx in takes[rid]], 5)
+        passes[name] = got
+        jobs[name] = len(p["jobs"])
+    out["passes"] = passes
+    out["epilogue"] = cuda_ms(torch, lambda: fk.launch_epilogue(plan), 5)
+    enqueue = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fk.run(plan)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["enqueue_ms"] = statistics.median(enqueue[1:])
+    out["parts_ms"] = out["zero_red"] + out["epilogue"] + sum(
+        v["ms"] + v.get("offsets_ms", 0.0) for v in passes.values())
+    print("decode_finalize breakdown at the main path's shapes, ms (CUDA "
+          "events, best of 5): zero red " + f"{out['zero_red']:.4f}; "
+          + "; ".join(
+              f"pass {k} {v['ms']:.4f} ({jobs[k]} jobs, bound "
+              f"{v['bound_ms']:.4f}"
+              + (f"; offsets fill + cumsum {v['offsets_ms']:.4f}, "
+                 f"torch.take over its gathers {v['take_ms']:.4f}"
+                 if "take_ms" in v else "") + ")"
+              for k, v in passes.items())
+          + f"; epilogue {out['epilogue']:.4f}; parts summed "
+          f"{out['parts_ms']:.4f}; host enqueue of run(plan) "
+          f"{out['enqueue_ms']:.4f} (median of 5, host clock) {card}")
+    return out
 
 
 def pipeline_kernels(torch, dm, dec, data, card):
@@ -879,7 +955,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
     # torch.take over the same slot maps: the one PyTorch call that
     # gathers what the passes gather
     key_of = {k: i for i, k in enumerate(prog.out_keys)}
-    gathers, slot_maps = [], {}
+    gathers, slot_maps, takes = [], {}, {}
     for rid in range(1, len(prog.regions)):
         parent = prog.region_parents[rid]
         counts = L.bufs[key_of[prog.regions[rid] + "#count"]].to(torch.int64)
@@ -897,6 +973,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
             if s.region == rid:
                 src = L.bufs[key_of[k]]
                 gathers.append((src, slot.clamp(0, src.numel() - 1)))
+                takes.setdefault(rid, []).append(gathers[-1])
     take_ms = cuda_ms(torch, lambda: [torch.take(src, idx)
                                       for src, idx in gathers], 5)
     walk_read = int(lengths.to(torch.int64).sum()) + 8 * R
@@ -904,6 +981,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
     walk_bound = (walk_read + walk_written) / HBM_BYTES_PER_S * 1e3
     fin_moved = finalize_moved_bytes(dm, plan)
     fin_bound = fin_moved / HBM_BYTES_PER_S * 1e3
+    parts = finalize_breakdown(torch, dm, plan, takes, card)
     print(f"decode_walk at the main path's shapes (R={R}, B={B}, caps="
           f"{item_caps}, {walk_launches} launch(es) to settle): launch "
           f"{walk_ms:.3f} ms (best of 5, CUDA events, status reset "
@@ -922,7 +1000,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
     return ({"ms": walk_ms, "plain_ms": plain_walk_ms, "bound_ms": walk_bound,
              "library_ms": None},
             {"ms": fin_ms, "plain_ms": plain_fin_ms, "bound_ms": fin_bound,
-             "library_ms": take_ms})
+             "library_ms": take_ms, "parts": parts})
 
 
 def wire_of(arrays):

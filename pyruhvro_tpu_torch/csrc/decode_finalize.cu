@@ -15,12 +15,12 @@
 // table of jobs per pass, so one build serves every schema.
 //
 // Passes, in stream order, each one launch of decode_finalize_pass:
-// - the row pass (one thread per row): the row-region payload into the
-//   blob, the max of each row-level region's counts, the error flag;
+// - the row pass (position = row): the row-region payload into the blob,
+//   the max of each row-level region's counts, the error flag;
 // - one pass per item region, parents first (region ids are in DFS
 //   order), after the wrapper's torch.cumsum of the region's counts into
-//   int64 offsets (the reference's jnp.cumsum; no kernel of its own): one
-//   thread per dense position j < tot_cap finds its entry, the largest i
+//   int64 offsets (the reference's jnp.cumsum; no kernel of its own): each
+//   dense position j < tot_cap finds its entry, the largest i
 //   with offsets[i] <= j, by binary search (the same answer as row_of, also
 //   when empty entries share an offset), computes slot = parent_slot[ent]
 //   * icap + j - offsets[ent] in wrapping int32, gathers every buffer of
@@ -36,12 +36,25 @@
 //
 // Bound on an H100 SXM: memory. The passes must read each gathered
 // element once and write the blob once: (those bytes) / 3.35 TB/s. The
-// blob's key order (the reference's) leaves fields at any byte offset, so
-// a field whose offset is a multiple of its width is stored whole, others
-// byte by byte; u8 lanes are packed by a warp ballot (32 positions to 4
-// bytes); maxima are reduced within the warp before one atomic per warp.
+// blob's key order (the reference's) leaves fields at any byte offset
+// (on the Kafka schema every 4-byte field starts at 2 mod 4), so a store
+// per element would go out byte by byte. Instead each block owns a tile
+// of kTile positions (kPerThread per thread, position j0 + i * kThreads
+// + tid, so a warp's gathers are neighbours) and, job after job, gathers
+// the tile's values into shared memory at the same offset mod 16 as the
+// field's bytes in the blob, then stores the tile's byte span whole:
+// 16-byte words over its aligned middle, single bytes over its head and
+// tail (as encode_rows' staged spans in csrc/encode.cu). No 16-byte word
+// crosses the span, so every blob byte is still written by one thread.
+// Two staging sets alternate between jobs, and the job descriptors (with
+// their sources' pointers and lengths) are resolved into shared memory
+// kJobChunk at a time, one thread each, so a job costs one barrier and no
+// thread waits on a descriptor's dependent loads per job. A reducing job
+// takes each thread's maximum over its positions, the warp's by
+// __reduce_max_sync, the block's from shared memory, and folds it into
+// red with one atomicMax per block and job, only where it is above 0
+// (red starts at 0 and only grows, so nothing else can change it).
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -50,6 +63,15 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPerThread = 8;
+constexpr int kTile = kThreads * kPerThread;  // positions of one block
+constexpr int kWarps = kThreads / 32;
+// one staging set: a tile of a 4-byte output and of a 2-byte output,
+// each with room for a shift of 0-15 bytes
+constexpr int kStage4 = 4 * kTile + 16;
+constexpr int kStage2 = 2 * kTile + 16;
+constexpr int kSetBytes = kStage4 + kStage2;
+constexpr int kJobChunk = 32;  // job descriptors a block resolves at once
 
 // job kinds: keep in step with ops/decode.py (J_*)
 enum { J_COPY32, J_BITS8, J_SL32, J_START_LENC, J_REDUCE, J_ERRFLAG };
@@ -70,7 +92,25 @@ __device__ __forceinline__ void store32(uint8_t* p, uint32_t v) {
   }
 }
 
-__device__ __forceinline__ void store16(uint8_t* p, uint32_t v) {
+// Little-endian stores into a staging set (shared memory), as wide as the
+// address allows.
+__device__ __forceinline__ void put32(uint8_t* p, uint32_t v) {
+  switch (reinterpret_cast<uintptr_t>(p) & 3u) {
+    case 0:
+      *reinterpret_cast<uint32_t*>(p) = v;
+      break;
+    case 2:
+      reinterpret_cast<uint16_t*>(p)[0] = (uint16_t)v;
+      reinterpret_cast<uint16_t*>(p)[1] = (uint16_t)(v >> 16);
+      break;
+    default:
+      p[0] = (uint8_t)v;
+      *reinterpret_cast<uint16_t*>(p + 1) = (uint16_t)(v >> 8);
+      p[3] = (uint8_t)(v >> 24);
+  }
+}
+
+__device__ __forceinline__ void put16(uint8_t* p, uint32_t v) {
   if ((reinterpret_cast<uintptr_t>(p) & 1u) == 0) {
     *reinterpret_cast<uint16_t*>(p) = (uint16_t)v;
   } else {
@@ -79,10 +119,26 @@ __device__ __forceinline__ void store16(uint8_t* p, uint32_t v) {
   }
 }
 
-// The warp's max of v (every lane calls it); lane 0 folds it into *red.
-__device__ __forceinline__ void warp_max(int32_t* red, int32_t v) {
-  const int32_t m = __reduce_max_sync(0xFFFFFFFFu, v);
-  if ((threadIdx.x & 31) == 0) atomicMax(red, m);
+// Byte g0 + k of a span goes to the staging set at shift_of(g0) + k.
+__device__ __forceinline__ int shift_of(const uint8_t* g0) {
+  return (int)(reinterpret_cast<uintptr_t>(g0) & 15u);
+}
+
+// The block stores the staged span [d, d + n): bytes over the head up to
+// the first 16-byte boundary and over the tail after the last, 16-byte
+// words between. `st` holds byte k at st + shift_of(d) + k.
+__device__ __forceinline__ void store_span(uint8_t* d, long long n,
+                                           const uint8_t* st) {
+  if (n <= 0) return;
+  const uint8_t* s = st + shift_of(d);
+  const long long a = min((long long)((16 - shift_of(d)) & 15), n);
+  const long long b = a + ((n - a) & ~15ll);
+  const int tid = threadIdx.x;
+  if (tid < a) d[tid] = s[tid];
+  if (tid < n - b) d[b + tid] = s[b + tid];
+  for (long long k = a + 16 * tid; k < b; k += 16 * kThreads) {
+    *reinterpret_cast<uint4*>(d + k) = *reinterpret_cast<const uint4*>(s + k);
+  }
 }
 
 struct Pass {
@@ -101,92 +157,208 @@ struct Pass {
   int32_t* red;
 };
 
-__device__ __forceinline__ uint32_t gather(const Pass& P, int src, int esize,
-                                           int32_t slot, bool in_range) {
-  if (!in_range) return 0u;
-  const long long n = P.src_lens[src];
-  long long s = slot;
-  s = s < 0 ? 0 : (s >= n ? n - 1 : s);
-  if (esize == 1) {
-    return (uint32_t)reinterpret_cast<const uint8_t*>(P.src_ptrs[src])[s];
-  }
-  return reinterpret_cast<const uint32_t*>(P.src_ptrs[src])[s];
+// One job with its sources resolved, as a block keeps it in shared memory.
+struct Job {
+  const void* src;
+  long long n;
+  const void* src2;  // J_SL32 / J_START_LENC: the lengths
+  long long n2;
+  long long at, at2;
+  int32_t* scratch;  // J_COPY32: the child region's counts, or null
+  int kind, red, esize;
+};
+
+__device__ __forceinline__ void load_job(const Pass& P, int k, Job* out) {
+  const long long* J = P.jobs + (size_t)k * kJobWords;
+  const int src = (int)J[1];
+  const int src2 = (int)J[2];
+  out->kind = (int)J[0];
+  out->src = reinterpret_cast<const void*>(P.src_ptrs[src]);
+  out->n = P.src_lens[src];
+  out->src2 = src2 >= 0 ? reinterpret_cast<const void*>(P.src_ptrs[src2])
+                        : nullptr;
+  out->n2 = src2 >= 0 ? P.src_lens[src2] : 0;
+  out->at = J[3];
+  out->at2 = J[4];
+  out->scratch = reinterpret_cast<int32_t*>(J[5]);
+  out->red = (int)J[6];
+  out->esize = (int)J[7];
 }
 
-__global__ void __launch_bounds__(kThreads) finalize_pass_kernel(Pass P) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+// Element `slot` of a source, clipped into it (jnp.take(mode="clip")).
+__device__ __forceinline__ uint32_t take(const void* src, long long n,
+                                         int esize, int32_t slot) {
+  long long s = slot;
+  s = s < 0 ? 0 : (s >= n ? n - 1 : s);
+  if (esize == 1) return (uint32_t) reinterpret_cast<const uint8_t*>(src)[s];
+  return reinterpret_cast<const uint32_t*>(src)[s];
+}
+
+__global__ void __launch_bounds__(kThreads, 4) finalize_pass_kernel(Pass P) {
+  __shared__ __align__(16) uint8_t s_stage[2][kSetBytes];
+  __shared__ Job s_job[2][kJobChunk];
+  __shared__ int32_t s_part[2][kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long j0 = (long long)blockIdx.x * kTile;
+  const long long j_end = min(j0 + kTile, (long long)P.n_pos);
   const bool item = P.offsets != nullptr;
-  if (item && j <= P.n_entries) {
-    store32(P.blob + P.offsets_at + 4 * j, (uint32_t)P.offsets[j]);
+
+  // the thread's positions j0 + i * kThreads + tid: live below n_pos, in
+  // range below the region's total; their slots
+  unsigned live = 0, in_range = 0;
+  int32_t slot[kPerThread];
+  const long long total = item ? P.offsets[P.n_entries] : (long long)P.n_pos;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const long long j = j0 + i * kThreads + tid;
+    live |= (unsigned)(j < P.n_pos) << i;
+    in_range |= (unsigned)(j < P.n_pos && j < total) << i;
+    slot[i] = (int32_t)j;
   }
-  const bool pos = j < P.n_pos;
-  int32_t slot = (int32_t)j;
-  bool in_range = pos;
-  if (item && pos) {
-    in_range = j < P.offsets[P.n_entries];
-    int lo = 0, hi = P.n_entries - 1;  // largest i with offsets[i] <= j
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (P.offsets[mid] <= j) lo = mid; else hi = mid - 1;
+  if (item) {
+    // per position, the largest entry e with offsets[e] <= j, all of the
+    // thread's searches stepping together
+    int lo[kPerThread], hi[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      lo[i] = 0;
+      hi[i] = (live >> i) & 1u ? P.n_entries - 1 : 0;
     }
-    const int32_t ps = P.parent_slot ? P.parent_slot[lo] : lo;
-    slot = (int32_t)((uint32_t)ps * (uint32_t)P.icap +
-                     ((uint32_t)j - (uint32_t)P.offsets[lo]));
-    if (P.slot_out) P.slot_out[j] = slot;
+    for (bool more = true; more;) {
+      more = false;
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        if (lo[i] < hi[i]) {
+          const int mid = (lo[i] + hi[i] + 1) >> 1;
+          if (P.offsets[mid] <= j0 + i * kThreads + tid) lo[i] = mid;
+          else hi[i] = mid - 1;
+          more = more || lo[i] < hi[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      if ((live >> i) & 1u) {
+        const long long j = j0 + i * kThreads + tid;
+        const int32_t ps = P.parent_slot ? P.parent_slot[lo[i]] : lo[i];
+        slot[i] = (int32_t)((uint32_t)ps * (uint32_t)P.icap +
+                            ((uint32_t)j - (uint32_t)P.offsets[lo[i]]));
+        if (P.slot_out) P.slot_out[j] = slot[i];
+      }
+    }
+    // this block's entries of #offsets, through the second staging set
+    const long long e_end = min(j0 + kTile, (long long)P.n_entries + 1);
+    uint8_t* d = P.blob + P.offsets_at + 4 * j0;
+    uint8_t* st = s_stage[1] + shift_of(d);
+    uint32_t o[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const long long e = j0 + i * kThreads + tid;
+      o[i] = e < e_end ? (uint32_t)P.offsets[e] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      if (j0 + i * kThreads + tid < e_end) {
+        put32(st + 4 * (i * kThreads + tid), o[i]);
+      }
+    }
+    __syncthreads();
+    store_span(d, 4 * (e_end - j0), s_stage[1]);
   }
+
   for (int k = 0; k < P.n_jobs; ++k) {
-    const long long* J = P.jobs + (size_t)k * kJobWords;
-    const int kind = (int)J[0];
-    const int src = (int)J[1];
-    const int red = (int)J[6];
-    const int esize = (int)J[7];
-    switch (kind) {
-      case J_COPY32: {
-        const uint32_t v = gather(P, src, 4, slot, in_range);
-        if (pos) {
-          store32(P.blob + J[3] + 4 * j, v);
-          if (J[5]) reinterpret_cast<int32_t*>(J[5])[j] = (int32_t)v;
-        }
-        if (red >= 0) warp_max(&P.red[red], pos ? (int32_t)v : 0);
-        break;
+    // the next kJobChunk descriptors, one thread each, into the chunk
+    // buffer that the jobs two chunks back used
+    Job* chunk = s_job[(k / kJobChunk) & 1];
+    if (k % kJobChunk == 0) {
+      if (tid < min(kJobChunk, P.n_jobs - k)) {
+        load_job(P, k + tid, &chunk[tid]);
       }
-      case J_BITS8: {
-        const uint32_t v = gather(P, src, 1, slot, in_range);
-        const unsigned bits = __ballot_sync(0xFFFFFFFFu, pos && v != 0u);
-        const int lane = threadIdx.x & 31;
-        if (pos && (lane & 7) == 0) {
-          P.blob[J[3] + j / 8] = (uint8_t)(bits >> lane);
-        }
-        break;
+      __syncthreads();
+    }
+    const Job& J = chunk[k % kJobChunk];
+    uint8_t* set = s_stage[k & 1];
+    uint8_t* d = P.blob + J.at + (J.kind == J_BITS8 ? j0 / 8 : 4 * j0);
+    uint8_t* d2 = P.blob + J.at2 + 2 * j0;
+    int32_t m = 0;  // the thread's maximum (any error for J_ERRFLAG)
+    uint32_t v[kPerThread];
+    const bool two = J.kind == J_SL32 || J.kind == J_START_LENC;
+    const unsigned gate = J.kind == J_REDUCE || J.kind == J_ERRFLAG ? live
+                                                                    : in_range;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      v[i] = (gate >> i) & 1u ? take(J.src, J.n, J.esize, slot[i]) : 0u;
+    }
+    if (two) {
+      uint32_t ln[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        ln[i] = (in_range >> i) & 1u ? take(J.src2, J.n2, 4, slot[i]) : 0u;
       }
-      case J_SL32:
-      case J_START_LENC: {
-        const uint32_t s = gather(P, src, 4, slot, in_range);
-        const uint32_t ln = gather(P, (int)J[2], 4, slot, in_range);
-        if (pos) {
-          if (kind == J_SL32) {
-            store32(P.blob + J[3] + 4 * j, s | (ln << 21));
+      uint8_t* st = set + shift_of(d);
+      uint8_t* st2 = set + kStage4 + shift_of(d2);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int t = i * kThreads + tid;
+        if ((live >> i) & 1u) {
+          m = max(m, (int32_t)ln[i]);
+          if (J.kind == J_SL32) {
+            put32(st + 4 * t, v[i] | (ln[i] << 21));
           } else {
-            store32(P.blob + J[3] + 4 * j, s);
-            store16(P.blob + J[4] + 2 * j, ln);
+            put32(st + 4 * t, v[i]);
+            put16(st2 + 2 * t, ln[i]);
           }
         }
-        warp_max(&P.red[red], pos ? (int32_t)ln : 0);
-        break;
       }
-      case J_REDUCE: {
-        const int32_t v = pos ? (int32_t)gather(P, src, esize, slot, true) : 0;
-        warp_max(&P.red[red], v);
-        break;
-      }
-      default: {  // J_ERRFLAG: any error bit other than ERR_ITEM_OVERFLOW
-        const uint32_t v = pos ? gather(P, src, 4, slot, true) : 0u;
-        const bool bad = (v & ~ERR_ITEM_OVERFLOW) != 0u;
-        if (__any_sync(0xFFFFFFFFu, bad) && (threadIdx.x & 31) == 0) {
-          atomicMax(&P.red[red], 1);
+    } else if (J.kind == J_COPY32) {
+      uint8_t* st = set + shift_of(d);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        if ((live >> i) & 1u) {
+          m = max(m, (int32_t)v[i]);
+          put32(st + 4 * (i * kThreads + tid), v[i]);
+          if (J.scratch) J.scratch[j0 + i * kThreads + tid] = (int32_t)v[i];
         }
-        break;
       }
+    } else if (J.kind == J_BITS8) {
+      // 32 positions of a warp are 4 bytes: each lane 8k stores one
+      uint8_t* st = set + shift_of(d);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const unsigned bits =
+            __ballot_sync(0xFFFFFFFFu, ((live >> i) & 1u) && v[i] != 0u);
+        if ((lane & 7) == 0) {
+          st[(i * kThreads + tid) / 8] = (uint8_t)(bits >> lane);
+        }
+      }
+    } else if (J.kind == J_REDUCE) {
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) m = max(m, (int32_t)v[i]);
+    } else {  // J_ERRFLAG: any error bit other than ERR_ITEM_OVERFLOW
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        m |= (v[i] & ~ERR_ITEM_OVERFLOW) != 0u;
+      }
+    }
+    if (J.red >= 0) {
+      m = __reduce_max_sync(0xFFFFFFFFu, m);
+      if (lane == 0) s_part[k & 1][warp] = m;
+    }
+    __syncthreads();
+    if (J.kind == J_BITS8) {
+      store_span(d, (j_end - j0) / 8, set);
+    } else if (J.kind != J_REDUCE && J.kind != J_ERRFLAG) {
+      store_span(d, 4 * (j_end - j0), set);
+      if (J.kind == J_START_LENC) {
+        store_span(d2, 2 * (j_end - j0), set + kStage4);
+      }
+    }
+    if (tid == 0 && J.red >= 0) {
+      int32_t b = 0;
+      for (int w = 0; w < kWarps; ++w) b = max(b, s_part[k & 1][w]);
+      if (b > 0) atomicMax(&P.red[J.red], b);
     }
   }
 }
@@ -261,7 +433,7 @@ extern "C" int decode_finalize_pass(const void* offsets,
   p.red = static_cast<int32_t*>(red);
   const long long work =
       offsets ? (long long)max(n_pos, n_entries + 1) : (long long)n_pos;
-  const long long blocks = (work + kThreads - 1) / kThreads;
+  const long long blocks = (work + kTile - 1) / kTile;
   if (blocks == 0) return 0;
   finalize_pass_kernel<<<(unsigned)blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p);

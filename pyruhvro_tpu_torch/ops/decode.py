@@ -909,7 +909,18 @@ class _FinalizeKernel:
         with self._lock:
             self.launches += 1
 
+    @staticmethod
+    def prepare_offsets(plan: FinalizePlan, p) -> None:
+        """An item pass's int64 offsets: 0, then ``torch.cumsum`` of the
+        region's counts (two PyTorch launches, no kernel of this file)."""
+        off = plan.offsets[p["rid"]]
+        off[0] = 0
+        torch.cumsum(plan.counts_in[p["rid"]], 0, dtype=torch.int64,
+                     out=off[1:])
+
     def launch_pass(self, plan: FinalizePlan, p) -> None:
+        """One gather pass; an item pass reads the offsets that
+        :meth:`prepare_offsets` made."""
         if plan.dev.type != "cuda":
             raise ValueError("finalize_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_finalize_pass
@@ -920,9 +931,6 @@ class _FinalizeKernel:
         else:
             parent = plan.prog.region_parents[rid]
             off = plan.offsets[rid]
-            off[0] = 0
-            torch.cumsum(plan.counts_in[rid], 0, dtype=torch.int64,
-                         out=off[1:])
             pslot = None if parent == ROWS else \
                 plan.slot_map[parent].data_ptr()
             smap = plan.slot_map.get(rid)
@@ -952,6 +960,8 @@ class _FinalizeKernel:
     def run(self, plan: FinalizePlan) -> torch.Tensor:
         plan.red.zero_()  # the passes fold maxima into it
         for p in plan.passes:
+            if p["rid"] != ROWS:
+                self.prepare_offsets(plan, p)
             self.launch_pass(plan, p)
         self.launch_epilogue(plan)
         return plan.blob

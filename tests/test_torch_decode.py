@@ -46,13 +46,15 @@ FIXTURES = {name: (schema, datums, bad) for name, schema, datums, bad in
 MALFORMED = sorted(k for k, v in FIXTURES.items() if v[2])
 # every rung, both string modes and the ladder's end on the reference's
 # own test shapes; the first rung alone on the fixtures that overflow it
-# (items under dropped items, long strings, negative blocks); #err at the
+# (items under dropped items, long strings, negative blocks) and on the
+# one with more finalize jobs per pass than a block resolves at once
+# (kJobChunk in csrc/decode_finalize.cu); #err at the
 # first rung on the malformed ones and the zero-byte loops. XLA's CPU
 # compiles (one per rung and mode) bound this file's time.
 LADDER_FIXTURES = sorted(chip_smoke.PIPELINE_SHAPES) + ["kafka"]
 FIRST_RUNG_FIXTURES = ["nested_overflow", "NR3_overflow",
                        "nested_global_bound", "record_64KiB_len16",
-                       "negative_block_counts"]
+                       "negative_block_counts", "many_fields"]
 ERR_FIXTURES = MALFORMED + ["nested_global_bound", "zero_byte_items"]
 
 

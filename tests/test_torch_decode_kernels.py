@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
+from pyruhvro_tpu_torch.ops import _build  # noqa: E402
 from pyruhvro_tpu_torch.ops import decode  # noqa: E402
 from pyruhvro_tpu_torch.ops import fieldprog as fp  # noqa: E402
 from pyruhvro_tpu_torch.ops import varint  # noqa: E402
@@ -329,15 +330,80 @@ def model_walk(words, starts, lengths, n, prog, caps):
     return bufs, err, kernel.launches
 
 
-def model_finalize(plan) -> torch.Tensor:
+FINALIZE_CU = (Path(_build.CSRC) / "decode_finalize.cu").read_text()
+# positions of one block of a gather pass (kTile = kThreads * kPerThread)
+TILE = (int(re.search(r"kThreads = (\d+);", FINALIZE_CU).group(1))
+        * int(re.search(r"kPerThread = (\d+);", FINALIZE_CU).group(1)))
+
+
+def pass_grid(p) -> int:
+    """The blocks ``decode_finalize_pass`` launches for pass ``p``: tiles
+    over its positions, and an item pass's ``#offsets`` entries."""
+    work = max(p["n_pos"], p["n_entries"] + 1) if p["rid"] else p["n_pos"]
+    return -(-work // TILE)
+
+
+def span_pieces(addr: int, n: int):
+    """How a block stores a staged span of ``n`` bytes that starts at
+    device address ``addr`` (``store_span``): single bytes up to the first
+    16-byte boundary, 16-byte words, single bytes after the last word.
+    ``[(offset in the span, length), ...]``."""
+    a = min(-addr % 16, n)
+    b = a + (n - a) // 16 * 16
+    return ([(k, 1) for k in range(a)] + [(k, 16) for k in range(a, b, 16)]
+            + [(k, 1) for k in range(b, n)])
+
+
+def tile_spans(at: int, bits: int, n_pos: int, blocks: int):
+    """The blob span ``[g0, g1)`` that each block stores of a field at
+    ``at`` with elements of ``bits`` bits (1 for a bit-packed lane)."""
+    return [(at + j0 * bits // 8, at + max(min(j0 + TILE, n_pos), j0)
+             * bits // 8) for j0 in range(0, blocks * TILE, TILE)]
+
+
+class _Blob:
+    """The blob as the blocks store it: every piece counted per byte."""
+
+    def __init__(self, blob: np.ndarray, addr: int):
+        self.blob, self.addr = blob, addr
+        self.writes = np.zeros(blob.size, np.int64)
+        self.pieces = []  # (block's span, first byte, length)
+
+    def store_span(self, g0: int, g1: int, data: np.ndarray) -> None:
+        for off, ln in span_pieces(self.addr + g0, g1 - g0):
+            at = g0 + off
+            self.blob[at:at + ln] = data[off:off + ln]
+            self.writes[at:at + ln] += 1
+            self.pieces.append(((g0, g1), at, ln))
+
+    def store_field(self, at: int, bits: int, data: np.ndarray,
+                    n_pos: int, blocks: int) -> None:
+        """A field of ``n_pos`` elements, its bytes ``data``, stored tile
+        by tile."""
+        for g0, g1 in tile_spans(at, bits, n_pos, blocks):
+            self.store_span(g0, g1, data[g0 - at:g1 - at])
+
+    def put(self, at: int, data) -> None:
+        """A store of the epilogue (one thread per entry)."""
+        data = np.asarray(data).view(np.uint8).reshape(-1)
+        self.blob[at:at + data.size] = data
+        self.writes[at:at + data.size] += 1
+
+
+def model_finalize(plan, log=None) -> torch.Tensor:
     """What ``decode_finalize``'s passes and epilogue write, run along the
-    plan's own tables."""
-    blob = plan.blob.numpy()
+    plan's own tables: each pass in blocks of ``TILE`` positions, each
+    block storing its span of every field it writes through
+    :class:`_Blob`, and folding each reducing job's block maximum into
+    ``red`` once, where it is above 0. ``log``, if given, receives the
+    :class:`_Blob` (``"blob"``)."""
+    out = _Blob(plan.blob.numpy(), plan.blob.data_ptr())
     red = plan.red.zero_().numpy()
     ptr = {t.data_ptr(): t for t in list(plan.counts_in.values())
            + list(plan.offsets.values())}
     for p in plan.passes:
         rid, n_pos = p["rid"], p["n_pos"]
+        blocks = pass_grid(p)
         j = torch.arange(n_pos)
         if rid == 0:
             slot, in_range = j, torch.ones(n_pos, dtype=torch.bool)
@@ -346,8 +412,9 @@ def model_finalize(plan) -> torch.Tensor:
             off = plan.offsets[rid]
             off[0] = 0
             off[1:] = torch.cumsum(plan.counts_in[rid].to(torch.int64), 0)
-            blob[p["off_at"]:p["off_at"] + 4 * (n_e + 1)] = \
-                off.to(torch.int32).numpy().view(np.uint8)
+            out.store_field(p["off_at"], 32,
+                            off.to(torch.int32).numpy().view(np.uint8),
+                            n_e + 1, blocks)
             in_range = j < off[n_e]
             ent = torch.searchsorted(off[:n_e], j, right=True) - 1
             parent = plan.prog.region_parents[rid]
@@ -358,52 +425,62 @@ def model_finalize(plan) -> torch.Tensor:
             if rid in plan.slot_map:
                 plan.slot_map[rid][:] = slot.to(torch.int32)
         for kind, src, src2, at, at2, scratch, r, _es in p["jobs"]:
-            def take(s):
+            def take(s, gate=in_range):
                 t = plan.srcs[s]
                 v = t[slot.clamp(0, t.numel() - 1)].to(torch.int64)
-                return torch.where(in_range, v, 0)
+                return torch.where(gate, v, 0)
             if kind == decode.J_COPY32:
                 v = take(src).to(torch.int32)
-                blob[at:at + 4 * n_pos] = v.numpy().view(np.uint8)
+                out.store_field(at, 32, v.numpy().view(np.uint8), n_pos,
+                                blocks)
                 if scratch:
                     ptr[scratch][:] = v
-                if r >= 0:
-                    red[r] = max(red[r], int(v.max()))
+                reduced = v
             elif kind == decode.J_BITS8:
-                blob[at:at + n_pos // 8] = np.packbits(
-                    take(src).numpy() != 0, bitorder="little")
+                out.store_field(at, 1, np.packbits(
+                    take(src).numpy() != 0, bitorder="little"), n_pos,
+                    blocks)
             elif kind in (decode.J_SL32, decode.J_START_LENC):
                 s, ln = take(src), take(src2)
                 if kind == decode.J_SL32:
                     v = ((s & 0xFFFFFFFF) | (ln << 21)) & 0xFFFFFFFF
-                    blob[at:at + 4 * n_pos] = \
-                        v.numpy().astype(np.uint32).view(np.uint8)
+                    out.store_field(at, 32, v.numpy().astype(
+                        np.uint32).view(np.uint8), n_pos, blocks)
                 else:
-                    blob[at:at + 4 * n_pos] = \
-                        s.numpy().astype(np.int32).view(np.uint8)
-                    blob[at2:at2 + 2 * n_pos] = \
-                        (ln.numpy() & 0xFFFF).astype(np.uint16).view(np.uint8)
-                red[r] = max(red[r], int(ln.max()))
+                    out.store_field(at, 32, s.numpy().astype(
+                        np.int32).view(np.uint8), n_pos, blocks)
+                    out.store_field(at2, 16, (ln.numpy() & 0xFFFF).astype(
+                        np.uint16).view(np.uint8), n_pos, blocks)
+                reduced = ln
             elif kind == decode.J_REDUCE:
-                red[r] = max(red[r], int(plan.srcs[src][:n_pos].max()))
+                reduced = take(src, torch.ones(n_pos, dtype=torch.bool))
             else:
-                bad = (plan.srcs[src].to(torch.int64) & 0xFFFFFFFF
-                       & ~varint.ERR_ITEM_OVERFLOW) != 0
-                red[r] = max(red[r], int(bad.any()))
+                reduced = (take(src, torch.ones(n_pos, dtype=torch.bool))
+                           & 0xFFFFFFFF & ~varint.ERR_ITEM_OVERFLOW) != 0
+            if r < 0:
+                continue
+            for b in range(blocks):
+                tile = reduced[b * TILE:(b + 1) * TILE]
+                m = max(int(tile.max()), 0) if tile.numel() else 0
+                if m > 0:
+                    red[r] = max(red[r], m)
     wide = 0
     for kind, at, a, b, c in plan.entries.tolist():
         if kind == decode.E_MAX:
-            blob[at:at + 4] = np.array([red[a]], np.int32).view(np.uint8)
+            out.put(at, np.array([red[a]], np.int32))
         elif kind == decode.E_SUM:
             total = int(ptr[a][b])
             wide |= total >= (1 << 31)
-            blob[at:at + 4] = np.array([_i32(total)], np.int32).view(np.uint8)
+            out.put(at, np.array([_i32(total)], np.int32))
         elif kind == decode.E_ERR:
-            blob[at] = red[a] != 0
+            out.put(at, np.uint8(red[a] != 0))
         elif kind == decode.E_STRFIT:
-            blob[at] = all(red[a + k] < c for k in range(b))
-    blob[plan.nbytes:] = 0
-    blob[plan.nbytes] = wide
+            out.put(at, np.uint8(all(red[a + k] < c for k in range(b))))
+    status = np.zeros(decode.STATUS_BYTES, np.uint8)
+    status[0] = wide
+    out.put(plan.nbytes, status)
+    if log is not None:
+        log.update(blob=out)
     return plan.blob
 
 
@@ -453,7 +530,39 @@ def test_kernel_models_match_plain_versions(name):
         plan = decode.FinalizePlan(kb, ke, prog, R, B, item_caps, tot_caps,
                                    compact)
         plan.blob.fill_(0xA5)  # every byte must be written
-        assert torch.equal(model_finalize(plan), want), (name, item_caps)
+        log = {}
+        assert torch.equal(model_finalize(plan, log), want), (name, item_caps)
+        assert (log["blob"].writes == 1).all(), (name, item_caps)
+
+
+@pytest.mark.parametrize("bits", [1, 16, 32])
+@pytest.mark.parametrize("shift", range(16))
+def test_tile_spans_write_every_byte_once(shift, bits):
+    """A field at each offset mod 16, stored tile by tile: spans shorter
+    than one 16-byte word, one whole tile, and a last partial tile. Every
+    byte of the field is written exactly once and nothing around it; every
+    16-byte word is aligned and inside its block's span."""
+    short = 8 if bits == 1 else 64 // bits  # 1 or 8 bytes
+    for n_pos in (short, TILE, 2 * TILE + 40):
+        nbytes = n_pos * bits // 8
+        at = 32 + shift
+        blob = _Blob(np.zeros(at + nbytes + 32, np.uint8), 0)
+        data = (np.arange(nbytes) % 251 + 1).astype(np.uint8)
+        blocks = -(-n_pos // TILE)
+        blob.store_field(at, bits, data, n_pos, blocks)
+        assert (blob.blob[at:at + nbytes] == data).all()
+        want = np.zeros(blob.blob.size, np.int64)
+        want[at:at + nbytes] = 1
+        assert (blob.writes == want).all(), n_pos
+        for (g0, g1), first, ln in blob.pieces:
+            assert g0 <= first and first + ln <= g1
+            assert ln == 1 or (ln == 16 and first % 16 == 0)
+        spans = [(g0, g1) for g0, g1 in tile_spans(at, bits, n_pos, blocks)]
+        if n_pos == short:
+            assert not any(ln == 16 for _s, _f, ln in blob.pieces)
+        else:
+            assert spans[-1][1] - spans[-1][0] == \
+                (n_pos - (blocks - 1) * TILE) * bits // 8
 
 
 def test_global_bound_needs_relaunches_with_wider_tables():
@@ -541,3 +650,40 @@ def test_finalize_source_agrees_on_job_kinds_and_status_bytes():
     assert "#define ERR_ITEM_OVERFLOW 128u" in fin
     assert re.search(r"kStatusBytes = (\d+)", fin).group(1) == \
         str(decode.STATUS_BYTES)
+    threads = int(re.search(r"kThreads = (\d+);", fin).group(1))
+    per_thread = int(re.search(r"kPerThread = (\d+);", fin).group(1))
+    assert "kTile = kThreads * kPerThread;" in fin
+    assert threads * per_thread == TILE
+    # the grid that pass_grid models
+    assert "offsets ? (long long)max(n_pos, n_entries + 1) : " \
+        "(long long)n_pos;" in fin
+    assert "const long long blocks = (work + kTile - 1) / kTile;" in fin
+
+
+def test_span_pieces_follow_store_span():
+    """``span_pieces`` splits a span as the kernel's ``store_span`` does:
+    the head up to the first 16-byte boundary of the address, whole
+    16-byte words, the tail; a byte's staging offset keeps the address's
+    offset mod 16."""
+    body = re.search(r"void store_span\(.*?\n\}\n", FINALIZE_CU,
+                     re.S).group(0)
+    for line in (
+            "const uint8_t* s = st + shift_of(d);",
+            "const long long a = min((long long)((16 - shift_of(d)) & 15), n);",
+            "const long long b = a + ((n - a) & ~15ll);",
+            "if (tid < a) d[tid] = s[tid];",
+            "if (tid < n - b) d[b + tid] = s[b + tid];",
+            "for (long long k = a + 16 * tid; k < b; k += 16 * kThreads) {",
+            "*reinterpret_cast<uint4*>(d + k) = "
+            "*reinterpret_cast<const uint4*>(s + k);"):
+        assert line in body, line
+    assert "return (int)(reinterpret_cast<uintptr_t>(g0) & 15u);" in \
+        FINALIZE_CU
+    for addr in range(32):
+        for n in (0, 1, 15, 16, 17, 40):
+            a = min((16 - addr % 16) & 15, n)
+            b = a + ((n - a) & ~15)
+            assert span_pieces(addr, n) == \
+                [(k, 1) for k in range(a)] + \
+                [(k, 16) for k in range(a, b, 16)] + \
+                [(k, 1) for k in range(b, n)]
