@@ -21,9 +21,13 @@ exits non-zero before the last line:
    same message on both;
 4. ``decode_walk`` (K1) and ``decode_finalize`` (K2, the default engine)
    against their plain versions on ``pipeline_fixtures`` at every rung the
-   card decoder's ladder visits: every buffer, ``#err`` and the blob
-   bit-equal (K2's blob filled with 0xA5 first); the card's decode equal
-   to the CPU's, or the same message and bad-row indices; then ``encode_rows`` and ``encode_strings`` (K3)
+   card decoder's ladder visits, and on ``block_edge_fixtures`` (reads
+   that leave a K1 block's staged span, a block over its staging budget):
+   every buffer, ``#err`` and the blob bit-equal (K2's blob filled with
+   0xA5 first), the blocks K1 counts staged and reading device memory
+   equal to its host mirror's plan at every launch (both kinds must
+   occur); the card's decode equal to the CPU's, or the same message and
+   bad-row indices; then ``encode_rows`` and ``encode_strings`` (K3)
    against the plain encode on ``encode_fixtures`` (row sizes, every
    ``#dst`` lane and ``[0, total)`` bit-equal), the card's encode equal
    to the CPU's and the wire a fixed point of decode and encode;
@@ -44,10 +48,15 @@ exits non-zero before the last line:
    every rung of a fresh decoder's ladder on paths 1, 3 and 4's data;
    each kernel at main path 1's, 2's or 5's shapes: its CUDA-event time,
    bit-equal to its plain version, its bound, and ``torch.take`` over the
-   finalize's slot maps and over the encode's payload byte map; K2's
-   breakdown at path 1's shapes (each pass, each item region's offsets,
-   the epilogue, the host's enqueue, ``torch.take`` per item pass); the
-   string copy's two modes in turns on paths 5 and 4e;
+   finalize's slot maps and over the encode's payload byte map; K1 at
+   path 1's shapes under its input budgets, loop stacks and key folding
+   (``k1_kernel``: each in turns, bit-equal, with the blocks it counted
+   staged and reading device memory, its shared memory and blocks per
+   SM; ptxas per instantiation; the host's enqueue), and on path 3's
+   shapes on each loop stack (``walk_stacks``);
+   K2's breakdown at path 1's shapes (each pass, each item region's
+   offsets, the epilogue, the host's enqueue, ``torch.take`` per item
+   pass); the string copy's two modes in turns on paths 5 and 4e;
 7. ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -374,6 +383,54 @@ def pipeline_fixtures(datagen, parse_schema, rows: int):
     return cases
 
 
+def block_edge_fixtures(datagen, parse_schema, rows: int):
+    """(name, schema, datums, must_fail) of Kafka batches whose reads leave
+    a ``decode_walk`` block's staged span (blocks of 128 lanes; ``rows``
+    under a power of two, so lanes past ``n`` are inactive): a record at a
+    block's last lane reading into the next block's records, a string
+    length of 2^31-1 wrapping the cursor in a staged block, the launch's
+    last record reading past the words into the clip, and a record too
+    long for any block's staging budget beside staged blocks."""
+    kafka = datagen.KAFKA_SCHEMA_JSON
+    w = datagen.compile_writer(parse_schema(kafka))
+
+    def named(n: int) -> bytes:
+        out = bytearray()
+        w(out, {"name": (1, "n" * n), "age": None, "emails": [],
+                "address": None, "phone_numbers": [], "preferences": None,
+                "status": None, "created_at": 0, "class": "A"})
+        return bytes(out)
+
+    cases = []
+    edge = datagen.kafka_style_datums(rows, seed=17)
+    for row in range(127, rows - 1, 128):  # each block's last lane
+        # a name of 40 bytes that are not there: the next field's read
+        # lies 42 bytes past the record's start, in the next block
+        edge[row] = b"\x02" + zz(40)
+    cases.append(("block_last_lane_overrun", kafka, edge, True))
+    wrap = datagen.kafka_style_datums(rows, seed=19)
+    wrap[5] = wrap[rows // 2] = b"\x02" + zz((1 << 31) - 1) + b"abc"
+    cases.append(("string_len_2^31-1_staged", kafka, wrap, True))
+    # the words end exactly at the last record (B = the total bytes, a
+    # power of two): its unterminated varints read on past B, and the
+    # reads clip to the last word. A filler record before it sets the
+    # total; the filler's own block is over any staging budget.
+    clip = datagen.kafka_style_datums(rows - 2, seed=23)
+    head = sum(map(len, clip))
+    B = 16
+    while B < head + 320:  # room for a filler of 256 bytes or more
+        B <<= 1
+    fill = named(B - head - 30 - 8)
+    last = B - head - len(fill)
+    assert 20 <= last <= 40, last
+    cases.append(("last_record_to_the_clip", kafka,
+                  clip + [fill, b"\x82" * last], True))
+    big = datagen.kafka_style_datums(rows, seed=29)
+    big[200 % rows] = named(40_000)
+    cases.append(("record_over_the_staging_budget", kafka, big, False))
+    return cases
+
+
 def int128_extremes(pa, batch, names):
     """``batch`` with rows 0 and 1 of each decimal column ``names`` set to
     the int128 minimum and maximum (raw Decimal128 buffers: the values lie
@@ -554,18 +611,36 @@ def pipeline_outcome(dec, datums, errors):
                          getattr(e, "indices", None))
 
 
+def check_walk_blocks(L, label) -> None:
+    """Fail unless the blocks ``decode_walk`` counted in its last launch,
+    staged and reading device memory, are those its host mirror
+    ``walk_input_staging`` plans."""
+    _a, _s, staged, covers = L.input_staging()
+    want = (int(staged.sum()), int((covers & ~staged).sum()))
+    if L.blocks != want:
+        raise SystemExit(f"{label}: decode_walk counted {L.blocks} blocks "
+                         f"(staged, device memory), its staging plan "
+                         f"{want}")
+
+
 def hold_kernels(torch, dm, dec, label):
     """Make every rung of ``dec``'s ladder run K1 and K2 beside their plain
     versions on the same inputs first, and fail unless every buffer,
     ``#err`` and the blob are bit-equal. Returns the list it appends each
-    checked rung to, as (largest item cap, compact)."""
+    checked rung to, as (largest item cap, compact), and K1's blocks over
+    those rungs ``[staged, reading device memory]`` as the kernel counted
+    them; fail unless they are the ones ``walk_input_staging`` plans."""
+    blocks = [0, 0]
     prog, real, rungs = dec.prog, dec.pipeline, []
 
     def checked(packed, R, B, n_act, item_caps, tot_caps, compact,
                 timings=None):
         words, starts, lengths = dec.launch_views(packed, R, B)
-        kb, ke = dm.walk_kernel(words, starts, lengths, n_act, prog,
-                                item_caps)
+        L = dm.WalkLaunch(words, starts, lengths, n_act, prog, item_caps)
+        kb, ke = dm.walk_kernel.run(L)
+        check_walk_blocks(L, f"{label} (R={R}, caps {item_caps})")
+        blocks[0] += L.blocks[0]
+        blocks[1] += L.blocks[1]
         pb, pe = dm.walk_plain(words, starts, lengths, n_act, prog,
                                item_caps)
         plan = dm.FinalizePlan(kb, ke, prog, R, B, item_caps, tot_caps,
@@ -583,12 +658,12 @@ def hold_kernels(torch, dm, dec, label):
                                  f"caps {item_caps}, totals {tot_caps}, "
                                  f"compact={compact} (max abs diff {diff})")
         rungs.append((max(item_caps[1:], default=0), compact))
-        del kb, ke, pb, pe, plan, kblob, pblob
+        del L, kb, ke, pb, pe, plan, kblob, pblob
         return real(packed, R, B, n_act, item_caps, tot_caps, compact,
                     timings)
 
     dec.pipeline = checked
-    return rungs
+    return rungs, blocks
 
 
 def check_pipeline_fixture(torch, np, dm, name, schema, datums, must_fail,
@@ -602,7 +677,7 @@ def check_pipeline_fixture(torch, np, dm, name, schema, datums, must_fail,
     cpu = dm.DeviceDecoder(ir, "cpu")
     n, worst = len(datums), 0
     walk0, fin0 = dm.walk_kernel.launches, dm.finalize_kernel.launches
-    rungs = hold_kernels(torch, dm, card, name)
+    rungs, blocks = hold_kernels(torch, dm, card, name)
     got = pipeline_outcome(card, datums, errors)
     want = pipeline_outcome(cpu, datums, errors)
     if got[0] != want[0]:
@@ -627,9 +702,10 @@ def check_pipeline_fixture(torch, np, dm, name, schema, datums, must_fail,
         detail = f"item_totals={mg['item_totals']}"
     print(f"pipeline fixture {name}: rows={n} rungs (max cap, compact)="
           f"{rungs} decode_walk launches={dm.walk_kernel.launches - walk0} "
+          f"(blocks staged/device memory {blocks[0]}/{blocks[1]}) "
           f"decode_finalize launches={dm.finalize_kernel.launches - fin0} "
           f"exact=True max_abs_err={worst} -> {detail}")
-    return worst
+    return worst, blocks
 
 
 def large_kafka_datums(datagen, parse_schema, n: int, seed: int):
@@ -837,6 +913,173 @@ def k4_kernel(torch, wd, dec, data, lib, card):
             "smem_bytes": smem, "blocks_per_sm": occupancy(smem)}
 
 
+def walk_ptxas(log: str):
+    """``{stack: {registers, stack, spill_stores, spill_loads}}`` of each
+    loop-stack instantiation of ``decode_walk_kernel`` in nvcc's
+    ``-Xptxas -v`` output (empty for a build reused from the cache)."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"(Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)", line)
+        if m:
+            k = re.search(r"decode_walk_kernelILi(\d+)E", m.group(2))
+            key = int(k.group(1)) if k else None
+            if m.group(1).startswith("Compiling"):
+                entry = key
+            else:
+                props = key
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+            entry = None
+    return out
+
+
+def k1_kernel(torch, dm, dec, data, lib, card):
+    """``decode_walk`` (K1) at main path 1's shapes under its input
+    budgets, loop-stack instantiations and key folding, timed in turns
+    (CUDA events, status reset included), each bit-equal to the plain
+    walk; for each, the blocks the kernel counted staged and reading
+    device memory, shared memory per block and blocks per SM; the host's
+    enqueue of one launch and the host time of ``run`` (launch, status
+    read, settle); ptxas registers, stack frame and spills of every
+    instantiation."""
+    wk = dm.walk_kernel
+    flat, lanes, n, R, B = dec.pack(data)
+    packed = dec.launch_buffer(flat, lanes, B, DEVICE)
+    caps, _tot = dec.caps_snapshot(R)
+    prog = dec.prog
+    words, starts, lengths = dec.launch_views(packed, R, B)
+
+    def make(n_act=n, **plan):
+        return dm.WalkLaunch(words, starts, lengths, n_act, prog, caps,
+                             **plan)
+
+    # the same launch with the record spans read from device memory, on
+    # the deepest loop stack, and with no key folded per block
+    default = make()
+    variants = {
+        "default": default,
+        "input from global": make(in_max=0),
+        "stack 8": make(_stack=8),
+        "keys unfolded": make(_fold=0),
+    }
+    for key, L in variants.items():
+        launches = wk.launches
+        wk.run(L)
+        if wk.launches - launches != 1:
+            raise SystemExit(f"decode_walk ({key}) took "
+                             f"{wk.launches - launches} launches to settle")
+    # no active lane: the blocks' tables and zero-fills alone
+    timed = {**variants, "walk skipped": make(n_act=0)}
+    variant_ms = {}
+    for key in list(timed) + list(timed)[::-1]:  # in turns
+        L = timed[key]
+        ms = cuda_ms(torch, lambda: wk.launch(L), 5)
+        variant_ms[key] = min(ms, variant_ms.get(key, ms))
+    del timed
+    pb, pe = dm.walk_plain(words, starts, lengths, n, prog, caps)
+    for vkey, L in variants.items():
+        if not L.settle():
+            raise SystemExit(f"decode_walk ({vkey}): the timed launch did "
+                             f"not settle: {L.unsettled}")
+        check_walk_blocks(L, f"main path shapes ({vkey})")
+        for key, k, p in zip(prog.out_keys + ["#err"], L.bufs + [L.err],
+                             list(pb) + [pe]):
+            diff = max_abs_diff(torch, k, p)
+            if diff:
+                raise SystemExit(f"main path shapes ({vkey}): decode_walk != "
+                                 f"plain walk in {key!r} (max abs diff "
+                                 f"{diff})")
+    del pb, pe
+    enqueue, host_run = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wk.launch(default)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wk.run(default)
+        host_run.append((time.perf_counter() - t2) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+    ptx = walk_ptxas(lib.log)
+    for key, L in variants.items():
+        smem = wk.smem_bytes(prog, L.in_budget)
+        print(f"decode_walk plan ({key}) at the main path's shapes: input "
+              f"budget {L.in_budget} B, blocks the kernel counted staged "
+              f"{L.blocks[0]} / reading device memory {L.blocks[1]}, loop "
+              f"stack {L.stack}, keys folded per block {L.fold}, shared "
+              f"memory {smem} B per block, "
+              f"{wk.blocks_per_sm(L.stack, smem)} blocks per SM: "
+              f"{variant_ms[key]:.3f} ms")
+    print("decode_walk ptxas per loop-stack instantiation: " + (", ".join(
+        f"stack {k}: {v.get('registers')} registers, {v.get('stack')} B "
+        f"stack frame, {v.get('spill_stores')} B spill stores, "
+        f"{v.get('spill_loads')} B spill loads"
+        for k, v in sorted(ptx.items())) or "not reported (cached build)"))
+    out = {"variant_ms": variant_ms,
+           "enqueue_ms": statistics.median(enqueue[1:]),
+           "run_host_ms": statistics.median(host_run[1:]),
+           "blocks_staged": default.blocks[0],
+           "blocks_global": default.blocks[1],
+           "ptxas": {str(k): v for k, v in sorted(ptx.items())}}
+    print(f"decode_walk variants at the main path's shapes (R={R}, B={B}, "
+          f"caps={caps}), ms, best of 5 twice, in turns, CUDA events: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in variant_ms.items())
+          + f"; host enqueue of launch(L) {out['enqueue_ms']:.4f} ms, host "
+          f"time of run(L) (launch, status read, settle) "
+          f"{out['run_host_ms']:.4f} ms (medians of 5) {card}")
+    return out
+
+
+def walk_stacks(torch, dm, dec, data, label, card):
+    """``decode_walk`` at a path's first-rung shapes on every loop-stack
+    instantiation that holds its schema's depth, timed in turns (CUDA
+    events, best of 5 twice), each settled and bit-equal to the plain
+    walk: ``{stack: ms}``."""
+    wk = dm.walk_kernel
+    flat, lanes, n, R, B = dec.pack(data)
+    packed = dec.launch_buffer(flat, lanes, B, DEVICE)
+    caps, _tot = dec.caps_snapshot(R)
+    prog = dec.prog
+    words, starts, lengths = dec.launch_views(packed, R, B)
+    stacks = [k for k in dm.WALK_STACKS if k >= max(prog.depth, 1)]
+    launches = {k: dm.WalkLaunch(words, starts, lengths, n, prog, caps,
+                                 _stack=k) for k in stacks}
+    for L in launches.values():
+        wk.run(L)
+    got = {}
+    for k in stacks + stacks[::-1]:  # in turns
+        ms = cuda_ms(torch, lambda: wk.launch(launches[k]), 5)
+        got[k] = min(ms, got.get(k, ms))
+    pb, pe = dm.walk_plain(words, starts, lengths, n, prog, caps)
+    for k, L in launches.items():
+        if not L.settle():
+            raise SystemExit(f"{label}: decode_walk (stack {k}) did not "
+                             f"settle: {L.unsettled}")
+        for key, kb, p in zip(prog.out_keys + ["#err"], L.bufs + [L.err],
+                              list(pb) + [pe]):
+            if max_abs_diff(torch, kb, p):
+                raise SystemExit(f"{label}: decode_walk (stack {k}) != plain "
+                                 f"walk in {key!r}")
+    print(f"decode_walk loop stacks at {label}'s shapes (R={R}, B={B}, "
+          f"caps={caps}, depth {prog.depth}), ms, best of 5 twice, in turns, "
+          f"CUDA events, each bit-equal to the plain walk: "
+          + ", ".join(f"stack {k} {v:.3f}" for k, v in got.items())
+          + f" {card}")
+    return got
+
+
 def finalize_pass_bytes(dm, plan, p, written: bool = True) -> int:
     """What one gather pass must move: each source element it copies or
     reduces read once, over the row region's ``R`` lanes or the item
@@ -929,6 +1172,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
     walk0 = dm.walk_kernel.launches
     dm.walk_kernel.run(L)
     walk_launches = dm.walk_kernel.launches - walk0
+    check_walk_blocks(L, "main path shapes")
     walk_ms = cuda_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
     plain = []
     plain_walk_ms = cuda_ms(torch, lambda: plain.__setitem__(
@@ -1458,12 +1702,21 @@ def main() -> int:
     # 4. K1 and K2 against their plain versions
     t0 = time.perf_counter()
     perrors = (MalformedAvro, UnsupportedOnDevice, DeviceCapacityExceeded)
-    for fx in pipeline_fixtures(datagen, parse_schema, PIPELINE_ROWS):
-        w = check_pipeline_fixture(torch, np, dm, *fx, parse_schema, perrors)
+    walk_blocks = [0, 0]
+    for fx in pipeline_fixtures(datagen, parse_schema, PIPELINE_ROWS) + \
+            block_edge_fixtures(datagen, parse_schema, PIPELINE_ROWS):
+        w, blocks = check_pipeline_fixture(torch, np, dm, *fx, parse_schema,
+                                           perrors)
         worst["decode_walk"] = max(worst["decode_walk"], w)
         worst["decode_finalize"] = max(worst["decode_finalize"], w)
-    print(f"pipeline fixtures: {time.perf_counter() - t0:.1f} s")
-
+        walk_blocks = [walk_blocks[0] + blocks[0], walk_blocks[1] + blocks[1]]
+    if not all(walk_blocks):
+        raise SystemExit(f"decode_walk ran {walk_blocks[0]} staged and "
+                         f"{walk_blocks[1]} device-memory blocks over the "
+                         f"fixtures: both paths must run")
+    print(f"pipeline fixtures: {time.perf_counter() - t0:.1f} s; "
+          f"decode_walk blocks {walk_blocks[0]} staged, {walk_blocks[1]} "
+          f"reading device memory")
     # 4b. K3 against its plain version
     t0 = time.perf_counter()
     worst["encode"] = 0
@@ -1591,15 +1844,21 @@ def main() -> int:
     for label, rows, schema in pipeline_paths:
         t0 = time.perf_counter()
         dec = dm.DeviceDecoder(parse_schema(schema), DEVICE)
-        rungs = hold_kernels(torch, dm, dec, label)
+        rungs, blocks = hold_kernels(torch, dm, dec, label)
         dec.decode_to_columns(rows)
         print(f"{label}: decode_walk and decode_finalize bit-equal to their "
               f"plain versions (every buffer, #err, the blob) at every rung "
-              f"(max cap, compact) {rungs}, in {time.perf_counter() - t0:.1f}"
-              f" s")
+              f"(max cap, compact) {rungs}, decode_walk blocks staged/device "
+              f"memory {blocks[0]}/{blocks[1]}, in "
+              f"{time.perf_counter() - t0:.1f} s")
         del dec
     codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
     k1, k2 = pipeline_kernels(torch, dm, codec.decoder, data, card)
+    k1.update(k1_kernel(torch, dm, codec.decoder, data, libs["decode_walk"],
+                        card))
+    k1["nested_stack_ms"] = walk_stacks(
+        torch, dm, get_device_codec(get_or_parse_schema(nested_schema),
+                                    DEVICE).decoder, nested, "path 3", card)
     for key, (batch, schema) in enc_batches.items():
         enc = get_device_codec(get_or_parse_schema(schema), DEVICE)._encoder
         results[key]["phases_ms"] = {

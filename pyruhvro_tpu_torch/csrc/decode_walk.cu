@@ -45,25 +45,58 @@
 // its key (region, counters of the enclosing loops). A lane first bounds a
 // loop by its own span (never more than the global value, so a lane that
 // finishes is exact); each key records its lanes' span max and count
-// (warp-aggregated atomics) and whether a lane was cut by its own bound.
-// The wrapper then relaunches with the recorded bound of every key where a
-// lane was cut (spec/has_spec), until the bounds settle. The key table is
-// sized from the counters seen: a region's keys number the product of the
-// extents of its ancestors' counters (ext, 0 at first). A lane whose key
-// lies off the table is bounded by its own span alone; if it is cut there,
-// the launch records its counters (it_max) and off_cut, and the wrapper
-// widens the table to hold them and relaunches. So a bound is never
-// guessed: a key either finishes within its lanes' own spans or runs with
-// the value the reference computes.
+// and whether a lane was cut by its own bound. The wrapper then relaunches
+// with the recorded bound of every key where a lane was cut
+// (spec/has_spec), until the bounds settle. The key table is sized from
+// the counters seen: a region's keys number the product of the extents of
+// its ancestors' counters (ext, 0 at first). A lane whose key lies off the
+// table is bounded by its own span alone; if it is cut there, the launch
+// records its counters (it_max) and off_cut, and the wrapper widens the
+// table to hold them and relaunches. So a bound is never guessed: a key
+// either finishes within its lanes' own spans or runs with the value the
+// reference computes.
 //
 // Bound on an H100 SXM: memory. A launch must read the records' bytes
 // (the words buffer, contiguous), starts and lengths, and write every
-// output element and #err once: (those bytes) / 3.35 TB/s. This first
-// design is simple: bytes are read from device memory through the
-// read-only cache; the code and tables sit in shared memory; the warp
-// steps by its lowest pc (__reduce_min_sync), so lanes that took different
-// branches or item counts rejoin where the paths meet; outputs are zeroed
-// by 16-byte stores and then stored into directly.
+// output element and #err once: (those bytes) / 3.35 TB/s. The walk itself
+// is bound by instruction latency (one dependent byte after another), so
+// the design keeps the bytes close and the blocks many. Block by block
+// (kThreads consecutive lanes, one thread each):
+// - The block's active records are one contiguous span of the words
+//   (starts[first] .. starts[last active] + lengths[last active]; inactive
+//   lanes have length 0 and stay out of it). Widened to 16-B bounds, it is
+//   copied into shared memory by one Hopper bulk asynchronous copy
+//   (cp.async.bulk ... mbarrier::complete_tx::bytes), issued before the
+//   tables are copied and the outputs zeroed, so the three overlap; every
+//   thread waits on the mbarrier's phase. A span over the launch's input
+//   budget is not staged: that block reads device memory. Cursors are
+//   absolute and wrap, so a read may leave the span (the block's last
+//   lanes overrunning into the next block's records, a cursor wrapped by a
+//   string length near 2^31, the launch's last record overrunning into the
+//   padding and the clip): the byte function takes a byte from shared
+//   memory only when its clipped address lies inside the staged copy, and
+//   from device memory (__ldg) otherwise.
+// - The field-program code and the buffer tables are copied into shared
+//   memory once per block. The wrapper packs every table into one tensor.
+// - The lane's stack of open loops is sized by the schema's nesting depth:
+//   the kernel is instantiated for 1, 2 and 8 levels, and the launcher
+//   takes the one the wrapper names. At one level every index into the
+//   stack is a constant, so the stack lives in registers (on the H100 the
+//   Kafka walk ran 0.43 ms at one level against 0.66 ms at eight; two
+//   levels saved about 3 % on a two-deep schema, four none measurable).
+// - The span records of the first kKeyTab keys are folded in shared memory
+//   (warp-aggregated, then one shared atomic per warp and key), and the
+//   block issues one global atomicMax and atomicAdd per touched key at its
+//   end; keys past the table keep one global pair per warp.
+// - Every output element of the block's rows is written by the block: its
+//   ranges of all buffers are zeroed as one sequence of 16-byte stores,
+//   then the walk stores into them directly. (Staging the ranges in shared
+//   memory and flushing them whole cost resident blocks and was slower at
+//   every size tried on the H100, as in walk_decode.cu.)
+// - Each block counts itself in the status: staged, or reading device
+//   memory (a block with no active record byte counts in neither).
+// - The warp steps by its lowest pc (__reduce_min_sync), so lanes that
+//   took different branches or item counts rejoin where the paths meet.
 //
 // Arithmetic on cursors and slots is done in uint32_t and reinterpreted:
 // the reference wraps in int32, which is undefined behaviour for int32_t
@@ -104,42 +137,133 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxDepth = 8;         // open loops a thread keeps (its stack)
+constexpr int kKeyTab = 64;          // keys a block folds in shared memory
 constexpr int kLogWords = 4;         // b, slot, value, lane; then counters
 constexpr int32_t kBig = 1 << 30;    // a slot past the cap: dropped
 constexpr int kDone = INT_MAX;       // the pc of a lane that has ended
 
 struct Params {
   const uint8_t* words;              // the launch's bytes
+  long long n_bytes;                 // 4 * n_words
   uint32_t last_word;
   const int32_t* starts;             // [R]
   const int32_t* lengths;            // [R]
   int n;                             // active lanes
   int R;
-  // code[code_len] | caps[nr] | parents[nr] | esize[nb] | region[nb]
+  // buf_ptrs[nb] | buf_lens[nb] (int64), then the int32 parts at
+  // tab_offsets: code | caps | esize | ext | key_off | spec | has_spec
   const int32_t* table;
   int code_len, n_bufs, n_regions, depth;
-  const long long* buf_ptrs;         // [nb] device pointers, 16-B aligned
-  const long long* buf_lens;         // [nb] elements
-  const int32_t* key_tab;            // ext[nr] | key_off[nr]
-  const int32_t* spec;               // [n_keys]
-  const int32_t* has_spec;           // [n_keys]
   int n_keys;
+  int in_budget;                     // bytes for a block's record span
+  int fold;                          // keys folded per block (<= kKeyTab)
   int32_t* status;                   // see the wrapper's WalkLaunch
   int32_t* log;                      // [log_cap, kLogWords + max(depth, 1)]
   int log_cap;
   uint32_t* err;                     // [R]
 };
 
-// The block's shared tables.
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+// Where each part of the table's int32 part starts, in int32 words: code
+// at 0, then caps[nr], esize[nb], ext[nr], key_off[nr], spec[T] and
+// has_spec[T] with T = max(n_keys, 1). A block copies [0, spec) into
+// shared memory.
+struct TabOffsets {
+  int caps, esize, ext, key_off, spec, has_spec;
+};
+
+__host__ __device__ inline TabOffsets tab_offsets(int code_len, int n_bufs,
+                                                  int n_regions, int n_keys) {
+  TabOffsets o;
+  o.caps = code_len;
+  o.esize = o.caps + n_regions;
+  o.ext = o.esize + n_bufs;
+  o.key_off = o.ext + n_regions;
+  o.spec = o.key_off + n_regions;
+  o.has_spec = o.spec + max(n_keys, 1);
+  return o;
+}
+
+// Byte offsets of the parts of a block's dynamic shared memory.
+struct Layout {
+  int gptr, len, lo, z16, tab, in, total;
+};
+
+__host__ __device__ inline Layout layout_of(int code_len, int n_bufs,
+                                            int n_regions, int in_budget) {
+  Layout L;
+  L.gptr = 16;  // after the mbarrier
+  L.len = L.gptr + 8 * n_bufs;
+  L.lo = L.len + 8 * n_bufs;
+  L.z16 = L.lo + 8 * n_bufs;
+  L.tab = L.z16 + 8 * n_bufs;
+  L.in = align16(L.tab +
+                 4 * tab_offsets(code_len, n_bufs, n_regions, 0).spec);
+  L.total = L.in + align16(in_budget);
+  return L;
+}
+
+// -- Hopper bulk copy and mbarrier (as in walk_decode.cu) ------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Copies `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-B aligned; the barrier's phase 0 completes when all bytes have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// -- the walk ----------------------------------------------------------------
+
+// The block's tables (shared memory) and its staged record span.
 struct Tabs {
   const int32_t* code;
   const int32_t* caps;
   const int32_t* esize;
   const int32_t* ext;
   const int32_t* key_off;
-  void* const* dst;                  // buffer base pointers
+  void* const* gptr;                 // buffer base pointers
   const long long* len;              // buffer lengths
+  const int32_t* spec;               // [n_keys], device memory
+  const int32_t* has_spec;
+  int32_t* s_max;                    // [fold] span max per key
+  int32_t* s_cnt;                    // [fold] lanes per key
+  const uint8_t* in;                 // staged bytes of words [in_lo, +in_n)
+  uint32_t in_lo, in_n;
 };
 
 struct Level {                       // one open array/map loop
@@ -149,41 +273,59 @@ struct Level {                       // one open array/map loop
   bool base_wrapped, done, own;
 };
 
+template <int D>
 struct Lane {
   int32_t cur, end;
   uint32_t err;
   int row;
   int top;                           // open loops
-  Level lv[kMaxDepth];
+  Level lv[D];
 };
+
+// The innermost open loop, and the level a loop entered now takes: at one
+// level the index is a constant, so the stack stays in registers.
+template <int D>
+__device__ __forceinline__ Level& inner(Lane<D>& L) {
+  return L.lv[D == 1 ? 0 : L.top - 1];
+}
+
+template <int D>
+__device__ __forceinline__ const Level& inner(const Lane<D>& L) {
+  return L.lv[D == 1 ? 0 : L.top - 1];
+}
 
 __device__ __forceinline__ int32_t add_wrap(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
 }
 
-__device__ __forceinline__ uint32_t win_byte(const Params& P, uint32_t c,
-                                             uint32_t k) {
+// Byte k of the window at cursor c: from the staged copy when its clipped
+// address lies inside it, else from device memory.
+__device__ __forceinline__ uint32_t win_byte(const Params& P, const Tabs& T,
+                                             uint32_t c, uint32_t k) {
   const uint32_t m = (c & 3u) + k;
   const uint32_t w = min((c >> 2) + (m >> 2), P.last_word);
-  return (uint32_t)__ldg(P.words + ((size_t)w << 2) + (m & 3u));
+  const uint32_t p = (w << 2) | (m & 3u);
+  const uint32_t r = p - T.in_lo;
+  return r < T.in_n ? (uint32_t)T.in[r] : (uint32_t)__ldg(P.words + p);
 }
 
-__device__ __forceinline__ uint32_t win_word(const Params& P, uint32_t c,
-                                             uint32_t k) {
-  return win_byte(P, c, k) | (win_byte(P, c, k + 1) << 8) |
-         (win_byte(P, c, k + 2) << 16) | (win_byte(P, c, k + 3) << 24);
+__device__ __forceinline__ uint32_t win_word(const Params& P, const Tabs& T,
+                                             uint32_t c, uint32_t k) {
+  return win_byte(P, T, c, k) | (win_byte(P, T, c, k + 1) << 8) |
+         (win_byte(P, T, c, k + 2) << 16) | (win_byte(P, T, c, k + 3) << 24);
 }
 
 // One unsigned LEB128 varint (at most 10 bytes) at the cursor.
-__device__ void read_varint(const Params& P, Lane& L, uint32_t& lo,
-                            uint32_t& hi) {
+template <int D>
+__device__ void read_varint(const Params& P, const Tabs& T, Lane<D>& L,
+                            uint32_t& lo, uint32_t& hi) {
   const uint32_t c = (uint32_t)L.cur;
   lo = 0;
   hi = 0;
   uint32_t n = 0;
   bool more = true;
   for (int k = 0; k < 10 && more; ++k) {
-    const uint32_t b = win_byte(P, c, k);
+    const uint32_t b = win_byte(P, T, c, k);
     const uint32_t g = b & 0x7Fu;
     const int s = 7 * k;
     if (s < 32) {
@@ -199,9 +341,11 @@ __device__ void read_varint(const Params& P, Lane& L, uint32_t& lo,
   if (more) L.err |= ERR_VARINT;
 }
 
-__device__ __forceinline__ void read_long(const Params& P, Lane& L,
-                                          uint32_t& lo, uint32_t& hi) {
-  read_varint(P, L, lo, hi);
+template <int D>
+__device__ __forceinline__ void read_long(const Params& P, const Tabs& T,
+                                          Lane<D>& L, uint32_t& lo,
+                                          uint32_t& hi) {
+  read_varint(P, T, L, lo, hi);
   const uint32_t m = 0u - (lo & 1u);
   const uint32_t lo1 = (lo >> 1) | (hi << 31);
   const uint32_t hi1 = hi >> 1;
@@ -209,33 +353,37 @@ __device__ __forceinline__ void read_long(const Params& P, Lane& L,
   hi = hi1 ^ m;
 }
 
-__device__ __forceinline__ int32_t read_branch(const Params& P, Lane& L) {
+template <int D>
+__device__ __forceinline__ int32_t read_branch(const Params& P,
+                                               const Tabs& T, Lane<D>& L) {
   uint32_t lo, hi;
-  read_long(P, L, lo, hi);
+  read_long(P, T, L, lo, hi);
   if (hi != 0) L.err |= ERR_BAD_BRANCH;
   return (int32_t)lo;
 }
 
 // The slot and wrapped flag the current position writes to: the row for
 // the row region, else the innermost loop's item slot.
-__device__ __forceinline__ void context(const Lane& L, int32_t& slot,
+template <int D>
+__device__ __forceinline__ void context(const Lane<D>& L, int32_t& slot,
                                         bool& wrapped) {
   if (L.top == 0) {
     slot = L.row;
     wrapped = false;
     return;
   }
-  const Level& S = L.lv[L.top - 1];
+  const Level& S = inner(L);
   slot = S.cnt < S.icap
              ? (int32_t)((uint32_t)S.base * (uint32_t)S.icap + (uint32_t)S.cnt)
              : kBig;
   wrapped = S.base_wrapped;
 }
 
-// One store: direct into the lane's own range, or, for a slot under a
-// dropped item, into the log. Slots outside the buffer are dropped, a
-// negative wrapped slot counting from the end (jnp's scatter, mode="drop").
-__device__ void put(const Params& P, const Tabs& T, const Lane& L, int b,
+// One store: into the lane's own range, or, for a slot under a dropped
+// item, into the log. Slots outside the buffer are dropped, a negative
+// wrapped slot counting from the end (jnp's scatter, mode="drop").
+template <int D>
+__device__ void put(const Params& P, const Tabs& T, const Lane<D>& L, int b,
                     uint32_t v) {
   int32_t slot;
   bool wrapped;
@@ -245,9 +393,9 @@ __device__ void put(const Params& P, const Tabs& T, const Lane& L, int b,
   if (s < 0 || s >= T.len[b]) return;
   if (!wrapped) {
     if (T.esize[b] == 1) {
-      static_cast<uint8_t*>(T.dst[b])[s] = (uint8_t)v;
+      static_cast<uint8_t*>(T.gptr[b])[s] = (uint8_t)v;
     } else {
-      static_cast<uint32_t*>(T.dst[b])[s] = v;
+      static_cast<uint32_t*>(T.gptr[b])[s] = v;
     }
     return;
   }
@@ -260,16 +408,21 @@ __device__ void put(const Params& P, const Tabs& T, const Lane& L, int b,
   e[1] = (int32_t)s;
   e[2] = (int32_t)v;
   e[3] = L.row;
-  for (int i = 0; i < width - kLogWords; ++i) {
-    e[kLogWords + i] = i < L.top ? L.lv[i].it : 0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i < width - kLogWords) e[kLogWords + i] = i < L.top ? L.lv[i].it : 0;
   }
 }
 
 // The key of a loop of region rid entered now: its index in the table, or
 // -1 when a counter of an enclosing loop lies past its extent.
-__device__ __forceinline__ int key_of(const Tabs& T, const Lane& L, int rid) {
+template <int D>
+__device__ __forceinline__ int key_of(const Tabs& T, const Lane<D>& L,
+                                      int rid) {
   long long k = 0;
-  for (int i = 0; i < L.top; ++i) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i >= L.top) break;
     const int e = T.ext[L.lv[i].rid];
     if (L.lv[i].it >= e) return -1;
     k = k * e + L.lv[i].it;
@@ -278,7 +431,9 @@ __device__ __forceinline__ int key_of(const Tabs& T, const Lane& L, int rid) {
 }
 
 // A lane that ran out of iterations under its own bound.
-__device__ void record_cut(const Params& P, const Lane& L, const Level& S) {
+template <int D>
+__device__ void record_cut(const Params& P, const Lane<D>& L,
+                           const Level& S) {
   const int T = max(P.n_keys, 1);
   if (S.key >= 0) {
     P.status[2 * T + S.key] = 1;
@@ -287,14 +442,18 @@ __device__ void record_cut(const Params& P, const Lane& L, const Level& S) {
   int32_t* it_max = P.status + 3 * T;
   int32_t* off_cut = it_max + P.n_regions;
   off_cut[S.rid] = 1;
-  for (int i = 0; i < L.top - 1; ++i) atomicMax(&it_max[L.lv[i].rid], L.lv[i].it);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (i < L.top - 1) atomicMax(&it_max[L.lv[i].rid], L.lv[i].it);
+  }
 }
 
 // Runs the innermost loop's iterations up to its next item. True when an
 // item is to be decoded; false when the loop has ended (it is popped and
 // its count written where the enclosing position writes).
-__device__ bool loop_next(const Params& P, const Tabs& T, Lane& L) {
-  Level& S = L.lv[L.top - 1];
+template <int D>
+__device__ bool loop_next(const Params& P, const Tabs& T, Lane<D>& L) {
+  Level& S = inner(L);
   for (;;) {
     if (S.done || S.it >= S.bound) {
       if (!S.done) {
@@ -309,7 +468,7 @@ __device__ bool loop_next(const Params& P, const Tabs& T, Lane& L) {
     }
     if (S.rem == 0) {  // block header
       uint32_t lo, hi;
-      read_long(P, L, lo, hi);
+      read_long(P, T, L, lo, hi);
       int32_t b = (int32_t)lo;
       // a count whose high word is neither a zero- nor a sign-extension
       // of the low word would truncate
@@ -320,7 +479,7 @@ __device__ bool loop_next(const Params& P, const Tabs& T, Lane& L) {
       }
       if (b < 0) {  // negative count: a byte-size long follows; skip it
         uint32_t slo, shi;
-        read_varint(P, L, slo, shi);
+        read_varint(P, T, L, slo, shi);
         b = (int32_t)(0u - (uint32_t)b);
       }
       if (b == 0) S.done = true;
@@ -345,8 +504,10 @@ __device__ bool loop_next(const Params& P, const Tabs& T, Lane& L) {
 
 // Enters the array/map loop at pc for the lane. Every lane of `run` (the
 // lanes of the warp at this pc) calls it: the span records are aggregated
-// per key across the warp before the atomics.
-__device__ bool loop_enter(const Params& P, const Tabs& T, Lane& L, int pc,
+// per key across the warp, then folded into the block's table (the first
+// P.fold keys) or into the status in device memory.
+template <int D>
+__device__ bool loop_enter(const Params& P, const Tabs& T, Lane<D>& L, int pc,
                            unsigned run) {
   const int rid = T.code[pc + 2];
   const int icap = T.caps[rid];
@@ -354,15 +515,19 @@ __device__ bool loop_enter(const Params& P, const Tabs& T, Lane& L, int pc,
   const int key = key_of(T, L, rid);
   const unsigned grp = __match_any_sync(run, key);
   const int32_t mx = __reduce_max_sync(grp, span);
-  const int tabn = max(P.n_keys, 1);
   if (key >= 0 && (threadIdx.x & 31) == __ffs(grp) - 1) {
-    atomicMax(&P.status[key], mx);
-    atomicAdd(&P.status[tabn + key], __popc(grp));
+    if (key < P.fold) {
+      atomicMax(&T.s_max[key], mx);
+      atomicAdd(&T.s_cnt[key], __popc(grp));
+    } else {
+      atomicMax(&P.status[key], mx);
+      atomicAdd(&P.status[max(P.n_keys, 1) + key], __popc(grp));
+    }
   }
   int32_t slot;
   bool wrapped;
   context(L, slot, wrapped);
-  Level& S = L.lv[L.top];
+  Level& S = L.lv[D == 1 ? 0 : L.top];
   S.rep_pc = pc;
   S.rid = rid;
   S.icap = icap;
@@ -373,8 +538,8 @@ __device__ bool loop_enter(const Params& P, const Tabs& T, Lane& L, int pc,
   S.done = false;
   S.base = slot;
   S.base_wrapped = L.top > 0 && (wrapped || slot == kBig);
-  S.own = key < 0 || P.has_spec[key] == 0;
-  S.bound = S.own ? add_wrap(span, icap + 2) : P.spec[key];
+  S.own = key < 0 || T.has_spec[key] == 0;
+  S.bound = S.own ? add_wrap(span, icap + 2) : T.spec[key];
   L.top += 1;
   return loop_next(P, T, L);
 }
@@ -382,7 +547,8 @@ __device__ bool loop_enter(const Params& P, const Tabs& T, Lane& L, int pc,
 // Walks the lane's record; every lane of the warp calls it (an inactive
 // one with active = false). The lanes step together: at each step only the
 // lanes at the warp's lowest pc run their op.
-__device__ void run_row(const Params& P, const Tabs& T, Lane& L,
+template <int D>
+__device__ void run_row(const Params& P, const Tabs& T, Lane<D>& L,
                         bool active) {
   const int32_t* code = T.code;
   int pc = active ? 0 : kDone;
@@ -394,7 +560,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
     switch (code[pc]) {
       case OP_LONG: {
         uint32_t lo, hi;
-        read_long(P, L, lo, hi);
+        read_long(P, T, L, lo, hi);
         put(P, T, L, code[pc + 1], lo);
         put(P, T, L, code[pc + 2], hi);
         pc += 3;
@@ -402,21 +568,21 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
       }
       case OP_INT: {
         uint32_t lo, hi;
-        read_long(P, L, lo, hi);
+        read_long(P, T, L, lo, hi);
         put(P, T, L, code[pc + 1], lo);
         pc += 2;
         break;
       }
       case OP_FLOAT: {
-        const uint32_t v = win_word(P, (uint32_t)L.cur, 0);
+        const uint32_t v = win_word(P, T, (uint32_t)L.cur, 0);
         L.cur = add_wrap(L.cur, 4);
         put(P, T, L, code[pc + 1], v);
         pc += 2;
         break;
       }
       case OP_DOUBLE: {
-        const uint32_t lo = win_word(P, (uint32_t)L.cur, 0);
-        const uint32_t hi = win_word(P, (uint32_t)L.cur, 4);
+        const uint32_t lo = win_word(P, T, (uint32_t)L.cur, 0);
+        const uint32_t hi = win_word(P, T, (uint32_t)L.cur, 4);
         L.cur = add_wrap(L.cur, 8);
         put(P, T, L, code[pc + 1], lo);
         put(P, T, L, code[pc + 2], hi);
@@ -424,7 +590,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
         break;
       }
       case OP_BOOL: {
-        const uint32_t b = win_byte(P, (uint32_t)L.cur, 0);
+        const uint32_t b = win_byte(P, T, (uint32_t)L.cur, 0);
         if (b > 1u) L.err |= ERR_BAD_BOOL;
         L.cur = add_wrap(L.cur, 1);
         put(P, T, L, code[pc + 1], b);
@@ -433,7 +599,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
       }
       case OP_STRING: {
         uint32_t lo, hi;
-        read_long(P, L, lo, hi);
+        read_long(P, T, L, lo, hi);
         int32_t slen = (int32_t)lo;
         if (slen < 0 || hi != 0u) {
           L.err |= ERR_NEG_LEN;
@@ -459,7 +625,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
       }
       case OP_ENUM: {
         uint32_t lo, hi;
-        read_long(P, L, lo, hi);
+        read_long(P, T, L, lo, hi);
         const int32_t idx = (int32_t)lo;
         if (hi != 0u || idx < 0 || idx >= code[pc + 2]) L.err |= ERR_BAD_ENUM;
         put(P, T, L, code[pc + 1], (uint32_t)idx);
@@ -467,7 +633,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
         break;
       }
       case OP_NULLABLE: {
-        const int32_t br = read_branch(P, L);
+        const int32_t br = read_branch(P, T, L);
         const int32_t null_idx = code[pc + 2];
         const bool present = br == 1 - null_idx;
         if (!present && br != null_idx) L.err |= ERR_BAD_BRANCH;
@@ -480,7 +646,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
         break;
       }
       case OP_UNION: {
-        const int32_t br = read_branch(P, L);
+        const int32_t br = read_branch(P, T, L);
         const int32_t n = code[pc + 2];
         const bool in_range = br >= 0 && br < n;
         if (!in_range) L.err |= ERR_BAD_BRANCH;
@@ -496,7 +662,7 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
         pc = loop_enter(P, T, L, pc, run) ? pc + 4 : code[pc + 3];
         break;
       case OP_LOOP: {  // one item decoded
-        Level& S = L.lv[L.top - 1];
+        Level& S = inner(L);
         S.rem -= 1;
         S.cnt += 1;
         S.it += 1;
@@ -518,50 +684,111 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane& L,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) decode_walk_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  void** dst = reinterpret_cast<void**>(smem);
-  long long* len = reinterpret_cast<long long*>(smem + 8 * P.n_bufs);
-  int32_t* tab = reinterpret_cast<int32_t*>(smem + 16 * P.n_bufs);
-  const int n_tab = P.code_len + 2 * P.n_regions + 2 * P.n_bufs;
-  int32_t* keys = tab + n_tab;
+  __shared__ int32_t s_fold[2 * kKeyTab];
+  const int nb = P.n_bufs;
+  const Layout Lo = layout_of(P.code_len, nb, P.n_regions, P.in_budget);
+  const TabOffsets O = tab_offsets(P.code_len, nb, P.n_regions, P.n_keys);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  void** gptr = reinterpret_cast<void**>(smem + Lo.gptr);
+  long long* len = reinterpret_cast<long long*>(smem + Lo.len);
+  long long* lo_el = reinterpret_cast<long long*>(smem + Lo.lo);
+  long long* z16 = reinterpret_cast<long long*>(smem + Lo.z16);
+  int32_t* tab = reinterpret_cast<int32_t*>(smem + Lo.tab);
+  uint8_t* s_in = smem + Lo.in;
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kThreads;
   const int rows = min(kThreads, P.R - first);
+  const int keys = max(P.n_keys, 1);
+  // the status's block counts: staged, reading device memory
+  int32_t* blocks = P.status + 3 * keys + 2 * P.n_regions + 1;
 
-  for (int i = tid; i < n_tab; i += kThreads) tab[i] = P.table[i];
-  for (int i = tid; i < 2 * P.n_regions; i += kThreads) keys[i] = P.key_tab[i];
-  for (int b = tid; b < P.n_bufs; b += kThreads) {
-    dst[b] = reinterpret_cast<void*>(P.buf_ptrs[b]);
-    len[b] = P.buf_lens[b];
+  // 1. the block's active records, one span of the words widened to 16-B
+  // bounds: into shared memory by one bulk copy when it fits the budget
+  const int last = min(first + rows, P.n) - 1;
+  long long a = 0, span = 0;
+  bool covers = false, staged = false;
+  if (last >= first) {
+    const long long lo = P.starts[first];
+    const long long hi = (long long)P.starts[last] + P.lengths[last];
+    a = lo & ~15ll;
+    span = ((hi + 15) & ~15ll) - a;
+    covers = hi > lo;
+    staged = covers && lo >= 0 && a + span <= P.n_bytes &&
+             span <= P.in_budget;
+  }
+  if (tid == 0 && staged) mbar_init(bar);
+  __syncthreads();  // the initialised barrier is visible to every thread
+  if (tid == 0 && staged) {
+    bulk_load(s_in, P.words + a, (uint32_t)span, bar);
+  }
+  if (tid == 0 && covers) atomicAdd(&blocks[staged ? 0 : 1], 1);
+
+  // 2. tables into shared memory, while the copy is in flight
+  const long long* t64 = reinterpret_cast<const long long*>(P.table);
+  const int32_t* t32 = P.table + 4 * nb;
+  for (int i = tid; i < O.spec; i += kThreads) tab[i] = t32[i];
+  for (int b = tid; b < nb; b += kThreads) {
+    const long long n_b = t64[nb + b];
+    const long long per_row = n_b / P.R;
+    gptr[b] = reinterpret_cast<void*>(t64[b]);
+    len[b] = n_b;
+    lo_el[b] = (long long)first * per_row;
+    // the whole 16-B words of the block's range
+    z16[b] = (long long)rows * per_row * t32[O.esize + b] / 16;
+  }
+  const int fold = min(P.fold, P.n_keys);
+  for (int i = tid; i < fold; i += kThreads) {
+    s_fold[i] = INT_MIN;
+    s_fold[kKeyTab + i] = 0;
   }
   __syncthreads();
   Tabs T;
   T.code = tab;
-  T.caps = tab + P.code_len;
-  T.esize = T.caps + 2 * P.n_regions;
-  T.ext = keys;
-  T.key_off = keys + P.n_regions;
-  T.dst = dst;
+  T.caps = tab + O.caps;
+  T.esize = tab + O.esize;
+  T.ext = tab + O.ext;
+  T.key_off = tab + O.key_off;
+  T.gptr = gptr;
   T.len = len;
+  T.spec = t32 + O.spec;
+  T.has_spec = t32 + O.has_spec;
+  T.s_max = s_fold;
+  T.s_cnt = s_fold + kKeyTab;
+  T.in = s_in;
+  T.in_lo = (uint32_t)a;
+  T.in_n = staged ? (uint32_t)span : 0u;
 
-  // every element of the block's rows starts at 0: the rows' ranges are one
-  // contiguous span of each buffer, zeroed by 16-byte stores
+  // 3. every output element of the block's rows starts at 0: its ranges
+  // of all buffers, walked as one sequence of 16-byte words
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int b = 0; b < P.n_bufs; ++b) {
-    const long long per_row = len[b] / P.R * T.esize[b];
-    uint8_t* p = static_cast<uint8_t*>(dst[b]) + (long long)first * per_row;
-    const long long bytes = (long long)rows * per_row;
-    const long long n16 = bytes / 16;
-    for (long long i = tid; i < n16; i += kThreads) {
-      reinterpret_cast<uint4*>(p)[i] = zero;
+  {
+    int b = 0;
+    long long base = 0;  // the first word of buffer b in the sequence
+    for (long long i = tid;; i += kThreads) {
+      while (b < nb && i >= base + z16[b]) base += z16[b++];
+      if (b == nb) break;
+      uint8_t* p = static_cast<uint8_t*>(gptr[b]) + lo_el[b] * T.esize[b];
+      reinterpret_cast<uint4*>(p)[i - base] = zero;
     }
-    for (long long i = n16 * 16 + tid; i < bytes; i += kThreads) p[i] = 0;
+  }
+  if (rows < kThreads) {  // a short last block: the ranges' tail bytes
+    for (int b = 0; b < nb; ++b) {
+      const long long esz = T.esize[b];
+      uint8_t* p = static_cast<uint8_t*>(gptr[b]) + lo_el[b] * esz;
+      const long long bytes = (long long)rows * (len[b] / P.R) * esz;
+      for (long long i = z16[b] * 16 + tid; i < bytes; i += kThreads) {
+        p[i] = 0;
+      }
+    }
   }
   __syncthreads();
+  if (staged) mbar_wait(bar, 0);
 
-  // the walk: one thread per row, the whole warp in step
-  Lane L;
+  // 4. the walk: one thread per row, the whole warp in step
+  Lane<D> L;
   L.row = first + tid;
   L.top = 0;
   L.err = 0;
@@ -570,33 +797,87 @@ __global__ void __launch_bounds__(kThreads) decode_walk_kernel(Params P) {
   L.end = in_grid ? add_wrap(L.cur, P.lengths[L.row]) : 0;
   run_row(P, T, L, in_grid && L.row < P.n);
   if (in_grid) P.err[L.row] = L.err;
+  __syncthreads();
+
+  // 5. the block's span records, one global pair per touched key
+  for (int i = tid; i < fold; i += kThreads) {
+    if (T.s_cnt[i] > 0) {
+      atomicMax(&P.status[i], T.s_max[i]);
+      atomicAdd(&P.status[keys + i], T.s_cnt[i]);
+    }
+  }
+}
+
+template <int D>
+int allow_smem(int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      decode_walk_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+}
+
+template <int D>
+int blocks_per_sm(int smem_bytes) {
+  int rc = allow_smem<D>(smem_bytes);
+  if (rc != 0) return -rc;
+  int n = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_walk_kernel<D>, kThreads, smem_bytes);
+  return rc != 0 ? -rc : n;
+}
+
+template <int D>
+int launch(const Params& p, int shmem, cudaStream_t stream) {
+  const int rc = allow_smem<D>(shmem);
+  if (rc != 0) return rc;
+  decode_walk_kernel<D><<<(p.R + kThreads - 1) / kThreads, kThreads, shmem,
+                          stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-static int smem_of(int code_len, int n_bufs, int n_regions) {
-  return 16 * n_bufs + 4 * (code_len + 4 * n_regions + 2 * n_bufs);
+// Dynamic shared memory of one block, in bytes.
+extern "C" int decode_walk_smem_bytes(int code_len, int n_bufs, int n_regions,
+                                      int in_budget) {
+  return layout_of(code_len, n_bufs, n_regions, in_budget).total;
 }
 
-// Launches the walk on `stream`; returns a CUDA error code (0 = launched).
-// Every buffer pointer 16-B aligned, each buffer's length a multiple of R;
-// every output buffer and err are written whole. status must hold INT_MIN
-// in its span maxima, -1 in it_max and 0 elsewhere (the wrapper's reset).
+// Blocks of the kernel's `stack`-level instantiation that fit one SM at
+// `smem_bytes` of dynamic shared memory (registers and threads counted
+// too); a negative CUDA error code when the query fails.
+extern "C" int decode_walk_blocks_per_sm(int stack, int smem_bytes) {
+  switch (stack) {
+    case 1: return blocks_per_sm<1>(smem_bytes);
+    case 2: return blocks_per_sm<2>(smem_bytes);
+    case 8: return blocks_per_sm<8>(smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// Launches the walk on `stream` with the `stack`-level instantiation (1,
+// 2 or 8, at least depth); returns a CUDA error code (0 = launched).
+// words 16-B aligned; every buffer pointer 16-B aligned, each buffer's
+// length a multiple of R; in_budget a multiple of 16; fold at most
+// kKeyTab. Every output buffer and err are written whole. status
+// [3 * max(n_keys, 1) + 2 * n_regions + 3] must hold INT_MIN in its span
+// maxima, -1 in it_max and 0 elsewhere (the wrapper's reset); its last
+// two words count the blocks staged and reading device memory.
 extern "C" int decode_walk(const void* words, long long n_words,
                            const void* starts, const void* lengths, int n,
                            int R, const void* table, int code_len, int n_bufs,
-                           int n_regions, int depth, const void* buf_ptrs,
-                           const void* buf_lens, const void* key_tab,
-                           const void* spec, const void* has_spec, int n_keys,
-                           void* status, void* log, int log_cap, void* err,
-                           void* stream) {
+                           int n_regions, int depth, int stack, int n_keys,
+                           int in_budget, int fold, void* status, void* log,
+                           int log_cap, void* err, void* stream) {
   if (R <= 0) return 0;
-  if (n_words <= 0 || n_words > (1ll << 30) || depth > kMaxDepth ||
-      n < 0 || n > R) {
+  if (n_words <= 0 || n_words > (1ll << 30) || depth > stack || n < 0 ||
+      n > R || in_budget < 0 || in_budget % 16 != 0 || fold < 0 ||
+      fold > kKeyTab || reinterpret_cast<uintptr_t>(words) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
   p.words = static_cast<const uint8_t*>(words);
+  p.n_bytes = 4 * n_words;
   p.last_word = (uint32_t)(n_words - 1);
   p.starts = static_cast<const int32_t*>(starts);
   p.lengths = static_cast<const int32_t*>(lengths);
@@ -607,24 +888,19 @@ extern "C" int decode_walk(const void* words, long long n_words,
   p.n_bufs = n_bufs;
   p.n_regions = n_regions;
   p.depth = depth;
-  p.buf_ptrs = static_cast<const long long*>(buf_ptrs);
-  p.buf_lens = static_cast<const long long*>(buf_lens);
-  p.key_tab = static_cast<const int32_t*>(key_tab);
-  p.spec = static_cast<const int32_t*>(spec);
-  p.has_spec = static_cast<const int32_t*>(has_spec);
   p.n_keys = n_keys;
+  p.in_budget = in_budget;
+  p.fold = fold;
   p.status = static_cast<int32_t*>(status);
   p.log = static_cast<int32_t*>(log);
   p.log_cap = log_cap;
   p.err = static_cast<uint32_t*>(err);
-  const int shmem = smem_of(code_len, n_bufs, n_regions);
-  if (shmem > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
-        decode_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shmem);
-    if (rc != 0) return rc;
+  const int shmem = layout_of(code_len, n_bufs, n_regions, in_budget).total;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stack) {
+    case 1: return launch<1>(p, shmem, s);
+    case 2: return launch<2>(p, shmem, s);
+    case 8: return launch<8>(p, shmem, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  decode_walk_kernel<<<(R + kThreads - 1) / kThreads, kThreads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
 }

@@ -467,11 +467,74 @@ def finalize_plain(bufs, err, prog: Program, R: int, B: int, item_caps,
 
 _LOG_WORDS = 4              # b, slot, value, lane; then one counter per level
 _KEY_LIMIT = 1 << 24        # loop-bound table entries (16 B each)
-_MAX_DEPTH = 8              # the kernel's loop stack (csrc/decode_walk.cu)
+WALK_THREADS = 128          # lanes of a kernel block (csrc/decode_walk.cu)
+WALK_STACKS = (1, 2, 8)     # the kernel's loop-stack instantiations
+WALK_KEY_FOLD = 64          # keys a block folds in shared memory (kKeyTab)
+_WALK_IN_MAX = 32 << 10     # shared memory for one block's record span
 # launches before ``run`` gives up: settling widens the key table about
 # once per nesting level, then relaunches once with the recorded bounds,
 # and grows the log in one step; no fixture needs more than a handful
 _MAX_WALK_LAUNCHES = 64
+
+
+def walk_stack(depth: int) -> int:
+    """The kernel's smallest loop stack that holds ``depth`` open loops."""
+    for s in WALK_STACKS:
+        if s >= max(depth, 1):
+            return s
+    raise DeviceCapacityExceeded(
+        f"arrays/maps nested {depth} deep (kernel limit {WALK_STACKS[-1]})")
+
+
+def walk_input_staging(starts, lengths, n: int, n_bytes: int,
+                       in_budget: int):
+    """The kernel's input staging, block by block (``decode_walk_kernel``
+    step 1), as numpy arrays over the blocks of ``WALK_THREADS`` lanes:
+    ``(a, span, staged, covers)``. The block's active records (lanes below
+    ``n``) are one span of the words, ``starts[first]`` to the last active
+    lane's end, widened to 16-B bounds: ``[a, a + span)``. ``staged``: the
+    block copies it into shared memory (it covers bytes, lies inside the
+    ``n_bytes`` of words and fits ``in_budget``); ``covers``: it covers
+    any byte (a block that does and is not staged reads device memory)."""
+    st = starts.cpu().numpy().astype(np.int64)
+    ln = lengths.cpu().numpy().astype(np.int64)
+    first = np.arange(0, st.size, WALK_THREADS)
+    last = np.minimum(np.minimum(first + WALK_THREADS, st.size), n) - 1
+    active = last >= first
+    last = np.where(active, last, first)
+    lo, hi = st[first], st[last] + ln[last]
+    a = lo & ~15
+    span = ((hi + 15) & ~15) - a
+    covers = active & (hi > lo)
+    staged = covers & (lo >= 0) & (a + span <= n_bytes) & (span <= in_budget)
+    return a, np.where(covers, span, 0), staged, covers
+
+
+def _largest_fitting(fits, cap: int) -> int:
+    """The largest multiple of 16 up to ``cap`` where ``fits`` holds
+    (``fits`` holds at 0 and turns false once, as sizes grow)."""
+    lo, hi = 0, cap // 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(16 * mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return 16 * lo
+
+
+def walk_budget(per_sm, in_max) -> int:
+    """The record span a block of a launch may stage, in bytes. ``in_max``
+    given is taken as it is (to 16 B); left None, it is the most (16-B
+    steps, at most ``_WALK_IN_MAX``) at which ``per_sm(in_bytes)``, the
+    blocks that fit one SM, is as large as with no staging, or
+    ``_WALK_IN_MAX`` without ``per_sm`` (no card to ask)."""
+    if in_max is not None:
+        return in_max // 16 * 16
+    if per_sm is None:
+        return _WALK_IN_MAX
+    want = per_sm(0)
+    return _largest_fitting(lambda x: per_sm(x) >= want, _WALK_IN_MAX)
 
 
 class WalkLaunch:
@@ -481,42 +544,53 @@ class WalkLaunch:
     entry ``key_off`` of its own keys; per key, the bound to use
     (``spec``, where ``has_spec``) and what a launch records (``status``:
     span max, lanes, own-bound cuts; per region the largest counter seen
-    off the table and cuts there; the wrapped-write log's length)."""
+    off the table and cuts there; the wrapped-write log's length; the
+    blocks the kernel staged and those that read device memory). Every
+    table the kernel reads goes to the device as one packed tensor
+    (``table``), with the status a launch starts from (``status0``).
+
+    ``in_budget`` is the record span a block may stage in shared memory
+    (:func:`walk_input_staging`; a block over it reads device memory):
+    ``in_max`` when given, else the most that costs no resident block
+    (:func:`walk_budget` with the kernel's occupancy query; on the CPU,
+    which has none, without it). ``_stack`` (the loop-stack instantiation;
+    by default the smallest that holds the schema's depth) and ``_fold``
+    (the keys a block folds in shared memory) are there to measure the
+    kernel's levers; the decoder leaves them as they are."""
 
     def __init__(self, words, starts, lengths, n: int, prog: Program,
-                 item_caps, log_cap: int = 1 << 12):
+                 item_caps, log_cap: int = 1 << 12, in_max: int = None, *,
+                 _stack: int = None, _fold: int = WALK_KEY_FOLD):
         dev = words.device
         R = starts.numel()
         if words.dtype != torch.int32 or words.dim() != 1 \
-                or not words.is_contiguous():
-            raise ValueError("words must be contiguous int32 [W]")
+                or not words.is_contiguous() or words.data_ptr() % 16:
+            raise ValueError("words must be contiguous 16-B aligned int32 "
+                             "[W]")
         _check(starts, torch.int32, (R,), dev, "starts")
         _check(lengths, torch.int32, (R,), dev, "lengths")
-        if prog.depth > _MAX_DEPTH:
-            raise DeviceCapacityExceeded(
-                f"arrays/maps nested {prog.depth} deep (kernel limit "
-                f"{_MAX_DEPTH})")
+        self.stack = walk_stack(prog.depth) if _stack is None else _stack
+        if self.stack not in WALK_STACKS or prog.depth > self.stack:
+            raise ValueError(f"stack {self.stack} is no instantiation "
+                             f"{WALK_STACKS} holding depth {prog.depth}")
+        if not 0 <= _fold <= WALK_KEY_FOLD:
+            raise ValueError(f"fold {_fold} outside 0..{WALK_KEY_FOLD}")
         check_slots(prog, R, item_caps)
         self.words, self.starts, self.lengths, self.n = words, starts, \
             lengths, n
         self.prog, self.caps, self.R = prog, tuple(item_caps), R
-        nr = len(prog.regions)
-        self.n_regions = nr
-        esize = [prog.buffers[k].dtype.itemsize for k in prog.out_keys]
-        region = [prog.buffers[k].region for k in prog.out_keys]
-        self.table = torch.tensor(
-            prog.code.tolist() + list(self.caps) + prog.region_parents
-            + esize + region, dtype=torch.int32, device=dev)
+        self.n_regions = len(prog.regions)
+        self.fold = _fold
+        self.in_budget = walk_kernel.budget(prog, self.stack, in_max) \
+            if dev.type == "cuda" else walk_budget(None, in_max)
+        self.blocks = (0, 0)
+        self.esize = [prog.buffers[k].dtype.itemsize for k in prog.out_keys]
         self.bufs = alloc_walk_outputs(prog, R, item_caps, dev,
                                        fill=torch.empty)
         if any(b.data_ptr() % 16 for b in self.bufs):
             raise ValueError("walk buffers must be 16-B aligned")
-        self.ptrs = torch.tensor([b.data_ptr() for b in self.bufs] or [0],
-                                 dtype=torch.int64, device=dev)
-        self.lens = torch.tensor([b.numel() for b in self.bufs] or [0],
-                                 dtype=torch.int64, device=dev)
         self.err = torch.empty(R, dtype=torch.int32, device=dev)
-        self.ext = [0] * nr
+        self.ext = [0] * self.n_regions
         self.set_log(log_cap)
         self._tables(keep=None)
 
@@ -532,7 +606,6 @@ class WalkLaunch:
     def _tables(self, keep) -> None:
         """(Re)build the key tables for the current extents; ``keep`` maps
         row-level regions to the (spec, has_spec) they keep."""
-        dev = self.words.device
         offs, icap, total = [0] * self.n_regions, [], 0
         for rid in range(1, self.n_regions):
             offs[rid] = total
@@ -552,19 +625,33 @@ class WalkLaunch:
         if keep:
             for rid, (spec, has) in keep.items():
                 self.spec[offs[rid]], self.has_spec[offs[rid]] = spec, has
-        self.key_tab = torch.tensor(self.ext + offs, dtype=torch.int32,
-                                    device=dev)
-        nr = self.n_regions
-        self.status = torch.empty(3 * max(total, 1) + 2 * nr + 1,
-                                  dtype=torch.int32, device=dev)
-        self.upload_spec()
+        T, nr = max(total, 1), self.n_regions
+        self.status = torch.empty(3 * T + 2 * nr + 3, dtype=torch.int32,
+                                  device=self.words.device)
+        self.upload()
 
-    def upload_spec(self) -> None:
-        dev = self.words.device
-        self.spec_d = torch.from_numpy(self.spec.copy()).to(dev) \
-            if self.n_keys else torch.zeros(1, dtype=torch.int32, device=dev)
-        self.has_d = torch.from_numpy(self.has_spec.copy()).to(dev) \
-            if self.n_keys else torch.zeros(1, dtype=torch.int32, device=dev)
+    def upload(self) -> None:
+        """The tables and the status image to the device in one copy:
+        ``table`` = buffer pointers and lengths (int64), then code, caps,
+        element sizes, ext, key_off, spec and has_spec (int32; in the
+        order of ``csrc/decode_walk.cu`` ``tab_offsets``); ``status0`` =
+        no span recorded (INT_MIN), no lanes, no cut, counters -1, no log
+        entry, no block counted."""
+        T, nr = max(self.n_keys, 1), self.n_regions
+        head = np.array([b.data_ptr() for b in self.bufs]
+                        + [b.numel() for b in self.bufs], np.int64)
+        spec, has = np.zeros(T, np.int32), np.zeros(T, np.int32)
+        spec[:self.n_keys], has[:self.n_keys] = self.spec, self.has_spec
+        status0 = np.zeros(3 * T + 2 * nr + 3, np.int32)
+        status0[:T] = -(1 << 31)
+        status0[3 * T:3 * T + nr] = -1
+        packed = np.concatenate([
+            head.view(np.int32), self.prog.code.astype(np.int32),
+            np.array(list(self.caps) + self.esize + self.ext + self.key_off,
+                     np.int32), spec, has, status0])
+        packed = torch.from_numpy(packed).to(self.words.device)
+        self.table, self.status0 = packed[:-status0.size], \
+            packed[-status0.size:]
 
     def set_log(self, cap: int) -> None:
         width = _LOG_WORDS + max(self.prog.depth, 1)
@@ -573,28 +660,37 @@ class WalkLaunch:
                                device=self.words.device)
 
     def reset(self) -> None:
-        """The status a launch starts from: no span recorded (INT_MIN), no
-        lanes, no cut, counters -1, no log entry."""
-        T, nr = max(self.n_keys, 1), self.n_regions
-        s = self.status
-        s[:T].fill_(-(1 << 31))
-        s[T:3 * T].zero_()
-        s[3 * T:3 * T + nr].fill_(-1)
-        s[3 * T + nr:].zero_()
+        """The status a launch starts from: one copy of ``status0``."""
+        self.status.copy_(self.status0)
+
+    def log_at(self) -> int:
+        """Where the status holds the log's length; the two block counts
+        follow it."""
+        return 3 * max(self.n_keys, 1) + 2 * self.n_regions
 
     def read_status(self):
-        T, nr = max(self.n_keys, 1), self.n_regions
+        """The launch's status: per key span max, lanes and cuts; per
+        region the largest counter off the table and cuts there; the log's
+        length; and the blocks ``(staged, reading device memory)``."""
+        T, nr, at = max(self.n_keys, 1), self.n_regions, self.log_at()
         s = self.status.cpu().numpy()
         return (s[:T][:self.n_keys], s[T:2 * T][:self.n_keys],
                 s[2 * T:3 * T][:self.n_keys], s[3 * T:3 * T + nr],
-                s[3 * T + nr:3 * T + 2 * nr], int(s[-1]))
+                s[3 * T + nr:at], int(s[at]),
+                (int(s[at + 1]), int(s[at + 2])))
+
+    def input_staging(self):
+        """:func:`walk_input_staging` of this launch."""
+        return walk_input_staging(self.starts, self.lengths, self.n,
+                                  4 * self.words.numel(), self.in_budget)
 
     def settle(self) -> bool:
         """Check the launch just made: True when every loop ran with the
         bound the reference gives it. Else set up the next launch (a
         larger log, the recorded bounds as the spec, wider tables) and
         return False."""
-        rec_max, rec_cnt, cut, it_max, off_cut, log_n = self.read_status()
+        rec_max, rec_cnt, cut, it_max, off_cut, log_n, self.blocks = \
+            self.read_status()
         if log_n > self.log_cap:
             self.unsettled = f"a log of {log_n} writes past its {self.log_cap}"
             self.set_log(bucket_len(log_n, self.log_cap))
@@ -626,14 +722,14 @@ class WalkLaunch:
                                       bucket_len(int(it_max[a]) + 1, 1))
             self._tables(keep)
         else:
-            self.upload_spec()
+            self.upload()
         return False
 
     def apply_log(self) -> None:
         """Writes through a dropped item's slot, in the reference's order:
         by buffer and slot, the last event (enclosing counters, outermost
         first) and the last lane win."""
-        log_n = int(self.status[-1])
+        log_n = int(self.status[self.log_at()])
         if not log_n:
             return
         width = _LOG_WORDS + max(self.prog.depth, 1)
@@ -663,24 +759,57 @@ class _DecodeWalkKernel:
     def __init__(self):
         self.launches = 0
         self._lock = threading.Lock()
+        self._budgets = {}  # guarded-by: _lock
 
     def library(self):
         from ._build import load_kernel_library
 
         lib = load_kernel_library(self.source)
-        fn = lib.cdll.decode_walk
-        if fn.argtypes is None:
-            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [P, LL, P, P, I, I,  # words n_words starts lengths
-                                               # n R
-                           P, I, I, I, I,      # table code_len n_bufs
-                                               # n_regions depth
-                           P, P, P,            # buf_ptrs buf_lens key_tab
-                           P, P, I,            # spec has_spec n_keys
-                           P, P, I,            # status log log_cap
-                           P, P]               # err stream
-            fn.restype = ctypes.c_int
+        cdll = lib.cdll
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if cdll.decode_walk.argtypes is None:
+            cdll.decode_walk.argtypes = [
+                P, LL, P, P, I, I,      # words n_words starts lengths n R
+                P, I, I, I, I, I, I,    # table code_len n_bufs n_regions
+                                        # depth stack n_keys
+                I, I,                   # in_budget fold
+                P, P, I, P, P]          # status log log_cap err stream
+            cdll.decode_walk.restype = I
+            cdll.decode_walk_smem_bytes.argtypes = [I, I, I, I]
+            cdll.decode_walk_smem_bytes.restype = I
+            cdll.decode_walk_blocks_per_sm.argtypes = [I, I]
+            cdll.decode_walk_blocks_per_sm.restype = I
         return lib
+
+    def smem_bytes(self, prog: Program, in_budget: int) -> int:
+        """Dynamic shared memory of one block."""
+        return self.library().cdll.decode_walk_smem_bytes(
+            len(prog.code), len(prog.out_keys), len(prog.regions),
+            in_budget)
+
+    def blocks_per_sm(self, stack: int, smem_bytes: int) -> int:
+        """Blocks of the ``stack``-level instantiation that fit one SM at
+        ``smem_bytes`` of dynamic shared memory (the CUDA occupancy query)."""
+        got = self.library().cdll.decode_walk_blocks_per_sm(stack,
+                                                            smem_bytes)
+        if got < 0:
+            raise RuntimeError(f"decode_walk occupancy query failed: CUDA "
+                               f"error {-got}")
+        return got
+
+    def budget(self, prog: Program, stack: int, in_max) -> int:
+        """:func:`walk_budget` by the occupancy query, once per program
+        shape, instantiation and cap given."""
+        key = (len(prog.code), len(prog.out_keys), len(prog.regions), stack,
+               in_max)
+        with self._lock:
+            got = self._budgets.get(key)
+        if got is None:
+            got = walk_budget(lambda x: self.blocks_per_sm(
+                stack, self.smem_bytes(prog, x)), in_max)
+            with self._lock:
+                self._budgets[key] = got
+        return got
 
     def launch(self, L: WalkLaunch) -> None:
         """One launch on the current stream; no synchronisation."""
@@ -692,8 +821,7 @@ class _DecodeWalkKernel:
         rc = fn(L.words.data_ptr(), L.words.numel(), L.starts.data_ptr(),
                 L.lengths.data_ptr(), L.n, L.R, L.table.data_ptr(),
                 len(L.prog.code), len(L.bufs), L.n_regions, L.prog.depth,
-                L.ptrs.data_ptr(), L.lens.data_ptr(), L.key_tab.data_ptr(),
-                L.spec_d.data_ptr(), L.has_d.data_ptr(), L.n_keys,
+                L.stack, L.n_keys, L.in_budget, L.fold,
                 L.status.data_ptr(), L.log.data_ptr(), L.log_cap,
                 L.err.data_ptr(), stream)
         if rc != 0:

@@ -5,8 +5,10 @@ card. What surrounds them does not: ``WalkLaunch`` (the loop-bound key
 tables, the relaunch until the bounds settle, the log of writes under
 dropped items and its replay) and ``FinalizePlan`` (the job tables, the
 blob offsets, the reductions). These tests run both against a Python
-model of each kernel that follows its source step by step (one lane at
-a time for the walk, one pass at a time for the finalize), and hold the
+model of each kernel that follows its source step by step (block by
+block and one lane at a time for the walk, with the walk's staged record
+spans, its block counts and per-block fold of the span records; one
+pass at a time for the finalize), and hold the
 result against the plain versions bit for bit, at every rung of every
 pipeline fixture. A fault in the protocol or in the tables shows here;
 a fault in the CUDA source itself shows only on the card
@@ -42,21 +44,57 @@ def _i32(x: int) -> int:
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
+class _Block:
+    """One block of ``decode_walk_kernel``: its staged copy of the words
+    (``walk_input_staging``; the block counts itself staged or reading
+    device memory in the status), its output ranges zeroed, and its fold
+    of the span records of the first ``fold`` keys."""
+
+    def __init__(self, L, st, first: int):
+        blk = first // decode.WALK_THREADS
+        self.rows = min(decode.WALK_THREADS, L.R - first)
+        a, span = int(st["in_a"][blk]), int(st["in_span"][blk])
+        staged = bool(st["in_staged"][blk])
+        if st["in_covers"][blk]:
+            st["status"][st["log_at"] + (1 if staged else 2)] += 1
+        self.in_lo, self.in_n = (a, span) if staged else (0, 0)
+        self.copy = st["words"][a:a + span].copy() if staged else None
+        for buf in st["bufs"]:
+            per_row = buf.size // L.R
+            buf[first * per_row:(first + self.rows) * per_row] = 0
+        self.fold = {}  # key -> [span max, lanes]
+
+    def finish(self, st) -> None:
+        """The block's end: one global pair per folded key."""
+        T = st["T"]
+        for key, (mx, cnt) in self.fold.items():
+            st["status"][key] = max(st["status"][key], mx)
+            st["status"][T + key] += cnt
+
+
 class _Lane:
     """One thread of ``decode_walk_kernel``."""
 
-    def __init__(self, L, st, row: int):
-        self.L, self.st, self.row = L, st, row
+    def __init__(self, L, st, blk: _Block, row: int):
+        self.L, self.st, self.blk, self.row = L, st, blk, row
         self.cur = int(st["starts"][row])
         self.end = _i32(self.cur + int(st["lengths"][row]))
         self.err = 0
         self.lv = []  # open loops, outermost first
 
     def byte(self, c: int, k: int) -> int:
+        """From the block's staged copy when the clipped address lies in
+        it, else from the words; each read counted."""
         c &= 0xFFFFFFFF
         m = (c & 3) + k
         w = min((c >> 2) + (m >> 2), self.st["last_word"])
-        return int(self.st["words"][4 * w + (m & 3)])
+        p = 4 * w + (m & 3)
+        r = p - self.blk.in_lo
+        if 0 <= r < self.blk.in_n:
+            self.st["reads"][0] += 1
+            return int(self.blk.copy[r])
+        self.st["reads"][1] += 1
+        return int(self.st["words"][p])
 
     def word(self, c: int, k: int) -> int:
         return sum(self.byte(c, k + i) << (8 * i) for i in range(4))
@@ -107,8 +145,8 @@ class _Lane:
             buf = st["bufs"][b]
             buf[s] = v & 0xFF if buf.dtype == np.uint8 else _i32(v)
             return
-        at = st["status"][-1]
-        st["status"][-1] += 1
+        at = st["status"][st["log_at"]]
+        st["status"][st["log_at"]] += 1
         if at >= self.L.log_cap:
             return
         e = st["log"][at]
@@ -120,14 +158,14 @@ class _Lane:
     def key_of(self, rid: int) -> int:
         k = 0
         for S in self.lv:
-            e = self.L.ext[S["rid"]]
+            e = self.st["ext"][S["rid"]]
             if S["it"] >= e:
                 return -1
             k = k * e + S["it"]
-        return self.L.key_off[rid] + k
+        return self.st["key_off"][rid] + k
 
     def record_cut(self, S) -> None:
-        st, T = self.st["status"], max(self.L.n_keys, 1)
+        st, T = self.st["status"], self.st["T"]
         if S["key"] >= 0:
             st[2 * T + S["key"]] = 1
             return
@@ -173,22 +211,26 @@ class _Lane:
             S["it"] += 1
 
     def loop_enter(self, code, pc: int) -> bool:
-        L, st = self.L, self.st["status"]
+        L, st = self.L, self.st
         rid = code[pc + 2]
-        icap = L.caps[rid]
+        icap = st["caps"][rid]
         span = _i32(self.end - self.cur)
         key = self.key_of(rid)
-        if key >= 0:
-            st[key] = max(st[key], span)
-            st[max(L.n_keys, 1) + key] += 1
+        if key >= 0 and key < st["fold"]:
+            f = self.blk.fold.setdefault(key, [-(1 << 31), 0])
+            f[0], f[1] = max(f[0], span), f[1] + 1
+        elif key >= 0:
+            st["status"][key] = max(st["status"][key], span)
+            st["status"][st["T"] + key] += 1
         slot, wrapped = self.context()
-        own = key < 0 or self.st["has_spec"][key] == 0
+        own = key < 0 or st["has_spec"][key] == 0
         self.lv.append(dict(
             rep_pc=pc, rid=rid, icap=icap, key=key, rem=0, cnt=0, it=0,
             done=False, base=slot,
             base_wrapped=bool(self.lv) and (wrapped or slot == BIG),
             own=own, bound=_i32(span + icap + 2) if own
-            else int(self.st["spec"][key])))
+            else int(st["spec"][key])))
+        assert len(self.lv) <= L.stack  # the kernel's loop stack
         return self.loop_next(code)
 
     def run(self, code) -> None:
@@ -287,30 +329,67 @@ class _Lane:
                 return
 
 
-def model_walk_launch(L) -> None:
+def table_parts(code_len: int, n_bufs: int, n_regions: int, n_keys: int):
+    """``[(name, int32 words)]`` of the packed table after the buffer
+    pointers and lengths, in the order the model reads them (the
+    kernel's ``tab_offsets``, checked against the source in
+    ``test_torch_walk_staging.py``)."""
+    T = max(n_keys, 1)
+    return [("code", code_len), ("caps", n_regions), ("esize", n_bufs),
+            ("ext", n_regions), ("key_off", n_regions), ("spec", T),
+            ("has_spec", T)]
+
+
+def unpack_table(L):
+    """The tables of ``L.table`` as ``decode_walk_kernel`` reads them
+    (``csrc/decode_walk.cu`` Params.table)."""
+    nb = len(L.bufs)
+    t = L.table.numpy()
+    head = t[:4 * nb].view(np.int64)
+    out = {"ptrs": head[:nb].tolist(), "lens": head[nb:].tolist()}
+    at = 4 * nb
+    for name, n in table_parts(len(L.prog.code), nb, L.n_regions,
+                               L.n_keys):
+        out[name] = t[at:at + n].tolist()
+        at += n
+    assert at == t.size
+    return out
+
+
+def model_walk_launch(L):
     """What one ``decode_walk`` launch does to ``L`` (its status reset
-    first, as ``_DecodeWalkKernel.launch`` does)."""
+    first, as ``_DecodeWalkKernel.launch`` does), block by block. Returns
+    the byte reads ``[from staged copies, from the words]``; the blocks
+    staged and reading device memory are counted in its status."""
     L.reset()
     width = 4 + max(L.prog.depth, 1)
+    tab = unpack_table(L)
+    assert tab["ptrs"] == [b.data_ptr() for b in L.bufs]
+    assert tab["lens"] == [b.numel() for b in L.bufs]
+    a, span, staged, covers = L.input_staging()
     st = {
         "words": L.words.view(torch.uint8).numpy(),
         "last_word": L.words.numel() - 1,
         "starts": L.starts.numpy(), "lengths": L.lengths.numpy(),
         "bufs": [b.numpy() for b in L.bufs],
-        "lens": [b.numel() for b in L.bufs],
-        "status": L.status.numpy(),
+        "lens": tab["lens"],
+        "status": L.status.numpy(), "T": max(L.n_keys, 1),
+        "log_at": L.log_at(),
         "log": L.log.numpy().reshape(L.log_cap, width),
-        "spec": L.spec_d.numpy(), "has_spec": L.has_d.numpy(),
+        "in_a": a, "in_span": span, "in_staged": staged, "in_covers": covers,
+        "fold": L.fold, "reads": [0, 0], **tab,
     }
-    for b in st["bufs"]:
-        b[:] = 0
-    code = L.prog.code.tolist()
+    code = tab["code"]
     err = L.err.numpy()
-    for row in range(L.R):
-        lane = _Lane(L, st, row)
-        if row < L.n:
-            lane.run(code)
-        err[row] = _i32(lane.err)
+    for first in range(0, L.R, decode.WALK_THREADS):
+        blk = _Block(L, st, first)
+        for row in range(first, first + blk.rows):
+            lane = _Lane(L, st, blk, row)
+            if row < L.n:
+                lane.run(code)
+            err[row] = _i32(lane.err)
+        blk.finish(st)
+    return st["reads"]
 
 
 class _ModelWalkKernel(decode._DecodeWalkKernel):
@@ -321,11 +400,16 @@ class _ModelWalkKernel(decode._DecodeWalkKernel):
         self.launches += 1
 
 
-def model_walk(words, starts, lengths, n, prog, caps):
+# the launch plan the fixtures run under: the record spans staged
+MODEL_PLAN = {"in_max": 32 << 10}
+
+
+def model_walk(words, starts, lengths, n, prog, caps, **plan):
     """``_DecodeWalkKernel.run`` with the model in place of the launches:
     ``(buffers, #err, launches)``."""
     kernel = _ModelWalkKernel()
-    L = decode.WalkLaunch(words, starts, lengths, n, prog, caps, log_cap=4)
+    L = decode.WalkLaunch(words, starts, lengths, n, prog, caps, log_cap=4,
+                          **(plan or MODEL_PLAN))
     bufs, err = kernel.run(L)
     return bufs, err, kernel.launches
 
@@ -602,7 +686,8 @@ def test_log_replays_writes_under_dropped_items_in_reference_order():
         model_walk_launch(L)
         if L.settle():
             break
-    assert int(L.status[-1]) > 4  # the log grew past its first capacity
+    # the log grew past its first capacity
+    assert int(L.status[L.log_at()]) > 4
     L.apply_log()
     pb, _pe = decode.walk_plain(words, starts, lengths, n, dec.prog,
                                 item_caps)
@@ -611,7 +696,8 @@ def test_log_replays_writes_under_dropped_items_in_reference_order():
 
 
 @pytest.mark.parametrize("source, names", [
-    ("decode_walk.cu", {"decode_walk"}),
+    ("decode_walk.cu", {"decode_walk", "decode_walk_smem_bytes",
+                        "decode_walk_blocks_per_sm"}),
     ("decode_finalize.cu", {"decode_finalize_pass",
                             "decode_finalize_epilogue"}),
 ])
