@@ -13,7 +13,9 @@ exits non-zero before the last line:
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` (sm_90a) per source of ``pyruhvro_tpu_torch/csrc``
    (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``,
-   ``encode.cu``), all started together, with ptxas registers and spills;
+   ``encode.cu``) and one ``g++`` for the native record pack
+   (``packer.cpp``), all started together, with ptxas registers and
+   spills, and the ``g++`` command and its seconds;
 3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
    plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
    rung of the item-cap ladder under each shared-memory plan (``PLANS``),
@@ -36,7 +38,12 @@ exits non-zero before the last line:
    after it, and its batches equal to the same call on the CPU by value:
    (1) 1,000,000 Kafka records on the default engine, (2) the same under
    ``PYRUHVRO_TPU_PALLAS=1``, (3) 262,144 nested ``arr_rec_arr`` records,
-   (4) 16,384 Kafka records of 4 to 16 KiB; then the encode main path (5)
+   (4) 16,384 Kafka records of 4 to 16 KiB; paths 1, 3 and 4 run the
+   overlapped chunk path (8, 8 and 4 chunks; path 1's warm call must
+   launch ``decode_walk`` once per chunk), and path 1 runs once more on
+   one launch under ``PYRUHVRO_TPU_OVERLAP=0`` (1s), its warm calls in
+   turns with the overlapped ones, equal to the CPU call too; then the
+   encode main path (5)
    ``serialize_record_batch(batch, schema, 8)`` of path 1's records
    decoded on the card into one batch, and the same re-encode of paths 3
    and 4 (3e, 4e), the chunks equal to the input datums and to the CPU
@@ -44,9 +51,17 @@ exits non-zero before the last line:
    each;
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
-   strings, d2h, wrap); K1 and K2 bit-equal to their plain versions at
-   every rung of a fresh decoder's ladder on paths 1, 3 and 4's data;
-   each kernel at main path 1's, 2's or 5's shapes: its CUDA-event time,
+   strings, d2h, wrap); on the overlapped paths the native pack against
+   the Python join on the same records, each copy's device time (pinned
+   h2d, blob d2h), ``overlap_s`` and ``overlap_frac``, the assembly of
+   each chunk and the concatenation of the chunks' batches, and the cold
+   call of a fresh decoder without and with a capacity-planner hit; K1
+   and K2 bit-equal to their plain versions at every rung of every
+   chunk of a fresh decoder on paths 1, 3 and 4's data (and of path 1's
+   one launch); K1 and K2 at each overlapped path's chunk shapes and at
+   path 1's one-launch shape: CUDA-event time, bound, plain version,
+   ``torch.take``; each kernel at main path 1's, 2's or 5's shapes: its
+   CUDA-event time,
    bit-equal to its plain version, its bound, and ``torch.take`` over the
    finalize's slot maps and over the encode's payload byte map; K1 at
    path 1's shapes under its input budgets, loop stacks and key folding
@@ -633,8 +648,8 @@ def hold_kernels(torch, dm, dec, label):
     blocks = [0, 0]
     prog, real, rungs = dec.prog, dec.pipeline, []
 
-    def checked(packed, R, B, n_act, item_caps, tot_caps, compact,
-                timings=None):
+    def checked(packed, R, B, n_act, item_caps, tot_caps, compact, *args,
+                **kwargs):
         words, starts, lengths = dec.launch_views(packed, R, B)
         L = dm.WalkLaunch(words, starts, lengths, n_act, prog, item_caps)
         kb, ke = dm.walk_kernel.run(L)
@@ -660,7 +675,7 @@ def hold_kernels(torch, dm, dec, label):
         rungs.append((max(item_caps[1:], default=0), compact))
         del L, kb, ke, pb, pe, plan, kblob, pblob
         return real(packed, R, B, n_act, item_caps, tot_caps, compact,
-                    timings)
+                    *args, **kwargs)
 
     dec.pipeline = checked
     return rungs, blocks
@@ -827,6 +842,115 @@ def phases(dec, data, build_record_batch, codec, card, label):
           + ", ".join(f"{k[:-2]} {spread(v)}" for k, v in got.items())
           + f"; rungs per decode {sorted(rungs)} {card}")
     return {k: statistics.median(v) for k, v in got.items()}
+
+
+def overlap_phases(dm, pack, codec, data, build_record_batch, concat, card,
+                   label):
+    """The overlapped path's phases: the record pack, native and the
+    Python join, on the same records (best of ``PHASE_RUNS``); then
+    medians of ``PHASE_RUNS`` decodes through
+    ``decode_to_columns_overlapped``: host seconds of pack, h2d (enqueue
+    of each chunk's copy), walk (launch and status read), finalize
+    (enqueue), d2h (waits for the blobs), the device ms of all pinned
+    h2d copies and of all blob copies (CUDA events), ``overlap_s`` and
+    ``overlap_frac``, the assembly of the chunks' batches and their
+    concatenation."""
+    dec = codec.decoder
+    k = dm.overlap_chunks(len(data))
+    native_s, join_s = [], []
+    for _ in range(PHASE_RUNS):
+        t0 = time.perf_counter()
+        pack.concat_records(data, native=True)
+        native_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pack.concat_records(data)
+        join_s.append(time.perf_counter() - t0)
+    got = {}
+    for _ in range(PHASE_RUNS):
+        triples = dec.decode_to_columns_overlapped(data, k)
+        t = triples[0][2]["timings"]
+        batches, assembly = [], []
+        for host, n, meta in triples:
+            t0 = time.perf_counter()
+            batches.append(build_record_batch(codec.ir, codec.arrow_schema,
+                                              host, n, meta))
+            assembly.append(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        concat(batches)
+        t2 = time.perf_counter()
+        row = {key: t[key] for key in ("pack_s", "h2d_s", "walk_s",
+                                        "finalize_s", "d2h_s", "overlap_s",
+                                        "overlap_frac", "rungs", "reruns")}
+        row.update(h2d_ms=sum(t["h2d_ms"]), d2h_ms=sum(t["d2h_ms"]),
+                   assembly_s=sum(assembly), concat_s=t2 - t1)
+        for key, v in row.items():
+            got.setdefault(key, []).append(v)
+        per_chunk = {"h2d_ms": t["h2d_ms"], "d2h_ms": t["d2h_ms"],
+                     "assembly_ms": [x * 1e3 for x in assembly]}
+        del triples, batches
+    out = {key: statistics.median(v) for key, v in got.items()}
+    out.update(chunks=k, native_pack_s=min(native_s), join_pack_s=min(join_s),
+               per_chunk_ms=per_chunk)
+    print(f"overlapped phases {label} ({k} chunks), ms, median of "
+          f"{PHASE_RUNS}: pack {out['pack_s'] * 1e3:.1f}, h2d enqueue "
+          f"{out['h2d_s'] * 1e3:.1f} (device {out['h2d_ms']:.2f}), walk "
+          f"{out['walk_s'] * 1e3:.1f}, finalize {out['finalize_s'] * 1e3:.1f}"
+          f", d2h wait {out['d2h_s'] * 1e3:.1f} (device "
+          f"{out['d2h_ms']:.2f}), overlap_s {out['overlap_s'] * 1e3:.2f} "
+          f"overlap_frac {out['overlap_frac']:.4f}, assembly "
+          f"{out['assembly_s'] * 1e3:.1f}, concat "
+          f"{out['concat_s'] * 1e3:.1f}; rungs {out['rungs']}, reruns "
+          f"{out['reruns']}; per chunk h2d ms "
+          f"{[round(x, 3) for x in per_chunk['h2d_ms']]}, d2h ms "
+          f"{[round(x, 3) for x in per_chunk['d2h_ms']]}, assembly ms "
+          f"{[round(x, 1) for x in per_chunk['assembly_ms']]}; record pack of "
+          f"{len(data)} records: native {min(native_s) * 1e3:.1f}, Python "
+          f"join {min(join_s) * 1e3:.1f} (best of {PHASE_RUNS}) {card}")
+    return out
+
+
+def planner_cold(dm, capacity, dec, data, card, label):
+    """The cold ``decode_to_columns_overlapped`` of a fresh decoder of the
+    path's schema with the capacity planner empty, then of a second fresh
+    decoder, which starts from the first one's learned rung."""
+    capacity.reset()
+    k = dm.overlap_chunks(len(data))
+    out = {}
+    for key in ("planner_miss", "planner_hit"):
+        fresh = dm.DeviceDecoder(dec.prog.ir, DEVICE,
+                                 fingerprint=dec.fingerprint)
+        t0 = time.perf_counter()
+        triples = fresh.decode_to_columns_overlapped(data, k)
+        t = triples[0][2]["timings"]
+        out[key] = {"cold_s": time.perf_counter() - t0, "rungs": t["rungs"],
+                    "reruns": t["reruns"]}
+        del triples, fresh
+    print(f"cold call {label} (fresh decoder, {k} chunks, no assembly): "
+          + ", ".join(f"{key} {v['cold_s']:.3f} s, {v['rungs']} rungs, "
+                      f"{v['reruns']} reruns" for key, v in out.items())
+          + f" {card}")
+    return out
+
+
+def warm_turns(label, data, schema, deserialize, card):
+    """Warm calls of a path overlapped (default) and on one launch
+    (``PYRUHVRO_TPU_OVERLAP=0``) in turns, A B B A twice."""
+    import os
+
+    times = {"overlapped": [], "single": []}
+    for leg in ["overlapped", "single", "single", "overlapped"] * 2:
+        if leg == "single":
+            os.environ["PYRUHVRO_TPU_OVERLAP"] = "0"
+        t0 = time.perf_counter()
+        batches = deserialize(data, schema, MAIN_CHUNKS)
+        times[leg].append(time.perf_counter() - t0)
+        os.environ.pop("PYRUHVRO_TPU_OVERLAP", None)
+        del batches
+    print(f"main path {label} warm calls in turns (A B B A twice), s: "
+          + "; ".join(f"{k} median {statistics.median(v):.3f} "
+                      f"{[round(x, 3) for x in v]}" for k, v in times.items())
+          + f" {card}")
+    return times
 
 
 def k4_kernel(torch, wd, dec, data, lib, card):
@@ -1015,7 +1139,7 @@ def k1_kernel(torch, dm, dec, data, lib, card):
     ptx = walk_ptxas(lib.log)
     for key, L in variants.items():
         smem = wk.smem_bytes(prog, L.in_budget)
-        print(f"decode_walk plan ({key}) at the main path's shapes: input "
+        print(f"decode_walk plan ({key}) at path 1's one-launch shapes: input "
               f"budget {L.in_budget} B, blocks the kernel counted staged "
               f"{L.blocks[0]} / reading device memory {L.blocks[1]}, loop "
               f"stack {L.stack}, keys folded per block {L.fold}, shared "
@@ -1033,7 +1157,7 @@ def k1_kernel(torch, dm, dec, data, lib, card):
            "blocks_staged": default.blocks[0],
            "blocks_global": default.blocks[1],
            "ptxas": {str(k): v for k, v in sorted(ptx.items())}}
-    print(f"decode_walk variants at the main path's shapes (R={R}, B={B}, "
+    print(f"decode_walk variants at path 1's one-launch shapes (R={R}, B={B}, "
           f"caps={caps}), ms, best of 5 twice, in turns, CUDA events: "
           + ", ".join(f"{k} {v:.3f}" for k, v in variant_ms.items())
           + f"; host enqueue of launch(L) {out['enqueue_ms']:.4f} ms, host "
@@ -1143,7 +1267,7 @@ def finalize_breakdown(torch, dm, plan, takes, card):
     out["enqueue_ms"] = statistics.median(enqueue[1:])
     out["parts_ms"] = out["zero_red"] + out["epilogue"] + sum(
         v["ms"] + v.get("offsets_ms", 0.0) for v in passes.values())
-    print("decode_finalize breakdown at the main path's shapes, ms (CUDA "
+    print("decode_finalize breakdown at path 1's chunk shapes, ms (CUDA "
           "events, best of 5): zero red " + f"{out['zero_red']:.4f}; "
           + "; ".join(
               f"pass {k} {v['ms']:.4f} ({jobs[k]} jobs, bound "
@@ -1158,10 +1282,12 @@ def finalize_breakdown(torch, dm, plan, takes, card):
     return out
 
 
-def pipeline_kernels(torch, dm, dec, data, card):
-    """``decode_walk`` (K1) and ``decode_finalize`` (K2) at the main path's
-    shapes: CUDA-event times, bit-equal to their plain versions, their
-    bounds, and ``torch.take`` over the finalize's slot maps."""
+def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
+    """``decode_walk`` (K1) and ``decode_finalize`` (K2) at the shapes of
+    one launch over ``data`` (a whole batch, or the largest chunk of an
+    overlapped path): CUDA-event times, bit-equal to their plain versions,
+    their bounds, ``torch.take`` over the finalize's slot maps, and with
+    ``breakdown`` K2's parts."""
     flat, lanes, n, R, B = dec.pack(data)
     packed = dec.launch_buffer(flat, lanes, B, DEVICE)
     item_caps, tot_caps = dec.caps_snapshot(R)
@@ -1172,7 +1298,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
     walk0 = dm.walk_kernel.launches
     dm.walk_kernel.run(L)
     walk_launches = dm.walk_kernel.launches - walk0
-    check_walk_blocks(L, "main path shapes")
+    check_walk_blocks(L, label)
     walk_ms = cuda_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
     plain = []
     plain_walk_ms = cuda_ms(torch, lambda: plain.__setitem__(
@@ -1182,8 +1308,8 @@ def pipeline_kernels(torch, dm, dec, data, card):
     for key, k, p in zip(prog.out_keys + ["#err"], L.bufs + [L.err],
                          list(pb) + [pe]):
         if max_abs_diff(torch, k, p):
-            raise SystemExit(f"main path shapes: decode_walk != plain walk "
-                             f"in {key!r}")
+            raise SystemExit(f"{label}: decode_walk != plain walk in "
+                             f"{key!r}")
     plan = dm.FinalizePlan(L.bufs, L.err, prog, R, B, item_caps, tot_caps,
                            compact)
     fin_ms = cuda_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
@@ -1194,8 +1320,7 @@ def pipeline_kernels(torch, dm, dec, data, card):
         slice(None), [dm.finalize_plain(L.bufs, L.err, prog, R, B, item_caps,
                                         tot_caps, compact)]), 2)
     if max_abs_diff(torch, kblob, pblob[0]):
-        raise SystemExit("main path shapes: decode_finalize != plain "
-                         "finalize")
+        raise SystemExit(f"{label}: decode_finalize != plain finalize")
     # torch.take over the same slot maps: the one PyTorch call that
     # gathers what the passes gather
     key_of = {k: i for i, k in enumerate(prog.out_keys)}
@@ -1225,15 +1350,16 @@ def pipeline_kernels(torch, dm, dec, data, card):
     walk_bound = (walk_read + walk_written) / HBM_BYTES_PER_S * 1e3
     fin_moved = finalize_moved_bytes(dm, plan)
     fin_bound = fin_moved / HBM_BYTES_PER_S * 1e3
-    parts = finalize_breakdown(torch, dm, plan, takes, card)
-    print(f"decode_walk at the main path's shapes (R={R}, B={B}, caps="
+    parts = finalize_breakdown(torch, dm, plan, takes, card) \
+        if breakdown else None
+    print(f"decode_walk at {label} (R={R}, B={B}, caps="
           f"{item_caps}, {walk_launches} launch(es) to settle): launch "
           f"{walk_ms:.3f} ms (best of 5, CUDA events, status reset "
           f"included), bit-equal to the plain walk ({plain_walk_ms:.1f} "
           f"ms); bound {walk_bound:.3f} ms ({walk_read / 1e6:.1f} MB read + "
           f"{walk_written / 1e6:.1f} MB written at 3.35 TB/s), "
           f"{walk_ms / walk_bound:.2f}x the bound {card}")
-    print(f"decode_finalize at the main path's shapes (totals {tot_caps}, "
+    print(f"decode_finalize at {label} (totals {tot_caps}, "
           f"compact={compact}, {len(plan.passes)} passes + epilogue = "
           f"{fin_launches} launches, cumsums included): {fin_ms:.3f} ms "
           f"(best of 5), bit-equal to the plain finalize ({plain_fin_ms:.1f} "
@@ -1241,10 +1367,12 @@ def pipeline_kernels(torch, dm, dec, data, card):
           f"{fin_ms / fin_bound:.2f}x the bound; torch.take over the same "
           f"slot maps ({len(gathers)} buffers) {take_ms:.3f} ms; blob "
           f"{plan.nbytes / 1e6:.1f} MB {card}")
+    shape = {"R": R, "B": B, "rows": n}
     return ({"ms": walk_ms, "plain_ms": plain_walk_ms, "bound_ms": walk_bound,
-             "library_ms": None},
+             "library_ms": None, "shape": shape},
             {"ms": fin_ms, "plain_ms": plain_fin_ms, "bound_ms": fin_bound,
-             "library_ms": take_ms, "parts": parts})
+             "library_ms": take_ms, "shape": shape,
+             **({"parts": parts} if breakdown else {})})
 
 
 def wire_of(arrays):
@@ -1647,7 +1775,10 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops import encode as em
     from pyruhvro_tpu_torch.ops import walk_decode as wd
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
-    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
+    from pyruhvro_tpu_torch.runtime import capacity, native
+    from pyruhvro_tpu_torch.runtime import pack as packing
+    from pyruhvro_tpu_torch.runtime.chunking import chunk_bounds
     from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
     from pyruhvro_tpu_torch.schema.parser import parse_schema
     from pyruhvro_tpu_torch.utils import datagen
@@ -1675,8 +1806,15 @@ def main() -> int:
         except Exception as e:  # reported below, the smoke then fails
             failures.append(f"{key}: {e}")
 
+    def build_packer():
+        try:
+            libs["packer"] = native.load_packer()
+        except Exception as e:  # reported below, the smoke then fails
+            failures.append(f"packer: {e}")
+
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
+    threads.append(threading.Thread(target=build_packer))
     for t in threads:
         t.start()
     for t in threads:
@@ -1685,6 +1823,9 @@ def main() -> int:
         raise SystemExit("build failed: " + "; ".join(failures))
     print(f"build: {len(libs)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
+    packer = libs.pop("packer")
+    print(f"build: {' '.join(packer.command)} ({packer.path.name}) in "
+          f"{packer.build_s:.2f} s")
     for key, lib in libs.items():
         print(f"build: nvcc {kernels[key].source} -> {lib.path.name} "
               f"(sm_90a) in {lib.build_s:.2f} s")
@@ -1749,6 +1890,23 @@ def main() -> int:
     results = {}
     got1, results["kafka"] = drive("1 (Kafka, default engine)", data, kafka,
                                    pipe, deserialize_array_threaded, card)
+    chunks1 = dm.overlap_chunks(len(data))
+    if chunks1 != MAIN_CHUNKS or \
+            results["kafka"]["warm_launches"]["decode_walk"] != chunks1:
+        raise SystemExit(f"main path 1: {chunks1} overlap chunks and "
+                         f"{results['kafka']['warm_launches']} launches per "
+                         f"warm call: the overlapped path must launch "
+                         f"decode_walk once per chunk")
+    os.environ["PYRUHVRO_TPU_OVERLAP"] = "0"
+    got1s, results["kafka_single"] = drive(
+        "1s (Kafka, one launch, PYRUHVRO_TPU_OVERLAP=0)", data, kafka, pipe,
+        deserialize_array_threaded, card)
+    os.environ.pop("PYRUHVRO_TPU_OVERLAP")
+    if results["kafka_single"]["warm_launches"]["decode_walk"] != 1:
+        raise SystemExit("main path 1s: the one launch ran "
+                         f"{results['kafka_single']['warm_launches']}")
+    results["kafka"]["turns_s"] = warm_turns(
+        "1 and 1s", data, kafka, deserialize_array_threaded, card)
     os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
     got2, results["kafka_pallas"] = drive(
         "2 (Kafka, PYRUHVRO_TPU_PALLAS=1)", data, kafka,
@@ -1758,10 +1916,11 @@ def main() -> int:
     want = deserialize_array_threaded(data, kafka, MAIN_CHUNKS, device="cpu")
     cpu_s = time.perf_counter() - t0
     same_values("main path 1", got1, want)
+    same_values("main path 1s", got1s, want)
     same_values("main path 2", got2, want)
-    print(f"main paths 1 and 2 equal the CPU call ({cpu_s:.1f} s) value by "
-          f"value on all {MAIN_CHUNKS} batches")
-    del got1, got2, want
+    print(f"main paths 1, 1s and 2 equal the CPU call ({cpu_s:.1f} s) value "
+          f"by value on all {MAIN_CHUNKS} batches")
+    del got1, got1s, got2, want
 
     nested_schema = PIPELINE_SHAPES["arr_rec_arr"]
     t0 = time.perf_counter()
@@ -1829,33 +1988,68 @@ def main() -> int:
            "path 2 (K4 engine)")
     k4 = k4_kernel(torch, wd, k4codec.decoder, data, libs["walk_decode"],
                    card)
-    pipeline_paths = (("path 1 (Kafka)", data, kafka),
-                      ("path 3 (nested)", nested, nested_schema),
-                      ("path 4 (large records)", large, kafka))
-    for label, rows, schema in pipeline_paths:
+    pipeline_paths = (("path 1 (Kafka)", "kafka", data, kafka),
+                      ("path 3 (nested)", "nested", nested, nested_schema),
+                      ("path 4 (large records)", "large", large, kafka))
+    for label, key, rows, schema in pipeline_paths:
         codec = get_device_codec(get_or_parse_schema(schema), DEVICE)
-        phases(codec.decoder, rows, build_record_batch, codec, card, label)
-        host, _n, meta = codec.decoder.decode_to_columns(rows)
-        print(f"{label}: item totals per region {meta['item_totals']}, "
+        results[key]["phases"] = overlap_phases(
+            dm, packing, codec, rows, build_record_batch, _concat_batches,
+            card, label)
+        results[key]["cold"] = planner_cold(dm, capacity, codec.decoder,
+                                            rows, card, label)
+        triples = codec.decoder.decode_to_columns_overlapped(
+            rows, dm.overlap_chunks(len(rows)))
+        totals = {}
+        for _host, _n, meta in triples:
+            for path, v in meta["item_totals"].items():
+                totals[path] = totals.get(path, 0) + v
+        print(f"{label}: item totals per region over the chunks {totals}, "
               f"{sum(map(len, rows)):,} record bytes")
-        del host, meta
+        del triples
+    codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
+    results["kafka_single"]["phases"] = phases(
+        codec.decoder, data, build_record_batch, codec, card,
+        "path 1s (one launch)")
     # K1 and K2 against their plain versions on the main paths' data, at
-    # every rung a fresh decoder's ladder climbs
-    for label, rows, schema in pipeline_paths:
+    # every rung of every chunk of a fresh decoder, and of path 1's one
+    # launch
+    held = [(label, rows, schema, True)
+            for label, _key, rows, schema in pipeline_paths]
+    held.append(("path 1s (one launch)", data, kafka, False))
+    for label, rows, schema, chunked in held:
         t0 = time.perf_counter()
         dec = dm.DeviceDecoder(parse_schema(schema), DEVICE)
         rungs, blocks = hold_kernels(torch, dm, dec, label)
-        dec.decode_to_columns(rows)
+        if chunked:
+            dec.decode_to_columns_overlapped(rows,
+                                             dm.overlap_chunks(len(rows)))
+        else:
+            dec.decode_to_columns(rows)
         print(f"{label}: decode_walk and decode_finalize bit-equal to their "
               f"plain versions (every buffer, #err, the blob) at every rung "
               f"(max cap, compact) {rungs}, decode_walk blocks staged/device "
               f"memory {blocks[0]}/{blocks[1]}, in "
               f"{time.perf_counter() - t0:.1f} s")
         del dec
-    codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
-    k1, k2 = pipeline_kernels(torch, dm, codec.decoder, data, card)
-    k1.update(k1_kernel(torch, dm, codec.decoder, data, libs["decode_walk"],
-                        card))
+    # K1 and K2 at each overlapped path's largest chunk, and at path 1's
+    # one launch
+    at_chunks = {}
+    for label, key, rows, schema in pipeline_paths:
+        bounds = chunk_bounds(len(rows), dm.overlap_chunks(len(rows)))
+        a, b = max(bounds, key=lambda ab: sum(map(len, rows[ab[0]:ab[1]])))
+        at_chunks[key] = pipeline_kernels(
+            torch, dm, get_device_codec(get_or_parse_schema(schema),
+                                        DEVICE).decoder,
+            rows[a:b], card, f"{label}'s chunk shapes",
+            breakdown=key == "kafka")
+    k1, k2 = dict(at_chunks["kafka"][0]), dict(at_chunks["kafka"][1])
+    k1["chunk_shapes"] = {key: v[0] for key, v in at_chunks.items()}
+    k2["chunk_shapes"] = {key: v[1] for key, v in at_chunks.items()}
+    k1["single_launch"], k2["single_launch"] = pipeline_kernels(
+        torch, dm, codec.decoder, data, card, "path 1's one-launch shapes")
+    k1["single_launch_levers"] = k1_kernel(
+        torch, dm, codec.decoder, data, libs["decode_walk"], card)
     k1["nested_stack_ms"] = walk_stacks(
         torch, dm, get_device_codec(get_or_parse_schema(nested_schema),
                                     DEVICE).decoder, nested, "path 3", card)

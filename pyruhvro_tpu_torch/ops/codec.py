@@ -9,11 +9,16 @@ Pallas kernel) when ``PYRUHVRO_TPU_PALLAS`` is ``1``/``true``/``mosaic``
 and the schema has no nested array/map (a nested schema takes the
 pipeline engine under that setting too). Both run on the card.
 
-The codec keeps the reference's batch policy: a batch over the engine's
-single-launch budget is halved (each half still decodes on the device)
-with the malformed row index re-based to the whole batch, and the
-threaded entry decodes once and slices the result per chunk, compacting
-sliced sparse unions. ``DeviceCapacityExceeded`` reaches the caller: the
+The codec keeps the reference's batch policy: on the pipeline engine a
+batch of ``overlap_chunks(n) > 1`` chunks (8,192 rows or more by
+default) decodes through the overlapped chunk path, one RecordBatch per
+chunk concatenated into one (``_decode_triples``, ``codec.py:253-263``);
+``PYRUHVRO_TPU_OVERLAP=0`` keeps it on one launch, and the row-padded
+engine is always one launch. A batch over the engine's single-launch
+budget is halved (each half still decodes on the device) with the
+malformed row index re-based to the whole batch, and the threaded entry
+decodes once and slices the result per chunk, compacting sliced sparse
+unions. ``DeviceCapacityExceeded`` reaches the caller: the
 port has no host tier.
 
 Encode (``codec.py:382-430``): the encoder (:class:`.encode.DeviceEncoder`,
@@ -38,7 +43,7 @@ from ..runtime.chunking import chunk_bounds
 from ..schema.cache import SchemaEntry
 from . import UnsupportedOnDevice
 from .arrow_build import build_record_batch, compact_union_slices
-from .decode import DeviceDecoder
+from .decode import DeviceDecoder, overlap_chunks
 from .walk_decode import WalkDecoder, resolve_device
 
 __all__ = ["DeviceCodec", "get_device_codec", "pallas_mode"]
@@ -67,13 +72,25 @@ class DeviceCodec:
             except UnsupportedOnDevice:
                 pass  # nested repetition: the pipeline engine serves it
         if self.decoder is None:
-            self.decoder = DeviceDecoder(entry.ir, device)
+            self.decoder = DeviceDecoder(entry.ir, device,
+                                         fingerprint=entry.fingerprint)
         self.device = device
         self._encoder = None
 
+    def _decode_triples(self, data: Sequence[bytes]):
+        """One ``(host, n, meta)`` triple per launch chunk: the overlapped
+        chunk path on the pipeline engine when ``overlap_chunks`` gives
+        more than one chunk, else one launch."""
+        dec = self.decoder
+        if isinstance(dec, DeviceDecoder):
+            k = overlap_chunks(len(data))
+            if k > 1:
+                return dec.decode_to_columns_overlapped(data, k)
+        return [dec.decode_to_columns(data)]
+
     def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
         try:
-            host, n, meta = self.decoder.decode_to_columns(data)
+            triples = self._decode_triples(data)
         except BatchTooLarge:
             # one launch is bounded in bytes: halve the batch — each half
             # still decodes on the device — and concatenate the results
@@ -87,7 +104,9 @@ class DeviceCodec:
                 # the right half reports half-local row indices
                 raise shift_malformed(e, mid) from None
             return _concat_batches([left, right])
-        return build_record_batch(self.ir, self.arrow_schema, host, n, meta)
+        batches = [build_record_batch(self.ir, self.arrow_schema, host, n,
+                                      meta) for host, n, meta in triples]
+        return batches[0] if len(batches) == 1 else _concat_batches(batches)
 
     def decode_threaded(self, data: Sequence[bytes],
                         num_chunks: int) -> List[pa.RecordBatch]:

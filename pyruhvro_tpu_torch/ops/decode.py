@@ -42,9 +42,21 @@ blob against the reference's ``build_pipeline`` byte for byte):
   rungs with ERR_ITEM_OVERFLOW lanes ever do that, and the ladder
   retries them.
 
+The host path is the reference's (``decode.py:61-97, 177-203, 336-369,
+790-819, 965-1192``): the records joined by the native ``concat`` on the
+card (:func:`..runtime.pack.concat_records`), packed into a persistent
+per-(R, B, slot, thread) arena (pinned host memory beside a device
+buffer of the same shape, copied on a copy stream), the capacity
+planner consulted before the first rung and taught after the last
+(:mod:`..runtime.capacity`), and, for a batch of ``overlap_chunks(n) >
+1`` chunks, the overlapped chunk path
+(:meth:`DeviceDecoder.decode_to_columns_overlapped`): chunk ``i + 1``
+packs and copies while chunk ``i``'s finalize and blob copy are in
+flight, row errors of every chunk are raised once.
+
 Out of this slice: sampling caps from a host decode
-(``seed_caps_from_sample``, it needs the host tier), the capacity
-planner, persistent arenas and the overlapped chunk path.
+(``seed_caps_from_sample``, it needs the host tier) and persisting the
+planner's plans.
 """
 
 from __future__ import annotations
@@ -58,12 +70,15 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
+from ..runtime import capacity, knobs
+from ..runtime.chunking import chunk_bounds
 from ..runtime.pack import (
     LAUNCH_MAX_BYTES,
     bucket_len,
     concat_records,
     launch_lanes,
     launch_shape,
+    pack_launch_into,
     record_lengths,
 )
 from .fieldprog import ROWS, Program, lower
@@ -82,7 +97,8 @@ from .walk_decode import _check, _PlainWalk, resolve_device
 
 __all__ = ["DeviceDecoder", "walk", "walk_plain", "walk_kernel",
            "finalize", "finalize_plain", "finalize_kernel", "split_blob",
-           "blob_layout", "cap_of", "STATUS_BYTES"]
+           "blob_layout", "cap_of", "STATUS_BYTES", "overlap_chunks",
+           "raise_aggregated_malformed"]
 
 _BIG = 1 << 30              # slot past the cap: dropped (``fieldprog.py:72``)
 _DEFAULT_ITEM_CAP = 8
@@ -93,6 +109,29 @@ _SLOT_LIMIT = 1 << 30       # a region's strided slots: _BIG must drop
 _WALK_BYTES = 1 << 34       # the walk's strided buffers of one launch
 _MIN_LANES = 8              # a launch's fewest lanes (launch_shape)
 STATUS_BYTES = 8            # after the blob: byte 0 = an #offsets total >= 2^31
+
+
+def overlap_chunks(n_rows: int) -> int:
+    """How many chunks the overlapped path decodes a batch of ``n_rows``
+    in (1: the single launch); copy of ``decode.py:86-97``.
+    ``PYRUHVRO_TPU_OVERLAP=0`` disables it; ``PYRUHVRO_TPU_OVERLAP_ROWS``
+    (default 4096) is the fewest rows of a chunk; at most 8 chunks."""
+    if not knobs.get_bool("PYRUHVRO_TPU_OVERLAP"):
+        return 1
+    min_rows = max(1, knobs.get_int("PYRUHVRO_TPU_OVERLAP_ROWS"))
+    return max(1, min(8, n_rows // min_rows))
+
+
+def raise_aggregated_malformed(indices) -> None:
+    """Raise ONE :class:`MalformedAvro` for the bad rows of several chunks
+    (copy of ``decode.py:61-73``): the message names the first bad global
+    row, ``indices`` carries every ``(global index, slug)`` pair."""
+    indices = sorted(indices)
+    i0, slug0 = indices[0]
+    bit0 = {v: k for k, v in ERR_SLUGS.items()}.get(slug0, 0)
+    raise MalformedAvro(f"record {i0}: {ERR_NAMES.get(bit0, slug0)}",
+                        index=i0, err_name=slug0, tier="device",
+                        indices=indices)
 
 
 def cap_of(prog: Program, R: int, item_caps, region: int) -> int:
@@ -1119,15 +1158,60 @@ def finalize(bufs, err, prog: Program, R: int, B: int, item_caps, tot_caps,
 # -- the decoder --------------------------------------------------------------------
 
 
+class _Arena:
+    """One persistent packed launch input ``[words | starts | lengths |
+    n]`` (int32): ``host_t``, in pinned memory on the card path, with
+    ``host`` its uint32 numpy view, and ``dev``, the device buffer of the
+    same shape (``host_t`` itself on the CPU). ``copied`` is the event of
+    the last copy from ``host_t`` to ``dev``, ``consumed`` the event after
+    the last launch that read ``dev`` (None before the first)."""
+
+    __slots__ = ("host_t", "host", "dev", "copied", "consumed")
+
+    def __init__(self, words: int, device: torch.device):
+        card = device.type == "cuda"
+        self.host_t = torch.empty(words, dtype=torch.int32, pin_memory=card)
+        self.host = self.host_t.numpy().view(np.uint32)
+        self.dev = torch.empty(words, dtype=torch.int32, device=device) \
+            if card else self.host_t
+        self.copied = self.consumed = None
+
+
+class _Flight:
+    """A chunk whose launch is in flight on the overlapped path: its blob
+    on its way to the host (``blob``, pinned on the card; ``done`` the
+    event after its copy, None on the CPU), its walk's ``#err`` and the
+    rung it ran at."""
+
+    __slots__ = ("i", "blob", "done", "err", "layout", "item_caps",
+                 "tot_caps", "compact")
+
+    def __init__(self, i, blob, done, err, layout, item_caps, tot_caps,
+                 compact):
+        self.i, self.blob, self.done, self.err = i, blob, done, err
+        self.layout, self.item_caps = layout, item_caps
+        self.tot_caps, self.compact = tot_caps, compact
+
+    def ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+
 class DeviceDecoder:
     """Per-schema decoder: pack → walk + finalize (capacity ladder) → one
     device-to-host copy → host columns. Same contract as the reference's
     ``DeviceDecoder.decode_to_columns`` (host column dict, row count,
-    meta)."""
+    meta) and ``decode_to_columns_overlapped`` (one such triple per
+    chunk). ``fingerprint`` keys the capacity planner's plans (the codec
+    passes the schema entry's). A decoder built without one does not use
+    the planner: the reference derives one from the IR for its sharded
+    decoder and bench scripts, which the port does not have, and a plan
+    shared by every decoder of an IR would make each decoder's first
+    rung depend on what others decoded before."""
 
-    def __init__(self, ir, device="cuda"):
+    def __init__(self, ir, device="cuda", fingerprint: str = None):
         self.device = resolve_device(device)
         self.prog: Program = lower(ir)
+        self.fingerprint = fingerprint
         self._item_caps: List[int] = [0] + [
             _DEFAULT_ITEM_CAP for _ in self.prog.regions[1:]]
         # per-region item-total caps, remembered per R bucket
@@ -1135,6 +1219,12 @@ class DeviceDecoder:
         # (R, B) buckets whose string lengths overflowed the compact
         # descriptors: they go straight to the full-width layout
         self._str_full: set = set()
+        # persistent launch inputs: (R, B, slot, thread) -> _Arena (slot
+        # alternates 0/1 on the overlapped path; the single launch uses 0)
+        self._arenas: Dict[tuple, _Arena] = {}
+        # R buckets whose converged rung the planner was taught
+        self._planned: set = set()
+        self._copy_stream = None
         self._lock = threading.Lock()
 
     # -- capacity bookkeeping (copies of decode.py:723-773) ------------------
@@ -1178,6 +1268,134 @@ class DeviceDecoder:
                     retry = True
         return retry
 
+    def seed_from_plan(self, R: int) -> bool:
+        """Start an R bucket at the capacity planner's learned rung
+        (``decode.py:790-806``). A hit also marks the bucket planned, so
+        the overlapped path streams every chunk from the first call."""
+        hit = capacity.seed_decoder(self, R)
+        if hit:
+            with self._lock:
+                self._planned.add(R)
+        return hit
+
+    def _harvest_plan(self, R: int, grew: bool) -> None:
+        """Teach the planner this bucket's converged rung, once per bucket
+        unless a cap grew (``decode.py:808-819``, without persistence)."""
+        with self._lock:
+            fresh = R not in self._planned
+            self._planned.add(R)
+        if fresh or grew:
+            capacity.harvest_decoder(self, R)
+
+    def _next_rung(self, R: int, B: int, host, item_caps, tot_caps,
+                   compact: bool) -> bool:
+        """After a launch at this rung: True when the chunk must run again,
+        because a string overflowed the compact descriptors (the bucket is
+        remembered full-width) or a cap grew."""
+        prog = self.prog
+        if compact and "#red:strfit" in host and not host["#red:strfit"][0]:
+            self._str_full.add((R, B))
+            return True
+        red_max = {rid: int(host["#red:max:" + path][0])
+                   for rid, path in enumerate(prog.regions) if rid != ROWS}
+        red_sum = {rid: int(host["#red:sum:" + path][0])
+                   for rid, path in enumerate(prog.regions) if rid != ROWS}
+        return self.grow_caps(R, item_caps, tot_caps, red_max, red_sum)
+
+    # -- arenas and copies (decode.py:336-369, 831-839) -----------------------
+
+    def _arena(self, R: int, B: int, slot: int = 0) -> _Arena:
+        """The persistent launch input of an (R, B) bucket, the same object
+        on every call of this thread: keyed by thread too, so that two
+        threads decoding same-bucket batches never overwrite each other's
+        packed bytes. Only the largest B per (R, slot, thread) is kept."""
+        key = (R, B, slot, threading.get_ident())
+        with self._lock:
+            arena = self._arenas.get(key)
+            if arena is None:
+                for old in [k for k in self._arenas
+                            if k[0] == R and k[2] == slot
+                            and k[3] == key[3] and k[1] < B]:
+                    del self._arenas[old]
+                arena = self._arenas[key] = _Arena(B // 4 + 2 * R + 1,
+                                                   self.device)
+        return arena
+
+    def _pack_into(self, arena: _Arena, flat, offsets, R: int,
+                   B: int) -> None:
+        """Pack one record run into ``arena``'s host buffer, once the
+        buffer's last copy to the card has read it."""
+        if arena.copied is not None:
+            arena.copied.synchronize()
+        pack_launch_into(arena.host, flat, offsets, R, B)
+
+    def _put_packed(self, arena: _Arena, timings) -> torch.Tensor:
+        """The arena's device buffer, its host buffer copied in: on the card
+        one copy from pinned memory on the decoder's copy stream, started
+        after the last launch that read the device buffer; the current
+        stream waits on its event. The copy's device time goes into
+        ``timings["h2d_ms"]`` once the call resolves its events."""
+        if self.device.type != "cuda":
+            return arena.dev
+        with self._lock:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            copy = self._copy_stream
+        if arena.consumed is not None:
+            copy.wait_event(arena.consumed)
+        # written on the copy stream: the allocator must not hand the
+        # buffer out again before this copy ends
+        arena.dev.record_stream(copy)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(copy)
+        with torch.cuda.stream(copy):
+            arena.dev.copy_(arena.host_t, non_blocking=True)
+        end.record(copy)
+        arena.copied = end
+        torch.cuda.current_stream(self.device).wait_event(end)
+        timings["_events"].append(("h2d_ms", start, end))
+        return arena.dev
+
+    def _mark_consumed(self, arena: _Arena) -> None:
+        """Record, on the current stream, that every launch so far that
+        reads ``arena``'s device buffer is enqueued."""
+        if self.device.type == "cuda":
+            arena.consumed = torch.cuda.Event()
+            arena.consumed.record(torch.cuda.current_stream(self.device))
+
+    def _fetch(self, blob: torch.Tensor, timings):
+        """Start the blob's copy to the host: on the card into pinned
+        memory, without waiting; ``(host tensor, event after the copy)``.
+        On the CPU ``(blob, None)``."""
+        if blob.device.type != "cuda":
+            return blob, None
+        host = torch.empty(blob.numel(), dtype=torch.uint8, pin_memory=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        stream = torch.cuda.current_stream(self.device)
+        start.record(stream)
+        host.copy_(blob, non_blocking=True)
+        end.record(stream)
+        timings["_events"].append(("d2h_ms", start, end))
+        return host, end
+
+    @staticmethod
+    def _new_timings():
+        return {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0,
+                "finalize_s": 0.0, "d2h_s": 0.0, "rungs": 0, "reruns": 0,
+                "chunks": 1, "overlap_s": 0.0, "overlap_frac": 0.0,
+                "h2d_ms": [], "d2h_ms": [], "_events": []}
+
+    @staticmethod
+    def _resolve(timings, t0: float) -> None:
+        """Close a call's timings: the device times of its copies (every
+        event has completed by now) and the call's wall seconds."""
+        for key, start, end in timings.pop("_events"):
+            end.synchronize()
+            timings[key].append(start.elapsed_time(end))
+        timings["total_s"] = time.perf_counter() - t0
+
     # -- one launch ------------------------------------------------------------
 
     @staticmethod
@@ -1187,61 +1405,62 @@ class DeviceDecoder:
         return packed[:W], packed[W:W + R], packed[W + R:W + 2 * R]
 
     def pipeline(self, packed, R: int, B: int, n: int, item_caps, tot_caps,
-                 compact: bool, timings=None):
+                 compact: bool, timings=None, sync: bool = True):
         """Walk then finalize on the packed buffer's device: ``(blob with
-        status bytes, #err)``, both still on that device."""
+        status bytes, #err)``, both still on that device. The walk reads
+        its status on the host (its loop bounds settle there); the
+        finalize is only enqueued unless ``sync``."""
         t0 = time.perf_counter()
         words, starts, lengths = self.launch_views(packed, R, B)
         bufs, err = walk(words, starts, lengths, n, self.prog, item_caps)
         t1 = time.perf_counter()
         blob = finalize(bufs, err, self.prog, R, B, item_caps, tot_caps,
                         compact)
-        if blob.device.type == "cuda":
+        if sync and blob.device.type == "cuda":
             torch.cuda.synchronize(blob.device)
         if timings is not None:
             timings["walk_s"] += t1 - t0
             timings["finalize_s"] += time.perf_counter() - t1
         return blob, err
 
+    def _split(self, blob_np: np.ndarray, layout, n: int):
+        if blob_np[-STATUS_BYTES]:
+            # an #offsets total reached 2^31 (zero-byte items): int32
+            # offsets cannot hold it; the codec halves the batch
+            raise BatchTooLarge(n, -1)
+        return split_blob(blob_np[:-STATUS_BYTES], layout)
+
     def _run_ladder(self, packed, R: int, B: int, n: int, timings):
         """Launch the pipeline, climbing the capacity ladder until the
-        reductions converge (``decode.py:838-918``). Returns the split
-        host dict and the last rung's device ``#err``."""
-        prog = self.prog
+        reductions converge (``decode.py:838-918``), then teach the
+        planner the rung. Returns the split host dict and the last rung's
+        device ``#err``."""
+        grew = False
         for _attempt in range(_MAX_RUNGS):
             item_caps, tot_caps = self.caps_snapshot(R)
             compact = (R, B) not in self._str_full
-            layout = blob_layout(prog, R, B, item_caps, tot_caps, compact)
+            layout = blob_layout(self.prog, R, B, item_caps, tot_caps,
+                                 compact)
             blob, err = self.pipeline(packed, R, B, n, item_caps, tot_caps,
                                       compact, timings)
             t0 = time.perf_counter()
             blob_np = blob.cpu().numpy()
             timings["d2h_s"] += time.perf_counter() - t0
-            if blob_np[-STATUS_BYTES]:
-                # an #offsets total reached 2^31 (zero-byte items): int32
-                # offsets cannot hold it; the codec halves the batch
-                raise BatchTooLarge(n, -1)
-            host = split_blob(blob_np[:-STATUS_BYTES], layout)
+            host = self._split(blob_np, layout, n)
             timings["rungs"] += 1
-            if compact and "#red:strfit" in host \
-                    and not host["#red:strfit"][0]:
-                # a string overflowed the compact descriptors: relaunch
-                # this bucket full-width, and remember it
-                self._str_full.add((R, B))
-                continue
-            red_max = {rid: int(host["#red:max:" + path][0])
-                       for rid, path in enumerate(prog.regions) if rid != ROWS}
-            red_sum = {rid: int(host["#red:sum:" + path][0])
-                       for rid, path in enumerate(prog.regions) if rid != ROWS}
-            if not self.grow_caps(R, item_caps, tot_caps, red_max, red_sum):
+            if not self._next_rung(R, B, host, item_caps, tot_caps, compact):
+                self._harvest_plan(R, grew)
                 return host, err
+            grew = True
         raise MalformedAvro("array/map item capacity did not converge")
 
     @staticmethod
-    def _raise_row_errors(err: np.ndarray, n: int, base_row: int = 0):
+    def _raise_row_errors(err: np.ndarray, n: int, base_row: int = 0,
+                          collect=None):
         """Raise the first bad row with the reference's message; every bad
         row's ``(index, slug)`` rides in ``indices``
-        (``decode.py:920-963``)."""
+        (``decode.py:920-963``). With ``collect``, append the pairs to it
+        instead (the overlapped path raises once for all chunks)."""
         bad = err[:n].view(np.uint32) & ~np.uint32(ERR_ITEM_OVERFLOW)
         bad_rows = np.flatnonzero(bad)
         indices = []
@@ -1249,6 +1468,9 @@ class DeviceDecoder:
             v = int(bad[int(r)])
             b = v & -v
             indices.append((base_row + int(r), ERR_SLUGS.get(b, f"bit_{b:#x}")))
+        if collect is not None:
+            collect.extend(indices)
+            return
         if not indices:
             raise MalformedAvro("device reported a malformed record")
         i = int(bad_rows[0])
@@ -1261,6 +1483,16 @@ class DeviceDecoder:
             err_name=ERR_SLUGS.get(bit, f"bit_{bit:#x}"), tier="device",
             indices=indices)
 
+    def _finish_host(self, host, n: int, flat, timings):
+        """Expand a converged host dict into the ``(host, n, meta)`` triple
+        (``decode.py:965-974``)."""
+        host = expand_host(host)
+        meta = {"item_totals": {}, "flat": flat, "timings": timings}
+        for rid, path in enumerate(self.prog.regions):
+            if rid != ROWS:
+                meta["item_totals"][path] = int(host["#red:sum:" + path][0])
+        return host, n, meta
+
     @staticmethod
     def pack(data: Sequence[bytes]):
         """``(flat, lanes, n, R, B)``, one launch's host side: the records
@@ -1272,15 +1504,15 @@ class DeviceDecoder:
             # int32 cursors bound one launch to 1 GiB of datum bytes
             raise BatchTooLarge(n, total)
         R, B = launch_shape(n, total)
-        flat, _offsets = concat_records(data, lens)
-        return flat, launch_lanes(lens, R, B), n, R, B
+        flat, offsets = concat_records(data, lens)
+        return flat, launch_lanes(offsets, R, B), n, R, B
 
     @staticmethod
     def launch_buffer(flat: np.ndarray, lanes: np.ndarray, B: int,
                       device) -> torch.Tensor:
         """The packed launch buffer ``[words | starts | lengths | n]``
-        (int32) on ``device``: the records and the tail copied in, the
-        words' zero padding to ``B`` bytes written there."""
+        (int32) on ``device``, outside any arena: the records and the tail
+        copied in, the words' zero padding to ``B`` bytes written there."""
         W = B // 4
         packed = torch.empty(W + lanes.size, dtype=torch.int32,
                              device=device)
@@ -1291,33 +1523,170 @@ class DeviceDecoder:
         return packed
 
     def decode_to_columns(self, data: Sequence[bytes]):
-        """``(host, n, meta)``: host holds the expanded blob (item regions
-        dense, ``#offsets``, the reductions); meta holds ``item_totals``,
-        ``flat`` (the concatenated records, which every ``#start``
-        indexes) and ``timings`` (seconds per host-visible phase, and the
-        rungs climbed)."""
+        """One launch (``decode.py:976-1003``). ``(host, n, meta)``: host
+        holds the expanded blob (item regions dense, ``#offsets``, the
+        reductions); meta holds ``item_totals``, ``flat`` (the
+        concatenated records, which every ``#start`` indexes) and
+        ``timings`` (seconds per host-visible phase, the rungs climbed,
+        the copy's device ms on the card)."""
         t0 = time.perf_counter()
-        timings = {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0,
-                   "finalize_s": 0.0, "d2h_s": 0.0, "rungs": 0}
-        flat, lanes, n, R, B = self.pack(data)
+        timings = self._new_timings()
+        n = len(data)
+        flat, offsets = concat_records(data,
+                                       native=self.device.type == "cuda")
+        total = int(offsets[-1])
+        if total > LAUNCH_MAX_BYTES:
+            # int32 cursors bound one launch to 1 GiB of datum bytes
+            raise BatchTooLarge(n, total)
+        R, B = launch_shape(n, total)
+        self.seed_from_plan(R)
+        arena = self._arena(R, B)
+        self._pack_into(arena, flat, offsets, R, B)
         t1 = time.perf_counter()
-        packed = self.launch_buffer(flat, lanes, B, self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
+        packed = self._put_packed(arena, timings)
+        if arena.copied is not None:
+            arena.copied.synchronize()
         timings["pack_s"] = t1 - t0
-        timings["h2d_s"] = t2 - t1
+        timings["h2d_s"] = time.perf_counter() - t1
         host, err = self._run_ladder(packed, R, B, n, timings)
+        self._mark_consumed(arena)
         if host["#red:err"][0]:
             # K1's #err of the converged rung, copied back only now
             self._raise_row_errors(err.cpu().numpy(), n)
-        host = expand_host(host)
-        meta = {"item_totals": {}, "flat": flat, "timings": timings}
-        for rid, path in enumerate(self.prog.regions):
-            if rid != ROWS:
-                meta["item_totals"][path] = int(host["#red:sum:" + path][0])
-        timings["total_s"] = time.perf_counter() - t0
-        return host, n, meta
+        triple = self._finish_host(host, n, flat, timings)
+        self._resolve(timings, t0)
+        return triple
+
+    # -- the overlapped chunk path (decode.py:1007-1192) ----------------------
+
+    def decode_to_columns_overlapped(self, data: Sequence[bytes],
+                                     n_chunks: int):
+        """The batch in ``chunk_bounds(n, n_chunks)`` chunks, one launch
+        each at the largest chunk's (R, B); one ``(host, n, meta)`` triple
+        per chunk, whose ``meta["flat"]`` is a view of the one concat of
+        the whole batch and whose ``meta["timings"]`` is the call's.
+
+        A cold bucket climbs the ladder on chunk 0 first; a warm or planned
+        one streams every chunk. At most two chunks are in flight: chunk
+        ``i + 1`` is packed into the other arena slot and copied while
+        chunk ``i``'s finalize and blob copy run; the walk's status is
+        read on the host before the finalize is enqueued, so the loop
+        bounds settle as on the single launch. A chunk whose rung
+        overflowed (a string past the compact descriptors, or more items
+        than the caps) reruns its ladder from its intact arena. Row errors
+        of every chunk are raised once, after the last. ``overlap_s`` sums
+        the host pack and copy seconds of each chunk after which an
+        earlier chunk was still in flight (checked after the host work,
+        so it can undercount, never overcount); ``overlap_frac`` is its
+        share of the call."""
+        t_wall0 = time.perf_counter()
+        timings = self._new_timings()
+        n_all = len(data)
+        flat_all, offsets_all = concat_records(
+            data, native=self.device.type == "cuda")
+        bounds = chunk_bounds(n_all, n_chunks)
+        timings["chunks"] = len(bounds)
+        chunk_rows = max(b - a for a, b in bounds)
+        chunk_bytes = max(int(offsets_all[b] - offsets_all[a])
+                          for a, b in bounds)
+        total = int(offsets_all[-1])
+        if total > LAUNCH_MAX_BYTES or chunk_bytes > LAUNCH_MAX_BYTES:
+            raise BatchTooLarge(n_all, total)
+        R, B = launch_shape(chunk_rows, chunk_bytes)
+        self.seed_from_plan(R)
+        timings["pack_s"] += time.perf_counter() - t_wall0
+        arenas: Dict[int, _Arena] = {}
+
+        def chunk_flat(i: int) -> np.ndarray:
+            a, b = bounds[i]
+            return flat_all[int(offsets_all[a]):int(offsets_all[b])]
+
+        def put_chunk(i: int) -> torch.Tensor:
+            t0 = time.perf_counter()
+            a, b = bounds[i]
+            arena = arenas[i] = self._arena(R, B, slot=i % 2)
+            self._pack_into(arena, chunk_flat(i), offsets_all[a:b + 1], R, B)
+            t1 = time.perf_counter()
+            packed = self._put_packed(arena, timings)
+            timings["pack_s"] += t1 - t0
+            timings["h2d_s"] += time.perf_counter() - t1
+            return packed
+
+        triples = [None] * len(bounds)
+        bad: list = []
+
+        def finish(i: int, host, err) -> None:
+            a, b = bounds[i]
+            self._mark_consumed(arenas[i])
+            if host["#red:err"][0]:
+                self._raise_row_errors(err.cpu().numpy(), b - a, base_row=a,
+                                       collect=bad)
+            triples[i] = self._finish_host(host, b - a, chunk_flat(i),
+                                           timings)
+
+        with self._lock:
+            warm = R in self._planned
+        start = 0
+        if not warm:
+            # a cold bucket converges its ladder on chunk 0 first
+            packed = put_chunk(0)
+            host, err = self._run_ladder(packed, R, B, bounds[0][1],
+                                         timings)
+            finish(0, host, err)
+            start = 1
+        pending: List[_Flight] = []
+
+        def collect_one() -> None:
+            f = pending.pop(0)
+            a, b = bounds[f.i]
+            t0 = time.perf_counter()
+            if f.done is not None:
+                f.done.synchronize()
+            host = self._split(f.blob.numpy(), f.layout, b - a)
+            timings["d2h_s"] += time.perf_counter() - t0
+            timings["rungs"] += 1
+            err = f.err
+            if self._next_rung(R, B, host, f.item_caps, f.tot_caps,
+                               f.compact):
+                # the chunk overflowed the rung it was dispatched at: its
+                # arena is intact (slot i % 2 is packed again only for
+                # chunk i + 2, after this collect)
+                timings["reruns"] += 1
+                host, err = self._run_ladder(arenas[f.i].dev, R, B, b - a,
+                                             timings)
+                # the rerun's ladder starts at the grown caps and records
+                # no growth, so teach the planner here (the reference does
+                # not, and its planned decoders rerun such chunks again)
+                self._harvest_plan(R, True)
+            finish(f.i, host, err)
+
+        for i in range(start, len(bounds)):
+            t0 = time.perf_counter()
+            packed = put_chunk(i)
+            t_host = time.perf_counter() - t0
+            if any(not f.ready() for f in pending):
+                timings["overlap_s"] += t_host
+            a, b = bounds[i]
+            item_caps, tot_caps = self.caps_snapshot(R)
+            compact = (R, B) not in self._str_full
+            layout = blob_layout(self.prog, R, B, item_caps, tot_caps,
+                                 compact)
+            blob, err = self.pipeline(packed, R, B, b - a, item_caps,
+                                      tot_caps, compact, timings, sync=False)
+            self._mark_consumed(arenas[i])
+            pending.append(_Flight(i, *self._fetch(blob, timings), err,
+                                   layout, item_caps, tot_caps, compact))
+            if len(pending) >= 2:
+                collect_one()
+        while pending:
+            collect_one()
+        if bad:
+            raise_aggregated_malformed(bad)
+        self._resolve(timings, t_wall0)
+        wall = timings["total_s"]
+        timings["overlap_frac"] = min(timings["overlap_s"] / wall, 1.0) \
+            if wall > 0 else 0.0
+        return triples
 
     def decode(self, data: Sequence[bytes], arrow_schema):
         """Straight to a RecordBatch."""

@@ -730,7 +730,8 @@ class WalkDecoder:
     def pack(self, data: Sequence[bytes], lens: np.ndarray, R: int):
         """Host arrays of one walk: the concatenated records (tail-padded
         for the device), ``offs`` and ``act``."""
-        flat, offsets = concat_records(data, lens, tail=_TAIL)
+        flat, offsets = concat_records(data, lens, tail=_TAIL,
+                                       native=self.device.type == "cuda")
         return (flat, *self.row_arrays(offsets, R))
 
     def to_device(self, arrays) -> List[torch.Tensor]:
@@ -763,7 +764,8 @@ class WalkDecoder:
         timings = {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0}
         tile_r, R = self.launch_rows(n, BW, caps)  # may raise BatchTooLarge
         t1 = time.perf_counter()
-        flat_np, offsets = concat_records(data, lens, tail=_TAIL)
+        flat_np, offsets = concat_records(data, lens, tail=_TAIL,
+                                          native=self.device.type == "cuda")
         t2 = time.perf_counter()
         (flat,) = self.to_device([flat_np])
         timings["pack_s"] += t2 - t1

@@ -1,0 +1,47 @@
+"""Environment knobs the port reads (copy of the parse rules of
+``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_bool``, and
+of the two overlap knobs it registers at ``:146-150``).
+
+A knob is read at each call, so setting a variable between calls takes
+effect. Unset or empty gives the default; a value that does not parse
+gives the default too (the reference also counts it in its metrics,
+which the port does not have).
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["get_bool", "get_int", "DEFAULTS"]
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+DEFAULTS = {
+    # the double-buffered h2d/compute overlap on device decodes
+    "PYRUHVRO_TPU_OVERLAP": True,
+    # the fewest rows of one overlap chunk
+    "PYRUHVRO_TPU_OVERLAP_ROWS": 4096,
+}
+
+
+def get_bool(name: str) -> bool:
+    """1/true/yes/on → True, 0/false/no/off → False (any case); unset,
+    empty or anything else → the default."""
+    raw = os.environ.get(name, "").strip().lower()
+    if raw in _TRUE:
+        return True
+    if raw in _FALSE:
+        return False
+    return DEFAULTS[name]
+
+
+def get_int(name: str) -> int:
+    """The integer value; unset, empty or malformed → the default."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return DEFAULTS[name]
+    try:
+        return int(raw)
+    except ValueError:
+        return DEFAULTS[name]
