@@ -48,7 +48,20 @@ exits non-zero before the last line:
    decoded on the card into one batch, and the same re-encode of paths 3
    and 4 (3e, 4e), the chunks equal to the input datums and to the CPU
    call; the cold call and the median of ``WARM_CALLS`` warm calls of
-   each;
+   each; then the ``policy`` phase, each case held against the same call
+   with ``device="cpu"``: P1 ``on_error="skip"`` on path 1's records with
+   one row in every ``POLICY_EVERY`` replaced by ``b"\\x01"`` (every
+   planted row quarantined with ``tier="device"``, the batches and entries
+   equal to the CPU call's, K1 and K2 launches counted from 0, the cold
+   and warm calls, the warm calls in turns with clean path 1, and once on
+   the K4 engine), P2 the records as a ``BinaryArray`` (equal batches,
+   ``pack_s`` in turns with the list), P3 ``timeout_s=0`` (raises before
+   any launch) and ``timeout_s=600`` (P1's result), P4 ``backend="host"``
+   on ``POLICY_HOST_ROWS`` records (decode and encode equal to the
+   card's), P5 the encode bisect on ``POLICY_ENCODE_ROWS`` one-byte
+   decimals with 4 that do not fit under ``"skip"`` and ``"null"`` (the
+   planted rows quarantined, the wire equal to the CPU call's, the
+   ``encode_rows`` launches it took);
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
    strings, d2h, wrap); on the overlapped paths the native pack against
@@ -100,6 +113,9 @@ PIPELINE_ROWS = 2_000       # rows of the pipeline engine's fixtures
 WARM_CALLS = 5              # timed warm calls of each main path
 PHASE_RUNS = 3              # decodes whose phase times give the medians
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+POLICY_EVERY = 100          # P1: one row in every 100 poisoned with b"\x01"
+POLICY_HOST_ROWS = 10_000   # P4: records through the host oracle
+POLICY_ENCODE_ROWS = 65_536  # P5: rows of the encode bisect
 
 LADDER_SCHEMA = """{"type":"record","name":"Big","fields":[
   {"name":"xs","type":{"type":"array","items":"long"}}]}"""
@@ -193,6 +209,15 @@ GLOBAL_BOUND_SCHEMA = """{"type":"record","name":"GB","fields":[
                                                "items":"null"}}},
   {"name":"s","type":"string"}]}"""
 
+
+# P5: one byte of decimal, so 200..999 do not fit
+# (``tests/test_error_policy.py:205-223``); and a nullable copy for "null"
+DECIMAL_SCHEMA = ('{"type":"record","name":"D","fields":[{"name":"d","type":'
+                  '{"type":"fixed","name":"Fx","size":1,"logicalType":'
+                  '"decimal","precision":3,"scale":0}}]}')
+NULL_DECIMAL_SCHEMA = ('{"type":"record","name":"ND","fields":[{"name":"d",'
+                       '"type":["null",{"type":"fixed","name":"Fx","size":1,'
+                       '"logicalType":"decimal","precision":3,"scale":0}]}]}')
 
 # encode fixtures: every extra logical type (uuid text, duration, fixed,
 # enum, decimals over bytes and over a 16-byte fixed; the int128 minimum
@@ -1742,6 +1767,275 @@ def hold_encode_path(torch, em, encoder, batch, card, label):
             "payload_bytes": payload, "max_abs_err": worst}
 
 
+def poison(data, every: int, offset: int = 37):
+    """``data`` with one row in every ``every`` replaced by ``b"\\x01"`` (a
+    union branch or a long of -1 that runs past its datum: every tier
+    rejects it), and the rows replaced."""
+    bad = list(range(offset, len(data), every))
+    out = list(data)
+    for i in bad:
+        out[i] = b"\x01"
+    return out, bad
+
+
+def same_columns(label, got, want):
+    """Every batch equal to ``want``'s: ``equals()`` batch by batch, and
+    ``to_pylist()`` too on the columns that hold a union (a sliced sparse
+    union can pass ``equals()`` with wrong values). A cheaper
+    :func:`same_values` for comparisons between two card calls."""
+    from pyruhvro_tpu_torch.ops.arrow_build import _contains_union
+
+    if len(got) != len(want):
+        raise SystemExit(f"{label}: {len(got)} batches, not {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not g.equals(w) or any(
+                _contains_union(f.type)
+                and g.column(j).to_pylist() != w.column(j).to_pylist()
+                for j, f in enumerate(g.schema)):
+            raise SystemExit(f"{label}: batch {i} differs")
+
+
+def entry_fields(entries):
+    return [(q.index, q.datum, q.error, q.tier) for q in entries]
+
+
+def zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def launched(label, counters):
+    """The counts since the last :func:`zero`; fails if one is 0."""
+    counts = {k: c.launches for k, c in counters.items()}
+    for k, v in counts.items():
+        if v < 1:
+            raise SystemExit(f"{label}: ran without launching {k}")
+    return counts
+
+
+def check_quarantine(label, entries, bad, want=None):
+    """Every planted row quarantined by the device tier, nothing else; the
+    same entries as the CPU call's when given."""
+    if [q.index for q in entries] != bad:
+        raise SystemExit(f"{label}: quarantined {len(entries)} rows, not the "
+                         f"{len(bad)} planted ones")
+    tiers = {q.tier for q in entries}
+    if tiers != {"device"}:
+        raise SystemExit(f"{label}: quarantine tiers {tiers}, not device")
+    if want is not None and entry_fields(entries) != entry_fields(want):
+        raise SystemExit(f"{label}: quarantine differs from the CPU call's")
+
+
+def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
+    """The public call contract on the card, each case against the same
+    call with ``device="cpu"``: P1 ``on_error="skip"`` on path 1's records
+    with one row in every ``POLICY_EVERY`` poisoned (K1 and K2, once more
+    on K4), P2 BinaryArray input, P3 ``timeout_s``, P4 ``backend="host"``,
+    P5 the encode bisect under ``"skip"`` and ``"null"``."""
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    every = {**pipe, "walk_decode": wd.walk_kernel,
+             "encode_rows": em.encode_kernel.rows,
+             "encode_strings": em.encode_kernel.strings}
+    out = {}
+    poisoned, bad = poison(data, POLICY_EVERY)
+
+    def skip(rows, **kw):
+        return api.deserialize_array_threaded(
+            rows, schema, MAIN_CHUNKS, on_error="skip", return_errors=True,
+            **kw)
+
+    # P1: the cold call, the warm calls, then in turns with clean path 1
+    zero(pipe)
+    t0 = time.perf_counter()
+    got, quar = skip(poisoned)
+    cold = time.perf_counter() - t0
+    launches = launched("P1", pipe)
+    check_quarantine("P1", quar, bad)
+    rows = sum(b.num_rows for b in got)
+    if len(got) != MAIN_CHUNKS or rows != len(data) - len(bad):
+        raise SystemExit(f"P1: {len(got)} batches of {rows} rows")
+    zero(pipe)
+    warm = []
+    for _ in range(WARM_CALLS):
+        t0 = time.perf_counter()
+        skip(poisoned)
+        warm.append(time.perf_counter() - t0)
+    warm_launches = {k: c.launches / WARM_CALLS for k, c in pipe.items()}
+    turns = {"poisoned": [], "clean": []}
+    for leg in ("poisoned", "clean", "clean", "poisoned"):
+        t0 = time.perf_counter()
+        if leg == "poisoned":
+            skip(poisoned)
+        else:
+            api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+        turns[leg].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want, want_q = skip(poisoned, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_values("P1", got, want)
+    check_quarantine("P1", quar, bad, want_q)
+    import os
+
+    os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
+    zero({"walk_decode": wd.walk_kernel})
+    t0 = time.perf_counter()
+    got4, quar4 = skip(poisoned)
+    k4_s = time.perf_counter() - t0
+    os.environ.pop("PYRUHVRO_TPU_PALLAS")
+    k4_launches = launched("P1 (PYRUHVRO_TPU_PALLAS=1)",
+                           {"walk_decode": wd.walk_kernel})
+    same_columns("P1 (PYRUHVRO_TPU_PALLAS=1)", got4, want)
+    check_quarantine("P1 (PYRUHVRO_TPU_PALLAS=1)", quar4, bad)
+    del got4, quar4
+    slugs = sorted({q.error for q in quar})
+    med = statistics.median(warm)
+    price = (statistics.median(turns["poisoned"])
+             - statistics.median(turns["clean"]))
+    print(f"policy P1: deserialize_array_threaded({len(data)} records, "
+          f"{len(bad)} poisoned, {MAIN_CHUNKS}, on_error='skip') quarantined "
+          f"{len(quar)} rows {slugs}, every entry tier 'device', batches and "
+          f"entries equal to the CPU call ({cpu_s:.1f} s); launches: cold "
+          f"{launches}, per warm call {warm_launches}; cold {cold:.3f} s, "
+          f"warm median of {WARM_CALLS} {med:.3f} s ({min(warm):.3f} .. "
+          f"{max(warm):.3f}); in turns (A B B A) poisoned "
+          f"{[round(x, 3) for x in turns['poisoned']]} clean "
+          f"{[round(x, 3) for x in turns['clean']]}: a poisoned batch costs "
+          f"{price:.3f} s more; K4 engine (PYRUHVRO_TPU_PALLAS=1) {k4_s:.3f} s, "
+          f"launches {k4_launches}, equal {card}")
+    out["p1"] = {"launches": launches, "warm_launches": warm_launches,
+                 "cold_s": cold, "warm_s": warm, "turns_s": turns,
+                 "cpu_s": cpu_s, "k4_s": k4_s, "k4_launches": k4_launches,
+                 "quarantined": len(quar), "slugs": slugs,
+                 "poisoned_price_s": price}
+    del want, want_q
+
+    # P3: a spent budget raises before any launch; a generous one is free
+    zero(every)
+    try:
+        skip(poisoned, timeout_s=0)
+        raise SystemExit("P3: timeout_s=0 returned")
+    except api.DeadlineExceeded as e:
+        site = e.site
+    counts = {k: c.launches for k, c in every.items()}
+    if any(counts.values()):
+        raise SystemExit(f"P3: timeout_s=0 launched {counts}")
+    t0 = time.perf_counter()
+    got600, quar600 = skip(poisoned, timeout_s=600)
+    t600 = time.perf_counter() - t0
+    same_columns("P3", got600, got)
+    if entry_fields(quar600) != entry_fields(quar):
+        raise SystemExit("P3: timeout_s=600 quarantined other rows")
+    print(f"policy P3: timeout_s=0 raised DeadlineExceeded at {site!r} with "
+          f"every launch count 0; timeout_s=600 returned P1's result in "
+          f"{t600:.3f} s {card}")
+    out["p3"] = {"site": site, "timeout_600_s": t600}
+    del got, quar, got600, quar600, poisoned
+
+    # P2: the records as a BinaryArray, against the list; pack_s in turns
+    t0 = time.perf_counter()
+    arr = pa.array(data, pa.binary())
+    arr_s = time.perf_counter() - t0
+    got = api.deserialize_array_threaded(arr, schema, MAIN_CHUNKS)
+    same_columns("P2", got, api.deserialize_array_threaded(
+        data, schema, MAIN_CHUNKS))
+    del got
+    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    dec = get_device_codec(get_or_parse_schema(schema), DEVICE).decoder
+    view, k = ingest.as_datum_input(arr), dm.overlap_chunks(len(data))
+    pack = {"list": [], "binary_array": []}
+    for leg in ("list", "binary_array", "binary_array", "list"):
+        triples = dec.decode_to_columns_overlapped(
+            data if leg == "list" else view, k)
+        pack[leg].append(triples[0][2]["timings"]["pack_s"])
+        del triples
+    print(f"policy P2: deserialize_array_threaded(pa.array({len(data)} "
+          f"records, pa.binary())) equal to the list's batches; pack_s in "
+          f"turns (A B B A), ms: list "
+          f"{[round(x * 1e3, 1) for x in pack['list']]}, BinaryArray "
+          f"{[round(x * 1e3, 1) for x in pack['binary_array']]} (building "
+          f"the array {arr_s:.2f} s, excluded) {card}")
+    out["p2"] = {"pack_s": pack, "array_build_s": arr_s}
+    del arr, view
+
+    # P4: the host oracle against the card, decode and encode
+    sub = data[:POLICY_HOST_ROWS]
+    t0 = time.perf_counter()
+    host = api.deserialize_array_threaded(sub, schema, MAIN_CHUNKS,
+                                          backend="host")
+    host_s = time.perf_counter() - t0
+    same_values("P4", host, api.deserialize_array_threaded(
+        sub, schema, MAIN_CHUNKS, device="cpu"))
+    same_columns("P4", host, api.deserialize_array_threaded(
+        sub, schema, MAIN_CHUNKS))
+    batch = api.deserialize_array(sub, schema)
+    t0 = time.perf_counter()
+    hwire = wire_of(api.serialize_record_batch(batch, schema, MAIN_CHUNKS,
+                                               backend="host"))
+    host_enc_s = time.perf_counter() - t0
+    if hwire != sub or wire_of(api.serialize_record_batch(
+            batch, schema, MAIN_CHUNKS)) != hwire:
+        raise SystemExit("P4: the host encode differs from the card's or "
+                         "from the input datums")
+    print(f"policy P4: backend='host' on {len(sub)} records: decode "
+          f"{host_s:.3f} s, encode {host_enc_s:.3f} s (host clock), equal to "
+          f"the card's decode and encode and to the input datums {card}")
+    out["p4"] = {"decode_s": host_s, "encode_s": host_enc_s}
+
+    # P5: the encode bisect, "skip" and (on a nullable copy) "null"
+    rng = np.random.default_rng(5)
+    n = POLICY_ENCODE_ROWS
+    vals = rng.integers(-128, 128, size=n)
+    ebad = sorted(int(i) for i in rng.choice(n, size=4, replace=False))
+    vals[ebad] = rng.integers(200, 1000, size=4)
+    from decimal import Decimal
+
+    dec_arr = pa.array([Decimal(int(v)) for v in vals],
+                       type=pa.decimal128(3, 0))
+    enc = {"encode_rows": em.encode_kernel.rows,
+           "encode_strings": em.encode_kernel.strings}
+    p5 = {}
+    for policy, schema5, nullable in (("skip", DECIMAL_SCHEMA, False),
+                                      ("null", DECIMAL_SCHEMA, False),
+                                      ("null", NULL_DECIMAL_SCHEMA, True)):
+        field = pa.field("d", dec_arr.type, nullable=nullable)
+        batch5 = pa.RecordBatch.from_arrays([dec_arr],
+                                            schema=pa.schema([field]))
+        zero(enc)
+        t0 = time.perf_counter()
+        wire5, q5 = api.serialize_record_batch(
+            batch5, schema5, MAIN_CHUNKS, on_error=policy,
+            return_errors=True)
+        t5 = time.perf_counter() - t0
+        rows_launches = em.encode_kernel.rows.launches
+        want5, wq5 = api.serialize_record_batch(
+            batch5, schema5, MAIN_CHUNKS, on_error=policy,
+            return_errors=True, device="cpu")
+        keep = n if nullable else n - len(ebad)
+        if [q.index for q in q5] != ebad or \
+                entry_fields(q5) != entry_fields(wq5) or \
+                {q.tier for q in q5} != {"device"}:
+            raise SystemExit(f"P5 {policy}: quarantined {entry_fields(q5)}")
+        got5 = wire_of(wire5)
+        if len(got5) != keep or got5 != wire_of(want5):
+            raise SystemExit(f"P5 {policy}: {len(got5)} rows, or a wire "
+                             f"other than the CPU call's")
+        label = f"{policy}{' (nullable schema)' if nullable else ''}"
+        print(f"policy P5: serialize_record_batch({n} rows, 4 do not fit, "
+              f"on_error={policy!r}{', nullable schema' if nullable else ''})"
+              f" quarantined {ebad}, {len(got5)} rows out, wire equal to the "
+              f"CPU call's; the bisect took {rows_launches} encode_rows "
+              f"launches, {t5:.3f} s {card}")
+        p5[label] = {"encode_rows_launches": rows_launches, "s": t5,
+                     "rows_out": len(got5)}
+    out["p5"] = p5
+    # the paths line reads a warm median from every entry
+    out["warm_s"] = warm
+    return out
+
+
 def main() -> int:
     import os
 
@@ -1776,7 +2070,8 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops import walk_decode as wd
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
     from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
-    from pyruhvro_tpu_torch.runtime import capacity, native
+    import pyruhvro_tpu_torch as port
+    from pyruhvro_tpu_torch.runtime import capacity, ingest, native
     from pyruhvro_tpu_torch.runtime import pack as packing
     from pyruhvro_tpu_torch.runtime.chunking import chunk_bounds
     from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
@@ -1979,6 +2274,13 @@ def main() -> int:
               f"all {MAIN_CHUNKS} chunks")
         enc_batches[key] = (batch, schema)
         del got, want
+
+    # 5c. the public call contract: error policies, deadlines, BinaryArray
+    # input, the host oracle, the encode bisect
+    t0 = time.perf_counter()
+    results["policy"] = policy_phase(port, pa, np, dm, wd, em, ingest, data,
+                                     kafka, card)
+    print(f"policy phase: {time.perf_counter() - t0:.1f} s")
 
     # 6. phases and kernels at the main paths' shapes
     os.environ["PYRUHVRO_TPU_PALLAS"] = "1"

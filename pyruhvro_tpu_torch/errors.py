@@ -5,15 +5,23 @@ and ``pyruhvro_tpu/ops/decode.py:239-246``).
 (``record <index>: <why>``) and fields (``index``, ``err_name``, ``tier``,
 ``indices``, kept across a pickle round trip). ``BatchTooLarge`` is the single-launch byte
 budget signal the codec answers by halving the batch.
-``DeviceCapacityExceeded`` is the pipeline engine's item-capacity limit;
-the reference's codec serves such a batch from its host tier
-(``codec.py:289-294``), the port has none and raises it to the caller.
+``DeviceCapacityExceeded`` is the pipeline engine's item-capacity limit
+(and its ladder's failure to converge); the reference's codec serves such
+a batch from its host tier (``codec.py:289-294``), the port has none and
+raises it to the caller.
+
+:func:`mark_value_error` tags the errors of a record's value that a host
+stage of the device tier raises without naming a row: the Arrow
+assembly's invalid UTF-8, decimal precision and duration range, and the
+encode extraction's values that do not fit. They are the only errors of
+the device tier, besides the walk's row errors, that a tolerant policy
+(``api.py``) isolates; every other error propagates.
 """
 
 from __future__ import annotations
 
 __all__ = ["MalformedAvro", "shift_malformed", "BatchTooLarge",
-           "DeviceCapacityExceeded"]
+           "DeviceCapacityExceeded", "mark_value_error", "is_value_error"]
 
 
 class MalformedAvro(ValueError):
@@ -70,3 +78,15 @@ class BatchTooLarge(Exception):
 class DeviceCapacityExceeded(Exception):
     """Batch needs more per-record item slots than the device path
     supports (copy of ``pyruhvro_tpu/ops/decode.py:239-241``)."""
+
+
+def mark_value_error(e: Exception) -> Exception:
+    """Tag ``e`` as an error of a record's value that names no row (the
+    type and message stay the reference's); returns ``e``."""
+    e.value_error = True
+    return e
+
+
+def is_value_error(e: BaseException) -> bool:
+    """True for an error tagged by :func:`mark_value_error`."""
+    return getattr(e, "value_error", False)

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import pyarrow as pa
 
-from ..errors import MalformedAvro
+from ..errors import MalformedAvro, mark_value_error
 from ..schema.model import (
     Array,
     AvroType,
@@ -120,13 +120,14 @@ def _check_utf8(values: np.ndarray, voff: np.ndarray, path: str) -> None:
     try:
         values.tobytes().decode("utf-8")
     except UnicodeDecodeError as e:
-        raise MalformedAvro(f"invalid UTF-8 in string column {path!r}: {e}")
+        raise mark_value_error(MalformedAvro(
+            f"invalid UTF-8 in string column {path!r}: {e}"))
     firsts = values[voff[:-1][voff[:-1] < voff[1:]].astype(np.int64)]
     if firsts.size and bool(((firsts & 0xC0) == 0x80).any()):
-        raise MalformedAvro(
+        raise mark_value_error(MalformedAvro(
             f"invalid UTF-8 in string column {path!r}: string begins on a "
             f"continuation byte"
-        )
+        ))
 
 
 def _combine64(lo: np.ndarray, hi: np.ndarray, view) -> np.ndarray:
@@ -358,10 +359,10 @@ class _Assembler:
             bad = over & ~(lead_ok & sign_ok)
             if bool(bad.any()):
                 i = int(np.flatnonzero(bad)[0])
-                raise pa.lib.ArrowInvalid(
+                raise mark_value_error(pa.lib.ArrowInvalid(
                     f"decimal at {path!r} row {i} exceeds precision "
                     f"{t.precision}"
-                )
+                ))
         return np.ascontiguousarray(out.astype(np.uint8).reshape(-1))
 
     def _decimal(self, t, dt, path, count, vbuf, nulls, valid):
@@ -389,10 +390,10 @@ class _Assembler:
             bad = live & ~fits
             if bad.any():
                 i = int(np.flatnonzero(bad)[0])
-                raise pa.lib.ArrowInvalid(
+                raise mark_value_error(pa.lib.ArrowInvalid(
                     f"decimal at {path!r} row {i} exceeds precision "
                     f"{t.precision}"
-                )
+                ))
         return pa.Array.from_buffers(
             dt, count, [vbuf, pa.py_buffer(raw)], null_count=nulls
         )
@@ -424,9 +425,9 @@ class _Assembler:
                 + u[:, 2]
             )
             if bool((ms > np.uint64(np.iinfo(np.int64).max)).any()):
-                raise OverflowError(
+                raise mark_value_error(OverflowError(
                     f"duration at {path!r} exceeds Duration(ms) int64"
-                )
+                ))
             return pa.Array.from_buffers(
                 dt, count,
                 [vbuf, pa.py_buffer(ms.astype(np.int64))],

@@ -52,11 +52,12 @@ planner consulted before the first rung and taught after the last
 1`` chunks, the overlapped chunk path
 (:meth:`DeviceDecoder.decode_to_columns_overlapped`): chunk ``i + 1``
 packs and copies while chunk ``i``'s finalize and blob copy are in
-flight, row errors of every chunk are raised once.
-
-Out of this slice: sampling caps from a host decode
-(``seed_caps_from_sample``, it needs the host tier) and persisting the
-planner's plans.
+flight, row errors of every chunk are raised once. After a planner miss
+the item caps are seeded from the host oracle's decode of the first 128
+records (:meth:`DeviceDecoder.seed_caps_from_sample`), as in the
+reference; a deadline (:mod:`..runtime.deadline`) is checked at each
+ladder rung and each chunk. Out of this slice: persisting the planner's
+plans.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
-from ..runtime import capacity, knobs
+from ..runtime import capacity, deadline, knobs
 from ..runtime.chunking import chunk_bounds
 from ..runtime.pack import (
     LAUNCH_MAX_BYTES,
@@ -132,6 +133,42 @@ def raise_aggregated_malformed(indices) -> None:
     raise MalformedAvro(f"record {i0}: {ERR_NAMES.get(bit0, slug0)}",
                         index=i0, err_name=slug0, tier="device",
                         indices=indices)
+
+
+def _region_counts(ir, batch, path: str):
+    """Per-row item counts of the repeated field at ``path`` in an Arrow
+    batch (host-side, for cap seeding; copy of ``decode.py:113-145``).
+    Path components are record field names or union-arm indices;
+    nullable pairs are transparent (Arrow folds them into field
+    nullability)."""
+    from ..schema.model import Array as _Arr, Map as _Map, Record, Union
+
+    t = ir
+    arr = None
+    for comp in path.split("/"):
+        while isinstance(t, Union) and t.is_nullable_pair:
+            t = t.non_null_variant
+        if isinstance(t, Record):
+            names = [f.name for f in t.fields]
+            i = names.index(comp)
+            arr = batch.column(comp) if arr is None else arr.field(i)
+            t = t.fields[i].type
+        elif isinstance(t, Union):
+            k = int(comp)
+            arr = arr.field(k)
+            t = t.variants[k]
+        else:
+            return None
+    while isinstance(t, Union) and t.is_nullable_pair:
+        t = t.non_null_variant
+    if arr is None or not isinstance(t, (_Arr, _Map)):
+        return None
+    counts = np.diff(np.asarray(arr.offsets))
+    if arr.null_count:
+        counts = np.where(
+            arr.is_valid().to_numpy(zero_copy_only=False), counts, 0
+        )
+    return counts
 
 
 def cap_of(prog: Program, R: int, item_caps, region: int) -> int:
@@ -376,7 +413,7 @@ def split_blob(blob: np.ndarray, layout) -> Dict[str, np.ndarray]:
         host[key] = blob[pos:pos + nbytes].view(dt)
         pos += nbytes
     if pos != blob.nbytes:
-        raise ValueError("pipeline layout mismatch")
+        raise RuntimeError("pipeline layout mismatch")
     return host
 
 
@@ -604,16 +641,16 @@ class WalkLaunch:
         R = starts.numel()
         if words.dtype != torch.int32 or words.dim() != 1 \
                 or not words.is_contiguous() or words.data_ptr() % 16:
-            raise ValueError("words must be contiguous 16-B aligned int32 "
+            raise RuntimeError("words must be contiguous 16-B aligned int32 "
                              "[W]")
         _check(starts, torch.int32, (R,), dev, "starts")
         _check(lengths, torch.int32, (R,), dev, "lengths")
         self.stack = walk_stack(prog.depth) if _stack is None else _stack
         if self.stack not in WALK_STACKS or prog.depth > self.stack:
-            raise ValueError(f"stack {self.stack} is no instantiation "
+            raise RuntimeError(f"stack {self.stack} is no instantiation "
                              f"{WALK_STACKS} holding depth {prog.depth}")
         if not 0 <= _fold <= WALK_KEY_FOLD:
-            raise ValueError(f"fold {_fold} outside 0..{WALK_KEY_FOLD}")
+            raise RuntimeError(f"fold {_fold} outside 0..{WALK_KEY_FOLD}")
         check_slots(prog, R, item_caps)
         self.words, self.starts, self.lengths, self.n = words, starts, \
             lengths, n
@@ -627,7 +664,7 @@ class WalkLaunch:
         self.bufs = alloc_walk_outputs(prog, R, item_caps, dev,
                                        fill=torch.empty)
         if any(b.data_ptr() % 16 for b in self.bufs):
-            raise ValueError("walk buffers must be 16-B aligned")
+            raise RuntimeError("walk buffers must be 16-B aligned")
         self.err = torch.empty(R, dtype=torch.int32, device=dev)
         self.ext = [0] * self.n_regions
         self.set_log(log_cap)
@@ -853,7 +890,7 @@ class _DecodeWalkKernel:
     def launch(self, L: WalkLaunch) -> None:
         """One launch on the current stream; no synchronisation."""
         if L.words.device.type != "cuda":
-            raise ValueError("walk_kernel takes CUDA tensors")
+            raise RuntimeError("walk_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_walk
         stream = torch.cuda.current_stream(L.words.device).cuda_stream
         L.reset()
@@ -896,7 +933,7 @@ def walk(words, starts, lengths, n: int, prog: Program, item_caps):
         return walk_kernel(words, starts, lengths, n, prog, item_caps)
     if words.device.type == "cpu":
         return walk_plain(words, starts, lengths, n, prog, item_caps)
-    raise ValueError(f"no walk for device {words.device}")
+    raise RuntimeError(f"no walk for device {words.device}")
 
 
 # -- K2: the finalize kernel --------------------------------------------------------
@@ -1089,7 +1126,7 @@ class _FinalizeKernel:
         """One gather pass; an item pass reads the offsets that
         :meth:`prepare_offsets` made."""
         if plan.dev.type != "cuda":
-            raise ValueError("finalize_kernel takes CUDA tensors")
+            raise RuntimeError("finalize_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_finalize_pass
         stream = torch.cuda.current_stream(plan.dev).cuda_stream
         rid = p["rid"]
@@ -1152,7 +1189,7 @@ def finalize(bufs, err, prog: Program, R: int, B: int, item_caps, tot_caps,
     if err.device.type == "cpu":
         return finalize_plain(bufs, err, prog, R, B, item_caps, tot_caps,
                               compact)
-    raise ValueError(f"no finalize for device {err.device}")
+    raise RuntimeError(f"no finalize for device {err.device}")
 
 
 # -- the decoder --------------------------------------------------------------------
@@ -1224,6 +1261,8 @@ class DeviceDecoder:
         self._arenas: Dict[tuple, _Arena] = {}
         # R buckets whose converged rung the planner was taught
         self._planned: set = set()
+        # (R, region) pairs a host sample was taken for
+        self._seed_tried: set = set()
         self._copy_stream = None
         self._lock = threading.Lock()
 
@@ -1277,6 +1316,53 @@ class DeviceDecoder:
             with self._lock:
                 self._planned.add(R)
         return hit
+
+    def seed_caps_from_sample(self, data: Sequence[bytes], R: int) -> None:
+        """Estimate the item caps of a fresh ``R`` bucket from the host
+        oracle's decode of the first 128 records, so the first launch
+        climbs fewer rungs (copy of ``decode.py:670-720``). Estimates
+        only: the ladder still catches under-estimates, and a sample that
+        does not decode (a malformed head record) is left to the device
+        pass, which reports exact per-record errors."""
+        prog = self.prog
+        if len(prog.regions) <= 1:
+            return
+        with self._lock:
+            need = [rid for rid in range(1, len(prog.regions))
+                    if (R, rid) not in self._tot_cap_mem
+                    and (R, rid) not in self._seed_tried]
+            # one attempt per (R, region): a region the sample cannot
+            # resolve must not pay the host decode on every call
+            self._seed_tried.update((R, rid) for rid in need)
+        if not need:
+            return
+        from ..fallback.decoder import decode_to_record_batch
+        from ..schema.arrow_map import to_arrow_schema
+
+        try:
+            sample = decode_to_record_batch(data[:min(len(data), 128)],
+                                            prog.ir, to_arrow_schema(prog.ir))
+        except (ValueError, OverflowError):
+            return
+        for rid in need:
+            counts = _region_counts(prog.ir, sample, prog.regions[rid])
+            if counts is None or counts.size == 0:
+                continue
+            mx = int(counts.max(initial=0))
+            avg = float(counts.mean())
+            with self._lock:
+                # at most the device's per-record limit, so a record past
+                # it still raises DeviceCapacityExceeded on the ladder
+                # (the reference seeds past its limit)
+                self._item_caps[rid] = max(
+                    self._item_caps[rid],
+                    min(bucket_len(mx + (mx >> 1) + 1,
+                                   minimum=_DEFAULT_ITEM_CAP),
+                        _MAX_ITEM_CAP))
+                est = int(R * avg * 1.25) + 16
+                self._tot_cap_mem[(R, rid)] = max(
+                    self._tot_cap_mem.get((R, rid), 0),
+                    bucket_len(est, minimum=_DEFAULT_TOT_CAP))
 
     def _harvest_plan(self, R: int, grew: bool) -> None:
         """Teach the planner this bucket's converged rung, once per bucket
@@ -1437,6 +1523,9 @@ class DeviceDecoder:
         device ``#err``."""
         grew = False
         for _attempt in range(_MAX_RUNGS):
+            # a deadline stops the climb instead of paying rungs it can
+            # no longer afford
+            deadline.check(site="device.capacity_ladder")
             item_caps, tot_caps = self.caps_snapshot(R)
             compact = (R, B) not in self._str_full
             layout = blob_layout(self.prog, R, B, item_caps, tot_caps,
@@ -1452,7 +1541,11 @@ class DeviceDecoder:
                 self._harvest_plan(R, grew)
                 return host, err
             grew = True
-        raise MalformedAvro("array/map item capacity did not converge")
+        # a limit of the engine, not an error of the data (the reference
+        # raises MalformedAvro here)
+        raise DeviceCapacityExceeded(
+            f"array/map item capacity did not converge in {_MAX_RUNGS} "
+            f"rungs")
 
     @staticmethod
     def _raise_row_errors(err: np.ndarray, n: int, base_row: int = 0,
@@ -1472,7 +1565,8 @@ class DeviceDecoder:
             collect.extend(indices)
             return
         if not indices:
-            raise MalformedAvro("device reported a malformed record")
+            # the reduction counted an error the rows do not hold
+            raise RuntimeError("device reported a malformed record in no row")
         i = int(bad_rows[0])
         v = int(bad[i])
         bit = v & -v
@@ -1539,7 +1633,8 @@ class DeviceDecoder:
             # int32 cursors bound one launch to 1 GiB of datum bytes
             raise BatchTooLarge(n, total)
         R, B = launch_shape(n, total)
-        self.seed_from_plan(R)
+        if not self.seed_from_plan(R):
+            self.seed_caps_from_sample(data, R)
         arena = self._arena(R, B)
         self._pack_into(arena, flat, offsets, R, B)
         t1 = time.perf_counter()
@@ -1593,7 +1688,8 @@ class DeviceDecoder:
         if total > LAUNCH_MAX_BYTES or chunk_bytes > LAUNCH_MAX_BYTES:
             raise BatchTooLarge(n_all, total)
         R, B = launch_shape(chunk_rows, chunk_bytes)
-        self.seed_from_plan(R)
+        if not self.seed_from_plan(R):
+            self.seed_caps_from_sample(data, R)
         timings["pack_s"] += time.perf_counter() - t_wall0
         arenas: Dict[int, _Arena] = {}
 
@@ -1661,6 +1757,7 @@ class DeviceDecoder:
             finish(f.i, host, err)
 
         for i in range(start, len(bounds)):
+            deadline.check(index=bounds[i][0], site="device.chunk")
             t0 = time.perf_counter()
             packed = put_chunk(i)
             t_host = time.perf_counter() - t0

@@ -1009,7 +1009,7 @@ class _EncodeKernel:
         whose span fits ``budget`` (by default :meth:`span_budget`)
         through shared memory."""
         if L.buf.device.type != "cuda":
-            raise ValueError("encode_kernel takes CUDA tensors")
+            raise RuntimeError("encode_kernel takes CUDA tensors")
         if write and budget is None:
             budget = L.span_budget = self.span_budget(L)
         fn = self.library().cdll.encode_rows
@@ -1031,7 +1031,7 @@ class _EncodeKernel:
         ``L.n_windows`` windows of ``STRING_WINDOW`` source bytes, each
         block of the grid walking a run of them."""
         if L.buf.device.type != "cuda":
-            raise ValueError("encode_kernel takes CUDA tensors")
+            raise RuntimeError("encode_kernel takes CUDA tensors")
         fn = self.library().cdll.encode_strings
         stream = torch.cuda.current_stream(L.buf.device).cuda_stream
         rc = fn(L.buf.data_ptr(), L.lanes_view().data_ptr(),
@@ -1095,7 +1095,7 @@ def run_program(L: EncodeLaunch, timings=None):
     if L.buf.device.type == "cpu":
         blob = encode_plain(L.dv(), L.prog, L.cap)
         return blob[:L.cap], blob[L.cap:].view(torch.int32)
-    raise ValueError(f"no encode for device {L.buf.device}")
+    raise RuntimeError(f"no encode for device {L.buf.device}")
 
 
 # -- the encoder -------------------------------------------------------------------

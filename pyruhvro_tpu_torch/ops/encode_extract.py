@@ -7,8 +7,8 @@ keys, dtypes and region order of the reference) and an upper bound of
 the output bytes; ``extract_batch`` (``:1225-1267``) pads every lane to
 its region's power-of-two bucket (``#src`` with the ``_BIG`` sentinel)
 and ``input_entries`` (``:1270``) gives the sorted packed-buffer layout.
-``batch_to_struct`` (``:1184``) matches columns by name, with
-``_types_compatible`` copied from ``pyruhvro_tpu/fallback/encoder.py:297``.
+``batch_to_struct`` (``:1184``) matches columns by name, with the host
+oracle's ``_types_compatible`` (:mod:`..fallback.encoder`).
 
 Left out: the host tier's layout (``host_mode``) and the native
 ``uuid_text`` branch; uuids are rendered by the numpy branch. Every
@@ -23,6 +23,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import pyarrow as pa
 
+from ..errors import mark_value_error
+from ..fallback.encoder import _types_compatible
 from ..runtime.pack import bucket_len
 from ..schema.arrow_map import to_arrow_field
 from ..schema.model import (
@@ -42,43 +44,6 @@ __all__ = ["extract_batch", "run_extractor", "batch_to_struct",
            "input_entries"]
 
 _BIG = 1 << 30  # ``#src`` pad: a padded element never owns a payload byte
-
-
-def _types_compatible(actual: pa.DataType, expected: pa.DataType) -> bool:
-    """Structural type equality ignoring *container child* field names, so
-    e.g. a list child named "element" (Parquet convention) matches the
-    expected "item". Struct children still match by name — record fields
-    are name-matched, like the reference (``serialization_containers.rs:248-267``)."""
-    if actual.equals(expected):
-        return True
-    if pa.types.is_list(actual) and pa.types.is_list(expected):
-        return _types_compatible(actual.value_type, expected.value_type)
-    if pa.types.is_map(actual) and pa.types.is_map(expected):
-        return _types_compatible(
-            actual.key_type, expected.key_type
-        ) and _types_compatible(actual.item_type, expected.item_type)
-    if pa.types.is_struct(actual) and pa.types.is_struct(expected):
-        if actual.num_fields != expected.num_fields:
-            return False
-        return all(
-            actual.field(i).name == expected.field(i).name
-            and _types_compatible(actual.field(i).type, expected.field(i).type)
-            for i in range(actual.num_fields)
-        )
-    if pa.types.is_union(actual) and pa.types.is_union(expected):
-        if actual.mode != expected.mode:
-            # dense vs sparse changes child indexing; extract_rows assumes sparse
-            return False
-        if actual.num_fields != expected.num_fields or list(
-            actual.type_codes
-        ) != list(expected.type_codes):
-            return False
-        return all(
-            _types_compatible(actual.field(i).type, expected.field(i).type)
-            for i in range(actual.num_fields)
-        )
-    return False
-
 
 
 class _Extractor:
@@ -629,8 +594,17 @@ def extract_batch(prog, batch: pa.RecordBatch,
                   ir: Record) -> Tuple[Dict[str, np.ndarray], int]:
     """Arrow batch → padded device-input dict + output byte bound.
     ``prog`` is the lowered encode program (``ops/encode.py``
-    ``EncProgram``); its regions must be the extractor's."""
-    ex = run_extractor(ir, batch)
+    ``EncProgram``); its regions must be the extractor's. The value
+    errors of the batch (a null where none is allowed, an unknown symbol,
+    a value that does not fit) are tagged with
+    :func:`~..errors.mark_value_error`: the tolerant policies isolate
+    their rows."""
+    try:
+        ex = run_extractor(ir, batch)
+    except UnsupportedOnDevice:
+        raise
+    except (ValueError, OverflowError) as e:
+        raise mark_value_error(e)
 
     if ex.regions != prog.regions:  # pragma: no cover — same walk order
         raise AssertionError("extractor/lowering region mismatch")

@@ -17,7 +17,8 @@ module keeps that pipeline's semantics over an unpadded input:
   (the decoder passes ``base = offs[:R]``: starts index ``flat``);
 * an ERR_ITEM_OVERFLOW lane doubles the item caps and reruns the walk
   (8 → 1024); the rung that worked is remembered in ``_caps``;
-* the host raises the first bad row as :class:`MalformedAvro`, compacts
+* the host raises :class:`MalformedAvro` naming the first bad row, with
+  every bad row in ``indices`` (the reference names the first only), compacts
   strided item slots into dense arrays + ``#offsets`` (item ``#start``
   rebased by their row's offset) and assembles Arrow.
 
@@ -394,7 +395,7 @@ class _PlainWalk:
             elif op == OP_END:
                 return
             else:
-                raise ValueError(f"bad opcode {op} at {pc}")
+                raise RuntimeError(f"bad opcode {op} at {pc}")
 
     def rebase(self, b: int, mask) -> None:
         """Row-region string starts += the row's base (``OP_REBASE``)."""
@@ -481,7 +482,7 @@ def walk_plain(flat, offs, act, BW: int, base, prog: Program,
 def _check(t, dtype, shape, dev, name: str) -> None:
     if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() \
             or t.device != dev:
-        raise ValueError(f"{name} must be contiguous {dtype} {list(shape)} "
+        raise RuntimeError(f"{name} must be contiguous {dtype} {list(shape)} "
                          f"on {dev}")
 
 
@@ -501,19 +502,19 @@ class KernelLaunch:
                  in_max: int = _IN_STAGE_MAX, out_max: int = None):
         dev = flat.device
         if dev.type != "cuda":
-            raise ValueError("walk_kernel takes CUDA tensors")
+            raise RuntimeError("walk_kernel takes CUDA tensors")
         if flat.dtype != torch.uint8 or flat.dim() != 1 \
                 or not flat.is_contiguous() or flat.data_ptr() % 16:
-            raise ValueError("flat must be contiguous 16-B aligned uint8 [N]")
+            raise RuntimeError("flat must be contiguous 16-B aligned uint8 [N]")
         R = act.numel()
         _check(offs, torch.int64, (R + 1,), dev, "offs")
         _check(act, torch.int32, (R,), dev, "act")
         _check(base, torch.int32, (R,), dev, "base")
         if tile_r % _THREADS or R % tile_r:
-            raise ValueError(f"R={R} must be a multiple of tile_r={tile_r}, "
+            raise RuntimeError(f"R={R} must be a multiple of tile_r={tile_r}, "
                              f"itself a multiple of {_THREADS}")
         if flat.numel() < (int(offs[-1]) + 15) & ~15:
-            raise ValueError("flat must hold offs[-1] bytes rounded up to 16")
+            raise RuntimeError("flat must hold offs[-1] bytes rounded up to 16")
         self.flat, self.offs, self.act, self.base = flat, offs, act, base
         self.BW, self.prog, self.caps, self.tile_r = BW, prog, caps, tile_r
         self.n_regions = len(prog.regions)
@@ -530,7 +531,7 @@ class KernelLaunch:
                                 np.int32)]).astype(np.int32)).to(dev)
         self.bufs = _alloc_outputs(prog, R, caps, dev, fill=torch.empty)
         if any(b.data_ptr() % 16 for b in self.bufs):
-            raise ValueError("output buffers must be 16-B aligned")
+            raise RuntimeError("output buffers must be 16-B aligned")
         self.ptrs = torch.tensor([b.data_ptr() for b in self.bufs] or [0],
                                  dtype=torch.int64, device=dev)
         self.err = torch.empty(R, dtype=torch.int32, device=dev)
@@ -659,7 +660,7 @@ def walk(flat, offs, act, BW: int, base, prog: Program,
         return walk_kernel(flat, offs, act, BW, base, prog, caps, tile_r)
     if flat.device.type == "cpu":
         return walk_plain(flat, offs, act, BW, base, prog, caps, tile_r)
-    raise ValueError(f"no walk for device {flat.device}")
+    raise RuntimeError(f"no walk for device {flat.device}")
 
 
 # -- the decoder -------------------------------------------------------------
@@ -804,11 +805,17 @@ class WalkDecoder:
         timings["d2h_s"] = time.perf_counter() - t1
         err = err_np[:n]
         if err.any():
-            i = int(np.flatnonzero(err)[0])
+            # every bad row rides in ``indices``, as on the pipeline
+            # engine, so a tolerant call quarantines them in one pass
+            indices = []
+            for r in np.flatnonzero(err):
+                v = int(err[r])
+                indices.append((int(r), ERR_SLUGS.get(v & -v)))
+            i, slug = indices[0]
             bit = int(err[i]) & -int(err[i])
             raise MalformedAvro(
                 f"record {i}: {ERR_NAMES.get(bit, f'error bit {bit:#x}')}",
-                index=i, err_name=ERR_SLUGS.get(bit), tier="device",
+                index=i, err_name=slug, tier="device", indices=indices,
             )
         meta = {"item_totals": {}, "flat": flat_np[:offsets[-1]]}
         t1 = time.perf_counter()

@@ -7,7 +7,9 @@ The pipeline engine (``ops/decode.py``) takes them as one packed launch
 buffer, ``[words | starts | lengths | n]``. On the card path the join is
 the native, multi-threaded ``concat`` (``csrc/packer.cpp``, built by
 ``runtime/native.py``); the CPU path and the tests join with
-``bytearray().join``, its plain version.
+``bytearray().join``, its plain version. A pyarrow binary array
+(:class:`..runtime.ingest.DatumView`) is joined already: its values
+buffer is the flat concat, on either path.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from .ingest import DatumView
 
 __all__ = ["bucket_len", "record_lengths", "concat_records",
            "launch_shape", "launch_lanes", "pack_launch_into",
@@ -31,19 +35,30 @@ def bucket_len(n: int, minimum: int = 16) -> int:
 
 def record_lengths(data: Sequence[bytes]) -> np.ndarray:
     """Byte length of every datum, as int64."""
+    if isinstance(data, DatumView):
+        return data.lens()
     return np.fromiter(map(len, data), dtype=np.int64, count=len(data))
 
 
 def concat_records(data: Sequence[bytes], lens: np.ndarray = None,
                    tail: int = 0, *, native: bool = False
                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """``(flat, offsets)``: every datum's bytes in one writable uint8 array
-    followed by ``tail`` zero bytes, and ``offsets[len(data)+1]`` int64
-    (copy of ``pyruhvro_tpu/runtime/pack.py:81-95`` ``concat_records``).
+    """``(flat, offsets)``: every datum's bytes in one uint8 array
+    (writable for a list) followed by ``tail`` zero bytes, and
+    ``offsets[len(data)+1]`` int64 (copy of
+    ``pyruhvro_tpu/runtime/pack.py:81-95`` ``concat_records``).
     ``native`` joins with the native ``concat`` (the card path; a failed
     build raises), else with one ``bytearray().join``, its plain version.
     ``lens`` are the datum lengths when the caller has them (the native
-    join does not need them)."""
+    join does not need them). A :class:`DatumView` is not joined: its
+    values buffer is ``flat`` (read-only; copied only to append
+    ``tail``) and its offsets, rebased to 0, are ``offsets``."""
+    if isinstance(data, DatumView):
+        offsets = data.offsets()
+        flat = data.values()[offsets[0]:offsets[-1]]
+        if tail:
+            flat = np.concatenate([flat, np.zeros(tail, np.uint8)])
+        return flat, offsets - offsets[0]
     if native:
         from .native import load_packer
 

@@ -1,9 +1,9 @@
-"""Seeded test data for the port (copy of ``pyruhvro_tpu/utils/datagen.py:111,127,150,181``
-with the wire writer of ``pyruhvro_tpu/fallback/encoder.py:186``).
+"""Seeded test data for the port (copy of ``pyruhvro_tpu/utils/datagen.py:111,127,150,181``).
 
 ``random_value`` produces value trees (record→dict, map→list[(k, v)],
-union→(branch, value)); ``compile_writer`` turns them into Avro wire
-bytes. ``kafka_style_datums`` is the 9-field Kafka workload of upstream's
+union→(branch, value)); ``compile_writer``, the host oracle's writer
+(:mod:`..fallback.encoder`), turns them into Avro wire bytes.
+``kafka_style_datums`` is the 9-field Kafka workload of upstream's
 ``scripts/generate_avro.py`` (Faker-free).
 """
 
@@ -14,6 +14,7 @@ import string as _string
 import struct
 from typing import List
 
+from ..fallback.encoder import compile_writer
 from ..schema.model import (
     Array,
     AvroType,
@@ -33,160 +34,6 @@ __all__ = [
     "KAFKA_SCHEMA_JSON",
     "CRITERION_SHAPES",
 ]
-
-
-# -- wire writers (fallback/io.py:219-243, fallback/encoder.py:186-345) ------
-
-def _write_long(out: bytearray, value: int) -> None:
-    if not -(1 << 63) <= value < (1 << 63):
-        raise ValueError(f"value {value} out of int64 range for Avro long")
-    z = ((value << 1) ^ (value >> 63)) & ((1 << 64) - 1)
-    while z >= 0x80:
-        out.append((z & 0x7F) | 0x80)
-        z >>= 7
-    out.append(z)
-
-
-def _write_bytes(out: bytearray, value) -> None:
-    _write_long(out, len(value))
-    out += value
-
-
-def _write_float(out: bytearray, value: float) -> None:
-    out += struct.pack("<f", value)
-
-
-def _write_double(out: bytearray, value: float) -> None:
-    out += struct.pack("<d", value)
-
-
-def _write_bool(out: bytearray, value: bool) -> None:
-    out.append(1 if value else 0)
-
-
-def compile_writer(t: AvroType):
-    """A ``writer(out: bytearray, value)`` closure for ``t``; a ``None``
-    outside a union with a null variant raises ``ValueError``."""
-    w = _compile_writer(t)
-    if isinstance(t, Union) or (isinstance(t, Primitive) and t.name == "null"):
-        return w
-    what = t.logical or t.name if isinstance(t, Primitive) \
-        else type(t).__name__.lower()
-
-    def checked(out, v):
-        if v is None:
-            raise ValueError(
-                f"null value for non-nullable Avro {what} "
-                f"(no null union at this position in the schema)"
-            )
-        w(out, v)
-    return checked
-
-
-def _compile_writer(t: AvroType):
-    if isinstance(t, Primitive):
-        name = t.name
-        if name == "null":
-            return lambda out, v: None
-        if name == "boolean":
-            return _write_bool
-        if name in ("int", "long"):
-            return _write_long
-        if name == "float":
-            return _write_float
-        if name == "double":
-            return _write_double
-        if name == "bytes":
-            if t.logical == "decimal":
-                def write_decimal(out, v):
-                    n = max((int(v).bit_length() + 8) // 8, 1)
-                    _write_bytes(out, int(v).to_bytes(n, "big", signed=True))
-                return write_decimal
-            return _write_bytes
-        if name == "string":
-            return lambda out, v: _write_bytes(out, v.encode("utf-8"))
-        raise NotImplementedError(name)
-
-    if isinstance(t, Fixed):
-        size = t.size
-        if t.logical == "decimal":
-            def write_fixed_decimal(out, v):
-                out += int(v).to_bytes(size, "big", signed=True)
-            return write_fixed_decimal
-
-        def write_fixed(out, v):
-            if len(v) != size:
-                raise ValueError(f"fixed size mismatch: {len(v)} != {size}")
-            out += v
-        return write_fixed
-
-    if isinstance(t, Enum):
-        index = {s: i for i, s in enumerate(t.symbols)}
-
-        def write_enum(out, v):
-            try:
-                _write_long(out, index[v])
-            except KeyError:
-                raise ValueError(
-                    f"value {v!r} is not a symbol of enum {t.fullname}"
-                ) from None
-        return write_enum
-
-    if isinstance(t, Array):
-        item_writer = compile_writer(t.items)
-
-        def write_array(out, v):
-            if v:
-                _write_long(out, len(v))
-                for item in v:
-                    item_writer(out, item)
-            _write_long(out, 0)
-        return write_array
-
-    if isinstance(t, Map):
-        value_writer = compile_writer(t.values)
-
-        def write_map(out, v):
-            if v:
-                _write_long(out, len(v))
-                for k, item in v:
-                    _write_bytes(out, k.encode("utf-8"))
-                    value_writer(out, item)
-            _write_long(out, 0)
-        return write_map
-
-    if isinstance(t, Union):
-        writers = tuple(compile_writer(v) for v in t.variants)
-        null_idx = t.null_index
-
-        def write_union(out, v):
-            if v is None:
-                if null_idx is None:
-                    raise ValueError(
-                        "null value for union without null variant")
-                _write_long(out, null_idx)
-                return
-            idx, inner = v
-            _write_long(out, idx)
-            writers[idx](out, inner)
-        return write_union
-
-    if isinstance(t, Record):
-        field_writers = tuple(
-            (f.name, compile_writer(f.type)) for f in t.fields
-        )
-
-        def write_record(out, v):
-            for name, w in field_writers:
-                try:
-                    fv = v[name]
-                except KeyError:
-                    raise ValueError(
-                        f"row missing record field {name!r}") from None
-                w(out, fv)
-        return write_record
-
-    raise NotImplementedError(f"no writer for {t!r}")
 
 
 # -- value generation ---------------------------------------------------------

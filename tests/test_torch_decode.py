@@ -101,9 +101,12 @@ def _ref_blob(ref, arena, R, B, caps, tot, compact):
 
 
 def _port_rungs(port, datums):
-    """Decode on the port's CPU path, recording every rung's blob."""
+    """Decode on the port's CPU path, recording every rung's blob. The
+    ladder starts at the first rung, with no host sample, as the
+    reference's ``_run_ladder`` that it is held against does."""
     rungs = []
     real = port.pipeline
+    port.seed_caps_from_sample = lambda data, R: None
 
     def recording(packed, R, B, n, item_caps, tot_caps, compact,
                   timings=None):
@@ -382,8 +385,8 @@ def test_walk_kernel_wrapper_refuses_cpu_tensors():
     prog = lower(parse_schema(chip_smoke.LADDER_SCHEMA))
     words = torch.zeros(4, dtype=torch.int32)
     lanes = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         decode.walk_kernel(words, lanes, lanes, 1, prog, (0, 8))
     bufs, err = decode.walk_plain(words, lanes, lanes, 0, prog, (0, 8))
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         decode.finalize_kernel(bufs, err, prog, 8, 16, (0, 8), (0, 8))

@@ -577,8 +577,10 @@ def _one_torch_thread():
 
 
 def _rungs(schema, datums):
-    """Every rung the CPU decoder's ladder visits, with its packed input."""
+    """Every rung the CPU decoder's ladder visits from the first rung (no
+    host sample), with its packed input."""
     dec = decode.DeviceDecoder(parse_schema(schema), device="cpu")
+    dec.seed_caps_from_sample = lambda data, R: None
     seen = []
     real = dec.pipeline
 

@@ -946,9 +946,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     schema, batch = FIXTURES["kafka"]
     L = _encoder(schema).launch(batch)
     sizes = torch.empty(L.R, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         encode.encode_kernel.launch_rows(L, False, sizes)
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         encode.encode_kernel.launch_strings(L, torch.empty(L.cap,
                                                            dtype=torch.uint8))
     assert encode.encode_kernel.rows.launches == 0

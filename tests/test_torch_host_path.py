@@ -199,6 +199,9 @@ def test_planner_learns_the_references_rung(shape):
     flat, offsets = pack.concat_records(data)
     R, B = pack.launch_shape(n, int(offsets[-1]))
     ref = RefDecoder(ref_parse(schema))
+    # the reference's own decode path: the host sample after a plan miss
+    if not ref.seed_from_plan(R):
+        ref.seed_caps_from_sample(data, R)
     arena = ref._arena(R, B)
     ref_pack(arena, flat, offsets, n, R, B)
     ref._run_ladder(arena, R, B)

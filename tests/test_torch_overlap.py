@@ -13,8 +13,8 @@ the codec's halving. Decode is integer work: the tolerance is 0.
 Each test uses schema strings of its own (the JSON with trailing
 spaces), so that the reference's process-wide codecs and capacity plans
 for the plain strings, which other test files grow, do not reach these
-decoders. The reference's host-sample cap seeding, which the port does
-not have yet, is switched off on its side.
+decoders. Both packages seed a fresh bucket's caps from a host decode of
+the first 128 records after a planner miss.
 """
 
 import pytest
@@ -25,7 +25,6 @@ import jax  # noqa: E402,F401
 
 from pyruhvro_tpu.fallback.decoder import decode_to_record_batch  # noqa: E402
 from pyruhvro_tpu.ops.codec import get_device_codec as ref_codec  # noqa: E402
-from pyruhvro_tpu.ops.decode import DeviceDecoder as RefDecoder  # noqa: E402
 from pyruhvro_tpu.runtime import capacity as ref_capacity  # noqa: E402
 from pyruhvro_tpu.runtime.chunking import chunk_bounds  # noqa: E402
 from pyruhvro_tpu.schema.arrow_map import to_arrow_schema as ref_arrow  # noqa: E402
@@ -56,13 +55,10 @@ GLOBAL_BOUND = chip_smoke.GLOBAL_BOUND_SCHEMA + " "
 @pytest.fixture(autouse=True)
 def _overlap_env(monkeypatch):
     """Chunks of 64 rows on both sides; one torch thread (parallel test
-    workers share the CPU); no host-sample seeding on the reference's
-    side."""
+    workers share the CPU)."""
     monkeypatch.setenv("PYRUHVRO_TPU_OVERLAP_ROWS", "64")
     monkeypatch.delenv("PYRUHVRO_TPU_OVERLAP", raising=False)
     monkeypatch.delenv("PYRUHVRO_TPU_PALLAS", raising=False)
-    monkeypatch.setattr(RefDecoder, "seed_caps_from_sample",
-                        lambda self, data, R: None)
     before = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -189,7 +185,9 @@ def test_later_chunk_overflows_chunk_zeros_rung(overlapped):
     triples = dec.decode_to_columns_overlapped(datums, 8)
     timings = triples[0][2]["timings"]
     assert timings["reruns"] == 1
-    assert timings["rungs"] > len(triples) + 1
+    # the host sample seeds chunk 0's caps (its first 128 records hold one
+    # item each), so the one rung past the 8 dispatches is chunk 5's rerun
+    assert timings["rungs"] == len(triples) + 1
     got = deserialize_array(datums, LADDER, device="cpu")
     kind, want = _reference(LADDER, datums)
     assert kind == "ok"

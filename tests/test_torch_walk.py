@@ -373,7 +373,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
     dec = WalkDecoder(parse_schema(LADDER_SCHEMA), device="cpu")
     flat, offs, act = _flat_layout([bytes([2, 6, 0])], 128)
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         walk_kernel(flat, offs, act, 4, act, dec.prog, (0, 8), 128)
 
 
