@@ -13,9 +13,10 @@ exits non-zero before the last line:
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` (sm_90a) per source of ``pyruhvro_tpu_torch/csrc``
    (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``,
-   ``encode.cu``) and one ``g++`` for the native record pack
-   (``packer.cpp``), all started together, with ptxas registers and
-   spills, and the ``g++`` command and its seconds;
+   ``encode.cu``) and one ``g++`` for each native host module (the record
+   pack ``packer.cpp``, the host tier's VM ``host/host_codec.cpp`` and
+   extractor ``host/extract.cpp``), all started together, with ptxas
+   registers and spills, and each ``g++`` command and its seconds;
 3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
    plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
    rung of the item-cap ladder under each shared-memory plan (``PLANS``),
@@ -61,7 +62,18 @@ exits non-zero before the last line:
    card's), P5 the encode bisect on ``POLICY_ENCODE_ROWS`` one-byte
    decimals with 4 that do not fit under ``"skip"`` and ``"null"`` (the
    planted rows quarantined, the wire equal to the CPU call's, the
-   ``encode_rows`` launches it took);
+   ``encode_rows`` launches it took); then the ``host`` phase, the
+   native host tier (``backend="host"``) against the card, with the
+   host's CPU model, ``os.cpu_count()`` and affinity: H1 path 1, H2
+   paths 3 and 4, H3 path 5's encode (each: the codec's lane counts
+   from 0 over the cold call, the warm median of ``WARM_CALLS``, warm
+   calls in turns with the card's, A B B A twice, the result equal to
+   the card's; H1 must decode on the fused lane through the shard
+   runner, H3 take the native extract and give the input datums), H4
+   the crossover (Kafka batches of 1,000 to 1,000,000 records, card
+   against host in turns), H5 P4's records on the oracle
+   (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier, and the lane
+   counters;
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
    strings, d2h, wrap); on the overlapped paths the native pack against
@@ -85,7 +97,8 @@ exits non-zero before the last line:
    K2's breakdown at path 1's shapes (each pass, each item region's
    offsets, the epilogue, the host's enqueue, ``torch.take`` per item
    pass); the string copy's two modes in turns on paths 5 and 4e;
-7. ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
+7. ``{"host": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON
+   lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1826,6 +1839,208 @@ def check_quarantine(label, entries, bad, want=None):
         raise SystemExit(f"{label}: quarantine differs from the CPU call's")
 
 
+def cpu_line() -> str:
+    """The host's CPU model (``/proc/cpuinfo``'s ``model name``; where that
+    is missing or ``unknown``, its vendor, family, model and stepping and
+    ``lscpu``'s model name), ``os.cpu_count()`` and the affinity set: the
+    host tier's numbers depend on them."""
+    import os
+    import platform
+    import subprocess
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = info.get("model name", "")
+    if model.lower() in ("", "unknown"):
+        try:
+            lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                   timeout=10).stdout
+        except (OSError, subprocess.SubprocessError):
+            lscpu = ""
+        names = [ln.partition(":")[2].strip() for ln in lscpu.splitlines()
+                 if ln.startswith(("Model name:", "BIOS Model name:"))]
+        model = (f"{info.get('vendor_id', platform.machine())} family "
+                 f"{info.get('cpu family', '?')} model "
+                 f"{info.get('model', '?')} stepping "
+                 f"{info.get('stepping', '?')}, microcode "
+                 f"{info.get('microcode', '?')}, lscpu model name "
+                 f"{' / '.join(names) or '?'} (/proc/cpuinfo model name "
+                 f"{info.get('model name', 'missing')!r})")
+    aff = sorted(os.sched_getaffinity(0))
+    return (f"{model}; os.cpu_count()={os.cpu_count()}; affinity "
+            f"{len(aff)} CPUs {aff[0]}-{aff[-1]}")
+
+
+def host_turns(call_host, call_card):
+    """Warm calls of the host tier and the card in turns, A B B A twice."""
+    times = {"host": [], "card": []}
+    for leg in ["host", "card", "card", "host"] * 2:
+        t0 = time.perf_counter()
+        out = (call_host if leg == "host" else call_card)()
+        times[leg].append(time.perf_counter() - t0)
+        del out
+    return times
+
+
+def host_path(label, codec, call_host, call_card, compare, rows, card):
+    """One path on ``backend="host"``: the codec's lane counts set to 0,
+    the cold call, the counts read, ``WARM_CALLS`` warm calls, then warm
+    calls in turns with the same call on the card, whose result must
+    equal the host tier's."""
+    codec.reset_counts()
+    t0 = time.perf_counter()
+    got = call_host()
+    cold = time.perf_counter() - t0
+    counts = dict(codec.counts)
+    warm = []
+    for _ in range(WARM_CALLS):
+        del got
+        t0 = time.perf_counter()
+        got = call_host()
+        warm.append(time.perf_counter() - t0)
+    compare(label, got, call_card())
+    del got
+    turns = host_turns(call_host, call_card)
+    host_med = statistics.median(turns["host"])
+    card_med = statistics.median(turns["card"])
+    print(f"host {label}: lanes of the cold call {counts}; cold {cold:.3f} s, "
+          f"warm median of {WARM_CALLS} {statistics.median(warm):.3f} s "
+          f"({min(warm):.3f} .. {max(warm):.3f}) = "
+          f"{rows / statistics.median(warm):,.0f} rec/s; in turns (A B B A "
+          f"twice) host median {host_med:.3f} s {[round(x, 3) for x in turns['host']]}, "
+          f"card median {card_med:.3f} s {[round(x, 3) for x in turns['card']]}; "
+          f"equal to the card's {card}")
+    return {"lanes": counts, "cold_s": cold, "warm_s": warm,
+            "turns_s": turns, "rows": rows}
+
+
+def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
+    """The native host tier (``backend="host"``, ``hostpath/``) against
+    the card: H1 path 1, H2 paths 3 and 4, H3 path 5's encode, H4 the
+    crossover over Kafka batch sizes, H5 P4's records on the oracle
+    (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier. Fails if path 1
+    did not take the fused decode lane or path 5 the native extract."""
+    import os
+
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+    from pyruhvro_tpu_torch.utils import datagen
+
+    kafka = datagen.KAFKA_SCHEMA_JSON
+    print(f"host: {cpu_line()}")
+    out = {"cpu": cpu_line()}
+
+    def codec_of(schema):
+        codec = api._native_host_codec(get_or_parse_schema(schema))
+        if codec is None:
+            raise SystemExit("host: backend='host' did not take the native "
+                             "tier")
+        return codec
+
+    def decode_path(label, rows, schema):
+        codec = codec_of(schema)
+        res = host_path(
+            label, codec,
+            lambda: api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS,
+                                                   backend="host"),
+            lambda: api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS),
+            same_columns, len(rows), card)
+        return codec, res
+
+    # H1: path 1 on the host tier
+    k_codec, out["h1"] = decode_path("H1 (path 1, Kafka)", data, kafka)
+    lanes = out["h1"]["lanes"]
+    if lanes["decode_fused"] < 1 or lanes["decode_fused_declined"] or \
+            lanes["decode_shards"] != 1:
+        raise SystemExit(f"H1: path 1 took the lanes {lanes}: it must decode "
+                         f"through the shard runner on the fused lane")
+    # H2: paths 3 and 4
+    _c, out["h2_nested"] = decode_path("H2 (path 3, nested)", nested,
+                                       nested_schema)
+    _c, out["h2_large"] = decode_path("H2 (path 4, large records)", large,
+                                      kafka)
+
+    # H3: path 5's encode
+    def wire_equal(label, got, want):
+        if wire_of(got) != wire_of(want):
+            raise SystemExit(f"{label}: the host encode differs from the "
+                             f"card's")
+
+    out["h3"] = host_path(
+        "H3 (path 5, Kafka encode)", k_codec,
+        lambda: api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS,
+                                           backend="host"),
+        lambda: api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS),
+        wire_equal, kafka_batch.num_rows, card)
+    lanes = out["h3"]["lanes"]
+    if lanes["extract_native"] < 1 or lanes["extract_declined"]:
+        raise SystemExit(f"H3: path 5's encode took the lanes {lanes}: it "
+                         f"must take the native extract")
+    if wire_of(api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS,
+                                          backend="host")) != data:
+        raise SystemExit("H3: the host encode differs from the input datums")
+
+    # H4: the crossover, card against host over Kafka batch sizes
+    h4 = {}
+    for n in (1_000, 10_000, 100_000, 1_000_000):
+        rows = data[:n]
+        host_call = (lambda r=rows: api.deserialize_array_threaded(
+            r, kafka, MAIN_CHUNKS, backend="host"))
+        card_call = (lambda r=rows: api.deserialize_array_threaded(
+            r, kafka, MAIN_CHUNKS))
+        same_columns(f"H4 {n}", host_call(), card_call())
+        turns = host_turns(host_call, card_call)
+        h4[n] = {k: statistics.median(v) for k, v in turns.items()}
+        h4[n]["turns_s"] = turns
+        print(f"host H4: {n} Kafka records, warm medians in turns: host "
+              f"{h4[n]['host'] * 1e3:.2f} ms, card {h4[n]['card'] * 1e3:.2f} "
+              f"ms ({'card' if h4[n]['card'] < h4[n]['host'] else 'host'} "
+              f"faster) {card}")
+    wins = [n for n in h4 if h4[n]["card"] < h4[n]["host"]]
+    out["h4"] = {str(n): v for n, v in h4.items()}
+    out["h4_card_wins_from"] = min(wins) if wins else None
+    print(f"host H4: the card wins from {out['h4_card_wins_from']} records "
+          f"(None: at no size measured) {card}")
+
+    # H5: P4's records on the oracle beside the native tier
+    sub = data[:POLICY_HOST_ROWS]
+    sub_batch = api.deserialize_array(sub, kafka)
+    h5 = {}
+    for tier in ("native", "oracle"):
+        if tier == "oracle":
+            os.environ["PYRUHVRO_TPU_NO_NATIVE"] = "1"
+        dec, enc = [], []
+        for _ in range(1 + WARM_CALLS):
+            t0 = time.perf_counter()
+            got = api.deserialize_array_threaded(sub, kafka, MAIN_CHUNKS,
+                                                 backend="host")
+            dec.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            arrays = api.serialize_record_batch(sub_batch, kafka,
+                                                MAIN_CHUNKS, backend="host")
+            enc.append(time.perf_counter() - t0)
+        os.environ.pop("PYRUHVRO_TPU_NO_NATIVE", None)
+        same_columns(f"H5 {tier}", got, api.deserialize_array_threaded(
+            sub, kafka, MAIN_CHUNKS))
+        if wire_of(arrays) != sub:
+            raise SystemExit(f"H5 {tier}: the encode differs from the input")
+        h5[tier] = {"decode_cold_s": dec[0], "decode_warm_s": dec[1:],
+                    "encode_cold_s": enc[0], "encode_warm_s": enc[1:]}
+        print(f"host H5 ({tier}): {len(sub)} records, decode cold "
+              f"{dec[0]:.4f} s, warm median {statistics.median(dec[1:]):.4f} "
+              f"s; encode cold {enc[0]:.4f} s, warm median "
+              f"{statistics.median(enc[1:]):.4f} s; equal to the card's and "
+              f"to the input datums {card}")
+    out["h5"] = h5
+    print(f"host lane counters (Kafka codec, since H3): {k_codec.counts}")
+    return out
+
+
 def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     """The public call contract on the card, each case against the same
     call with ``device="cpu"``: P1 ``on_error="skip"`` on path 1's records
@@ -2071,6 +2286,7 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
     from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
     import pyruhvro_tpu_torch as port
+    from pyruhvro_tpu_torch import api as port_api
     from pyruhvro_tpu_torch.runtime import capacity, ingest, native
     from pyruhvro_tpu_torch.runtime import pack as packing
     from pyruhvro_tpu_torch.runtime.chunking import chunk_bounds
@@ -2101,15 +2317,16 @@ def main() -> int:
         except Exception as e:  # reported below, the smoke then fails
             failures.append(f"{key}: {e}")
 
-    def build_packer():
+    def build_native(key):
         try:
-            libs["packer"] = native.load_packer()
+            libs[key] = native.load(key)
         except Exception as e:  # reported below, the smoke then fails
-            failures.append(f"packer: {e}")
+            failures.append(f"{key}: {e}")
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
-    threads.append(threading.Thread(target=build_packer))
+    threads += [threading.Thread(target=build_native, args=(k,))
+                for k in native.SOURCES]
     for t in threads:
         t.start()
     for t in threads:
@@ -2118,9 +2335,10 @@ def main() -> int:
         raise SystemExit("build failed: " + "; ".join(failures))
     print(f"build: {len(libs)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-    packer = libs.pop("packer")
-    print(f"build: {' '.join(packer.command)} ({packer.path.name}) in "
-          f"{packer.build_s:.2f} s")
+    for key in native.SOURCES:
+        lib = libs.pop(key)
+        print(f"build: {' '.join(lib.command)} ({lib.path.name}) in "
+              f"{lib.build_s:.2f} s")
     for key, lib in libs.items():
         print(f"build: nvcc {kernels[key].source} -> {lib.path.name} "
               f"(sm_90a) in {lib.build_s:.2f} s")
@@ -2282,6 +2500,12 @@ def main() -> int:
                                      kafka, card)
     print(f"policy phase: {time.perf_counter() - t0:.1f} s")
 
+    # 5d. the native host tier against the card
+    t0 = time.perf_counter()
+    host = host_phase(port_api, data, nested, large,
+                      enc_batches["kafka_encode"][0], nested_schema, card)
+    print(f"host phase: {time.perf_counter() - t0:.1f} s")
+
     # 6. phases and kernels at the main paths' shapes
     os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
     k4codec = get_device_codec(get_or_parse_schema(kafka), DEVICE)
@@ -2415,6 +2639,7 @@ def main() -> int:
     ]
     for r in rows:
         r["registers"] = regs[r["source"]]
+    print(json.dumps({"host": host}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -13,8 +13,12 @@
 ``backend=``: ``"device"`` (the default) runs on the card
 (``device="cuda"``, raising ``RuntimeError`` when there is none) or, only
 when the caller asks for it with ``device="cpu"``, on the kernels' plain
-PyTorch versions; ``"host"`` runs the pure-Python oracle
-(:mod:`.fallback`) and ignores ``device``. The reference's ``"auto"``
+PyTorch versions; ``"host"`` runs on the CPU and ignores ``device``: the
+native C++ VM (:mod:`.hostpath`, tier ``"native"``) serves the schemas
+inside :func:`.gate.host_supported`, the pure-Python oracle
+(:mod:`.fallback`, tier ``"fallback"``) the rest, and every schema under
+``PYRUHVRO_TPU_NO_NATIVE=1`` (the reference's ``_route_candidates`` and
+``_native_host_codec``, ``api.py:222-306``). The reference's ``"auto"``
 (its tier router) and ``"tpu"`` raise ``ValueError``: the router is not
 ported (``ROADMAP.md`` (a) 8) and the port has no TPU. ``tenant=`` and
 ``trace_ctx=`` wait for the planes they feed.
@@ -34,13 +38,18 @@ is named by the walk's error rows in one pass, quarantined at once, and
 each chunk's survivors decode in one more launch; the oracle serves a
 chunk only where an error of a record's value names no row (invalid
 UTF-8, a decimal past its precision or a duration overflow in the Arrow
-assembly), as in the reference.
+assembly), as in the reference. The native tier names the first bad
+row of a pass: the rows before it decode in one pass, the offender is
+quarantined, and the rest is decoded again on one VM thread, so that the
+VM stops at the next offender (``api.py:542-590`` of the reference).
 
 Unlike the reference, which sends any exception of a tolerant decode to
-the oracle, the port isolates only those two kinds of data error (and,
-on encode, the extraction's value errors, :func:`~.errors.is_value_error`).
-Every other error propagates as under ``"raise"``: ``RuntimeError`` (a
-failed build or launch, a launch precondition, no card),
+the oracle, the port isolates only the data errors that name a row (the
+walk's error rows, the native VM's first bad row) and the value errors
+that name none (and, on encode, the extraction's value errors,
+:func:`~.errors.is_value_error`). Every other error propagates as under
+``"raise"``: ``RuntimeError`` (a failed build or launch, a launch
+precondition, no card, a fault of the native VM),
 :class:`DeadlineExceeded`, ``DeviceCapacityExceeded``, ``BatchTooLarge``,
 ``UnsupportedOnDevice`` and any untagged ``ValueError``.
 
@@ -60,6 +69,7 @@ import numpy as np
 import pyarrow as pa
 
 from .errors import MalformedAvro, is_value_error, mark_value_error
+from .gate import host_supported
 from .fallback.decoder import (
     compile_reader,
     decode_pairs_tolerant,
@@ -69,10 +79,11 @@ from .fallback.decoder import (
 from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
-from .runtime import deadline, quarantine
+from .runtime import deadline, knobs, quarantine
 from .runtime.chunking import chunk_bounds
 from .runtime.ingest import as_datum_input
 from .runtime.pack import record_lengths
+from .runtime.pool import map_chunks
 from .schema.cache import SchemaEntry, get_or_parse_schema
 from .schema.model import Union
 
@@ -111,8 +122,28 @@ def _check_on_error(on_error: str) -> str:
 
 
 def _codec(entry: SchemaEntry, backend: str, device):
-    """The device codec, or None for the host oracle."""
-    return None if backend == "host" else get_device_codec(entry, device)
+    """The call's ``(tier, impl)``: ``("device", DeviceCodec)``,
+    ``("native", NativeHostCodec)`` or ``("fallback", None)`` (the
+    oracle)."""
+    if backend != "host":
+        return "device", get_device_codec(entry, device)
+    native = _native_host_codec(entry)
+    return ("fallback", None) if native is None else ("native", native)
+
+
+def _native_host_codec(entry: SchemaEntry):
+    """The schema's memoized native host codec, or None when the schema is
+    outside :func:`.gate.host_supported` or ``PYRUHVRO_TPU_NO_NATIVE`` is
+    on. A failed build raises ``RuntimeError``: the oracle never stands in
+    for a broken VM."""
+    if knobs.get_bool("PYRUHVRO_TPU_NO_NATIVE") or \
+            not host_supported(entry.ir):
+        return None
+    from .hostpath import NativeHostCodec
+
+    return entry.get_extra(
+        "native_host_codec",
+        lambda: NativeHostCodec(entry.ir, entry.arrow_schema))
 
 
 def _host_reader(entry: SchemaEntry):
@@ -225,29 +256,64 @@ def _named_rows(e, n: int) -> Optional[dict]:
     return names
 
 
-def _tolerant_decode(impl, entry, pairs, quar) -> pa.RecordBatch:
+def _first_bad(tier, e, n: int) -> Optional[int]:
+    """The native VM's first bad row of a pass of ``n`` rows, else None."""
+    k = getattr(e, "index", None)
+    if tier == "native" and isinstance(e, MalformedAvro) and \
+            k is not None and 0 <= k < n:
+        return k
+    return None
+
+
+def _tolerant_decode(tier, impl, entry, pairs, quar) -> pa.RecordBatch:
     """Decode ``(global index, datum)`` pairs under a tolerant policy →
     the survivors' batch, in order; offenders go into ``quar``. ``impl``
-    is the device codec, or None for the oracle."""
-    if impl is None:
+    is the tier's codec (None for the oracle)."""
+    if tier == "fallback":
         return _oracle_pairs(pairs, entry, quar)
     parts: List[pa.RecordBatch] = []
+    first = True
     while pairs:
         # a deadline is a call contract and outranks the policy: stop the
         # salvage here, naming the first record it never reached
         deadline.check(index=pairs[0][0], site="tolerant.resume")
+        items = [d for _, d in pairs]
         try:
-            parts.append(impl.decode([d for _, d in pairs]))
+            if tier == "native" and not first:
+                # one VM thread: the pass stops at the next offender
+                # instead of decoding the whole tail
+                parts.append(impl.decode(items, nthreads=1))
+            else:
+                parts.append(impl.decode(items))
             break
         except _DATA_ERRORS as e:
+            first = False
             names = _named_rows(e, len(pairs))
+            k = _first_bad(tier, e, len(pairs))
             if names is not None:
-                tier = getattr(e, "tier", None) or "device"
+                named_by = getattr(e, "tier", None) or "device"
                 for i in sorted(names):
                     gi, d = pairs[i]
                     quar.append(quarantine.QuarantinedRecord(
-                        gi, d, names[i], tier))
+                        gi, d, names[i], named_by))
                 pairs = [p for j, p in enumerate(pairs) if j not in names]
+            elif k is not None:
+                # the rows before the first bad one are good on the wire:
+                # one pass decodes them (the oracle where a value of
+                # theirs cannot build), the offender is quarantined, the
+                # tail is tried again
+                if k:
+                    try:
+                        parts.append(impl.decode(items[:k]))
+                    except _DATA_ERRORS as e2:
+                        if not (is_value_error(e2)
+                                or isinstance(e2, MalformedAvro)):
+                            raise
+                        parts.append(_oracle_pairs(pairs[:k], entry, quar))
+                gi, d = pairs[k]
+                quar.append(quarantine.QuarantinedRecord(
+                    gi, d, e.err_name or "malformed", e.tier or tier))
+                pairs = pairs[k + 1:]
             elif is_value_error(e):
                 # no row named (invalid UTF-8, a decimal past its
                 # precision, a duration overflow in the assembly): the
@@ -259,41 +325,49 @@ def _tolerant_decode(impl, entry, pairs, quar) -> pa.RecordBatch:
     return _concat(parts, entry)
 
 
-def _decode_tolerant(impl, entry, data, num_chunks, policy):
+def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
     """The tolerant decode body → ``(one batch per chunk, entries)``;
     ``num_chunks=None`` is the single-batch entry, which has one chunk and
     no optimistic pass. The clean case is the ``"raise"`` shape, one
-    decode of the batch. When that fails on the walk's error rows, or on
-    a value error that names no row, each chunk decodes on its own, as in
-    the reference: which rows a launch names, and by which slug, depends
-    on where they fall in it (the last lane of a launch reads past its
-    end, another lane its neighbour's bytes), so only a chunk's own
-    launch gives the reference's entries."""
+    decode of the batch. When that fails on a bad row, or on a value error
+    that names no row, each chunk decodes on its own, as in the
+    reference: which rows a launch names, and by which slug, depends on
+    where they fall in it (the last lane of a launch reads past its end,
+    another lane its neighbour's bytes), so only a chunk's own launch
+    gives the reference's entries. The native tier's chunks run on the
+    thread pool (the VM releases the interpreter lock), the others' in
+    turn."""
     n = len(data)
     bounds = [(0, n)] if num_chunks is None else chunk_bounds(n, num_chunks)
     too_long = [int(j) for j in _too_long(data)]
-    if impl is not None and num_chunks is not None and not too_long:
+    if tier != "fallback" and num_chunks is not None and not too_long:
         try:
             out = impl.decode_threaded(data, num_chunks)
             quarantine.publish([])
             return out, []
         except _DATA_ERRORS as e:
-            if _named_rows(e, n) is None and not is_value_error(e):
+            if _named_rows(e, n) is None and not is_value_error(e) and \
+                    _first_bad(tier, e, n) is None:
                 raise
-    quar: List[quarantine.QuarantinedRecord] = []
-    out = []
-    for a, b in bounds:
+
+    def run_chunk(ab):
+        a, b = ab
         entries = [quarantine.QuarantinedRecord(j, data[j], "datum_too_large",
                                                 "policy")
                    for j in too_long if a <= j < b]
         drop = {e.index for e in entries}
         pairs = [(j, d) for j, d in enumerate(data[a:b], a) if j not in drop]
-        batch = _tolerant_decode(impl, entry, pairs, entries)
-        quar.extend(entries)
-        out.append(_apply_null_policy(batch, entries, a, b - a, policy,
-                                      entry))
+        batch = _tolerant_decode(tier, impl, entry, pairs, entries)
+        return _apply_null_policy(batch, entries, a, b - a, policy,
+                                  entry), entries
+
+    if tier == "native":
+        done = map_chunks(run_chunk, bounds)
+    else:
+        done = [run_chunk(ab) for ab in bounds]
+    quar = [e for _batch, entries in done for e in entries]
     quarantine.publish(quar)
-    return out, quar
+    return [batch for batch, _entries in done], quar
 
 
 def _encode_bisect(encode_fn, batch, base, quar, tier):
@@ -319,16 +393,15 @@ def _encode_bisect(encode_fn, batch, base, quar, tier):
                                  quar, tier))
 
 
-def _tolerant_encode(impl, entry, batch, policy):
+def _tolerant_encode(tier, impl, entry, batch, policy):
     """Encode under a tolerant policy → ``(binary_array, entries)``; the
     clean case is one normal encode. Under ``"null"`` on an all-nullable
     schema the offending rows encode as all-null rows, so the output row
     count matches the input."""
-    if impl is not None:
-        encode_fn, tier = impl.encode, "device"
+    if tier != "fallback":
+        encode_fn = impl.encode
     else:
         plan = _host_plan(entry)
-        tier = "fallback"
 
         def encode_fn(b):
             try:
@@ -398,22 +471,23 @@ def deserialize_array(
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
     with deadline.scope(timeout_s, op="deserialize_array"):
-        impl = _codec(entry, backend, device)
+        tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _deserialize_one(impl, entry, data, on_error, return_errors)
+        return _deserialize_one(tier, impl, entry, data, on_error,
+                                return_errors)
 
 
-def _deserialize_one(impl, entry, data, on_error, return_errors):
+def _deserialize_one(tier, impl, entry, data, on_error, return_errors):
     """The single-batch decode body."""
     if on_error == "raise":
         _enforce_max_datum(data)
-        if impl is None:
+        if tier == "fallback":
             batch = decode_to_record_batch(data, entry.ir, entry.arrow_schema,
                                            _host_reader(entry))
         else:
             batch = impl.decode(data)
         return (batch, []) if return_errors else batch
-    out, quar = _decode_tolerant(impl, entry, data, None, on_error)
+    out, quar = _decode_tolerant(tier, impl, entry, data, None, on_error)
     return (out[0], quar) if return_errors else out[0]
 
 
@@ -433,19 +507,19 @@ def deserialize_array_threaded(
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
     with deadline.scope(timeout_s, op="deserialize_array_threaded"):
-        impl = _codec(entry, backend, device)
+        tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _deserialize_chunks(impl, entry, data, num_chunks, on_error,
-                                   return_errors)
+        return _deserialize_chunks(tier, impl, entry, data, num_chunks,
+                                   on_error, return_errors)
 
 
-def _deserialize_chunks(impl, entry, data, num_chunks, on_error,
+def _deserialize_chunks(tier, impl, entry, data, num_chunks, on_error,
                         return_errors):
     """The chunked decode body (the reference's without its process
     pool, ``ROADMAP.md`` (a) 6)."""
     if on_error == "raise":
         _enforce_max_datum(data)
-        if impl is not None:
+        if tier != "fallback":
             out = impl.decode_threaded(data, num_chunks)
         else:
             reader = _host_reader(entry)
@@ -454,7 +528,8 @@ def _deserialize_chunks(impl, entry, data, num_chunks, on_error,
                                           index_base=a)
                    for a, b in chunk_bounds(len(data), num_chunks)]
         return (out, []) if return_errors else out
-    out, quar = _decode_tolerant(impl, entry, data, num_chunks, on_error)
+    out, quar = _decode_tolerant(tier, impl, entry, data, num_chunks,
+                                 on_error)
     return (out, quar) if return_errors else out
 
 
@@ -494,18 +569,18 @@ def serialize_record_batch(
         batch = batches[0] if batches else pa.RecordBatch.from_pylist(
             [], schema=batch.schema)
     with deadline.scope(timeout_s, op="serialize_record_batch"):
-        impl = _codec(entry, backend, device)
+        tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _serialize_chunks(impl, entry, batch, num_chunks, on_error,
-                                 return_errors)
+        return _serialize_chunks(tier, impl, entry, batch, num_chunks,
+                                 on_error, return_errors)
 
 
-def _serialize_chunks(impl, entry, batch, num_chunks, on_error,
+def _serialize_chunks(tier, impl, entry, batch, num_chunks, on_error,
                       return_errors):
     """The chunked encode body (the reference's without its process
     pool)."""
     if on_error == "raise":
-        if impl is not None:
+        if tier != "fallback":
             out = impl.encode_threaded(batch, num_chunks)
         else:
             plan = _host_plan(entry)
@@ -513,7 +588,7 @@ def _serialize_chunks(impl, entry, batch, num_chunks, on_error,
                                                 entry.ir, plan), pa.binary())
                    for a, b in chunk_bounds(batch.num_rows, num_chunks)]
         return (out, []) if return_errors else out
-    arr, quar = _tolerant_encode(impl, entry, batch, on_error)
+    arr, quar = _tolerant_encode(tier, impl, entry, batch, on_error)
     out = [arr.slice(a, b - a) for a, b in chunk_bounds(len(arr), num_chunks)]
     quarantine.publish(quar)
     return (out, quar) if return_errors else out

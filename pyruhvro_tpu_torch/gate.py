@@ -1,10 +1,16 @@
-"""Device decode gate (port of ``device_supported``, ``pyruhvro_tpu/gate.py:102``).
+"""Schema gates (port of ``device_supported`` and ``host_supported``,
+``pyruhvro_tpu/gate.py:94-115``).
 
 The device walk covers upstream's full type surface: its fast subset
 (``fast_decode.rs:38-61``: record top level; null/boolean/int/long/
 float/double/string; date and timestamp-millis/micros; enum, record,
 union, array, map) plus bytes, fixed (incl. duration and decimals up to
-decimal128), uuid, time-* and local-timestamp-*.
+decimal128), uuid, time-* and local-timestamp-*. That is exactly the
+reference's native host VM subset (its fast subset plus
+``_HOST_EXTRA_LOGICAL``), so in the port :func:`host_supported` and
+:func:`device_supported` are one predicate: the schemas outside it —
+fixed decimals over 16 bytes, bytes decimals over precision 38 — go to
+the pure-Python oracle.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from .schema.model import (
     Union,
 )
 
-__all__ = ["device_supported"]
+__all__ = ["device_supported", "host_supported"]
 
 _SUPPORTED_LOGICAL = {
     None: ("null", "boolean", "int", "long", "float", "double", "string",
@@ -65,3 +71,9 @@ def _inner(t: AvroType) -> bool:
 def device_supported(t: AvroType) -> bool:
     """True if the device decode walk can handle this top-level schema."""
     return isinstance(t, Record) and _inner(t)
+
+
+def host_supported(t: AvroType) -> bool:
+    """True if the native host VM can handle this top-level schema: the
+    device walk's subset (module docstring)."""
+    return device_supported(t)

@@ -1,0 +1,386 @@
+"""NativeHostCodec: Avro datums ⇄ Arrow on the CPU through the C++ VM
+(port of ``pyruhvro_tpu/hostpath/codec.py:69-860``).
+
+The host tier (``backend="host"``) serves the schemas inside
+:func:`..gate.host_supported` with it; the pure-Python oracle serves the
+rest, and every schema under ``PYRUHVRO_TPU_NO_NATIVE=1``. The VM is
+``csrc/host/host_codec.cpp`` and the Arrow-native extractor
+``csrc/host/extract.cpp``, both copies of the reference's, built at first
+use by :mod:`..runtime.native`.
+
+Decode lanes: the fused ``decode_arrow`` pass writes every buffer in
+Arrow's layout (:func:`..ops.arrow_build.build_fused_record_batch` wraps
+them); where it declines a batch (an exotic value, or a data condition
+whose error the Python assembly words) its plan buffers go through
+:func:`..ops.arrow_build.build_record_batch`. Encode lanes: the native
+extractor exports the batch through the Arrow C data interface and
+extracts and encodes in one call; where it declines a batch's shape or
+data, :func:`..ops.encode_extract.run_extractor`'s ``host_mode`` layout
+feeds the VM's ``encode``. Chunked calls of at least ``_PER_CHUNK_ROWS``
+rows per chunk go through the native shard runner in one call (an
+encode it declines runs one encode per chunk on the thread pool). Every
+lane gives the same values; :attr:`NativeHostCodec.counts` counts which
+served.
+
+Departures from the reference (``ROADMAP.md`` (c)): a failed build, or an
+error of the VM or the shard runner, raises (the reference degrades to
+the oracle or to its serial chunk loop). The specialiser and the
+superoptimizer are not ported: the raw program runs, the reference's
+``PYRUHVRO_TPU_NO_SPECIALIZE=1`` / ``PYRUHVRO_TPU_NO_OPT=1`` arm. The
+profiler, sampling, metrics, breaker and fault hooks wait for
+``ROADMAP.md`` (a) 8, and the writer's bounds-checked debug mode
+(``PYRUHVRO_DEBUG_BOUNDS``) is not ported.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Sequence
+
+import numpy as np
+import pyarrow as pa
+
+from ..errors import BatchTooLarge, mark_value_error
+from ..fallback.io import malformed_record
+from ..ops import UnsupportedOnDevice
+from ..ops.arrow_build import (
+    build_fused_record_batch,
+    build_record_batch,
+    compact_union_slices,
+)
+from ..ops.encode_extract import batch_to_struct, run_extractor
+from ..ops.varint import ERR_NAMES, ERR_SLUGS
+from ..runtime import deadline, native
+from ..runtime.chunking import chunk_bounds
+from ..runtime.pool import map_chunks
+from .program import (
+    COL_F64,
+    COL_I64,
+    COL_OFFS,
+    COL_STR,
+    HostProgram,
+    lower_host,
+)
+
+__all__ = ["NativeHostCodec", "COUNTS"]
+
+# the lane counters of :attr:`NativeHostCodec.counts`
+COUNTS = (
+    "decode_fused",           # batches the fused wire→Arrow pass served
+    "decode_fused_declined",  # batches it declined (plan-buffer lane)
+    "extract_native",         # encodes the native extractor served
+    "extract_declined",       # encodes it declined (host_mode lane)
+    "decode_shards",          # chunked decodes through the shard runner
+    "encode_shards",          # chunked encodes through the shard runner
+    "native_fanouts",         # fan-outs the shard runner made (its stats)
+)
+
+
+def _value_error(e: Exception) -> Exception:
+    """Tag an extraction's or the writer's error of a row's value (a null
+    where none is allowed, an unknown symbol, a decimal that does not fit)
+    so that the tolerant encode isolates its row; returns ``e``."""
+    if isinstance(e, (ValueError, OverflowError)) and \
+            not isinstance(e, UnsupportedOnDevice):
+        mark_value_error(e)
+    return e
+
+
+class NativeHostCodec:
+    """Schema-bound native codec (the program lowers once).
+
+    Raises :class:`..ops.UnsupportedOnDevice` when the schema is outside
+    the host subset and ``RuntimeError`` when the module does not build.
+    """
+
+    # Above this many rows per chunk, a chunked call goes through the
+    # shard runner in one native call, or decodes each chunk on its own:
+    # a chunk's working set then stays cache-resident. Small batches keep
+    # one pass and zero-copy slices. (The VM's sampled-reserve prepass
+    # starts at 4 * _PER_CHUNK_ROWS rows, host_codec.cpp py_decode.)
+    _PER_CHUNK_ROWS = 1 << 16
+
+    def __init__(self, ir, arrow_schema: pa.Schema):
+        self.ir = ir
+        self.arrow_schema = arrow_schema
+        self.prog: HostProgram = lower_host(ir)  # raises UnsupportedOnDevice
+        self._plan = self.prog.buffer_plan()
+        self._mod = native.load_host_codec().module  # raises RuntimeError
+        self._extract_mod = None  # built at the first native extract
+        # the last Arrow schema the native extractor declined on shape:
+        # repeated encodes of that shape skip the doomed native probe
+        self._extract_declined_schema = None
+        self._lock = threading.Lock()
+        self.counts = dict.fromkeys(COUNTS, 0)
+
+    def _count(self, key: str, k: int = 1) -> None:
+        with self._lock:
+            self.counts[key] += k
+
+    def reset_counts(self) -> None:
+        """Set every lane counter to 0."""
+        with self._lock:
+            self.counts = dict.fromkeys(COUNTS, 0)
+
+    # -- decode -----------------------------------------------------------
+
+    def decode(self, data: Sequence[bytes],
+               nthreads: int = 0) -> pa.RecordBatch:
+        """Decode ``data`` (bytes-likes, or a
+        :class:`..runtime.ingest.DatumView`, whose buffers the VM reads
+        directly) into one RecordBatch; ``nthreads`` 0 lets the VM pick
+        its shard-thread count."""
+        n = len(data)
+        deadline.check(index=0, site="host.vm")
+        native_data = (data.native_parts() if hasattr(data, "native_parts")
+                       else data)
+        prog = self.prog
+        payload, err_rec, err_bits = self._mod.decode_arrow(
+            prog.ops, prog.coltypes, prog.op_aux, native_data, nthreads)
+        self._raise_malformed(err_rec, err_bits)
+        tag, body = payload
+        if tag == "arrow":
+            # every buffer already in Arrow's layout
+            self._count("decode_fused")
+            return build_fused_record_batch(self.ir, self.arrow_schema,
+                                            body, n)
+        # the native pass declined: its plan buffers go through the Python
+        # assembly, which words the error where there is one
+        self._count("decode_fused_declined")
+        return self._plan_batch(body, n)
+
+    @staticmethod
+    def _raise_malformed(err_rec: int, err_bits: int) -> None:
+        """Raise the VM's first bad record (``err_rec`` >= 0) as
+        :class:`~..errors.MalformedAvro`."""
+        if err_rec >= 0:
+            bit = err_bits & -err_bits
+            raise malformed_record(
+                err_rec,
+                ERR_NAMES.get(bit, f"error bit {bit:#x}"),
+                err_name=ERR_SLUGS.get(bit, f"bit_{bit:#x}"),
+                tier="native",
+            )
+
+    def _plan_batch(self, bufs, n: int) -> pa.RecordBatch:
+        """The VM's plan buffers (``buffer_plan()`` order) assembled into a
+        RecordBatch by :func:`..ops.arrow_build.build_record_batch`."""
+        prog = self.prog
+        host = {}
+        for (key, dt, _region), b in zip(self._plan, bufs):
+            host[key] = np.frombuffer(b, dtype=dt)
+        item_totals = {}
+        for path in prog.regions[1:]:
+            k = path + "#offsets"
+            # the VM returns running totals; Arrow offsets lead with 0
+            host[k] = np.concatenate([np.zeros(1, np.int32), host[k]])
+            item_totals[path] = int(host[k][-1])
+        meta = {"item_totals": item_totals, "flat": np.zeros(0, np.uint8)}
+        return build_record_batch(self.ir, self.arrow_schema, host, n, meta)
+
+    def _drain_fanouts(self) -> int:
+        """Read and clear the shard runners' fan-out counts (each module
+        has its own pool and stats)."""
+        total = 0
+        for m in (self._mod, self._extract_mod):
+            if m is not None:
+                total += m.shard_stats()["fanouts"]
+        return total
+
+    def _decode_native_shards(self, data, bounds) -> List[pa.RecordBatch]:
+        """One native call for the whole batch, the shard runner fanning
+        rows out over its workers; the batch is sliced per chunk."""
+        for a, _b in bounds:
+            deadline.check(index=a, site="host.chunk")
+        self._drain_fanouts()
+        batch = self.decode(data)
+        self._count("decode_shards")
+        self._count("native_fanouts", self._drain_fanouts())
+        return [compact_union_slices(batch.slice(a, b - a))
+                for a, b in bounds]
+
+    def decode_threaded(self, data: Sequence[bytes],
+                        num_chunks: int) -> List[pa.RecordBatch]:
+        """Decode into one RecordBatch per chunk, with upstream's chunk
+        bounds. At ``_PER_CHUNK_ROWS`` rows per chunk or more: one call
+        through the shard runner; below, one decode. Either way the batch
+        is sliced per chunk."""
+        bounds = chunk_bounds(len(data), num_chunks)
+        if len(data) >= self._PER_CHUNK_ROWS * max(len(bounds), 1):
+            return self._decode_native_shards(data, bounds)
+        batch = self.decode(data)
+        return [compact_union_slices(batch.slice(a, b - a))
+                for a, b in bounds]
+
+    # -- encode -----------------------------------------------------------
+
+    @staticmethod
+    def _wrap_blob(blob, offs, n: int) -> pa.Array:
+        """The native encode's return (the value bytes and the n+1 int32
+        Arrow offsets) as a BinaryArray, without a copy."""
+        return pa.Array.from_buffers(
+            pa.binary(), n,
+            [None, pa.py_buffer(offs),
+             pa.py_buffer(np.frombuffer(blob, np.uint8))],
+        )
+
+    def _encode_native(self, batch: pa.RecordBatch, n: int,
+                       nshards: int = 1):
+        """The fused Arrow-native encode: the column-matched struct goes
+        through the Arrow C data interface, and extraction and the wire
+        write run in one native call. None when the lane declines (a shape
+        outside the native surface, or a data error the Python extractor
+        words)."""
+        if (self._extract_declined_schema is not None
+                and batch.schema.equals(self._extract_declined_schema)):
+            self._count("extract_declined")
+            return None
+        if self._extract_mod is None:
+            self._extract_mod = native.load_extract().module
+        try:
+            struct = batch_to_struct(self.ir, batch)
+        except (ValueError, OverflowError) as e:
+            raise _value_error(e)
+        # ArrowArray is 80 ABI bytes, ArrowSchema 72; the native side moves
+        # both structs out and releases them before returning
+        holder_a = np.zeros(10, np.uint64)
+        holder_s = np.zeros(9, np.uint64)
+        struct._export_to_c(int(holder_a.ctypes.data),
+                            int(holder_s.ctypes.data))
+        args = (self.prog.ops, self.prog.coltypes, self.prog.op_aux,
+                int(holder_a.ctypes.data), int(holder_s.ctypes.data), n, 0)
+        try:
+            res = self._extract_mod.encode(
+                *(args + (nshards,) if nshards > 1 else args))
+        except OverflowError as e:
+            if "decimal" in str(e):
+                raise _value_error(e)  # a batch split cannot help
+            raise BatchTooLarge(n, -1)
+        if isinstance(res, int):
+            # 1 = an Arrow shape outside the native surface; 2 = a data
+            # error the Python extractor reports with its exact message
+            self._count("extract_declined")
+            if res == 1:
+                self._extract_declined_schema = batch.schema
+            return None
+        blob, offs, _t_extract, _t_encode = res
+        self._count("extract_native")
+        return self._wrap_blob(blob, offs, n)
+
+    def _encode_buffers(self, ex) -> List[np.ndarray]:
+        """The ``host_mode`` extractor's per-path arrays in the VM's plan
+        buffer order."""
+        empty_u8 = np.zeros(0, np.uint8)
+        bufs: List[np.ndarray] = []
+        for c in self.prog.cols:
+            key, ctype = c.key, c.ctype
+            if ctype == COL_STR:
+                bufs.append(ex.byte_bufs.get(key + "#bytes", empty_u8))
+                bufs.append(ex.arrays[key + "#len"][0])
+            elif ctype == COL_OFFS:
+                path = key[: -len("#offsets")]
+                bufs.append(ex.arrays[path + "#count"][0])
+            elif ctype in (COL_I64, COL_F64):
+                bufs.append(ex.arrays[key][0])  # whole #v64 lanes
+            else:  # #v / #valid / #tid / #dec / #fix
+                bufs.append(ex.arrays[key][0])
+        return bufs
+
+    def encode(self, batch: pa.RecordBatch) -> pa.Array:
+        """Encode every row as one Avro datum → BinaryArray
+        (≙ ``serialize_chunk``, ``fast_encode.rs:27-52``). Raises
+        :class:`~..errors.BatchTooLarge` when the wire total passes int32
+        binary offsets (callers split the batch). Batches over
+        2 * ``_PER_CHUNK_ROWS`` rows encode in slices of that size whose
+        arrays are concatenated: each slice's working set stays
+        cache-resident."""
+        n = batch.num_rows
+        if n == 0:
+            return pa.array([], pa.binary())
+        step = self._PER_CHUNK_ROWS * 2
+        if n > step:  # strict: a recursing slice is exactly `step`
+            try:
+                return pa.concat_arrays([
+                    self.encode(batch.slice(a, min(step, n - a)))
+                    for a in range(0, n, step)
+                ])
+            except pa.lib.ArrowInvalid:
+                # each slice fit, but the concatenated offsets pass int32
+                raise BatchTooLarge(n, -1)
+        out = self._encode_native(batch, n)
+        if out is not None:
+            return out
+        return self._encode_host_mode(batch, n)
+
+    def _encode_host_mode(self, batch: pa.RecordBatch, n: int) -> pa.Array:
+        """The lane for a batch the native extractor declines: the Python
+        extractor's ``host_mode`` layout fed to the VM's ``encode``."""
+        try:
+            ex = run_extractor(self.ir, batch, host_mode=True)
+        except (ValueError, OverflowError) as e:
+            raise _value_error(e)
+        bufs = self._encode_buffers(ex)
+        # the extractor's bound is a strict upper bound on the wire total,
+        # so the VM writes unchecked into one allocation of that size;
+        # past 1 GiB hint=0 selects its capacity-checked growth instead
+        hint = ex.bound if ex.bound <= (1 << 30) else 0
+        try:
+            blob, offs = self._mod.encode(self.prog.ops, self.prog.coltypes,
+                                          bufs, n, hint, 0)
+        except OverflowError as e:
+            if "decimal" in str(e):
+                raise _value_error(e)  # the oracle's int.to_bytes overflow
+            raise BatchTooLarge(n, -1)
+        return self._wrap_blob(blob, offs, n)
+
+    def _encode_native_shards(self, batch: pa.RecordBatch, bounds):
+        """One native call for the whole chunked encode, the shard runner
+        spreading rows over its workers; the array is sliced per chunk.
+        None when the native extractor declines the batch, or the batch
+        passes int32 offsets: the per-chunk path then serves."""
+        self._drain_fanouts()
+        try:
+            arr = self._encode_native(batch, batch.num_rows,
+                                      nshards=len(bounds))
+        except BatchTooLarge:
+            return None  # the per-chunk path's splitter serves the call
+        if arr is None:
+            return None
+        self._count("encode_shards")
+        self._count("native_fanouts", self._drain_fanouts())
+        return [arr.slice(a, b - a) for a, b in bounds]
+
+    def encode_threaded(self, batch: pa.RecordBatch,
+                        num_chunks: int) -> List[pa.Array]:
+        """Encode into one BinaryArray per chunk. At ``_PER_CHUNK_ROWS``
+        rows per chunk or more: one call through the shard runner, or
+        where it declines the batch, one encode per chunk on the thread
+        pool; below, one encode, sliced. A batch over int32 offsets is
+        split in halves, still through the VM."""
+        bounds = chunk_bounds(batch.num_rows, num_chunks)
+        if batch.num_rows >= self._PER_CHUNK_ROWS * max(len(bounds), 1):
+            out = self._encode_native_shards(batch, bounds)
+            if out is not None:
+                return out
+            return map_chunks(
+                lambda ab: self._encode_split(
+                    batch.slice(ab[0], ab[1] - ab[0])),
+                bounds)
+        arr = self._encode_split(batch)
+        return [arr.slice(a, b - a) for a, b in bounds]
+
+    def _encode_split(self, batch: pa.RecordBatch) -> pa.Array:
+        try:
+            return self.encode(batch)
+        except BatchTooLarge:
+            if batch.num_rows < 2:
+                raise
+            mid = batch.num_rows // 2
+            try:
+                return pa.concat_arrays(
+                    [self._encode_split(batch.slice(0, mid)),
+                     self._encode_split(batch.slice(mid))])
+            except pa.lib.ArrowInvalid:
+                # the halves fit alone but their concatenation passes
+                # int32 offsets: the caller must use more chunks
+                raise BatchTooLarge(batch.num_rows, -1)

@@ -1,6 +1,14 @@
 """Walk outputs → ``pyarrow`` arrays (host assembly; copy of
-``pyruhvro_tpu/ops/arrow_build.py`` ``build_record_batch`` and
-``compact_union_slices``, numpy paths only).
+``pyruhvro_tpu/ops/arrow_build.py`` ``build_record_batch``,
+``build_fused_record_batch`` and ``compact_union_slices``, numpy paths
+only: the reference's native ``cumsum0``, ``uuid16`` and
+``dec128_check`` shortcuts give the same values and are left out).
+
+``build_record_batch`` takes either layout: the device walk's
+(``#lo``/``#hi`` lanes, ``(start, len)`` descriptors) or the host VM's
+plan buffers (``#v64``, ``#bytes``, ``#dec``, ``#fix``).
+``build_fused_record_batch`` wraps the host VM's fused decode, whose
+buffers already have Arrow's layout, positionally.
 
 The decoder hands over dense numpy buffers in Arrow's own layout — int32
 offsets, per-lane validity bytes, (lo, hi) 64-bit halves, ``(start, len)``
@@ -41,6 +49,7 @@ from ..schema.model import (
 )
 
 __all__ = [
+    "build_fused_record_batch",
     "build_record_batch",
     "compact_union_slices",
 ]
@@ -215,12 +224,16 @@ class _Assembler:
                 dt, count, [vbuf, pa.py_buffer(arr)], null_count=nulls
             )
         if name == "long":
-            # the walk ships (lo, hi) u32 lanes
-            arr = _combine64(
-                self.col(path + "#lo", count),
-                self.col(path + "#hi", count),
-                np.int64,
-            )
+            # the walk ships (lo, hi) u32 lanes; the host VM writes int64
+            # directly under "#v64"
+            if path + "#v64" in self.host:
+                arr = self.col(path + "#v64", count)
+            else:
+                arr = _combine64(
+                    self.col(path + "#lo", count),
+                    self.col(path + "#hi", count),
+                    np.int64,
+                )
             return pa.Array.from_buffers(
                 dt, count, [vbuf, pa.py_buffer(arr)], null_count=nulls
             )
@@ -230,11 +243,14 @@ class _Assembler:
                 dt, count, [vbuf, pa.py_buffer(arr)], null_count=nulls
             )
         if name == "double":
-            arr = _combine64(
-                self.col(path + "#lo", count),
-                self.col(path + "#hi", count),
-                np.float64,
-            )
+            if path + "#v64" in self.host:
+                arr = self.col(path + "#v64", count)
+            else:
+                arr = _combine64(
+                    self.col(path + "#lo", count),
+                    self.col(path + "#hi", count),
+                    np.float64,
+                )
             return pa.Array.from_buffers(
                 dt, count, [vbuf, pa.py_buffer(arr)], null_count=nulls
             )
@@ -242,8 +258,9 @@ class _Assembler:
 
     def _string_values(self, path: str, count: int):
         """Materialize one string-ish column's ``(values, voff, lens)``
-        from the walk's ``(start, len)`` descriptors into the
-        concatenated record bytes, with the 2 GiB int32-offset guard (the oracle's
+        from either layout — the host VM's contiguous ``#bytes`` or the
+        walk's ``(start, len)`` descriptors into the concatenated record
+        bytes — with the 2 GiB int32-offset guard (the oracle's
         ``pa.array`` raises the same error class)."""
         lens = self.host[path + "#len"][:count]
         total = int(lens.sum(dtype=np.int64))
@@ -253,11 +270,14 @@ class _Assembler:
                 f"the 2 GiB Binary/Utf8 capacity; split the batch"
             )
         voff = cumsum0(lens)
-        starts = self.host[path + "#start"][:count]
-        src = np.repeat(
-            starts.astype(np.int64) - voff[:-1], lens
-        ) + np.arange(total, dtype=np.int64)
-        values = self.flat[src]
+        if path + "#bytes" in self.host:
+            values = self.host[path + "#bytes"][:total]
+        else:
+            starts = self.host[path + "#start"][:count]
+            src = np.repeat(
+                starts.astype(np.int64) - voff[:-1], lens
+            ) + np.arange(total, dtype=np.int64)
+            values = self.flat[src]
         return values, voff, lens
 
     # char → nibble; 0xFF marks non-hex
@@ -366,12 +386,16 @@ class _Assembler:
         return np.ascontiguousarray(out.astype(np.uint8).reshape(-1))
 
     def _decimal(self, t, dt, path, count, vbuf, nulls, valid):
-        """Decimal128 from the walk's ``(start, len)`` descriptors
-        (``_decimal_raw_from_descriptors``), validating live values
-        against the declared precision; the oracle's ``pa.array``
+        """Decimal128 from either layout — the host VM's ready
+        16-byte-LE ``#dec`` words, or the walk's ``(start, len)``
+        descriptors (``_decimal_raw_from_descriptors``) — validating live
+        values against the declared precision; the oracle's ``pa.array``
         raises ArrowInvalid for over-precision values, and
         ``from_buffers`` would silently accept them."""
-        raw = self._decimal_raw_from_descriptors(t, path, count, valid)
+        if path + "#dec" in self.host:
+            raw = np.ascontiguousarray(self.host[path + "#dec"][: count * 16])
+        else:
+            raw = self._decimal_raw_from_descriptors(t, path, count, valid)
         if count:
             words = raw.view(np.uint64).reshape(count, 2)
             lo, hi = words[:, 0], words[:, 1]
@@ -399,22 +423,26 @@ class _Assembler:
         )
 
     def _fixed(self, t, dt, path, count, valid):
-        """Avro ``fixed`` gathered from the concatenated record bytes;
-        ``duration`` converts fixed(12) (months, days, ms u32-LE) to
+        """Avro ``fixed`` from the host VM's raw ``#fix`` byte column, or
+        gathered from the concatenated record bytes; ``duration`` converts fixed(12) (months, days, ms u32-LE) to
         Duration(ms) with the oracle's 30-day-month convention
         (``fallback/decoder.py``)."""
         vbuf, nulls = _validity(valid, count)
         if t.logical == "decimal":
             return self._decimal(t, dt, path, count, vbuf, nulls, valid)
-        # the static-size run per row; dead rows (null / non-selected
-        # arm) → zeros
-        live = np.ones(count, bool) if valid is None else valid.astype(bool)
-        starts = self.host[path + "#start"][:count].astype(np.int64)
-        hi = np.int64(max(len(self.flat) - 1, 0))
-        pos = np.clip(starts[:, None] + np.arange(t.size), 0, hi)
-        raw = np.where(
-            live[:, None], self.flat[pos], np.uint8(0)
-        ).astype(np.uint8).reshape(-1)
+        if path + "#fix" in self.host:
+            raw = self.host[path + "#fix"][: count * t.size]
+        else:
+            # the static-size run per row; dead rows (null / non-selected
+            # arm) → zeros, like the host VM's builder
+            live = (np.ones(count, bool) if valid is None
+                    else valid.astype(bool))
+            starts = self.host[path + "#start"][:count].astype(np.int64)
+            hi = np.int64(max(len(self.flat) - 1, 0))
+            pos = np.clip(starts[:, None] + np.arange(t.size), 0, hi)
+            raw = np.where(
+                live[:, None], self.flat[pos], np.uint8(0)
+            ).astype(np.uint8).reshape(-1)
         if t.logical == "duration":
             u = np.ascontiguousarray(raw).view(np.uint32).reshape(count, 3)
             # uint64 holds the wire maximum ((2^32·30 + 2^32)·86400000 +
@@ -543,12 +571,160 @@ class _Assembler:
         )
 
 
+class _FusedNodes:
+    """Positional cursor over the fused decoder's flat node list
+    (``csrc/host/arrow_decode_core.h``) — both sides walk the same
+    schema tree pre-order, so entries carry no keys."""
+
+    __slots__ = ("nodes", "i")
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+        self.i = 0
+
+    def next(self):
+        e = self.nodes[self.i]
+        self.i += 1
+        return e
+
+
+def _fused_build(t: AvroType, dt: pa.DataType, count: int,
+                 it: _FusedNodes) -> pa.Array:
+    """One schema node from its finished native buffers — the fused
+    mirror of ``_Assembler.build``: every buffer arrives in final Arrow
+    layout (validity bitmaps, leading-0 offsets, int8 type ids), so
+    this walk is pure ``pa.Array.from_buffers`` composition; no numpy
+    op exists anywhere on this path."""
+    if isinstance(t, Union) and t.is_nullable_pair:
+        # the native pass folded the wrapper's validity into the child
+        return _fused_build(t.non_null_variant, dt, count, it)
+
+    if isinstance(t, Primitive):
+        name = t.name
+        if name == "null":
+            return pa.nulls(count, pa.null())
+        if name in ("string", "bytes") and t.logical != "uuid" \
+                and t.logical != "decimal":
+            nc, vb, offs, vals = it.next()
+            return pa.Array.from_buffers(
+                dt, count,
+                [None if vb is None else pa.py_buffer(vb),
+                 pa.py_buffer(offs), pa.py_buffer(vals)],
+                null_count=nc,
+            )
+        # uuid / decimal / numeric / boolean: one value buffer
+        nc, vb, data = it.next()
+        return pa.Array.from_buffers(
+            dt, count,
+            [None if vb is None else pa.py_buffer(vb), pa.py_buffer(data)],
+            null_count=nc,
+        )
+    if isinstance(t, (Fixed, Enum)):
+        if isinstance(t, Enum):
+            nc, vb, offs, vals = it.next()
+            return pa.Array.from_buffers(
+                pa.utf8(), count,
+                [None if vb is None else pa.py_buffer(vb),
+                 pa.py_buffer(offs), pa.py_buffer(vals)],
+                null_count=nc,
+            )
+        nc, vb, data = it.next()
+        return pa.Array.from_buffers(
+            dt, count,
+            [None if vb is None else pa.py_buffer(vb), pa.py_buffer(data)],
+            null_count=nc,
+        )
+    if isinstance(t, Record):
+        nc, vb = it.next()
+        children = [
+            _fused_build(f.type, dt.field(i).type, count, it)
+            for i, f in enumerate(t.fields)
+        ]
+        return pa.Array.from_buffers(
+            dt, count,
+            [None if vb is None else pa.py_buffer(vb)],
+            null_count=nc, children=children,
+        )
+    if isinstance(t, Union):
+        (tid8,) = it.next()
+        tid_arr = pa.Array.from_buffers(
+            pa.int8(), count, [None, pa.py_buffer(tid8)]
+        )
+        children = []
+        names = []
+        for k, v in enumerate(t.variants):
+            child_field = dt.field(k)
+            names.append(child_field.name)
+            if v.is_null():
+                children.append(pa.nulls(count, pa.null()))
+            else:
+                children.append(
+                    _fused_build(v, child_field.type, count, it)
+                )
+        return pa.UnionArray.from_sparse(
+            tid_arr, children,
+            field_names=names, type_codes=list(dt.type_codes),
+        )
+    if isinstance(t, (Array, Map)):
+        nc, vb, offs, total = it.next()
+        vbuf = None if vb is None else pa.py_buffer(vb)
+        if isinstance(t, Array):
+            child = _fused_build(t.items, dt.value_field.type, total, it)
+            return pa.Array.from_buffers(
+                dt, count, [vbuf, pa.py_buffer(offs)],
+                null_count=nc, children=[child],
+            )
+        knc, kvb, koffs, kvals = it.next()  # map keys: a string entry
+        keys = pa.Array.from_buffers(
+            pa.utf8(), total,
+            [None if kvb is None else pa.py_buffer(kvb),
+             pa.py_buffer(koffs), pa.py_buffer(kvals)],
+            null_count=knc,
+        )
+        vals = _fused_build(t.values, dt.item_type, total, it)
+        entries = pa.StructArray.from_arrays(
+            [keys, vals], fields=[dt.key_field, dt.item_field]
+        )
+        return pa.Array.from_buffers(
+            dt, count, [vbuf, pa.py_buffer(offs)],
+            null_count=nc, children=[entries],
+        )
+    raise NotImplementedError(repr(t))
+
+
 def _empty_fields_batch(n: int) -> pa.RecordBatch:
     """An n-row batch for a zero-field schema, built without an n-long
     Python list (shared by both assembly engines)."""
     return pa.RecordBatch.from_struct_array(
         pa.Array.from_buffers(pa.struct([]), n, [None], children=[])
     )
+
+
+def build_fused_record_batch(
+    ir: Record,
+    arrow_schema: pa.Schema,
+    nodes,
+    n: int,
+) -> pa.RecordBatch:
+    """RecordBatch from the fused native decoder's node list — the
+    zero-copy handoff: every ``pa.py_buffer`` wraps the returned bytes
+    objects in place. Raises if the node list and schema disagree
+    (a contract violation, not a data error)."""
+    it = _FusedNodes(nodes)
+    arrays = [
+        _fused_build(f.type, arrow_schema.field(i).type, n, it)
+        for i, f in enumerate(ir.fields)
+    ]
+    if it.i != len(nodes):
+        # the positional protocol's one failure mode is a silent walk
+        # desync — unconsumed entries must never pass as a valid batch
+        raise ValueError(
+            f"fused decode walk desync: {len(nodes) - it.i} node "
+            f"entr{'y' if len(nodes) - it.i == 1 else 'ies'} unconsumed"
+        )
+    if not arrays:
+        return _empty_fields_batch(n)
+    return pa.RecordBatch.from_arrays(arrays, schema=arrow_schema)
 
 
 def build_record_batch(

@@ -10,8 +10,12 @@ and ``input_entries`` (``:1270``) gives the sorted packed-buffer layout.
 ``batch_to_struct`` (``:1184``) matches columns by name, with the host
 oracle's ``_types_compatible`` (:mod:`..fallback.encoder`).
 
-Left out: the host tier's layout (``host_mode``) and the native
-``uuid_text`` branch; uuids are rendered by the numpy branch. Every
+``host_mode`` (``encode.py:629-643``) gives the host VM's layout
+instead (``hostpath/codec.py``, when the native extractor declines a
+batch's shape): whole ``#v64`` int64/float64 lanes read off the Arrow
+buffers, ``#fix`` dense fixed columns, no ``#dlen`` and no bucket
+padding. Left out: the native ``uuid_text`` branch; uuids are rendered
+by the numpy branch. Every
 ``ValueError`` / ``OverflowError`` message is the reference's. The bound
 decides ``BatchTooLarge`` and so the codec's halving; it is kept exactly.
 """
@@ -59,17 +63,45 @@ class _Extractor:
     union arm is never encoded, so never an error; same as the oracle,
     which never visits masked values)."""
 
-    def __init__(self) -> None:
+    def __init__(self, host_mode: bool = False) -> None:
         self.arrays: Dict[str, Tuple[np.ndarray, int]] = {}  # key → (arr, region)
         self.byte_bufs: Dict[str, np.ndarray] = {}           # key → u8 buffer
         self.region_len: Dict[int, int] = {}
         self.regions: List[str] = [""]
         self.bound = 0
+        # host_mode: produce the native VM's input layout — whole int64/
+        # float64 ``#v64`` arrays (no u32 lane split) read zero-copy off
+        # the Arrow values buffers, with NO fill_null materialization:
+        # the VM consumes-but-never-emits dead entries, so whatever bytes
+        # a null slot holds are fine (Arrow defines the buffer exists,
+        # not its content there). Device mode keeps defined zeros — the
+        # vectorized size pass reads every lane before masking.
+        self.host_mode = host_mode
 
     def put(self, key: str, arr: np.ndarray, region: int) -> None:
         self.arrays[key] = (np.ascontiguousarray(arr), region)
 
     # -- leaf readers (offset-aware) --------------------------------------
+
+    @staticmethod
+    def _raw_fixed_width(arr: pa.Array, np_dtype) -> Optional[np.ndarray]:
+        """Zero-copy view of a fixed-width values buffer when the Arrow
+        physical layout matches ``np_dtype``'s width (int32/date32,
+        int64/timestamp/time64, float32, float64 — NOT boolean, whose
+        values are bit-packed). None → caller takes the cast path."""
+        t = arr.type
+        try:
+            w = t.byte_width
+        except (ValueError, AttributeError):
+            return None
+        if w != np.dtype(np_dtype).itemsize or pa.types.is_boolean(t):
+            return None
+        buf = arr.buffers()[1]
+        if buf is None:
+            return np.zeros(len(arr), np_dtype)
+        return np.frombuffer(
+            buf, np_dtype, count=len(arr) + arr.offset
+        )[arr.offset:]
 
     @staticmethod
     def _valid(arr: pa.Array) -> Optional[np.ndarray]:
@@ -224,15 +256,18 @@ class _Extractor:
                 raw = np.frombuffer(
                     buf, np.uint8, count=(arr.offset + n) * size
                 )[arr.offset * size:]
-        # fixed runs go through the payload copy: the same #src/#len/
-        # #bytes layout as strings, with constant lens
-        self.put(
-            path + "#src",
-            (np.arange(n, dtype=np.int64) * size).astype(np.int32),
-            region,
-        )
-        self.put(path + "#len", np.full(n, size, np.int32), region)
-        self.byte_bufs[path + "#bytes"] = np.ascontiguousarray(raw)
+        if self.host_mode:
+            self.put(path + "#fix", raw, region)  # the VM's dense column
+        else:
+            # fixed runs go through the payload copy: the same #src/#len/
+            # #bytes layout as strings, with constant lens
+            self.put(
+                path + "#src",
+                (np.arange(n, dtype=np.int64) * size).astype(np.int32),
+                region,
+            )
+            self.put(path + "#len", np.full(n, size, np.int32), region)
+            self.byte_bufs[path + "#bytes"] = np.ascontiguousarray(raw)
         self.bound += size * n
 
     def _extract_primitive(self, t: Primitive, arr, path, region,
@@ -241,34 +276,57 @@ class _Extractor:
         if name == "null":
             return
         if name == "int":
-            self.put(path + "#v", self._ints(arr, pa.int32(), np.int32),
-                     region)
+            raw = (self._raw_fixed_width(arr, np.int32) if self.host_mode
+                   else None)
+            self.put(
+                path + "#v",
+                raw if raw is not None
+                else self._ints(arr, pa.int32(), np.int32),
+                region,
+            )
             self.bound += 5 * len(arr)
         elif name == "long":
-            v = self._ints(arr, pa.int64(), np.int64)
-            u = v.view(np.uint64)
-            self.put(path + "#v:lo", (u & 0xFFFFFFFF).astype(np.uint32), region)
-            self.put(path + "#v:hi", (u >> 32).astype(np.uint32), region)
+            raw = (self._raw_fixed_width(arr, np.int64) if self.host_mode
+                   else None)
+            v = (raw if raw is not None
+                 else self._ints(arr, pa.int64(), np.int64))
+            if self.host_mode:
+                self.put(path + "#v64", v, region)
+            else:
+                u = v.view(np.uint64)
+                self.put(path + "#v:lo", (u & 0xFFFFFFFF).astype(np.uint32),
+                         region)
+                self.put(path + "#v:hi", (u >> 32).astype(np.uint32), region)
             self.bound += 10 * len(arr)
         elif name == "float":
-            import pyarrow.compute as pc
+            raw = (self._raw_fixed_width(arr, np.float32) if self.host_mode
+                   else None)
+            if raw is None:
+                import pyarrow.compute as pc
 
-            a = pc.fill_null(arr, 0.0) if arr.null_count else arr
-            raw = a.to_numpy(zero_copy_only=False).astype(
-                np.float32, copy=False
-            )
+                a = pc.fill_null(arr, 0.0) if arr.null_count else arr
+                raw = a.to_numpy(zero_copy_only=False).astype(
+                    np.float32, copy=False
+                )
             self.put(path + "#v", raw, region)
             self.bound += 4 * len(arr)
         elif name == "double":
-            import pyarrow.compute as pc
+            raw = (self._raw_fixed_width(arr, np.float64) if self.host_mode
+                   else None)
+            if raw is None:
+                import pyarrow.compute as pc
 
-            a = pc.fill_null(arr, 0.0) if arr.null_count else arr
-            raw = a.to_numpy(zero_copy_only=False).astype(
-                np.float64, copy=False
-            )
-            u = raw.view(np.uint64)
-            self.put(path + "#v:lo", (u & 0xFFFFFFFF).astype(np.uint32), region)
-            self.put(path + "#v:hi", (u >> 32).astype(np.uint32), region)
+                a = pc.fill_null(arr, 0.0) if arr.null_count else arr
+                raw = a.to_numpy(zero_copy_only=False).astype(
+                    np.float64, copy=False
+                )
+            if self.host_mode:
+                self.put(path + "#v64", raw, region)
+            else:
+                u = raw.view(np.uint64)
+                self.put(path + "#v:lo", (u & 0xFFFFFFFF).astype(np.uint32),
+                         region)
+                self.put(path + "#v:hi", (u >> 32).astype(np.uint32), region)
             self.bound += 8 * len(arr)
         elif name == "boolean":
             self.put(path + "#v", self._ints(arr, pa.uint8(), np.uint8), region)
@@ -354,7 +412,7 @@ class _Extractor:
                 buf, np.uint8, count=(arr.offset + n) * 16
             )[arr.offset * 16:]
         self.put(path + "#dec", raw, region)
-        if n:
+        if not self.host_mode and n:
             w = np.ascontiguousarray(raw).view(np.uint64).reshape(n, 2)
             lo, hi = w[:, 0], w[:, 1]
             neg = (hi >> np.uint64(63)) != 0
@@ -391,7 +449,7 @@ class _Extractor:
                     raise OverflowError(
                         "decimal value does not fit its fixed size"
                     )
-        elif fixed_size is None:
+        elif not self.host_mode and fixed_size is None:
             self.put(path + "#dlen", np.zeros(0, np.int32), region)
         self.bound += 18 * n  # ≤16 value bytes + length varint
 
@@ -583,9 +641,12 @@ def batch_to_struct(ir: Record, batch: pa.RecordBatch) -> pa.StructArray:
     ) if cols else pa.array([{}] * batch.num_rows, pa.struct([]))
 
 
-def run_extractor(ir: Record, batch: pa.RecordBatch) -> "_Extractor":
-    """Walk a column-matched Arrow batch into per-path numpy arrays."""
-    ex = _Extractor()
+def run_extractor(ir: Record, batch: pa.RecordBatch,
+                  host_mode: bool = False) -> "_Extractor":
+    """Walk a column-matched Arrow batch into per-path numpy arrays
+    (``host_mode``: the host VM's layout, shared with
+    ``hostpath/codec.py``)."""
+    ex = _Extractor(host_mode)
     ex.extract(ir, batch_to_struct(ir, batch), "", ROWS, None)
     return ex
 

@@ -1,6 +1,6 @@
 """Per-call deadlines (copy of ``pyruhvro_tpu/runtime/deadline.py``:
-``DeadlineExceeded``, ``scope``, ``check``, ``current``, ``remaining``
-and ``default_timeout_s``).
+``DeadlineExceeded``, ``scope``, ``attach``, ``check``, ``current``,
+``remaining`` and ``default_timeout_s``).
 
 Every public entry point takes ``timeout_s=``
 (``PYRUHVRO_TPU_DEADLINE_S`` is the process-wide default; the keyword
@@ -9,7 +9,10 @@ wins), enforced **cooperatively**:
 * a thread-local absolute deadline opens with :class:`scope` at the API
   boundary; nesting takes the tighter bound;
 * :func:`check` runs at call start, at each capacity-ladder rung and each
-  chunk of the overlapped path (``ops/decode.py``), and at each
+  chunk of the overlapped path (``ops/decode.py``), before each pass of
+  the host VM and at each chunk of a chunked host call
+  (``hostpath/codec.py``, ``host.vm`` and ``host.chunk``), at each chunk
+  of the thread fan-out (``runtime/pool.py``), and at each
   tolerant-decode resume (``api.py``): the places where one unit of work
   ends and the next could be skipped.
 
@@ -38,6 +41,7 @@ from . import knobs
 __all__ = [
     "DeadlineExceeded",
     "scope",
+    "attach",
     "current",
     "remaining",
     "check",
@@ -133,6 +137,30 @@ class scope:
         return False
 
 
+class attach:
+    """Install an already-open deadline on this thread (copy of the
+    reference's ``attach``). Deadlines are thread-local, so a fan-out
+    worker thread starts unbounded; :func:`..pool.map_chunks` attaches
+    the caller's :func:`current` handle around each chunk so ``check()``
+    fires inside the workers too."""
+
+    __slots__ = ("_dl", "_prev")
+
+    def __init__(self, dl: Optional[_Deadline]):
+        self._dl = dl
+
+    def __enter__(self) -> "attach":
+        self._prev = getattr(_tls, "deadline", None)
+        if self._dl is not None:
+            _tls.deadline = self._dl
+        return self
+
+    def __exit__(self, *exc):
+        if self._dl is not None:
+            _tls.deadline = self._prev
+        return False
+
+
 def current() -> Optional[_Deadline]:
     """The calling thread's open deadline (None = unbounded)."""
     return getattr(_tls, "deadline", None)
@@ -140,10 +168,8 @@ def current() -> Optional[_Deadline]:
 
 def remaining() -> Optional[float]:
     """Seconds left in the current budget (None = unbounded; never
-    negative — an expired deadline reads 0.0). No call of the port needs
-    it yet: in the reference it sizes the process pool's waits, and it is
-    kept (and held to the reference's) for that pool, ``ROADMAP.md``
-    (a) 6."""
+    negative — an expired deadline reads 0.0). It bounds the thread
+    fan-out's waits (``runtime/pool.py``)."""
     dl = current()
     if dl is None:
         return None

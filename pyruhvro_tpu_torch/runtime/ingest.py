@@ -1,6 +1,6 @@
 """Datum input as pyarrow binary arrays (copy of
-``pyruhvro_tpu/runtime/ingest.py``: ``DatumView`` and
-``as_datum_input``).
+``pyruhvro_tpu/runtime/ingest.py``: ``DatumView``, with its native
+descriptor ``native_parts``, and ``as_datum_input``).
 
 Every deserialize entry point accepts a pyarrow ``BinaryArray`` /
 ``LargeBinaryArray`` (or a ``ChunkedArray`` of either) of datums — the
@@ -9,9 +9,9 @@ The decoders' record pack (``runtime/pack.py`` ``concat_records``)
 reads the array's own offsets and values buffers: the values are the
 records already concatenated, so no per-datum ``bytes`` object is made.
 The host oracle and the tolerant policies see a sequence of ``bytes``
-through :class:`DatumView`'s sequence protocol. (The reference's native
-descriptor, ``native_parts``, feeds its host VM, which the port does
-not have.)
+through :class:`DatumView`'s sequence protocol, and the host tier's VM
+through :meth:`DatumView.native_parts`, which hands it the array's
+buffers.
 """
 
 from __future__ import annotations
@@ -53,6 +53,22 @@ class DatumView:
     def __iter__(self) -> Iterator[bytes]:
         for v in self.arr:
             yield v.as_py()
+
+    def native_parts(self):
+        """The zero-copy native descriptor:
+        ``("arrowbuf", offsets_buffer, values_buffer, start, n, width)``
+        — the tuple keeps the pyarrow buffers alive for the duration of
+        the native call (the C side holds its own Py_buffer views)."""
+        arr = self.arr
+        width = 8 if pa.types.is_large_binary(arr.type) else 4
+        bufs = arr.buffers()  # [validity, offsets, values]
+        offsets = bufs[1]
+        values = bufs[2]
+        if offsets is None:  # empty array without buffers
+            offsets = b"\x00" * ((arr.offset + len(arr) + 1) * width)
+        if values is None:  # all-empty datums: no values buffer
+            values = b""
+        return ("arrowbuf", offsets, values, arr.offset, len(arr), width)
 
     def offsets(self) -> np.ndarray:
         """The ``len + 1`` offsets of this view's datums into

@@ -1,7 +1,7 @@
 """Environment knobs the port reads (copy of the parse rules of
 ``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_float``/
-``get_bool``, and of the knobs it registers at ``:146-150``, ``:162-167``
-and ``:175``, with their defaults).
+``get_bool``, and of the knobs it registers at ``:82-84``, ``:146-150``,
+``:162-167`` and ``:175``, with their defaults).
 
 A knob is read at each call, so setting a variable between calls takes
 effect. Unset or empty gives the default; a value that does not parse
@@ -30,6 +30,8 @@ DEFAULTS = {
     "PYRUHVRO_TPU_MAX_DEPTH": 64,
     # process-wide default per-call deadline in seconds (None = unbounded)
     "PYRUHVRO_TPU_DEADLINE_S": None,
+    # the host tier: the pure-Python oracle instead of the C++ VM
+    "PYRUHVRO_TPU_NO_NATIVE": False,
 }
 
 

@@ -39,7 +39,7 @@ class QuarantinedRecord(NamedTuple):
     index: int              # global row index in the call's input
     datum: Optional[bytes]  # raw wire bytes (None for encode-side rows)
     error: str              # short slug, e.g. "overrun", "bad_branch"
-    tier: str               # "fallback" | "device" | "policy"
+    tier: str               # "fallback" | "native" | "device" | "policy"
     # the W3C trace id of the call; None until trace propagation is ported
     trace_id: Optional[str] = None
 
