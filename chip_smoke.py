@@ -817,6 +817,41 @@ def cuda_ms(torch, fn, repeats: int, prepare=None) -> float:
     return best
 
 
+# cycles of the spin kernel that keeps the stream busy while the host
+# enqueues a call timed by queued_ms (about 10 ms at the H100's clock)
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def queued_ms(torch, fn, repeats: int, prepare=None) -> float:
+    """Best device time of ``fn``'s kernels over ``repeats`` runs, by CUDA
+    events, after one warm run, with the stream kept busy by a spin kernel
+    (``torch.cuda._sleep``) while the host enqueues the start event,
+    ``fn`` and the end event: the kernels back to back with the host's
+    enqueue hidden, as a profiler trace shows them, where :func:`cuda_ms`
+    on an idle stream also holds the host's launch latency. ``prepare``
+    runs before the spin, untimed. Fails if the spin of a timed run ended
+    before the host had enqueued the end event (the warm run may load
+    modules for longer)."""
+    best = float("inf")
+    for i in range(repeats + 1):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        if i and start.query():
+            raise SystemExit("queued_ms: the spin ended before the host "
+                             "enqueued the timed call")
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, start.elapsed_time(end))
+    return best
+
+
 def drive(label, data, schema, counters, deserialize, card):
     """One main path: every count set to 0, the cold call, the counts read,
     then the warm calls. Fails if a kernel of the path did not launch."""
@@ -860,6 +895,13 @@ def same_values(label, got, want):
             raise SystemExit(f"{label}: batch {i} differs from the CPU call")
 
 
+def host_pack_s(t) -> float:
+    """A decode's host pack, as this script has always reported it: the
+    records joined (``pack_s``, the ``decode.pack_s`` phase) and packed
+    into the launch's arenas (``arena_s``) or row arrays (``rows_s``)."""
+    return t["pack_s"] + t.get("arena_s", 0.0) + t.get("rows_s", 0.0)
+
+
 def phases(dec, data, build_record_batch, codec, card, label):
     """Median per phase of ``PHASE_RUNS`` decodes (host clock, each phase
     ending in a synchronise or a copy)."""
@@ -871,6 +913,7 @@ def phases(dec, data, build_record_batch, codec, card, label):
         t0 = time.perf_counter()
         build_record_batch(codec.ir, codec.arrow_schema, host, n, meta)
         meta["timings"]["assembly_s"] = time.perf_counter() - t0
+        meta["timings"]["pack_s"] = host_pack_s(meta["timings"])
         for k in order:
             if k in meta["timings"]:
                 got.setdefault(k, []).append(meta["timings"][k])
@@ -916,9 +959,10 @@ def overlap_phases(dm, pack, codec, data, build_record_batch, concat, card,
         t1 = time.perf_counter()
         concat(batches)
         t2 = time.perf_counter()
-        row = {key: t[key] for key in ("pack_s", "h2d_s", "walk_s",
+        row = {key: t[key] for key in ("h2d_s", "walk_s",
                                         "finalize_s", "d2h_s", "overlap_s",
                                         "overlap_frac", "rungs", "reruns")}
+        row["pack_s"] = host_pack_s(t)
         row.update(h2d_ms=sum(t["h2d_ms"]), d2h_ms=sum(t["d2h_ms"]),
                    assembly_s=sum(assembly), concat_s=t2 - t1)
         for key, v in row.items():
@@ -1022,6 +1066,9 @@ def k4_kernel(torch, wd, dec, data, lib, card):
                      prepare=L.reset)
         variant_ms[key] = min(ms, variant_ms.get(key, ms))
     kernel_ms = variant_ms["default"]
+    default_launch = variants["default"]
+    queued = queued_ms(torch, lambda: wd.walk_kernel.launch(default_launch),
+                       5, prepare=default_launch.reset)
     del idle, timed
     for key, L in variants.items():
         cut = L.cut.cpu().tolist()
@@ -1045,8 +1092,8 @@ def k4_kernel(torch, wd, dec, data, lib, card):
     # what a launch must move: every record's bytes once (contiguous), offs,
     # act and base once, and every output element once
     R = act.numel()
-    read = int(offs[-1] - offs[0]) + offs.numel() * 8 + R * 4 + R * 4
-    moved = read + launch.output_bytes()
+    moved = wd.launch_bytes(int(offs[-1] - offs[0]), R, launch.output_bytes())
+    read = moved - launch.output_bytes()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     occupancy = wd.walk_kernel.library().cdll.walk_decode_blocks_per_sm
     regs = re.findall(r"Used (\d+) registers", lib.log)
@@ -1070,8 +1117,9 @@ def k4_kernel(torch, wd, dec, data, lib, card):
           f"TB/s), {kernel_ms / bound_ms:.2f}x the bound; variants "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in variant_ms.items())
           + f" {card}")
-    return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "variant_ms": variant_ms,
+    return {"ms": kernel_ms, "kernel_ms": kernel_ms, "queued_ms": queued,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "variant_ms": variant_ms,
             "smem_bytes": smem, "blocks_per_sm": occupancy(smem)}
 
 
@@ -1242,32 +1290,12 @@ def walk_stacks(torch, dm, dec, data, label, card):
     return got
 
 
-def finalize_pass_bytes(dm, plan, p, written: bool = True) -> int:
-    """What one gather pass must move: each source element it copies or
-    reduces read once, over the row region's ``R`` lanes or the item
-    region's actual item total (the positions past it read nothing), and,
-    if ``written``, the blob bytes it writes once (an item pass's
-    ``#offsets`` included). Its intermediates (the int64 offsets, the slot
-    maps, the children's gathered counts) are not the function's."""
-    read = {dm.J_COPY32: 4, dm.J_BITS8: 1, dm.J_SL32: 8,
-            dm.J_START_LENC: 8, dm.J_REDUCE: 4, dm.J_ERRFLAG: 4}
-    bits_out = {dm.J_COPY32: 32, dm.J_BITS8: 1, dm.J_SL32: 32,
-                dm.J_START_LENC: 48, dm.J_REDUCE: 0, dm.J_ERRFLAG: 0}
-    n_pos = p["n_pos"]
-    n_read = n_pos if p["rid"] == 0 else \
-        min(n_pos, int(plan.offsets[p["rid"]][-1]))
-    moved = sum(n_read * read[j[0]] for j in p["jobs"])
-    if written:
-        moved += sum(n_pos * bits_out[j[0]] // 8 for j in p["jobs"])
-        moved += 4 * (p["n_entries"] + 1) if p["rid"] else 0
-    return moved
-
-
-def finalize_moved_bytes(dm, plan) -> int:
-    """What the finalize run just made must move: the blob written once,
-    and what each pass reads (:func:`finalize_pass_bytes`)."""
-    return plan.blob.numel() + sum(
-        finalize_pass_bytes(dm, plan, p, written=False) for p in plan.passes)
+def plan_totals(plan):
+    """Region id -> the item total of the finalize run just made (its
+    ``#offsets``' last entry, read on the card): what
+    ``decode.finalize_bytes`` reads from the blob's ``#red:sum`` on the
+    decode path."""
+    return {rid: int(off[-1]) for rid, off in plan.offsets.items()}
 
 
 def finalize_breakdown(torch, dm, plan, takes, card):
@@ -1280,12 +1308,13 @@ def finalize_breakdown(torch, dm, plan, takes, card):
     fk = dm.finalize_kernel
     out = {"zero_red": cuda_ms(torch, plan.red.zero_, 5)}
     passes, jobs = {}, {}
-    for p in plan.passes:
+    totals = plan_totals(plan)
+    for p, spec in zip(plan.passes, dm.finalize_spec(plan)[1]):
         rid = p["rid"]
         name = "rows" if rid == 0 else plan.prog.regions[rid]
         got = {"ms": cuda_ms(torch, lambda: fk.launch_pass(plan, p), 5),
-               "bound_ms": finalize_pass_bytes(dm, plan, p)
-               / HBM_BYTES_PER_S * 1e3}
+               "bound_ms": dm.finalize_pass_bytes(spec, totals.get(
+                   rid, p["n_pos"])) / HBM_BYTES_PER_S * 1e3}
         if rid:
             got["offsets_ms"] = cuda_ms(
                 torch, lambda: fk.prepare_offsets(plan, p), 5)
@@ -1383,13 +1412,22 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
                 takes.setdefault(rid, []).append(gathers[-1])
     take_ms = cuda_ms(torch, lambda: [torch.take(src, idx)
                                       for src, idx in gathers], 5)
-    walk_read = int(lengths.to(torch.int64).sum()) + 8 * R
-    walk_written = sum(b.numel() * b.element_size() for b in L.bufs) + 4 * R
+    record_bytes = int(lengths.to(torch.int64).sum())
+    walk_read = record_bytes + 8 * R
+    walk_written = dm.walk_bytes(record_bytes, R, sum(
+        b.numel() * b.element_size() for b in L.bufs)) - walk_read
     walk_bound = (walk_read + walk_written) / HBM_BYTES_PER_S * 1e3
-    fin_moved = finalize_moved_bytes(dm, plan)
+    fin_moved = dm.finalize_bytes(dm.finalize_spec(plan), plan_totals(plan))
     fin_bound = fin_moved / HBM_BYTES_PER_S * 1e3
     parts = finalize_breakdown(torch, dm, plan, takes, card) \
         if breakdown else None
+    # the launches the launch registry times, their host enqueue hidden:
+    # the walk; the gather passes and the epilogue (the offsets made by
+    # the last run are read again, the blob is not read after this)
+    walk_queued = queued_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
+    fin_queued = queued_ms(torch, lambda: [
+        dm.finalize_kernel.launch_pass(plan, p) for p in plan.passes
+    ] + [dm.finalize_kernel.launch_epilogue(plan)], 5)
     print(f"decode_walk at {label} (R={R}, B={B}, caps="
           f"{item_caps}, {walk_launches} launch(es) to settle): launch "
           f"{walk_ms:.3f} ms (best of 5, CUDA events, status reset "
@@ -1406,10 +1444,10 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
           f"slot maps ({len(gathers)} buffers) {take_ms:.3f} ms; blob "
           f"{plan.nbytes / 1e6:.1f} MB {card}")
     shape = {"R": R, "B": B, "rows": n}
-    return ({"ms": walk_ms, "plain_ms": plain_walk_ms, "bound_ms": walk_bound,
-             "library_ms": None, "shape": shape},
-            {"ms": fin_ms, "plain_ms": plain_fin_ms, "bound_ms": fin_bound,
-             "library_ms": take_ms, "shape": shape,
+    return ({"ms": walk_ms, "queued_ms": walk_queued, "plain_ms": plain_walk_ms,
+             "bound_ms": walk_bound, "library_ms": None, "shape": shape},
+            {"ms": fin_ms, "queued_ms": fin_queued, "plain_ms": plain_fin_ms,
+             "bound_ms": fin_bound, "library_ms": take_ms, "shape": shape,
              **({"parts": parts} if breakdown else {})})
 
 
@@ -1526,74 +1564,6 @@ def encode_phases(encoder, batch, card, label):
     return {k: statistics.median(v) for k, v in got.items()}
 
 
-def rows_traffic(np, em, L):
-    """The bytes ``encode_rows`` must move on ``L``'s data, by a walk of
-    the encode code with one mask per axis (the rows below ``n``, then
-    each collection's items under its parent's mask): ``"lanes"``, each
-    extractor lane entry the code reaches, read once; ``"off"``, the
-    ``#off`` entry of each non-empty collection reached; ``"dst"``, 4 B
-    of ``#dst`` per payload placed."""
-    prog, dv = L.prog, L.dv_np
-    code = prog.code.tolist()
-    moved = {"lanes": 0, "off": 0, "dst": 0}
-
-    def read(lane, mask):
-        key = prog.lanes[lane]
-        width = 16 if key.endswith("#dec") else dv[key].itemsize
-        moved["lanes"] += width * int(np.count_nonzero(mask))
-
-    def block(pc, stop, mask):
-        """From ``pc`` to ``stop`` or the JUMP, LOOP or END that closes
-        the block; returns where it stopped."""
-        while pc != stop and code[pc] not in (em.OP_JUMP, em.OP_LOOP,
-                                              em.OP_END):
-            op = code[pc]
-            if op in (em.OP_VARINT32, em.OP_F32, em.OP_BOOL):
-                read(code[pc + 1], mask)
-                pc += 2
-            elif op in (em.OP_VARINT64, em.OP_F64, em.OP_DEC_BYTES):
-                read(code[pc + 1], mask)
-                read(code[pc + 2], mask)
-                pc += 3
-            elif op in (em.OP_STRING, em.OP_PAYLOAD):
-                if op == em.OP_STRING:
-                    read(code[pc + 1], mask)
-                moved["dst"] += 4 * int(np.count_nonzero(mask))
-                pc += 3
-            elif op == em.OP_DEC_FIXED:
-                read(code[pc + 2], mask)
-                pc += 3
-            elif op == em.OP_NULLABLE:
-                read(code[pc + 1], mask)
-                valid = dv[prog.lanes[code[pc + 1]]] != 0
-                pc = block(pc + 4, code[pc + 3], mask & valid)
-            elif op == em.OP_UNION:
-                read(code[pc + 1], mask)
-                tid = dv[prog.lanes[code[pc + 1]]]
-                for k in range(code[pc + 2]):
-                    if code[pc + 4 + k] >= 0:
-                        block(code[pc + 4 + k], code[pc + 3],
-                              mask & (tid == k))
-                pc = code[pc + 3]
-            elif op == em.OP_REPEATED:
-                read(code[pc + 1], mask)
-                counts = dv[prog.lanes[code[pc + 1]]]
-                nonempty = mask & (counts > 0)
-                moved["off"] += 4 * int(np.count_nonzero(nonempty))
-                rid = prog.regions.index(prog.lanes[code[pc + 2]][:-4])
-                items = np.zeros(dv["#active:%d" % rid].shape[0], bool)
-                spread = np.repeat(nonempty, np.maximum(counts, 0))
-                items[:spread.size] = spread
-                block(pc + 4, code[pc + 3], items)
-                pc = code[pc + 3]
-            else:
-                raise AssertionError(f"opcode {op} at {pc}")
-        return pc
-
-    block(0, len(code), np.arange(L.R) < L.n)
-    return moved
-
-
 def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
     """K3 at the main path's shapes: CUDA-event times of each entry and of
     the whole program, bit-equal to the plain version, the byte bounds
@@ -1613,6 +1583,14 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
         L, True, sizes, cum, out), 5, prepare=L.clear_dst)
     strings_ms = cuda_ms(torch, lambda: em.encode_kernel.launch_strings(
         L, out), 5)
+    # the launches the launch registry times, their host enqueue hidden:
+    # the size and write passes (not the cumsum between), the strings
+    rows_queued = queued_ms(torch, lambda: (
+        em.encode_kernel.launch_rows(L, False, sizes),
+        em.encode_kernel.launch_rows(L, True, sizes, cum, out)), 5,
+        prepare=L.clear_dst)
+    strings_queued = queued_ms(
+        torch, lambda: em.encode_kernel.launch_strings(L, out), 5)
     dv = L.dv()
     plain = []
     rows_plain_ms = cuda_ms(torch, lambda: plain.__setitem__(
@@ -1655,16 +1633,19 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
         f"staged/direct) {v:.3f} ms" for k, v in write_variants.items())
     idx, payload, placed = payload_map(torch, L)
     take_ms = cuda_ms(torch, lambda: torch.take(L.buf, idx), 5)
-    traffic = rows_traffic(np, em, L)
+    traffic = em.rows_traffic(L)
+    if (traffic["placed"], traffic["payload"]) != (placed, payload):
+        raise SystemExit(f"main path shapes: the host walk of the encode "
+                         f"code placed {traffic['placed']} payloads of "
+                         f"{traffic['payload']} B, the card {placed} of "
+                         f"{payload} B")
     # encode_rows: the lane entries its code reaches and #off in, the
     # non-payload bytes, #dst and the row sizes out; encode_strings:
     # #src, #len and #dst of each placed payload in, its bytes in and
     # out; all of K3: the lane entries and #src in, the payload, the
     # rows' other bytes and the row sizes out (#off and #dst are its own
     # scratch)
-    rows_moved = (traffic["lanes"] + traffic["off"] + traffic["dst"]
-                  + (total - payload) + 4 * R)
-    strings_moved = 12 * placed + 2 * payload
+    rows_moved, strings_moved = em.k3_bytes(traffic, total, R)
     k3_moved = traffic["lanes"] + 4 * placed + payload + total + 4 * R
     hbm = HBM_BYTES_PER_S / 1e3
     rows_bound, strings_bound, k3_bound = (rows_moved / hbm,
@@ -1693,14 +1674,16 @@ def encode_kernels(torch, np, em, encoder, batch, card, fixture_err):
           f"{card}")
     del L, out, idx
     err = max(worst, fixture_err)
-    return ({"ms": size_ms + write_ms, "size_ms": size_ms,
+    return ({"ms": size_ms + write_ms, "queued_ms": rows_queued,
+             "size_ms": size_ms,
              "write_ms": write_ms, "staged_blocks": spans[0],
              "direct_blocks": spans[1], "span_budget": budgets["launch"],
              "free_span_bytes": free,
              "write_ms_by_budget": write_variants, "plain_ms": rows_plain_ms,
              "bound_ms": rows_bound, "library_ms": None,
              "max_abs_err": err},
-            {"ms": strings_ms, "plain_ms": strings_plain_ms,
+            {"ms": strings_ms, "queued_ms": strings_queued,
+             "plain_ms": strings_plain_ms,
              "bound_ms": strings_bound, "library_ms": take_ms,
              "max_abs_err": err},
             {"k3_ms": k3_ms, "k3_bound_ms": k3_bound,
@@ -1888,16 +1871,30 @@ def host_turns(call_host, call_card):
     return times
 
 
-def host_path(label, codec, call_host, call_card, compare, rows, card):
-    """One path on ``backend="host"``: the codec's lane counts set to 0,
-    the cold call, the counts read, ``WARM_CALLS`` warm calls, then warm
-    calls in turns with the same call on the card, whose result must
-    equal the host tier's."""
-    codec.reset_counts()
+# the host tier's lane counters (runtime/metrics.py), as the reference keys
+# them: the fused decode lane and its fallback, the native extract and its
+# fallback, the shard runner's calls and the fan-outs it measured
+HOST_LANES = ("decode.fused", "decode.fused_fallback", "extract.native",
+              "extract.fallback", "shard.native", "pool.eff_fanouts")
+
+
+def lane_counts(metrics, since=None):
+    """The host lane counters now, or their growth since ``since``."""
+    now = metrics.snapshot()
+    return {k: now.get(k, 0.0) - (since or {}).get(k, 0.0)
+            for k in HOST_LANES}
+
+
+def host_path(label, metrics, call_host, call_card, compare, rows, card):
+    """One path on ``backend="host"``: the lane counters read before and
+    after the cold call, ``WARM_CALLS`` warm calls, then warm calls in
+    turns with the same call on the card, whose result must equal the
+    host tier's."""
+    before = lane_counts(metrics)
     t0 = time.perf_counter()
     got = call_host()
     cold = time.perf_counter() - t0
-    counts = dict(codec.counts)
+    counts = lane_counts(metrics, before)
     warm = []
     for _ in range(WARM_CALLS):
         del got
@@ -1928,6 +1925,7 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
     did not take the fused decode lane or path 5 the native extract."""
     import os
 
+    from pyruhvro_tpu_torch.runtime import metrics
     from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
     from pyruhvro_tpu_torch.utils import datagen
 
@@ -1945,7 +1943,7 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
     def decode_path(label, rows, schema):
         codec = codec_of(schema)
         res = host_path(
-            label, codec,
+            label, metrics,
             lambda: api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS,
                                                    backend="host"),
             lambda: api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS),
@@ -1953,10 +1951,10 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
         return codec, res
 
     # H1: path 1 on the host tier
-    k_codec, out["h1"] = decode_path("H1 (path 1, Kafka)", data, kafka)
+    _c, out["h1"] = decode_path("H1 (path 1, Kafka)", data, kafka)
     lanes = out["h1"]["lanes"]
-    if lanes["decode_fused"] < 1 or lanes["decode_fused_declined"] or \
-            lanes["decode_shards"] != 1:
+    if lanes["decode.fused"] < 1 or lanes["decode.fused_fallback"] or \
+            lanes["shard.native"] != 1:
         raise SystemExit(f"H1: path 1 took the lanes {lanes}: it must decode "
                          f"through the shard runner on the fused lane")
     # H2: paths 3 and 4
@@ -1971,14 +1969,15 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
             raise SystemExit(f"{label}: the host encode differs from the "
                              f"card's")
 
+    since_h3 = lane_counts(metrics)
     out["h3"] = host_path(
-        "H3 (path 5, Kafka encode)", k_codec,
+        "H3 (path 5, Kafka encode)", metrics,
         lambda: api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS,
                                            backend="host"),
         lambda: api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS),
         wire_equal, kafka_batch.num_rows, card)
     lanes = out["h3"]["lanes"]
-    if lanes["extract_native"] < 1 or lanes["extract_declined"]:
+    if lanes["extract.native"] < 1 or lanes["extract.fallback"]:
         raise SystemExit(f"H3: path 5's encode took the lanes {lanes}: it "
                          f"must take the native extract")
     if wire_of(api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS,
@@ -2037,7 +2036,319 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
               f"{statistics.median(enc[1:]):.4f} s; equal to the card's and "
               f"to the input datums {card}")
     out["h5"] = h5
-    print(f"host lane counters (Kafka codec, since H3): {k_codec.counts}")
+    print(f"host lane counters (since H3): "
+          f"{lane_counts(metrics, since_h3)}")
+    return out
+
+
+# the kernels the launch registry times (runtime/device_obs.py), by kind
+TELEMETRY_KERNELS = ("walk", "finalize", "walk_decode", "encode_rows",
+                     "encode_strings")
+# the Prometheus text exposition, line by line
+PROM_META = re.compile(r"^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+$")
+PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+=\"[^\"]*\"\})? "
+    r"(\S+)( # \{trace_id=\"[0-9a-f]{32}\"\} \S+)?$")
+
+
+def on_off_turns(telemetry, call):
+    """Warm calls with telemetry on and off in turns, A B B A twice."""
+    times = {"on": [], "off": []}
+    try:
+        for leg in ["on", "off", "off", "on"] * 2:
+            telemetry.set_enabled(leg == "on")
+            t0 = time.perf_counter()
+            out = call()
+            times[leg].append(time.perf_counter() - t0)
+            del out
+    finally:
+        telemetry.set_enabled(True)
+    return times
+
+
+def registry_by_kernel(snap):
+    """The launch registry of a snapshot summed per kernel kind: launches,
+    seconds and bytes of the launches after each bucket's first."""
+    out = {}
+    for e in ((snap.get("device") or {}).get("jit_cache") or {}).values():
+        k = out.setdefault(e["kind"], {"launches": 0, "launch_s": 0.0,
+                                       "bytes": 0, "compiles": 0})
+        k["launches"] += e["launches"]
+        k["launch_s"] += e["launch_s"]
+        k["bytes"] += e["bytes"]
+        k["compiles"] += e["compiles"]
+    return out
+
+
+# the device kernels of each registry kind, by name in a profiler trace
+TRACE_KERNELS = {"walk": ("decode_walk_kernel",),
+                 "finalize": ("finalize_pass_kernel",
+                              "finalize_epilogue_kernel"),
+                 "walk_decode": ("walk_decode_kernel",),
+                 "encode_rows": ("encode_rows_kernel",),
+                 "encode_strings": ("encode_strings_kernel",)}
+
+
+def traced_kernels(torch, call):
+    """One call under ``torch.profiler`` with CUDA activity: the trace's
+    device kernels in start order as ``(name, start us, device us)``
+    (copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    del out
+    ks = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+          for e in prof.events()
+          if "cuda" in str(getattr(e, "device_type", "")).lower()
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    if not ks:
+        raise SystemExit("T2: the profiler's trace holds no device kernel")
+    return sorted(ks, key=lambda k: k[1])
+
+
+def trace_us_by_kind(ks):
+    """Device us per registry kind in a trace: the kernels each kind
+    times, by name (K2's gather passes and epilogue, not the library's
+    cumsums and fills between them)."""
+    return {kind: sum(us for name, _start, us in ks
+                      if any(key in name for key in keys))
+            for kind, keys in TRACE_KERNELS.items()}
+
+
+def prom_lines_parse(text: str) -> int:
+    """Every line of a Prometheus text exposition parses (a HELP or TYPE
+    line, or a sample whose value is a float); the sample count."""
+    samples = 0
+    for line in text.splitlines():
+        if PROM_META.match(line):
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise SystemExit(f"T4: Prometheus line does not parse: {line!r}")
+        float(m.group(2))
+        samples += 1
+    return samples
+
+
+def telemetry_phase(api, torch, telemetry, traceprop, dm, em, data,
+                    schema, kernel_ms, here, card):
+    """The observability base on the card: T1 path 1's, P1's and path
+    5's warm calls with telemetry on and off in turns; T2 path 1's snapshot
+    (``render_report``), each kernel kind's ``device.launch_s`` per launch
+    beside this script's own CUDA-event time of the same launches at the
+    same shapes (``kernel_ms[kind]``: ``queued``, their host enqueue
+    hidden by :func:`queued_ms`, and ``idle``, the kernels line's
+    :func:`cuda_ms` on an idle stream) and, for one more call under
+    ``torch.profiler``, beside the trace's kernel time per launch
+    (:func:`trace_us_by_kind`), its bytes
+    over its seconds beside the card's rate, and the root span beside the
+    call's wall time; T3 a call with
+    ``trace_ctx``: the root span and P1's quarantine entries carry its
+    trace id; T4 the memory watermark beside
+    ``torch.cuda.max_memory_allocated``, the Prometheus text line by line,
+    the Perfetto JSON and the CLI's report of a saved snapshot. Fails on
+    any check; the times are reported, not judged."""
+    import os
+    import subprocess
+
+    out = {}
+    poisoned, bad = poison(data, POLICY_EVERY)
+
+    def path1():
+        return api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+
+    def p1():
+        return api.deserialize_array_threaded(
+            poisoned, schema, MAIN_CHUNKS, on_error="skip")
+
+    batch5 = api.deserialize_array(data, schema)
+
+    def path5():
+        return api.serialize_record_batch(batch5, schema, MAIN_CHUNKS)
+
+    # T1: on and off in turns
+    for label, call in (("path 1", path1), ("P1", p1), ("path 5", path5)):
+        call()
+        turns = on_off_turns(telemetry, call)
+        on, off = (statistics.median(turns[k]) for k in ("on", "off"))
+        spread_on = max(turns["on"]) - min(turns["on"])
+        spread_off = max(turns["off"]) - min(turns["off"])
+        out["t1_" + label.replace(" ", "")] = {
+            "turns_s": turns, "on_s": on, "off_s": off,
+            "diff_s": on - off, "diff_pct": (on - off) / off * 100,
+            "spread_on_s": spread_on, "spread_off_s": spread_off}
+        print(f"telemetry T1 {label}: warm calls in turns (A B B A twice), "
+              f"telemetry on median {on:.4f} s {[round(x, 4) for x in turns['on']]}"
+              f", off median {off:.4f} s "
+              f"{[round(x, 4) for x in turns['off']]}; on - off "
+              f"{on - off:+.4f} s ({(on - off) / off * 100:+.2f} %); spread "
+              f"of the legs on {spread_on:.4f} s, off {spread_off:.4f} s "
+              f"{card}")
+
+    # T2: path 1's snapshot and the launch registry per kernel kind
+    from pyruhvro_tpu_torch.runtime import device_obs
+
+    telemetry.reset()
+    walk0 = dm.walk_kernel.launches
+    for _ in range(2):
+        path1()
+    t0 = time.perf_counter()
+    path1()
+    wall = time.perf_counter() - t0
+    walks = dm.walk_kernel.launches - walk0
+    snap1 = telemetry.snapshot()
+    print("telemetry T2: path 1's snapshot after 3 warm calls, "
+          "render_report:")
+    print(telemetry.render_report(snap1), end="")
+    root = snap1["spans"][-1]
+    if root["name"] != "api.deserialize_array_threaded" or \
+            root["attrs"].get("route") != "device":
+        raise SystemExit(f"T2: the last root span is {root['name']} "
+                         f"{root['attrs']}")
+    pending = [c for p in root.get("children", [])
+               for c in p.get("children", [])
+               if c["name"] in ("device.launch_s", "device.compile_s")
+               and c["dur_s"] is None]
+    if pending or snap1["counters"].get("device.launch_unresolved"):
+        raise SystemExit(f"T2: {len(pending)} launch spans of the last call "
+                         f"unresolved")
+    per_kind, traced = {}, {}
+
+    def keep(snap, kinds, call):
+        """The registry of 3 warm calls per kind, then one more call
+        under the profiler: its registry beside its trace."""
+        got = registry_by_kernel(snap)
+        per_kind.update({k: got[k] for k in kinds if k in got})
+        telemetry.reset()
+        ks = traced_kernels(torch, call)
+        reg = registry_by_kernel(telemetry.snapshot())
+        us = trace_us_by_kind(ks)
+        for k in kinds:
+            traced[k] = {"registry": reg.get(k), "trace_us": us[k]}
+
+    keep(snap1, ("walk", "finalize"), path1)
+    # path 2's engine (K4), then path 5's encode (K3), each alone; K3's
+    # bytes need the walk over the batch's lanes, counted only on request
+    telemetry.reset()
+    os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
+    try:
+        for _ in range(3):
+            path1()
+        keep(telemetry.snapshot(), ("walk_decode",), path1)
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_PALLAS", None)
+    telemetry.reset()
+    device_obs.count_walked_bytes(True)
+    try:
+        for _ in range(3):
+            path5()
+        keep(telemetry.snapshot(), ("encode_rows", "encode_strings"), path5)
+    finally:
+        device_obs.count_walked_bytes(False)
+    del batch5
+    if per_kind.get("walk", {}).get("launches") != walks or not walks:
+        raise SystemExit(f"T2: decode_walk launched {walks} times over 3 "
+                         f"warm calls, the registry counted "
+                         f"{per_kind.get('walk')}")
+    kinds = {}
+    for kind in TELEMETRY_KERNELS:
+        k = per_kind.get(kind)
+        if not k or not k["launches"] or not k["bytes"]:
+            raise SystemExit(f"T2: no timed launch with bytes of {kind}: "
+                             f"{k}")
+        t = traced[kind]
+        t_reg = t["registry"] or {}
+        if not t_reg.get("launches") or not t["trace_us"]:
+            raise SystemExit(f"T2: the traced call of {kind}: registry "
+                             f"{t_reg}, trace {t['trace_us']} us")
+        ms = k["launch_s"] / k["launches"] * 1e3
+        trace_ms = t["trace_us"] / t_reg["launches"] / 1e3
+        traced_reg_ms = t_reg["launch_s"] / t_reg["launches"] * 1e3
+        rate = k["bytes"] / k["launch_s"]
+        queued, idle = kernel_ms[kind]["queued"], kernel_ms[kind]["idle"]
+        kinds[kind] = {**k, "launch_ms": ms, "smoke_ms": queued,
+                       "ratio": ms / queued, "idle_ms": idle,
+                       "trace_ms": trace_ms, "traced_launch_ms": traced_reg_ms,
+                       "ratio_trace": traced_reg_ms / trace_ms,
+                       "bytes_per_s": rate, "of_hbm": rate / HBM_BYTES_PER_S}
+        print(f"telemetry T2 {kind}: device.launch_s {ms:.4f} ms per launch "
+              f"over {k['launches']} launches, this script's CUDA-event time "
+              f"of the same launches at the same shapes, their host enqueue "
+              f"hidden, {queued:.4f} ms, ratio {ms / queued:.3f} (on an idle "
+              f"stream {idle:.4f} ms); a call under torch.profiler: "
+              f"device.launch_s {traced_reg_ms:.4f} ms per launch, the "
+              f"trace's kernels {trace_ms:.4f} ms per launch, ratio "
+              f"{traced_reg_ms / trace_ms:.3f}; device.cost.bytes_accessed / "
+              f"device.launch_s = {rate / 1e9:.1f} GB/s, "
+              f"{rate / HBM_BYTES_PER_S * 100:.1f} % of 3.35 TB/s {card}")
+    out["t2"] = {"kinds": kinds, "root_s": root["dur_s"], "wall_s": wall,
+                 "walk_launches": walks}
+    print(f"telemetry T2: the root span {root['dur_s']:.4f} s, the call's "
+          f"wall time {wall:.4f} s {card}")
+
+    # T3: trace_ctx
+    trace_id, parent = "ab" * 16, "cd" * 8
+    tp = f"00-{trace_id}-{parent}-01"
+    telemetry.reset()
+    path1_tp = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                              trace_ctx=tp)
+    del path1_tp
+    root = telemetry.snapshot()["spans"][-1]
+    if (root.get("trace_id"), root.get("parent_span_id")) != \
+            (trace_id, parent):
+        raise SystemExit(f"T3: the root span's trace {root.get('trace_id')}"
+                         f" / {root.get('parent_span_id')}, not {tp}")
+    ctx = traceprop.TraceContext("ef" * 16, "01" * 8)
+    _got, quar = api.deserialize_array_threaded(
+        poisoned, schema, MAIN_CHUNKS, on_error="skip", return_errors=True,
+        trace_ctx=ctx)
+    ids = {q.trace_id for q in quar}
+    if len(quar) != len(bad) or ids != {ctx.trace_id}:
+        raise SystemExit(f"T3: {len(quar)} quarantine entries with trace ids"
+                         f" {sorted(ids, key=str)[:3]}")
+    out["t3"] = {"trace_id": trace_id, "entries": len(quar)}
+    print(f"telemetry T3: trace_ctx={tp!r} joined by the root span; P1's "
+          f"{len(quar)} quarantine entries all carry {ctx.trace_id} {card}")
+    del _got, quar
+
+    # T4: memory, Prometheus, Perfetto, the CLI
+    telemetry.reset()
+    path1()
+    snap = telemetry.snapshot()
+    peak_torch = torch.cuda.max_memory_allocated(0)
+    mem = (snap.get("device") or {}).get("memory") or {}
+    rec = mem.get("cuda:0") or {}
+    peak = rec.get("peak_bytes_in_use", 0)
+    if not peak or peak > peak_torch:
+        raise SystemExit(f"T4: note_memory {mem}, "
+                         f"max_memory_allocated {peak_torch}")
+    samples = prom_lines_parse(telemetry.prometheus(snap))
+    prom_ex = prom_lines_parse(telemetry.prometheus(snap, exemplars=True))
+    doc = json.loads(json.dumps(telemetry.perfetto_trace(snap)))
+    events = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    if not events or any(e["dur"] < 0 for e in events):
+        raise SystemExit(f"T4: Perfetto trace of {len(events)} events")
+    saved = here / "build" / "telemetry_snapshot.json"
+    saved.parent.mkdir(exist_ok=True)
+    saved.write_text(json.dumps(snap))
+    report = subprocess.run(
+        [sys.executable, "-m", "pyruhvro_tpu_torch.telemetry", "report",
+         str(saved)], cwd=here, capture_output=True, text=True)
+    if report.returncode or "== phase breakdown ==" not in report.stdout:
+        raise SystemExit(f"T4: the telemetry CLI exited {report.returncode}"
+                         f": {report.stderr[-2000:]}")
+    out["t4"] = {"peak_bytes_in_use": peak, "max_memory_allocated":
+                 peak_torch, "bytes_limit": rec.get("bytes_limit"),
+                 "prom_samples": samples, "perfetto_events": len(events)}
+    print(f"telemetry T4: note_memory peak {peak / 1e9:.3f} GB (in use "
+          f"{rec.get('bytes_in_use', 0) / 1e9:.3f} GB of "
+          f"{rec.get('bytes_limit', 0) / 1e9:.1f} GB), "
+          f"torch.cuda.max_memory_allocated {peak_torch / 1e9:.3f} GB; "
+          f"Prometheus text: {samples} samples, every line parses ({prom_ex}"
+          f" with exemplars); Perfetto JSON: {len(events)} events; the CLI's "
+          f"report of the saved snapshot ({saved.name}) ran {card}")
     return out
 
 
@@ -2164,7 +2475,7 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     for leg in ("list", "binary_array", "binary_array", "list"):
         triples = dec.decode_to_columns_overlapped(
             data if leg == "list" else view, k)
-        pack[leg].append(triples[0][2]["timings"]["pack_s"])
+        pack[leg].append(host_pack_s(triples[0][2]["timings"]))
         del triples
     print(f"policy P2: deserialize_array_threaded(pa.array({len(data)} "
           f"records, pa.binary())) equal to the list's batches; pack_s in "
@@ -2287,7 +2598,13 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
     import pyruhvro_tpu_torch as port
     from pyruhvro_tpu_torch import api as port_api
-    from pyruhvro_tpu_torch.runtime import capacity, ingest, native
+    from pyruhvro_tpu_torch.runtime import (
+        capacity,
+        ingest,
+        native,
+        telemetry,
+        traceprop,
+    )
     from pyruhvro_tpu_torch.runtime import pack as packing
     from pyruhvro_tpu_torch.runtime.chunking import chunk_bounds
     from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
@@ -2599,6 +2916,18 @@ def main() -> int:
         raise SystemExit(f"encode_rows ran {spans[0]} staged and {spans[1]} "
                          f"direct write blocks: both paths must run")
 
+    # 7. the observability base: telemetry on and off, the launch registry
+    # beside this script's kernel times, trace_ctx, the exporters
+    t0 = time.perf_counter()
+    tel = telemetry_phase(
+        port, torch, telemetry, traceprop, dm, em, data, kafka,
+        {kind: {"queued": k["queued_ms"], "idle": k["ms"]}
+         for kind, k in (("walk", k1), ("finalize", k2), ("walk_decode", k4),
+                         ("encode_rows", k3_rows),
+                         ("encode_strings", k3_strings))},
+        here, card)
+    print(f"telemetry phase: {time.perf_counter() - t0:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -2640,6 +2969,7 @@ def main() -> int:
     for r in rows:
         r["registers"] = regs[r["source"]]
     print(json.dumps({"host": host}))
+    print(json.dumps({"telemetry": tel}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

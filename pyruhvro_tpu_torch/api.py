@@ -20,8 +20,26 @@ inside :func:`.gate.host_supported`, the pure-Python oracle
 ``PYRUHVRO_TPU_NO_NATIVE=1`` (the reference's ``_route_candidates`` and
 ``_native_host_codec``, ``api.py:222-306``). The reference's ``"auto"``
 (its tier router) and ``"tpu"`` raise ``ValueError``: the router is not
-ported (``ROADMAP.md`` (a) 8) and the port has no TPU. ``tenant=`` and
-``trace_ctx=`` wait for the planes they feed.
+ported (``ROADMAP.md`` (a) 8) and the port has no TPU. ``tenant=`` waits
+for memory accounting (``ROADMAP.md`` (a) 8) and raises ``TypeError``.
+
+Telemetry (``runtime/telemetry.py``): each call opens the reference's
+root span (``api.deserialize_array``, ``api.deserialize_array_threaded``
+or ``api.serialize_record_batch``) with ``rows``, ``backend`` and
+``schema`` (the fingerprint), and records its tier with
+``set_route(tier, reason)`` (tiers ``device``, ``native``,
+``fallback``; reasons ``backend_device`` and ``backend_host``). The
+oracle's work runs under ``fallback.decode_s`` / ``fallback.encode_s``,
+the tolerant paths under ``decode.tolerant_s`` / ``encode.tolerant_s``.
+``trace_ctx=`` (a W3C ``traceparent`` string, a
+``traceprop.TraceContext`` or a ``(trace_id, span_id)`` tuple) makes the
+root span join that trace; without it the ambient context, then
+``PYRUHVRO_TPU_TRACEPARENT``, applies, else a new trace id is minted
+(``api.py:904-912`` of the reference). A malformed value counts
+``trace.parse_error`` and is ignored. Quarantine entries carry the
+call's trace id. A call of the device tier with telemetry on reads the
+card's memory watermarks once, after its work (``device_obs.note_memory``;
+the reference reads them after each decode and encode).
 
 ``data`` is a list of Avro datums (``bytes``) or a pyarrow
 ``BinaryArray`` / ``LargeBinaryArray`` (or a ``ChunkedArray`` of either;
@@ -79,8 +97,8 @@ from .fallback.decoder import (
 from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
-from .runtime import deadline, knobs, quarantine
-from .runtime.chunking import chunk_bounds
+from .runtime import deadline, device_obs, knobs, quarantine, telemetry
+from .runtime.chunking import bounds_rows, chunk_bounds
 from .runtime.ingest import as_datum_input
 from .runtime.pack import record_lengths
 from .runtime.pool import map_chunks
@@ -124,11 +142,22 @@ def _check_on_error(on_error: str) -> str:
 def _codec(entry: SchemaEntry, backend: str, device):
     """The call's ``(tier, impl)``: ``("device", DeviceCodec)``,
     ``("native", NativeHostCodec)`` or ``("fallback", None)`` (the
-    oracle)."""
+    oracle), recorded on the call's root span by ``set_route``."""
     if backend != "host":
-        return "device", get_device_codec(entry, device)
-    native = _native_host_codec(entry)
-    return ("fallback", None) if native is None else ("native", native)
+        tier, impl = "device", get_device_codec(entry, device)
+    else:
+        native = _native_host_codec(entry)
+        tier, impl = ("fallback", None) if native is None else \
+            ("native", native)
+    telemetry.set_route(tier, "backend_" + backend)
+    return tier, impl
+
+
+def _note_memory(tier: str, impl) -> None:
+    """The card's memory watermarks (``device_obs.note_memory``), once
+    per call of the device tier with telemetry on."""
+    if tier == "device" and telemetry.enabled():
+        device_obs.note_memory(impl.decoder.device)
 
 
 def _native_host_codec(entry: SchemaEntry):
@@ -343,7 +372,7 @@ def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
     if tier != "fallback" and num_chunks is not None and not too_long:
         try:
             out = impl.decode_threaded(data, num_chunks)
-            quarantine.publish([])
+            quarantine.publish([], policy)
             return out, []
         except _DATA_ERRORS as e:
             if _named_rows(e, n) is None and not is_value_error(e) and \
@@ -357,7 +386,8 @@ def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
                    for j in too_long if a <= j < b]
         drop = {e.index for e in entries}
         pairs = [(j, d) for j, d in enumerate(data[a:b], a) if j not in drop]
-        batch = _tolerant_decode(tier, impl, entry, pairs, entries)
+        with telemetry.phase("decode.tolerant_s", rows=b - a, tier=tier):
+            batch = _tolerant_decode(tier, impl, entry, pairs, entries)
         return _apply_null_policy(batch, entries, a, b - a, policy,
                                   entry), entries
 
@@ -366,7 +396,7 @@ def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
     else:
         done = [run_chunk(ab) for ab in bounds]
     quar = [e for _batch, entries in done for e in entries]
-    quarantine.publish(quar)
+    quarantine.publish(quar, policy)
     return [batch for batch, _entries in done], quar
 
 
@@ -461,7 +491,7 @@ def _apply_null_policy(batch, entries, base, n, policy, entry):
 def deserialize_array(
     data: Sequence[bytes], schema: str, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None,
+    timeout_s: Optional[float] = None, trace_ctx=None,
 ) -> pa.RecordBatch:
     """Decode Avro datums into a single RecordBatch (≙ upstream's
     ``deserialize_array``, ``src/lib.rs:56-71``). The keywords are the
@@ -470,11 +500,16 @@ def deserialize_array(
     _check_on_error(on_error)
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
-    with deadline.scope(timeout_s, op="deserialize_array"):
+    with telemetry.root_span("api.deserialize_array", rows=len(data),
+                             trace_ctx=trace_ctx, backend=backend,
+                             schema=entry.fingerprint), \
+            deadline.scope(timeout_s, op="deserialize_array"):
         tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _deserialize_one(tier, impl, entry, data, on_error,
-                                return_errors)
+        out = _deserialize_one(tier, impl, entry, data, on_error,
+                               return_errors)
+        _note_memory(tier, impl)
+        return out
 
 
 def _deserialize_one(tier, impl, entry, data, on_error, return_errors):
@@ -482,8 +517,10 @@ def _deserialize_one(tier, impl, entry, data, on_error, return_errors):
     if on_error == "raise":
         _enforce_max_datum(data)
         if tier == "fallback":
-            batch = decode_to_record_batch(data, entry.ir, entry.arrow_schema,
-                                           _host_reader(entry))
+            with telemetry.phase("fallback.decode_s", rows=len(data)):
+                batch = decode_to_record_batch(data, entry.ir,
+                                               entry.arrow_schema,
+                                               _host_reader(entry))
         else:
             batch = impl.decode(data)
         return (batch, []) if return_errors else batch
@@ -495,6 +532,7 @@ def deserialize_array_threaded(
     data: Sequence[bytes], schema: str, num_chunks: int, *,
     backend: str = "device", device="cuda", on_error: str = "raise",
     return_errors: bool = False, timeout_s: Optional[float] = None,
+    trace_ctx=None,
 ) -> List[pa.RecordBatch]:
     """Decode into one RecordBatch per chunk, with upstream's chunk
     bounds (``len // num_chunks`` rows each, the remainder in the last;
@@ -506,11 +544,17 @@ def deserialize_array_threaded(
     _check_on_error(on_error)
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
-    with deadline.scope(timeout_s, op="deserialize_array_threaded"):
+    with telemetry.root_span("api.deserialize_array_threaded",
+                             rows=len(data), chunks=num_chunks,
+                             trace_ctx=trace_ctx, backend=backend,
+                             schema=entry.fingerprint), \
+            deadline.scope(timeout_s, op="deserialize_array_threaded"):
         tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _deserialize_chunks(tier, impl, entry, data, num_chunks,
-                                   on_error, return_errors)
+        out = _deserialize_chunks(tier, impl, entry, data, num_chunks,
+                                  on_error, return_errors)
+        _note_memory(tier, impl)
+        return out
 
 
 def _deserialize_chunks(tier, impl, entry, data, num_chunks, on_error,
@@ -523,10 +567,17 @@ def _deserialize_chunks(tier, impl, entry, data, num_chunks, on_error,
             out = impl.decode_threaded(data, num_chunks)
         else:
             reader = _host_reader(entry)
-            out = [decode_to_record_batch(data[a:b], entry.ir,
-                                          entry.arrow_schema, reader,
-                                          index_base=a)
-                   for a, b in chunk_bounds(len(data), num_chunks)]
+
+            def decode_chunk(ab):
+                a, b = ab
+                with telemetry.phase("fallback.decode_s", rows=b - a):
+                    return decode_to_record_batch(
+                        data[a:b], entry.ir, entry.arrow_schema, reader,
+                        index_base=a)
+
+            out = map_chunks(decode_chunk,
+                             chunk_bounds(len(data), num_chunks),
+                             rows=bounds_rows)
         return (out, []) if return_errors else out
     out, quar = _decode_tolerant(tier, impl, entry, data, num_chunks,
                                  on_error)
@@ -537,19 +588,21 @@ def deserialize_array_threaded_spawn(
     data: Sequence[bytes], schema: str, num_chunks: int, *,
     backend: str = "device", device="cuda", on_error: str = "raise",
     return_errors: bool = False, timeout_s: Optional[float] = None,
+    trace_ctx=None,
 ) -> List[pa.RecordBatch]:
     """Signature-parity alias of :func:`deserialize_array_threaded`
     (≙ ``src/lib.rs:108-128``; the thread-pool flavour is a host-side
     detail)."""
     return deserialize_array_threaded(
         data, schema, num_chunks, backend=backend, device=device,
-        on_error=on_error, return_errors=return_errors, timeout_s=timeout_s)
+        on_error=on_error, return_errors=return_errors, timeout_s=timeout_s,
+        trace_ctx=trace_ctx)
 
 
 def serialize_record_batch(
     batch, schema: str, num_chunks: int, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None,
+    timeout_s: Optional[float] = None, trace_ctx=None,
 ) -> List[pa.Array]:
     """Encode a RecordBatch (or a Table) into Avro datums, one
     ``BinaryArray`` per chunk with upstream's chunk bounds
@@ -568,11 +621,17 @@ def serialize_record_batch(
         batches = batch.combine_chunks().to_batches()
         batch = batches[0] if batches else pa.RecordBatch.from_pylist(
             [], schema=batch.schema)
-    with deadline.scope(timeout_s, op="serialize_record_batch"):
+    with telemetry.root_span("api.serialize_record_batch",
+                             rows=batch.num_rows, chunks=num_chunks,
+                             trace_ctx=trace_ctx, backend=backend,
+                             schema=entry.fingerprint), \
+            deadline.scope(timeout_s, op="serialize_record_batch"):
         tier, impl = _codec(entry, backend, device)
         deadline.check(site="call_start")
-        return _serialize_chunks(tier, impl, entry, batch, num_chunks,
-                                 on_error, return_errors)
+        out = _serialize_chunks(tier, impl, entry, batch, num_chunks,
+                                on_error, return_errors)
+        _note_memory(tier, impl)
+        return out
 
 
 def _serialize_chunks(tier, impl, entry, batch, num_chunks, on_error,
@@ -584,23 +643,33 @@ def _serialize_chunks(tier, impl, entry, batch, num_chunks, on_error,
             out = impl.encode_threaded(batch, num_chunks)
         else:
             plan = _host_plan(entry)
-            out = [pa.array(encode_record_batch(batch.slice(a, b - a),
-                                                entry.ir, plan), pa.binary())
-                   for a, b in chunk_bounds(batch.num_rows, num_chunks)]
+
+            def encode_chunk(ab):
+                a, b = ab
+                with telemetry.phase("fallback.encode_s", rows=b - a):
+                    return pa.array(encode_record_batch(
+                        batch.slice(a, b - a), entry.ir, plan), pa.binary())
+
+            out = map_chunks(encode_chunk,
+                             chunk_bounds(batch.num_rows, num_chunks),
+                             rows=bounds_rows)
         return (out, []) if return_errors else out
-    arr, quar = _tolerant_encode(tier, impl, entry, batch, on_error)
+    with telemetry.phase("encode.tolerant_s", rows=batch.num_rows,
+                         tier=tier):
+        arr, quar = _tolerant_encode(tier, impl, entry, batch, on_error)
     out = [arr.slice(a, b - a) for a, b in chunk_bounds(len(arr), num_chunks)]
-    quarantine.publish(quar)
+    quarantine.publish(quar, on_error, op="encode")
     return (out, quar) if return_errors else out
 
 
 def serialize_record_batch_spawn(
     batch, schema: str, num_chunks: int, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None,
+    timeout_s: Optional[float] = None, trace_ctx=None,
 ) -> List[pa.Array]:
     """Signature-parity alias of :func:`serialize_record_batch`
     (≙ ``src/lib.rs:130-147``)."""
     return serialize_record_batch(
         batch, schema, num_chunks, backend=backend, device=device,
-        on_error=on_error, return_errors=return_errors, timeout_s=timeout_s)
+        on_error=on_error, return_errors=return_errors, timeout_s=timeout_s,
+        trace_ctx=trace_ctx)

@@ -405,15 +405,33 @@ __global__ void finalize_epilogue_kernel(const long long* entries, int n,
 
 }  // namespace
 
+// Records a timing event (a cudaEvent_t, or null for none) on `s`. The
+// launch entries record the wrapper's two events right before and right
+// after the kernel, once their set-up calls are done, so that no host work
+// falls between the events and the kernel.
+static int record_event(void* ev, cudaStream_t s) {
+  return ev ? (int)cudaEventRecord(static_cast<cudaEvent_t>(ev), s) : 0;
+}
+
+// What an entry with no work returns: both events recorded, nothing
+// between them.
+static int record_no_work(void* ev0, void* ev1, cudaStream_t s) {
+  const int rc = record_event(ev0, s);
+  return rc != 0 ? rc : record_event(ev1, s);
+}
+
 // One gather pass on `stream`; returns a CUDA error code (0 = launched).
-// offsets null: the row pass over n_pos = R rows, slot = position.
+// offsets null: the row pass over n_pos = R rows, slot = position. ev0 and
+// ev1 (cudaEvent_t or null) are recorded right before and after the kernel
+// (both, with nothing between them, when there is no work).
 extern "C" int decode_finalize_pass(const void* offsets,
                                     const void* parent_slot, int n_entries,
                                     int icap, int n_pos, void* slot_out,
                                     const void* jobs, int n_jobs,
                                     const void* src_ptrs, const void* src_lens,
                                     void* blob, long long offsets_at,
-                                    void* red, void* stream) {
+                                    void* red, void* stream, void* ev0,
+                                    void* ev1) {
   if (n_pos < 0 || n_entries < 0 || (offsets && n_entries < 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -434,19 +452,27 @@ extern "C" int decode_finalize_pass(const void* offsets,
   const long long work =
       offsets ? (long long)max(n_pos, n_entries + 1) : (long long)n_pos;
   const long long blocks = (work + kTile - 1) / kTile;
-  if (blocks == 0) return 0;
-  finalize_pass_kernel<<<(unsigned)blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) return record_no_work(ev0, ev1, s);
+  int rc = record_event(ev0, s);
+  if (rc != 0) return rc;
+  finalize_pass_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(p);
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, s);
 }
 
-// The reductions and the status bytes, on `stream`, after every pass.
+// The reductions and the status bytes, on `stream`, after every pass; ev0
+// and ev1 as for a pass.
 extern "C" int decode_finalize_epilogue(const void* entries, int n, void* blob,
-                                        const void* red, void* stream) {
+                                        const void* red, void* stream,
+                                        void* ev0, void* ev1) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  finalize_epilogue_kernel<<<(n + 127) / 128, 128, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = record_event(ev0, s);
+  if (rc != 0) return rc;
+  finalize_epilogue_kernel<<<(n + 127) / 128, 128, 0, s>>>(
       static_cast<const long long*>(entries), n, static_cast<uint8_t*>(blob),
       static_cast<const int32_t*>(red));
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, s);
 }

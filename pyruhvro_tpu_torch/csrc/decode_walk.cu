@@ -826,13 +826,31 @@ int blocks_per_sm(int smem_bytes) {
   return rc != 0 ? -rc : n;
 }
 
+// Records a timing event (a cudaEvent_t, or null for none) on `s`. The
+// launch entries record the wrapper's two events right before and right
+// after the kernel, once their set-up calls are done, so that no host work
+// falls between the events and the kernel.
+static int record_event(void* ev, cudaStream_t s) {
+  return ev ? (int)cudaEventRecord(static_cast<cudaEvent_t>(ev), s) : 0;
+}
+
+// What an entry with no work returns: both events recorded, nothing
+// between them.
+static int record_no_work(void* ev0, void* ev1, cudaStream_t s) {
+  const int rc = record_event(ev0, s);
+  return rc != 0 ? rc : record_event(ev1, s);
+}
+
 template <int D>
-int launch(const Params& p, int shmem, cudaStream_t stream) {
-  const int rc = allow_smem<D>(shmem);
+int launch(const Params& p, int shmem, cudaStream_t stream, void* ev0,
+           void* ev1) {
+  int rc = allow_smem<D>(shmem);
+  if (rc == 0) rc = record_event(ev0, stream);
   if (rc != 0) return rc;
   decode_walk_kernel<D><<<(p.R + kThreads - 1) / kThreads, kThreads, shmem,
                           stream>>>(p);
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, stream);
 }
 
 }  // namespace
@@ -862,14 +880,17 @@ extern "C" int decode_walk_blocks_per_sm(int stack, int smem_bytes) {
 // kKeyTab. Every output buffer and err are written whole. status
 // [3 * max(n_keys, 1) + 2 * n_regions + 3] must hold INT_MIN in its span
 // maxima, -1 in it_max and 0 elsewhere (the wrapper's reset); its last
-// two words count the blocks staged and reading device memory.
+// two words count the blocks staged and reading device memory. ev0 and ev1
+// (cudaEvent_t or null) are recorded right before and after the kernel.
 extern "C" int decode_walk(const void* words, long long n_words,
                            const void* starts, const void* lengths, int n,
                            int R, const void* table, int code_len, int n_bufs,
                            int n_regions, int depth, int stack, int n_keys,
                            int in_budget, int fold, void* status, void* log,
-                           int log_cap, void* err, void* stream) {
-  if (R <= 0) return 0;
+                           int log_cap, void* err, void* stream, void* ev0,
+                           void* ev1) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0) return record_no_work(ev0, ev1, s);
   if (n_words <= 0 || n_words > (1ll << 30) || depth > stack || n < 0 ||
       n > R || in_budget < 0 || in_budget % 16 != 0 || fold < 0 ||
       fold > kKeyTab || reinterpret_cast<uintptr_t>(words) % 16 != 0) {
@@ -896,11 +917,10 @@ extern "C" int decode_walk(const void* words, long long n_words,
   p.log_cap = log_cap;
   p.err = static_cast<uint32_t*>(err);
   const int shmem = layout_of(code_len, n_bufs, n_regions, in_budget).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (stack) {
-    case 1: return launch<1>(p, shmem, s);
-    case 2: return launch<2>(p, shmem, s);
-    case 8: return launch<8>(p, shmem, s);
+    case 1: return launch<1>(p, shmem, s, ev0, ev1);
+    case 2: return launch<2>(p, shmem, s, ev0, ev1);
+    case 8: return launch<8>(p, shmem, s, ev0, ev1);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -842,18 +842,35 @@ extern "C" int encode_rows_blocks_per_sm(int smem_bytes) {
   return rc != 0 ? -rc : n;
 }
 
+// Records a timing event (a cudaEvent_t, or null for none) on `s`. The
+// launch entries record the wrapper's two events right before and right
+// after the kernel, once their set-up calls are done, so that no host work
+// falls between the events and the kernel.
+static int record_event(void* ev, cudaStream_t s) {
+  return ev ? (int)cudaEventRecord(static_cast<cudaEvent_t>(ev), s) : 0;
+}
+
+// What an entry with no work returns: both events recorded, nothing
+// between them.
+static int record_no_work(void* ev0, void* ev1, cudaStream_t s) {
+  const int rc = record_event(ev0, s);
+  return rc != 0 ? rc : record_event(ev1, s);
+}
+
 // Launches one pass of the row walk on `stream`; returns a CUDA error code
 // (0 = launched). write = 0: row_sizes[R] (cum and out unused). write = 1:
 // out at start = cum[row] - row_sizes[row] and the #dst lanes, for rows < n;
 // a block whose span fits span_budget (a multiple of 16 up to kSpanMax;
 // out 16-B aligned) stages it in shared memory. The wrapper asks for
-// what costs no resident block, and at least kSpanFloor.
+// what costs no resident block, and at least kSpanFloor. ev0 and ev1
+// (cudaEvent_t or null) are recorded right before and after the kernel.
 extern "C" int encode_rows(const void* base, const void* code, int code_len,
                            const void* lanes, int n_lanes, int n, int R,
                            int depth, int write, int span_budget,
                            const void* cum, void* row_sizes, void* out,
-                           void* stream) {
-  if (R <= 0) return 0;
+                           void* stream, void* ev0, void* ev1) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0) return record_no_work(ev0, ev1, s);
   if (n < 0 || n > R || depth > kMaxDepth || code_len <= 0 ||
       (write && (cum == nullptr || out == nullptr)) ||
       span_budget < 0 || span_budget > kSpanMax || span_budget % 16 != 0 ||
@@ -862,15 +879,16 @@ extern "C" int encode_rows(const void* base, const void* code, int code_len,
   }
   const int budget = write ? span_budget : 0;
   const int shmem = encode_rows_smem_bytes(n_lanes, code_len, budget);
-  const int rc = allow_rows_smem(shmem);
+  int rc = allow_rows_smem(shmem);
+  if (rc == 0) rc = record_event(ev0, s);
   if (rc != 0) return rc;
-  encode_rows_kernel<<<(R + kThreads - 1) / kThreads, kThreads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  encode_rows_kernel<<<(R + kThreads - 1) / kThreads, kThreads, shmem, s>>>(
       static_cast<const uint8_t*>(base), static_cast<const int32_t*>(code),
       code_len, static_cast<const long long*>(lanes), n_lanes, n, R, write,
       budget, static_cast<const int32_t*>(cum),
       static_cast<int32_t*>(row_sizes), static_cast<uint8_t*>(out));
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, s);
 }
 
 // Dynamic shared memory of one encode_strings block: kByteStages window
@@ -885,11 +903,14 @@ static int strings_smem_bytes() {
 // bytes (each column's windows cover [0, extent) of its #bytes and are
 // numbered from its table row's first window), walked in order by a grid
 // of as many blocks as fit the card at once, each taking a contiguous run.
-// Returns a CUDA error code.
+// Returns a CUDA error code. ev0 and ev1 (cudaEvent_t or null) are
+// recorded right before and after the kernel.
 extern "C" int encode_strings(const void* base, const void* lanes,
                               const void* cols, int n_cols,
-                              long long n_windows, void* out, void* stream) {
-  if (n_windows <= 0 || n_cols <= 0) return 0;
+                              long long n_windows, void* out, void* stream,
+                              void* ev0, void* ev1) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_windows <= 0 || n_cols <= 0) return record_no_work(ev0, ev1, s);
   if (n_windows > INT_MAX || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -906,13 +927,14 @@ extern "C" int encode_strings(const void* base, const void* lanes,
   if (rc == 0)
     rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, encode_strings_kernel, kStringThreads, shmem);
+  if (rc == 0) rc = record_event(ev0, s);
   if (rc != 0) return rc;
   const long long grid =
       min(n_windows, (long long)sms * max(per_sm, 1) * kGridWaves);
-  encode_strings_kernel<<<(unsigned)grid, kStringThreads, shmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  encode_strings_kernel<<<(unsigned)grid, kStringThreads, shmem, s>>>(
       static_cast<const uint8_t*>(base), static_cast<const long long*>(lanes),
       static_cast<const int32_t*>(cols), n_cols, (int32_t)n_windows,
       static_cast<uint8_t*>(out));
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, s);
 }

@@ -678,6 +678,21 @@ extern "C" int walk_decode_blocks_per_sm(int smem_bytes) {
   return rc != 0 ? -rc : n;
 }
 
+// Records a timing event (a cudaEvent_t, or null for none) on `s`. The
+// launch entries record the wrapper's two events right before and right
+// after the kernel, once their set-up calls are done, so that no host work
+// falls between the events and the kernel.
+static int record_event(void* ev, cudaStream_t s) {
+  return ev ? (int)cudaEventRecord(static_cast<cudaEvent_t>(ev), s) : 0;
+}
+
+// What an entry with no work returns: both events recorded, nothing
+// between them.
+static int record_no_work(void* ev0, void* ev1, cudaStream_t s) {
+  const int rc = record_event(ev0, s);
+  return rc != 0 ? rc : record_event(ev1, s);
+}
+
 // Launches the walk on `stream`; returns a CUDA error code (0 = launched).
 // R must be a multiple of tile_r, itself a multiple of 128; flat, every
 // buffer pointer and the budgets 16-B aligned; flat readable up to
@@ -685,15 +700,17 @@ extern "C" int walk_decode_blocks_per_sm(int smem_bytes) {
 // of regions above fixed_upto are written whole; cut must be zeroed. The
 // span tables of regions above fixed_upto must hold INT_MIN (span_max) and
 // 0 (in_mask); those of regions 1..fixed_upto hold what an earlier launch
-// recorded, and stay as they are.
+// recorded, and stay as they are. ev0 and ev1 (cudaEvent_t or null) are
+// recorded right before and after the kernel.
 extern "C" int walk_decode(const void* flat, const void* offs, const void* act,
                            const void* base, int R, int row_words,
                            const void* table, int code_len, int n_bufs,
                            int n_regions, const void* buf_ptrs, int tile_r,
                            int fixed_upto, int in_budget, int out_bytes,
                            void* span_max, void* in_mask, void* cut, void* err,
-                           void* stream) {
-  if (R <= 0) return 0;
+                           void* stream, void* ev0, void* ev1) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0) return record_no_work(ev0, ev1, s);
   if (R % kThreads != 0 || tile_r % kThreads != 0 || R % tile_r != 0 ||
       in_budget < 0 || in_budget % 16 != 0 || out_bytes < 0 ||
       out_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(flat) % 16 != 0) {
@@ -721,9 +738,10 @@ extern "C" int walk_decode(const void* flat, const void* offs, const void* act,
   p.err = static_cast<uint32_t*>(err);
   const int shmem =
       layout_of(code_len, n_bufs, n_regions, in_budget, out_bytes).total;
-  const int rc = allow_smem(shmem);
+  int rc = allow_smem(shmem);
+  if (rc == 0) rc = record_event(ev0, s);
   if (rc != 0) return rc;
-  walk_decode_kernel<<<R / kThreads, kThreads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  walk_decode_kernel<<<R / kThreads, kThreads, shmem, s>>>(p);
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : record_event(ev1, s);
 }

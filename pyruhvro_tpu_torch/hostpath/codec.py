@@ -19,22 +19,29 @@ data, :func:`..ops.encode_extract.run_extractor`'s ``host_mode`` layout
 feeds the VM's ``encode``. Chunked calls of at least ``_PER_CHUNK_ROWS``
 rows per chunk go through the native shard runner in one call (an
 encode it declines runs one encode per chunk on the thread pool). Every
-lane gives the same values; :attr:`NativeHostCodec.counts` counts which
-served.
+lane gives the same values.
+
+Telemetry (the reference's, ``hostpath/codec.py:156-860``): the phases
+``host.decode_s``, ``host.vm_s`` and ``host.build_s`` on decode;
+``host.extract_s``, ``host.extract_native_s`` and ``host.encode_vm_s``
+on encode; the lane counters ``decode.fused`` /
+``decode.fused_fallback``, ``extract.native`` / ``extract.fallback``
+(with ``extract.fallback_shape`` / ``_data``) and ``shard.native``; a
+``pool.fanout_s`` span with the shard runner's own efficiency
+(``pool.eff_fanouts``), and ``chunk_mode`` on the call's span.
 
 Departures from the reference (``ROADMAP.md`` (c)): a failed build, or an
 error of the VM or the shard runner, raises (the reference degrades to
 the oracle or to its serial chunk loop). The specialiser and the
 superoptimizer are not ported: the raw program runs, the reference's
 ``PYRUHVRO_TPU_NO_SPECIALIZE=1`` / ``PYRUHVRO_TPU_NO_OPT=1`` arm. The
-profiler, sampling, metrics, breaker and fault hooks wait for
-``ROADMAP.md`` (a) 8, and the writer's bounds-checked debug mode
+profiler, sampling, breaker and fault hooks wait for ``ROADMAP.md``
+(a) 8, and the writer's bounds-checked debug mode
 (``PYRUHVRO_DEBUG_BOUNDS``) is not ported.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -50,9 +57,9 @@ from ..ops.arrow_build import (
 )
 from ..ops.encode_extract import batch_to_struct, run_extractor
 from ..ops.varint import ERR_NAMES, ERR_SLUGS
-from ..runtime import deadline, native
-from ..runtime.chunking import chunk_bounds
-from ..runtime.pool import map_chunks
+from ..runtime import deadline, metrics, native, telemetry
+from ..runtime.chunking import bounds_rows, chunk_bounds
+from ..runtime.pool import fanout_stats, map_chunks
 from .program import (
     COL_F64,
     COL_I64,
@@ -62,18 +69,7 @@ from .program import (
     lower_host,
 )
 
-__all__ = ["NativeHostCodec", "COUNTS"]
-
-# the lane counters of :attr:`NativeHostCodec.counts`
-COUNTS = (
-    "decode_fused",           # batches the fused wire→Arrow pass served
-    "decode_fused_declined",  # batches it declined (plan-buffer lane)
-    "extract_native",         # encodes the native extractor served
-    "extract_declined",       # encodes it declined (host_mode lane)
-    "decode_shards",          # chunked decodes through the shard runner
-    "encode_shards",          # chunked encodes through the shard runner
-    "native_fanouts",         # fan-outs the shard runner made (its stats)
-)
+__all__ = ["NativeHostCodec"]
 
 
 def _value_error(e: Exception) -> Exception:
@@ -110,17 +106,6 @@ class NativeHostCodec:
         # the last Arrow schema the native extractor declined on shape:
         # repeated encodes of that shape skip the doomed native probe
         self._extract_declined_schema = None
-        self._lock = threading.Lock()
-        self.counts = dict.fromkeys(COUNTS, 0)
-
-    def _count(self, key: str, k: int = 1) -> None:
-        with self._lock:
-            self.counts[key] += k
-
-    def reset_counts(self) -> None:
-        """Set every lane counter to 0."""
-        with self._lock:
-            self.counts = dict.fromkeys(COUNTS, 0)
 
     # -- decode -----------------------------------------------------------
 
@@ -131,23 +116,29 @@ class NativeHostCodec:
         directly) into one RecordBatch; ``nthreads`` 0 lets the VM pick
         its shard-thread count."""
         n = len(data)
-        deadline.check(index=0, site="host.vm")
-        native_data = (data.native_parts() if hasattr(data, "native_parts")
-                       else data)
-        prog = self.prog
-        payload, err_rec, err_bits = self._mod.decode_arrow(
-            prog.ops, prog.coltypes, prog.op_aux, native_data, nthreads)
-        self._raise_malformed(err_rec, err_bits)
-        tag, body = payload
-        if tag == "arrow":
-            # every buffer already in Arrow's layout
-            self._count("decode_fused")
-            return build_fused_record_batch(self.ir, self.arrow_schema,
-                                            body, n)
-        # the native pass declined: its plan buffers go through the Python
-        # assembly, which words the error where there is one
-        self._count("decode_fused_declined")
-        return self._plan_batch(body, n)
+        with telemetry.phase("host.decode_s", rows=n):
+            deadline.check(index=0, site="host.vm")
+            native_data = (data.native_parts()
+                           if hasattr(data, "native_parts") else data)
+            prog = self.prog
+            with telemetry.phase("host.vm_s", specialized=False, fused=True):
+                payload, err_rec, err_bits = self._mod.decode_arrow(
+                    prog.ops, prog.coltypes, prog.op_aux, native_data,
+                    nthreads)
+            self._raise_malformed(err_rec, err_bits)
+            tag, body = payload
+            if tag == "arrow":
+                # every buffer already in Arrow's layout
+                metrics.inc("decode.fused")
+                with telemetry.phase("host.build_s", fused=True):
+                    return build_fused_record_batch(self.ir,
+                                                    self.arrow_schema, body,
+                                                    n)
+            # the native pass declined: its plan buffers go through the
+            # Python assembly, which words the error where there is one
+            metrics.inc("decode.fused_fallback")
+            with telemetry.phase("host.build_s", fused=False):
+                return self._plan_batch(body, n)
 
     @staticmethod
     def _raise_malformed(err_rec: int, err_bits: int) -> None:
@@ -178,24 +169,33 @@ class NativeHostCodec:
         meta = {"item_totals": item_totals, "flat": np.zeros(0, np.uint8)}
         return build_record_batch(self.ir, self.arrow_schema, host, n, meta)
 
-    def _drain_fanouts(self) -> int:
-        """Read and clear the shard runners' fan-out counts (each module
-        has its own pool and stats)."""
-        total = 0
+    def _drain_shard_stats(self) -> dict:
+        """Read and clear the shard runners' fan-out stats (each module
+        has its own pool and stats), summed."""
+        tot = {"fanouts": 0, "shards": 0, "shard_s": 0.0, "wall_s": 0.0,
+               "threads": 0}
         for m in (self._mod, self._extract_mod):
-            if m is not None:
-                total += m.shard_stats()["fanouts"]
-        return total
+            if m is None:
+                continue
+            d = m.shard_stats()
+            for k in ("fanouts", "shards", "shard_s", "wall_s"):
+                tot[k] += d[k]
+            tot["threads"] = max(tot["threads"], d["threads"])
+        return tot
 
     def _decode_native_shards(self, data, bounds) -> List[pa.RecordBatch]:
         """One native call for the whole batch, the shard runner fanning
         rows out over its workers; the batch is sliced per chunk."""
         for a, _b in bounds:
             deadline.check(index=a, site="host.chunk")
-        self._drain_fanouts()
-        batch = self.decode(data)
-        self._count("decode_shards")
-        self._count("native_fanouts", self._drain_fanouts())
+        telemetry.annotate(chunk_mode="native_shard")
+        self._drain_shard_stats()  # discard counts from other callers
+        with fanout_stats(len(bounds), native=True) as stats:
+            batch = self.decode(data)
+            d = self._drain_shard_stats()
+            if d["fanouts"]:
+                stats.native_fanout(d["shard_s"], d["wall_s"], d["threads"])
+        metrics.inc("shard.native")
         return [compact_union_slices(batch.slice(a, b - a))
                 for a, b in bounds]
 
@@ -208,6 +208,7 @@ class NativeHostCodec:
         bounds = chunk_bounds(len(data), num_chunks)
         if len(data) >= self._PER_CHUNK_ROWS * max(len(bounds), 1):
             return self._decode_native_shards(data, bounds)
+        telemetry.annotate(chunk_mode="slice")
         batch = self.decode(data)
         return [compact_union_slices(batch.slice(a, b - a))
                 for a, b in bounds]
@@ -233,7 +234,8 @@ class NativeHostCodec:
         words)."""
         if (self._extract_declined_schema is not None
                 and batch.schema.equals(self._extract_declined_schema)):
-            self._count("extract_declined")
+            metrics.inc("extract.fallback")
+            metrics.inc("extract.fallback_shape")
             return None
         if self._extract_mod is None:
             self._extract_mod = native.load_extract().module
@@ -259,12 +261,19 @@ class NativeHostCodec:
         if isinstance(res, int):
             # 1 = an Arrow shape outside the native surface; 2 = a data
             # error the Python extractor reports with its exact message
-            self._count("extract_declined")
+            metrics.inc("extract.fallback")
+            metrics.inc("extract.fallback_data" if res == 2
+                        else "extract.fallback_shape")
             if res == 1:
                 self._extract_declined_schema = batch.schema
             return None
-        blob, offs, _t_extract, _t_encode = res
-        self._count("extract_native")
+        blob, offs, t_ex, t_enc = res
+        # the native call's own split of its seconds
+        telemetry.observe("host.extract_s", t_ex, rows=n, native=True)
+        telemetry.observe("host.extract_native_s", t_ex, rows=n)
+        telemetry.observe("host.encode_vm_s", t_enc, fused=True,
+                          specialized=False)
+        metrics.inc("extract.native")
         return self._wrap_blob(blob, offs, n)
 
     def _encode_buffers(self, ex) -> List[np.ndarray]:
@@ -315,18 +324,21 @@ class NativeHostCodec:
     def _encode_host_mode(self, batch: pa.RecordBatch, n: int) -> pa.Array:
         """The lane for a batch the native extractor declines: the Python
         extractor's ``host_mode`` layout fed to the VM's ``encode``."""
-        try:
-            ex = run_extractor(self.ir, batch, host_mode=True)
-        except (ValueError, OverflowError) as e:
-            raise _value_error(e)
-        bufs = self._encode_buffers(ex)
+        with telemetry.phase("host.extract_s", rows=n, native=False):
+            try:
+                ex = run_extractor(self.ir, batch, host_mode=True)
+            except (ValueError, OverflowError) as e:
+                raise _value_error(e)
+            bufs = self._encode_buffers(ex)
         # the extractor's bound is a strict upper bound on the wire total,
         # so the VM writes unchecked into one allocation of that size;
         # past 1 GiB hint=0 selects its capacity-checked growth instead
         hint = ex.bound if ex.bound <= (1 << 30) else 0
         try:
-            blob, offs = self._mod.encode(self.prog.ops, self.prog.coltypes,
-                                          bufs, n, hint, 0)
+            with telemetry.phase("host.encode_vm_s", specialized=False):
+                blob, offs = self._mod.encode(self.prog.ops,
+                                              self.prog.coltypes, bufs, n,
+                                              hint, 0)
         except OverflowError as e:
             if "decimal" in str(e):
                 raise _value_error(e)  # the oracle's int.to_bytes overflow
@@ -338,16 +350,23 @@ class NativeHostCodec:
         spreading rows over its workers; the array is sliced per chunk.
         None when the native extractor declines the batch, or the batch
         passes int32 offsets: the per-chunk path then serves."""
-        self._drain_fanouts()
+        telemetry.annotate(chunk_mode="native_shard")
+        self._drain_shard_stats()  # discard counts from other callers
         try:
-            arr = self._encode_native(batch, batch.num_rows,
-                                      nshards=len(bounds))
+            with fanout_stats(len(bounds), native=True, op="encode") as stats:
+                arr = self._encode_native(batch, batch.num_rows,
+                                          nshards=len(bounds))
+                d = self._drain_shard_stats()
+                if d["fanouts"]:
+                    stats.native_fanout(d["shard_s"], d["wall_s"],
+                                        d["threads"])
         except BatchTooLarge:
+            metrics.inc("shard.fallback")
             return None  # the per-chunk path's splitter serves the call
         if arr is None:
+            metrics.inc("shard.fallback")
             return None
-        self._count("encode_shards")
-        self._count("native_fanouts", self._drain_fanouts())
+        metrics.inc("shard.native")
         return [arr.slice(a, b - a) for a, b in bounds]
 
     def encode_threaded(self, batch: pa.RecordBatch,
@@ -365,7 +384,7 @@ class NativeHostCodec:
             return map_chunks(
                 lambda ab: self._encode_split(
                     batch.slice(ab[0], ab[1] - ab[0])),
-                bounds)
+                bounds, rows=bounds_rows)
         arr = self._encode_split(batch)
         return [arr.slice(a, b - a) for a, b in bounds]
 

@@ -85,4 +85,9 @@ def load_kernel_library(source: str) -> KernelLibrary:
         lib = KernelLibrary(ctypes.CDLL(str(out)), out, build_s, log)
         with _lock:
             _libs[source] = lib
+        if build_s:
+            from ..runtime import device_obs
+
+            # carried by the first launch that uses it (device.compile_s)
+            device_obs.note_build(source, build_s)
         return lib

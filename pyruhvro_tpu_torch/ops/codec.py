@@ -28,7 +28,10 @@ launch budget is halved (each half still encodes on the device), and
 overflow int32 offsets; ``encode_threaded`` encodes once and slices.
 Where the reference serves from its host tier (a schema outside the
 encode subset, one row over the budget, a backend fault), the port
-raises.
+raises. A backend fault (``RuntimeError``, ``OSError``,
+``MemoryError``, but not a deadline: the reference's
+``faults.degradable``) is first counted in ``device.call_failure`` and
+annotated on the span as ``device_degraded`` (``codec.py:110-117``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import List, Sequence
 import pyarrow as pa
 
 from ..errors import BatchTooLarge, MalformedAvro, shift_malformed
+from ..runtime import deadline, metrics, telemetry
 from ..runtime.chunking import chunk_bounds
 from ..schema.cache import SchemaEntry
 from . import UnsupportedOnDevice
@@ -47,6 +51,22 @@ from .decode import DeviceDecoder, overlap_chunks
 from .walk_decode import WalkDecoder, resolve_device
 
 __all__ = ["DeviceCodec", "get_device_codec", "pallas_mode"]
+
+
+def _degradable(e: BaseException) -> bool:
+    """The reference's fault taxonomy (``runtime/faults.py:57-69``): a
+    backend or runtime fault, not a data, capacity or deadline
+    condition."""
+    return (isinstance(e, (RuntimeError, OSError, MemoryError))
+            and not isinstance(e, deadline.DeadlineExceeded))
+
+
+def _device_call_failed(e: BaseException) -> None:
+    """Count and annotate one device fault (the reference's
+    ``_device_call_failed`` without its breaker, which waits for the
+    router); the caller re-raises it."""
+    metrics.inc("device.call_failure")
+    telemetry.annotate(device_degraded=type(e).__name__)
 
 
 def pallas_mode() -> str:
@@ -65,10 +85,12 @@ class DeviceCodec:
     def __init__(self, entry: SchemaEntry, device="cuda", pallas="off"):
         self.ir = entry.ir
         self.arrow_schema = entry.arrow_schema
+        self.fingerprint = entry.fingerprint
         self.decoder = None
         if pallas == "mosaic":
             try:
-                self.decoder = WalkDecoder(entry.ir, device)
+                self.decoder = WalkDecoder(entry.ir, device,
+                                           fingerprint=entry.fingerprint)
             except UnsupportedOnDevice:
                 pass  # nested repetition: the pipeline engine serves it
         if self.decoder is None:
@@ -90,6 +112,14 @@ class DeviceCodec:
 
     def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
         try:
+            return self._decode(data)
+        except Exception as e:
+            if _degradable(e):
+                _device_call_failed(e)
+            raise
+
+    def _decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
+        try:
             triples = self._decode_triples(data)
         except BatchTooLarge:
             # one launch is bounded in bytes: halve the batch — each half
@@ -97,9 +127,9 @@ class DeviceCodec:
             if len(data) < 2:
                 raise
             mid = len(data) // 2
-            left = self.decode(data[:mid])
+            left = self._decode(data[:mid])
             try:
-                right = self.decode(data[mid:])
+                right = self._decode(data[mid:])
             except MalformedAvro as e:
                 # the right half reports half-local row indices
                 raise shift_malformed(e, mid) from None
@@ -121,11 +151,20 @@ class DeviceCodec:
 
     def encode(self, batch: pa.RecordBatch) -> pa.Array:
         """Every row as one Avro datum, in one ``BinaryArray``."""
+        try:
+            return self._encode(batch)
+        except Exception as e:
+            if _degradable(e):
+                _device_call_failed(e)
+            raise
+
+    def _encode(self, batch: pa.RecordBatch) -> pa.Array:
         if self._encoder is None:
             from .encode import DeviceEncoder
 
             self._encoder = DeviceEncoder(self.ir, self.arrow_schema,
-                                          self.device)
+                                          self.device,
+                                          fingerprint=self.fingerprint)
         try:
             return self._encoder.encode(batch)
         except BatchTooLarge:
@@ -135,8 +174,8 @@ class DeviceCodec:
                 raise
             mid = batch.num_rows // 2
             try:
-                return pa.concat_arrays([self.encode(batch.slice(0, mid)),
-                                         self.encode(batch.slice(mid))])
+                return pa.concat_arrays([self._encode(batch.slice(0, mid)),
+                                         self._encode(batch.slice(mid))])
             except pa.lib.ArrowInvalid:
                 # the halves fit, their concatenation overflows int32
                 # offsets

@@ -58,6 +58,22 @@ records (:meth:`DeviceDecoder.seed_caps_from_sample`), as in the
 reference; a deadline (:mod:`..runtime.deadline`) is checked at each
 ladder rung and each chunk. Out of this slice: persisting the planner's
 plans.
+
+Telemetry (the reference's, ``decode.py:699-1187``): the phases
+``device.pipeline_s`` (the whole device part of a call),
+``decode.pack_s``, ``device.seed_s``, ``decode.h2d_s``, ``decode.d2h_s``
+and ``device.retry_s``; the counters ``decode.h2d_bytes`` /
+``device.h2d_bytes``, ``decode.d2h_bytes`` / ``device.d2h_bytes``,
+``device.retries``, ``device.arena.hits`` / ``.misses``,
+``device.overlap_s`` / ``device.overlap_calls``; each rung one
+:func:`..runtime.device_obs.launch` (kind ``decode.pipeline``) whose
+kernels are timed by CUDA events (``walk`` and ``finalize``) with the
+bytes of :func:`walk_bytes` and :func:`finalize_bytes` (the card's
+memory watermarks are read once per API call, in ``api.py``).
+``meta["timings"]`` keeps its keys;
+a phase and the timing of its name are one ``perf_counter``
+measurement: ``pack_s`` is ``decode.pack_s`` (the records joined), and
+``arena_s`` the pack into the pinned arenas after it.
 """
 
 from __future__ import annotations
@@ -71,7 +87,7 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
-from ..runtime import capacity, deadline, knobs
+from ..runtime import capacity, deadline, device_obs, knobs, metrics, telemetry
 from ..runtime.chunking import chunk_bounds
 from ..runtime.pack import (
     LAUNCH_MAX_BYTES,
@@ -99,7 +115,9 @@ from .walk_decode import _check, _PlainWalk, resolve_device
 __all__ = ["DeviceDecoder", "walk", "walk_plain", "walk_kernel",
            "finalize", "finalize_plain", "finalize_kernel", "split_blob",
            "blob_layout", "cap_of", "STATUS_BYTES", "overlap_chunks",
-           "raise_aggregated_malformed"]
+           "raise_aggregated_malformed", "walk_bytes", "walk_out_bytes",
+           "finalize_spec",
+           "finalize_pass_bytes", "finalize_bytes", "bucket_label"]
 
 _BIG = 1 << 30              # slot past the cap: dropped (``fieldprog.py:72``)
 _DEFAULT_ITEM_CAP = 8
@@ -110,6 +128,22 @@ _SLOT_LIMIT = 1 << 30       # a region's strided slots: _BIG must drop
 _WALK_BYTES = 1 << 34       # the walk's strided buffers of one launch
 _MIN_LANES = 8              # a launch's fewest lanes (launch_shape)
 STATUS_BYTES = 8            # after the blob: byte 0 = an #offsets total >= 2^31
+# the builds a bucket's first launch carries (device_obs.note_build)
+_BUILDS = ("decode_walk.cu", "decode_finalize.cu", "packer")
+
+
+def bucket_label(R: int, B: int, item_caps=(), tot_caps=(),
+                 compact: bool = True) -> str:
+    """The launch registry's bucket of one rung (the reference's
+    ``_bucket_label``, ``decode.py:216-227``)."""
+    label = f"R{R},B{B}"
+    if len(item_caps) > 1:
+        label += ",i" + "/".join(str(c) for c in item_caps[1:])
+    if len(tot_caps) > 1:
+        label += ",t" + "/".join(str(c) for c in tot_caps[1:])
+    if not compact:
+        label += ",full"
+    return label
 
 
 def overlap_chunks(n_rows: int) -> int:
@@ -849,7 +883,8 @@ class _DecodeWalkKernel:
                 P, I, I, I, I, I, I,    # table code_len n_bufs n_regions
                                         # depth stack n_keys
                 I, I,                   # in_budget fold
-                P, P, I, P, P]          # status log log_cap err stream
+                P, P, I, P, P,          # status log log_cap err stream
+                P, P]                   # ev0 ev1 (timing events or null)
             cdll.decode_walk.restype = I
             cdll.decode_walk_smem_bytes.argtypes = [I, I, I, I]
             cdll.decode_walk_smem_bytes.restype = I
@@ -892,16 +927,20 @@ class _DecodeWalkKernel:
         if L.words.device.type != "cuda":
             raise RuntimeError("walk_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_walk
-        stream = torch.cuda.current_stream(L.words.device).cuda_stream
-        L.reset()
-        rc = fn(L.words.data_ptr(), L.words.numel(), L.starts.data_ptr(),
+        st = torch.cuda.current_stream(L.words.device)
+        stream = st.cuda_stream
+        args = (L.words.data_ptr(), L.words.numel(), L.starts.data_ptr(),
                 L.lengths.data_ptr(), L.n, L.R, L.table.data_ptr(),
                 len(L.prog.code), len(L.bufs), L.n_regions, L.prog.depth,
                 L.stack, L.n_keys, L.in_budget, L.fold,
                 L.status.data_ptr(), L.log.data_ptr(), L.log_cap,
                 L.err.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"decode_walk launch failed: CUDA error {rc}")
+        L.reset()
+        with device_obs.timed("walk", L.words.device, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"decode_walk launch failed: CUDA error "
+                                   f"{rc}")
         with self._lock:
             self.launches += 1
 
@@ -912,7 +951,9 @@ class _DecodeWalkKernel:
 
     def run(self, L: WalkLaunch):
         """``(buffers, #err)``: launch, and relaunch until every loop ran
-        with the reference's bound (``WalkLaunch.settle``)."""
+        with the reference's bound (``WalkLaunch.settle``). Inside a
+        :func:`..runtime.device_obs.launch` each launch call is timed as
+        ``walk`` (the host's status reads between them are not)."""
         for _ in range(_MAX_WALK_LAUNCHES):
             self.launch(L)
             if L.settle():
@@ -932,7 +973,8 @@ def walk(words, starts, lengths, n: int, prog: Program, item_caps):
     if words.device.type == "cuda":
         return walk_kernel(words, starts, lengths, n, prog, item_caps)
     if words.device.type == "cpu":
-        return walk_plain(words, starts, lengths, n, prog, item_caps)
+        with device_obs.timed("walk", words.device):
+            return walk_plain(words, starts, lengths, n, prog, item_caps)
     raise RuntimeError(f"no walk for device {words.device}")
 
 
@@ -1102,10 +1144,11 @@ class _FinalizeKernel:
                            P, P, I,            # slot_out jobs n_jobs
                            P, P,               # src_ptrs src_lens
                            P, LL, P,           # blob offsets_at red
-                           P]                  # stream
+                           P, P, P]            # stream ev0 ev1
             fn.restype = ctypes.c_int
             ep = lib.cdll.decode_finalize_epilogue
-            ep.argtypes = [P, I, P, P, P]      # entries n blob red stream
+            ep.argtypes = [P, I, P, P, P,      # entries n blob red stream
+                           P, P]               # ev0 ev1
             ep.restype = ctypes.c_int
         return lib
 
@@ -1128,7 +1171,8 @@ class _FinalizeKernel:
         if plan.dev.type != "cuda":
             raise RuntimeError("finalize_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_finalize_pass
-        stream = torch.cuda.current_stream(plan.dev).cuda_stream
+        st = torch.cuda.current_stream(plan.dev)
+        stream = st.cuda_stream
         rid = p["rid"]
         if rid == ROWS:
             args = (None, None, plan.R, 1, p["n_pos"], None, -1)
@@ -1142,26 +1186,39 @@ class _FinalizeKernel:
                     p["n_pos"], None if smap is None else smap.data_ptr(),
                     p["off_at"])
         off_p, pslot, n_entries, icap, n_pos, smap, off_at = args
-        rc = fn(off_p, pslot, n_entries, icap, n_pos, smap,
+        args = (off_p, pslot, n_entries, icap, n_pos, smap,
                 p["jobs_d"].data_ptr(), len(p["jobs"]),
                 plan.src_ptrs.data_ptr(), plan.src_lens.data_ptr(),
                 plan.blob.data_ptr(), off_at, plan.red.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"decode_finalize launch failed: CUDA error "
-                               f"{rc}")
+        with device_obs.timed("finalize", plan.dev, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"decode_finalize launch failed: CUDA "
+                                   f"error {rc}")
         self._count()
 
     def launch_epilogue(self, plan: FinalizePlan) -> None:
         fn = self.library().cdll.decode_finalize_epilogue
-        stream = torch.cuda.current_stream(plan.dev).cuda_stream
-        rc = fn(plan.entries.data_ptr(), plan.entries.shape[0],
-                plan.blob.data_ptr(), plan.red.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"decode_finalize epilogue failed: CUDA "
-                               f"error {rc}")
+        st = torch.cuda.current_stream(plan.dev)
+        args = (plan.entries.data_ptr(), plan.entries.shape[0],
+                plan.blob.data_ptr(), plan.red.data_ptr(), st.cuda_stream)
+        with device_obs.timed("finalize", plan.dev, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"decode_finalize epilogue failed: CUDA "
+                                   f"error {rc}")
         self._count()
 
     def run(self, plan: FinalizePlan) -> torch.Tensor:
+        """Every pass and the epilogue, enqueued. Inside a
+        :func:`..runtime.device_obs.launch` each launch call is timed as
+        ``finalize`` (the zero fill and the offsets' library calls are
+        not), with the bytes of :func:`finalize_bytes` at the launch's
+        item totals."""
+        if device_obs.recording():
+            spec = finalize_spec(plan)
+            device_obs.add_bytes("finalize", lambda L: finalize_bytes(
+                spec, L.info.get("item_totals", {})))
         plan.red.zero_()  # the passes fold maxima into it
         for p in plan.passes:
             if p["rid"] != ROWS:
@@ -1187,9 +1244,71 @@ def finalize(bufs, err, prog: Program, R: int, B: int, item_caps, tot_caps,
         return finalize_kernel(bufs, err, prog, R, B, item_caps, tot_caps,
                                compact)
     if err.device.type == "cpu":
-        return finalize_plain(bufs, err, prog, R, B, item_caps, tot_caps,
-                              compact)
+        with device_obs.timed("finalize", err.device):
+            return finalize_plain(bufs, err, prog, R, B, item_caps,
+                                  tot_caps, compact)
     raise RuntimeError(f"no finalize for device {err.device}")
+
+
+# -- the bytes each kernel must move (PERF.md's bounds; chip_smoke.py and
+# device_obs read the same functions) ------------------------------------------
+
+# bytes read per position and bits written per position, by job kind
+_JOB_READ = {J_COPY32: 4, J_BITS8: 1, J_SL32: 8, J_START_LENC: 8,
+             J_REDUCE: 4, J_ERRFLAG: 4}
+_JOB_BITS_OUT = {J_COPY32: 32, J_BITS8: 1, J_SL32: 32, J_START_LENC: 48,
+                 J_REDUCE: 0, J_ERRFLAG: 0}
+
+
+def walk_out_bytes(prog: Program, R: int, item_caps) -> int:
+    """The bytes of the walk's output buffers at ``(R, item_caps)``."""
+    return sum(cap_of(prog, R, item_caps, prog.buffers[k].region)
+               * (1 if _dtype(prog, k) == torch.uint8 else 4)
+               for k in prog.out_keys)
+
+
+def walk_bytes(record_bytes: int, R: int, out_bytes: int) -> int:
+    """What one ``decode_walk`` run must move: the records' bytes and the
+    starts and lengths lanes read once, its output buffers
+    (``out_bytes``, :func:`walk_out_bytes`) and ``#err`` written once."""
+    return record_bytes + 8 * R + out_bytes + 4 * R
+
+
+def finalize_spec(plan: FinalizePlan) -> tuple:
+    """What :func:`finalize_bytes` needs of a plan, as host values (so a
+    pending launch does not hold the plan's device buffers): the blob's
+    bytes and, per pass, ``(region, positions, entries, job kinds)``."""
+    return (plan.blob.numel(), tuple(
+        (p["rid"], p["n_pos"], p.get("n_entries", 0),
+         tuple(j[0] for j in p["jobs"])) for p in plan.passes))
+
+
+def finalize_pass_bytes(p: tuple, n_items: int, written: bool = True) -> int:
+    """What one gather pass (an entry of :func:`finalize_spec`) must move:
+    each source element it copies or reduces read once, over the row
+    region's ``R`` lanes or the item region's actual item total
+    ``n_items`` (positions past it read nothing), and, if ``written``,
+    the blob bytes it writes once (an item pass's ``#offsets``
+    included). Its intermediates (the int64 offsets, the slot maps, the
+    children's gathered counts) are not the function's."""
+    rid, n_pos, n_entries, kinds = p
+    n_read = n_pos if rid == ROWS else min(n_pos, n_items)
+    moved = sum(n_read * _JOB_READ[k] for k in kinds)
+    if written:
+        moved += sum(n_pos * _JOB_BITS_OUT[k] // 8 for k in kinds)
+        moved += 4 * (n_entries + 1) if rid else 0
+    return moved
+
+
+def finalize_bytes(spec: tuple, item_totals: Dict[int, int]) -> int:
+    """What one ``decode_finalize`` run must move: the blob written once,
+    and what each pass reads (:func:`finalize_pass_bytes`) at the item
+    totals ``item_totals`` (region id -> total, the blob's ``#red:sum``;
+    a region missing there counts its whole capacity)."""
+    blob_bytes, passes = spec
+    return blob_bytes + sum(
+        finalize_pass_bytes(p, item_totals.get(p[0], p[1]), written=False)
+        for p in passes)
 
 
 # -- the decoder --------------------------------------------------------------------
@@ -1221,13 +1340,14 @@ class _Flight:
     rung it ran at."""
 
     __slots__ = ("i", "blob", "done", "err", "layout", "item_caps",
-                 "tot_caps", "compact")
+                 "tot_caps", "compact", "info")
 
     def __init__(self, i, blob, done, err, layout, item_caps, tot_caps,
-                 compact):
+                 compact, info):
         self.i, self.blob, self.done, self.err = i, blob, done, err
         self.layout, self.item_caps = layout, item_caps
         self.tot_caps, self.compact = tot_caps, compact
+        self.info = info  # its launch's info (device_obs.launch)
 
     def ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -1264,6 +1384,9 @@ class DeviceDecoder:
         # (R, region) pairs a host sample was taken for
         self._seed_tried: set = set()
         self._copy_stream = None
+        # the buckets this decoder launched: a bucket's first launch is
+        # its device.compile_s
+        self._launched: set = set()
         self._lock = threading.Lock()
 
     # -- capacity bookkeeping (copies of decode.py:723-773) ------------------
@@ -1339,9 +1462,11 @@ class DeviceDecoder:
         from ..fallback.decoder import decode_to_record_batch
         from ..schema.arrow_map import to_arrow_schema
 
+        k = min(len(data), 128)
         try:
-            sample = decode_to_record_batch(data[:min(len(data), 128)],
-                                            prog.ir, to_arrow_schema(prog.ir))
+            with telemetry.phase("device.seed_s", rows=k):
+                sample = decode_to_record_batch(data[:k], prog.ir,
+                                                to_arrow_schema(prog.ir))
         except (ValueError, OverflowError):
             return
         for rid in need:
@@ -1374,19 +1499,60 @@ class DeviceDecoder:
             capacity.harvest_decoder(self, R)
 
     def _next_rung(self, R: int, B: int, host, item_caps, tot_caps,
-                   compact: bool) -> bool:
+                   compact: bool, **attrs) -> bool:
         """After a launch at this rung: True when the chunk must run again,
         because a string overflowed the compact descriptors (the bucket is
-        remembered full-width) or a cap grew."""
+        remembered full-width) or a cap grew. Each retry counts
+        ``device.retries`` and leaves a ``device.retry_s`` span saying
+        why, with the capacity that proved too small (``attrs`` adds the
+        ladder's attempt)."""
         prog = self.prog
         if compact and "#red:strfit" in host and not host["#red:strfit"][0]:
             self._str_full.add((R, B))
+            metrics.inc("device.retries")
+            telemetry.observe("device.retry_s", 0.0,
+                              reason="str_descriptor_overflow", **attrs,
+                              capacity=bucket_label(R, B, item_caps,
+                                                    tot_caps, compact))
             return True
         red_max = {rid: int(host["#red:max:" + path][0])
                    for rid, path in enumerate(prog.regions) if rid != ROWS}
         red_sum = {rid: int(host["#red:sum:" + path][0])
                    for rid, path in enumerate(prog.regions) if rid != ROWS}
-        return self.grow_caps(R, item_caps, tot_caps, red_max, red_sum)
+        t0 = time.perf_counter()
+        if not self.grow_caps(R, item_caps, tot_caps, red_max, red_sum):
+            return False
+        metrics.inc("device.retries")
+        telemetry.observe("device.retry_s", time.perf_counter() - t0,
+                          reason="cap_growth", **attrs,
+                          capacity=bucket_label(R, B, item_caps, tot_caps,
+                                                compact),
+                          need_items=max(red_max.values(), default=0),
+                          need_total=max(red_sum.values(), default=0))
+        return True
+
+    def _item_totals(self, host) -> Dict[int, int]:
+        """Region id -> item total of a split blob (its ``#red:sum``)."""
+        return {rid: int(host["#red:sum:" + path][0])
+                for rid, path in enumerate(self.prog.regions) if rid != ROWS}
+
+    def _launch(self, R: int, B: int, item_caps, tot_caps, compact: bool,
+                record_bytes: int, info) -> device_obs.launch:
+        """The launch record of one rung (kind ``decode.pipeline``) around
+        :meth:`pipeline`: the walk's bytes from ``record_bytes`` (the
+        records' bytes), the finalize's from the item totals the caller
+        puts in ``info`` once the blob is on the host."""
+        bucket = bucket_label(R, B, item_caps, tot_caps, compact)
+        with self._lock:
+            first = bucket not in self._launched
+            self._launched.add(bucket)
+        rec = device_obs.launch("decode.pipeline", bucket, self.fingerprint,
+                                first, builds=_BUILDS,
+                                family="decode", info=info)
+        if self.device.type == "cuda":
+            rec.L.add_bytes("walk", walk_bytes(
+                record_bytes, R, walk_out_bytes(self.prog, R, item_caps)))
+        return rec
 
     # -- arenas and copies (decode.py:336-369, 831-839) -----------------------
 
@@ -1405,6 +1571,10 @@ class DeviceDecoder:
                     del self._arenas[old]
                 arena = self._arenas[key] = _Arena(B // 4 + 2 * R + 1,
                                                    self.device)
+                hit = False
+            else:
+                hit = True
+        metrics.inc("device.arena.hits" if hit else "device.arena.misses")
         return arena
 
     def _pack_into(self, arena: _Arena, flat, offsets, R: int,
@@ -1420,7 +1590,12 @@ class DeviceDecoder:
         one copy from pinned memory on the decoder's copy stream, started
         after the last launch that read the device buffer; the current
         stream waits on its event. The copy's device time goes into
-        ``timings["h2d_ms"]`` once the call resolves its events."""
+        ``timings["h2d_ms"]`` once the call resolves its events. Counts the
+        arena's bytes in ``decode.h2d_bytes`` / ``device.h2d_bytes`` (on
+        the CPU the arena is the launch's input itself)."""
+        nbytes = arena.host_t.nbytes
+        metrics.inc("decode.h2d_bytes", nbytes)
+        metrics.inc("device.h2d_bytes", nbytes)
         if self.device.type != "cuda":
             return arena.dev
         with self._lock:
@@ -1468,7 +1643,7 @@ class DeviceDecoder:
 
     @staticmethod
     def _new_timings():
-        return {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0,
+        return {"pack_s": 0.0, "arena_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0,
                 "finalize_s": 0.0, "d2h_s": 0.0, "rungs": 0, "reruns": 0,
                 "chunks": 1, "overlap_s": 0.0, "overlap_frac": 0.0,
                 "h2d_ms": [], "d2h_ms": [], "_events": []}
@@ -1516,13 +1691,15 @@ class DeviceDecoder:
             raise BatchTooLarge(n, -1)
         return split_blob(blob_np[:-STATUS_BYTES], layout)
 
-    def _run_ladder(self, packed, R: int, B: int, n: int, timings):
+    def _run_ladder(self, packed, R: int, B: int, n: int, timings,
+                    record_bytes: int):
         """Launch the pipeline, climbing the capacity ladder until the
         reductions converge (``decode.py:838-918``), then teach the
         planner the rung. Returns the split host dict and the last rung's
-        device ``#err``."""
+        device ``#err``. ``record_bytes`` (the records' bytes) sizes the
+        walk's bound."""
         grew = False
-        for _attempt in range(_MAX_RUNGS):
+        for attempt in range(_MAX_RUNGS):
             # a deadline stops the climb instead of paying rungs it can
             # no longer afford
             deadline.check(site="device.capacity_ladder")
@@ -1530,14 +1707,21 @@ class DeviceDecoder:
             compact = (R, B) not in self._str_full
             layout = blob_layout(self.prog, R, B, item_caps, tot_caps,
                                  compact)
-            blob, err = self.pipeline(packed, R, B, n, item_caps, tot_caps,
-                                      compact, timings)
-            t0 = time.perf_counter()
-            blob_np = blob.cpu().numpy()
-            timings["d2h_s"] += time.perf_counter() - t0
+            info = {}
+            with self._launch(R, B, item_caps, tot_caps, compact,
+                              record_bytes, info):
+                blob, err = self.pipeline(packed, R, B, n, item_caps,
+                                          tot_caps, compact, timings)
+            with telemetry.phase("decode.d2h_s") as ph:
+                blob_np = blob.cpu().numpy()
+            timings["d2h_s"] += ph.dt
+            metrics.inc("decode.d2h_bytes", blob_np.nbytes)
+            metrics.inc("device.d2h_bytes", blob_np.nbytes)
             host = self._split(blob_np, layout, n)
+            info["item_totals"] = self._item_totals(host)
             timings["rungs"] += 1
-            if not self._next_rung(R, B, host, item_caps, tot_caps, compact):
+            if not self._next_rung(R, B, host, item_caps, tot_caps, compact,
+                                   attempt=attempt):
                 self._harvest_plan(R, grew)
                 return host, err
             grew = True
@@ -1623,11 +1807,18 @@ class DeviceDecoder:
         concatenated records, which every ``#start`` indexes) and
         ``timings`` (seconds per host-visible phase, the rungs climbed,
         the copy's device ms on the card)."""
+        with telemetry.phase("device.pipeline_s", rows=len(data),
+                             op="decode"):
+            return self._decode_to_columns(data)
+
+    def _decode_to_columns(self, data: Sequence[bytes]):
         t0 = time.perf_counter()
         timings = self._new_timings()
         n = len(data)
-        flat, offsets = concat_records(data,
-                                       native=self.device.type == "cuda")
+        with telemetry.phase("decode.pack_s", rows=n) as ph:
+            flat, offsets = concat_records(
+                data, native=self.device.type == "cuda")
+        timings["pack_s"] = ph.dt
         total = int(offsets[-1])
         if total > LAUNCH_MAX_BYTES:
             # int32 cursors bound one launch to 1 GiB of datum bytes
@@ -1635,21 +1826,25 @@ class DeviceDecoder:
         R, B = launch_shape(n, total)
         if not self.seed_from_plan(R):
             self.seed_caps_from_sample(data, R)
+        t1 = time.perf_counter()
         arena = self._arena(R, B)
         self._pack_into(arena, flat, offsets, R, B)
-        t1 = time.perf_counter()
-        packed = self._put_packed(arena, timings)
-        if arena.copied is not None:
-            arena.copied.synchronize()
-        timings["pack_s"] = t1 - t0
-        timings["h2d_s"] = time.perf_counter() - t1
-        host, err = self._run_ladder(packed, R, B, n, timings)
+        timings["arena_s"] = time.perf_counter() - t1
+        with telemetry.phase("decode.h2d_s",
+                             bytes=arena.host_t.nbytes) as ph:
+            packed = self._put_packed(arena, timings)
+            if arena.copied is not None:
+                arena.copied.synchronize()
+        timings["h2d_s"] = ph.dt
+        host, err = self._run_ladder(packed, R, B, n, timings,
+                                     record_bytes=total)
         self._mark_consumed(arena)
         if host["#red:err"][0]:
             # K1's #err of the converged rung, copied back only now
             self._raise_row_errors(err.cpu().numpy(), n)
         triple = self._finish_host(host, n, flat, timings)
         self._resolve(timings, t0)
+        device_obs.flush(final=False)
         return triple
 
     # -- the overlapped chunk path (decode.py:1007-1192) ----------------------
@@ -1673,12 +1868,21 @@ class DeviceDecoder:
         the host pack and copy seconds of each chunk after which an
         earlier chunk was still in flight (checked after the host work,
         so it can undercount, never overcount); ``overlap_frac`` is its
-        share of the call."""
+        share of the call. A call with overlap counts ``device.overlap_s``
+        and ``device.overlap_calls`` and annotates its
+        ``device.pipeline_s`` span."""
+        with telemetry.phase("device.pipeline_s", rows=len(data),
+                             op="decode", overlap_chunks=n_chunks):
+            return self._decode_overlapped(data, n_chunks)
+
+    def _decode_overlapped(self, data: Sequence[bytes], n_chunks: int):
         t_wall0 = time.perf_counter()
         timings = self._new_timings()
         n_all = len(data)
-        flat_all, offsets_all = concat_records(
-            data, native=self.device.type == "cuda")
+        with telemetry.phase("decode.pack_s", rows=n_all) as ph:
+            flat_all, offsets_all = concat_records(
+                data, native=self.device.type == "cuda")
+        timings["pack_s"] = ph.dt
         bounds = chunk_bounds(n_all, n_chunks)
         timings["chunks"] = len(bounds)
         chunk_rows = max(b - a for a, b in bounds)
@@ -1690,22 +1894,26 @@ class DeviceDecoder:
         R, B = launch_shape(chunk_rows, chunk_bytes)
         if not self.seed_from_plan(R):
             self.seed_caps_from_sample(data, R)
-        timings["pack_s"] += time.perf_counter() - t_wall0
         arenas: Dict[int, _Arena] = {}
 
         def chunk_flat(i: int) -> np.ndarray:
             a, b = bounds[i]
             return flat_all[int(offsets_all[a]):int(offsets_all[b])]
 
+        def chunk_bytes_of(i: int) -> int:
+            a, b = bounds[i]
+            return int(offsets_all[b] - offsets_all[a])
+
         def put_chunk(i: int) -> torch.Tensor:
             t0 = time.perf_counter()
             a, b = bounds[i]
             arena = arenas[i] = self._arena(R, B, slot=i % 2)
             self._pack_into(arena, chunk_flat(i), offsets_all[a:b + 1], R, B)
-            t1 = time.perf_counter()
-            packed = self._put_packed(arena, timings)
-            timings["pack_s"] += t1 - t0
-            timings["h2d_s"] += time.perf_counter() - t1
+            timings["arena_s"] += time.perf_counter() - t0
+            with telemetry.phase("decode.h2d_s",
+                                 bytes=arena.host_t.nbytes) as ph:
+                packed = self._put_packed(arena, timings)
+            timings["h2d_s"] += ph.dt
             return packed
 
         triples = [None] * len(bounds)
@@ -1727,7 +1935,8 @@ class DeviceDecoder:
             # a cold bucket converges its ladder on chunk 0 first
             packed = put_chunk(0)
             host, err = self._run_ladder(packed, R, B, bounds[0][1],
-                                         timings)
+                                         timings,
+                                         record_bytes=chunk_bytes_of(0))
             finish(0, host, err)
             start = 1
         pending: List[_Flight] = []
@@ -1735,11 +1944,14 @@ class DeviceDecoder:
         def collect_one() -> None:
             f = pending.pop(0)
             a, b = bounds[f.i]
-            t0 = time.perf_counter()
-            if f.done is not None:
-                f.done.synchronize()
-            host = self._split(f.blob.numpy(), f.layout, b - a)
-            timings["d2h_s"] += time.perf_counter() - t0
+            with telemetry.phase("decode.d2h_s") as ph:
+                if f.done is not None:
+                    f.done.synchronize()
+                host = self._split(f.blob.numpy(), f.layout, b - a)
+            timings["d2h_s"] += ph.dt
+            metrics.inc("decode.d2h_bytes", f.blob.numel())
+            metrics.inc("device.d2h_bytes", f.blob.numel())
+            f.info["item_totals"] = self._item_totals(host)
             timings["rungs"] += 1
             err = f.err
             if self._next_rung(R, B, host, f.item_caps, f.tot_caps,
@@ -1749,7 +1961,8 @@ class DeviceDecoder:
                 # chunk i + 2, after this collect)
                 timings["reruns"] += 1
                 host, err = self._run_ladder(arenas[f.i].dev, R, B, b - a,
-                                             timings)
+                                             timings,
+                                             record_bytes=chunk_bytes_of(f.i))
                 # the rerun's ladder starts at the grown caps and records
                 # no growth, so teach the planner here (the reference does
                 # not, and its planned decoders rerun such chunks again)
@@ -1768,11 +1981,16 @@ class DeviceDecoder:
             compact = (R, B) not in self._str_full
             layout = blob_layout(self.prog, R, B, item_caps, tot_caps,
                                  compact)
-            blob, err = self.pipeline(packed, R, B, b - a, item_caps,
-                                      tot_caps, compact, timings, sync=False)
+            info = {}
+            with self._launch(R, B, item_caps, tot_caps, compact,
+                              chunk_bytes_of(i), info):
+                blob, err = self.pipeline(packed, R, B, b - a, item_caps,
+                                          tot_caps, compact, timings,
+                                          sync=False)
             self._mark_consumed(arenas[i])
             pending.append(_Flight(i, *self._fetch(blob, timings), err,
-                                   layout, item_caps, tot_caps, compact))
+                                   layout, item_caps, tot_caps, compact,
+                                   info))
             if len(pending) >= 2:
                 collect_one()
         while pending:
@@ -1780,9 +1998,16 @@ class DeviceDecoder:
         if bad:
             raise_aggregated_malformed(bad)
         self._resolve(timings, t_wall0)
+        device_obs.flush(final=False)
         wall = timings["total_s"]
         timings["overlap_frac"] = min(timings["overlap_s"] / wall, 1.0) \
             if wall > 0 else 0.0
+        if timings["overlap_s"]:
+            metrics.inc("device.overlap_s", timings["overlap_s"])
+            metrics.inc("device.overlap_calls")
+            telemetry.annotate(
+                overlap_s=round(timings["overlap_s"], 6),
+                overlap_frac=round(timings["overlap_frac"], 4))
         return triples
 
     def decode(self, data: Sequence[bytes], arrow_schema):

@@ -58,6 +58,18 @@ loop::
                              run the item code that follows, then
     LOOP repeated_pc         next item, or the terminator 0
     END
+
+Telemetry (the reference's, ``encode.py:1387-1419``): the phases
+``device.pipeline_s`` (``op="encode"``), ``encode.extract_s``,
+``encode.h2d_s`` and ``encode.d2h_s``, the counters
+``encode.h2d_bytes`` / ``device.h2d_bytes`` and ``encode.d2h_bytes`` /
+``device.d2h_bytes``, and one :func:`..runtime.device_obs.launch` per
+batch (kind ``encode.pipeline``) whose entries are timed as
+``encode_rows`` (size and write passes) and ``encode_strings``, with the
+bytes of :func:`k3_bytes` over :func:`rows_traffic` while
+``device_obs.count_walked_bytes`` is on (the walk is host work in
+proportion to the batch); on the CPU the plain program is timed whole
+as ``encode_plain``.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ import torch
 
 from ..errors import BatchTooLarge
 from ..gate import device_supported
+from ..runtime import device_obs, metrics, telemetry
 from ..runtime.pack import bucket_len
 from ..schema.model import (
     Array,
@@ -91,6 +104,7 @@ from .fieldprog import ROWS
 from .walk_decode import resolve_device
 
 __all__ = ["DeviceEncoder", "EncProgram", "EncodeLaunch", "lower_encoder",
+           "rows_traffic", "k3_bytes",
            "encode_plain", "rows_plain", "strings_plain", "run_program",
            "encode_kernel", "MAX_OUTPUT_BYTES", "OPCODES"]
 
@@ -950,11 +964,13 @@ class _EncodeKernel:
             rows.argtypes = [P, P, I, P, I,  # base code code_len lanes
                                              # n_lanes
                              I, I, I, I, I,  # n R depth write span_budget
-                             P, P, P, P]     # cum row_sizes out stream
+                             P, P, P, P,     # cum row_sizes out stream
+                             P, P]           # ev0 ev1
             rows.restype = ctypes.c_int
             strings = lib.cdll.encode_strings
             strings.argtypes = [P, P, P, I,  # base lanes cols n_cols
-                                LL, P, P]    # n_windows out stream
+                                LL, P, P,    # n_windows out stream
+                                P, P]        # ev0 ev1
             strings.restype = ctypes.c_int
             smem = lib.cdll.encode_rows_smem_bytes
             smem.argtypes = [I, I, I]        # n_lanes code_len span_budget
@@ -1013,16 +1029,20 @@ class _EncodeKernel:
         if write and budget is None:
             budget = L.span_budget = self.span_budget(L)
         fn = self.library().cdll.encode_rows
-        stream = torch.cuda.current_stream(L.buf.device).cuda_stream
-        rc = fn(L.buf.data_ptr(), L.code_view().data_ptr(),
+        st = torch.cuda.current_stream(L.buf.device)
+        stream = st.cuda_stream
+        args = (L.buf.data_ptr(), L.code_view().data_ptr(),
                 len(L.prog.code), L.lanes_view().data_ptr(),
                 len(L.prog.lanes), L.n, L.R, L.prog.depth, int(write),
                 budget if write else 0,
                 None if cum is None else cum.data_ptr(),
                 row_sizes.data_ptr(), None if out is None else out.data_ptr(),
                 stream)
-        if rc != 0:
-            raise RuntimeError(f"encode_rows launch failed: CUDA error {rc}")
+        with device_obs.timed("encode_rows", L.buf.device, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"encode_rows launch failed: CUDA error "
+                                   f"{rc}")
         self._count(self.rows)
 
     def launch_strings(self, L: EncodeLaunch, out) -> None:
@@ -1033,13 +1053,16 @@ class _EncodeKernel:
         if L.buf.device.type != "cuda":
             raise RuntimeError("encode_kernel takes CUDA tensors")
         fn = self.library().cdll.encode_strings
-        stream = torch.cuda.current_stream(L.buf.device).cuda_stream
-        rc = fn(L.buf.data_ptr(), L.lanes_view().data_ptr(),
+        st = torch.cuda.current_stream(L.buf.device)
+        stream = st.cuda_stream
+        args = (L.buf.data_ptr(), L.lanes_view().data_ptr(),
                 L.cols_view().data_ptr(), len(L.cols), L.n_windows,
                 out.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"encode_strings launch failed: CUDA error "
-                               f"{rc}")
+        with device_obs.timed("encode_strings", L.buf.device, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"encode_strings launch failed: CUDA "
+                                   f"error {rc}")
         self._count(self.strings)
 
     def run(self, L: EncodeLaunch, timings=None):
@@ -1079,11 +1102,23 @@ class _PhaseClock:
     def lap(self, key: str) -> None:
         if self.timings is None:
             return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+        self.sync()
         now = time.perf_counter()
         self.timings[key] = self.timings.get(key, 0.0) + now - self.t
         self.t = now
+
+    def sync(self) -> None:
+        """The phase's end: a synchronise on the card, with a timings
+        dict only."""
+        if self.timings is not None and self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def add(self, key: str, seconds: float) -> None:
+        """A phase measured by its telemetry phase (one measurement, two
+        views); the next lap starts now."""
+        if self.timings is not None:
+            self.timings[key] = self.timings.get(key, 0.0) + seconds
+        self.t = time.perf_counter()
 
 
 def run_program(L: EncodeLaunch, timings=None):
@@ -1093,9 +1128,120 @@ def run_program(L: EncodeLaunch, timings=None):
     if L.buf.device.type == "cuda":
         return encode_kernel.run(L, timings)
     if L.buf.device.type == "cpu":
-        blob = encode_plain(L.dv(), L.prog, L.cap)
+        with device_obs.timed("encode_plain", L.buf.device):
+            blob = encode_plain(L.dv(), L.prog, L.cap)
         return blob[:L.cap], blob[L.cap:].view(torch.int32)
     raise RuntimeError(f"no encode for device {L.buf.device}")
+
+
+# -- the bytes K3 must move (PERF.md's bounds; chip_smoke.py and device_obs
+# read the same functions) ------------------------------------------------------
+
+
+def rows_traffic(L: EncodeLaunch) -> Dict[str, int]:
+    """What ``L``'s data needs moved, by a walk of the encode code on the
+    host lanes with one mask per axis (the rows below ``n``, then each
+    collection's items under its parent's mask): ``"lanes"``, each
+    extractor lane entry the code reaches, read once; ``"off"``, the
+    ``#off`` entry of each non-empty collection reached; ``"dst"``, 4 B
+    of ``#dst`` per payload placed; ``"placed"``, the payloads placed,
+    and ``"payload"``, their bytes. A mask covers a prefix of its axis
+    (the entries past it are out): the int ``k`` for the first ``k``
+    entries whole (the rows below ``n``, and the items of those rows'
+    collections, which come first on their axis), else a bool array."""
+    prog, dv = L.prog, L.dv_np
+    code = prog.code.tolist()
+    moved = {"lanes": 0, "off": 0, "dst": 0, "placed": 0, "payload": 0}
+
+    def count(mask) -> int:
+        return mask if isinstance(mask, int) else int(np.count_nonzero(mask))
+
+    def lane(pc_lane, mask):
+        """The lane's entries over the mask's prefix."""
+        values = dv[prog.lanes[pc_lane]]
+        return values[:mask if isinstance(mask, int) else mask.size]
+
+    def where(mask, cond):
+        """The entries of ``mask`` where ``cond`` (over its prefix)."""
+        return cond if isinstance(mask, int) else mask & cond
+
+    def read(pc_lane, mask):
+        key = prog.lanes[pc_lane]
+        width = 16 if key.endswith("#dec") else dv[key].itemsize
+        moved["lanes"] += width * count(mask)
+
+    def block(pc, stop, mask):
+        """From ``pc`` to ``stop`` or the JUMP, LOOP or END that closes
+        the block; returns where it stopped."""
+        while pc != stop and code[pc] not in (OP_JUMP, OP_LOOP, OP_END):
+            op = code[pc]
+            if op in (OP_VARINT32, OP_F32, OP_BOOL):
+                read(code[pc + 1], mask)
+                pc += 2
+            elif op in (OP_VARINT64, OP_F64, OP_DEC_BYTES):
+                read(code[pc + 1], mask)
+                read(code[pc + 2], mask)
+                pc += 3
+            elif op in (OP_STRING, OP_PAYLOAD):
+                placed = count(mask)
+                if op == OP_STRING:
+                    read(code[pc + 1], mask)
+                    lens = lane(code[pc + 1], mask)
+                    if not isinstance(mask, int):
+                        lens = lens * mask
+                    moved["payload"] += int(lens.sum(dtype=np.int64))
+                else:
+                    moved["payload"] += code[pc + 1] * placed
+                moved["dst"] += 4 * placed
+                moved["placed"] += placed
+                pc += 3
+            elif op == OP_DEC_FIXED:
+                read(code[pc + 2], mask)
+                pc += 3
+            elif op == OP_NULLABLE:
+                read(code[pc + 1], mask)
+                pc = block(pc + 4, code[pc + 3],
+                           where(mask, lane(code[pc + 1], mask) != 0))
+            elif op == OP_UNION:
+                read(code[pc + 1], mask)
+                tid = lane(code[pc + 1], mask)
+                for k in range(code[pc + 2]):
+                    if code[pc + 4 + k] >= 0:
+                        block(code[pc + 4 + k], code[pc + 3],
+                              where(mask, tid == k))
+                pc = code[pc + 3]
+            elif op == OP_REPEATED:
+                read(code[pc + 1], mask)
+                counts = np.maximum(lane(code[pc + 1], mask), 0)
+                if isinstance(mask, int):
+                    moved["off"] += 4 * int(np.count_nonzero(counts))
+                    # the items of the first rows come first on their axis
+                    items = int(counts.sum(dtype=np.int64))
+                else:
+                    nonempty = mask & (counts > 0)
+                    moved["off"] += 4 * int(np.count_nonzero(nonempty))
+                    items = np.repeat(nonempty, counts)
+                block(pc + 4, code[pc + 3], items)
+                pc = code[pc + 3]
+            else:
+                raise AssertionError(f"opcode {op} at {pc}")
+        return pc
+
+    block(0, len(code), L.n)
+    return moved
+
+
+def k3_bytes(traffic: Dict[str, int], total: int, R: int) -> Tuple[int, int]:
+    """``(encode_rows, encode_strings)``: the bytes each entry must move
+    for a batch whose wire is ``total`` bytes. ``encode_rows``: the lane
+    entries its code reaches and ``#off`` in, the non-payload bytes,
+    ``#dst`` and the row sizes out; ``encode_strings``: ``#src``,
+    ``#len`` and ``#dst`` of each placed payload in, its bytes in and
+    out."""
+    rows = (traffic["lanes"] + traffic["off"] + traffic["dst"]
+            + (total - traffic["payload"]) + 4 * R)
+    strings = 12 * traffic["placed"] + 2 * traffic["payload"]
+    return rows, strings
 
 
 # -- the encoder -------------------------------------------------------------------
@@ -1106,19 +1252,24 @@ class DeviceEncoder:
     → one copy of ``[0, total)`` and the row sizes back → ``BinaryArray``
     (the reference's ``DeviceEncoder.encode``, ``encode.py:1378-1429``)."""
 
-    def __init__(self, ir: Record, arrow_schema: pa.Schema, device="cuda"):
+    def __init__(self, ir: Record, arrow_schema: pa.Schema, device="cuda",
+                 fingerprint: str = None):
         self.device = resolve_device(device)
         self.ir = ir
         self.arrow_schema = arrow_schema
+        self.fingerprint = fingerprint  # the launch registry's schema key
+        self._launched: set = set()  # buckets launched (first = compile)
+        self._lock = threading.Lock()
         self.prog = lower_encoder(ir)  # raises UnsupportedOnDevice
 
     def launch(self, batch: pa.RecordBatch, timings=None) -> EncodeLaunch:
         """Extract, check the budget, pack and upload: the launch that
         :func:`run_program` takes."""
         n = batch.num_rows
+        with telemetry.phase("encode.extract_s", rows=n) as ph:
+            dv, bound = extract_batch(self.prog, batch, self.ir)
         clock = _PhaseClock(self.device, timings)
-        dv, bound = extract_batch(self.prog, batch, self.ir)
-        clock.lap("extract_s")
+        clock.add("extract_s", ph.dt)
         if bound >= MAX_OUTPUT_BYTES:
             # int32 cursors and the drop sentinel need the output under
             # 2^30 bytes; the codec splits the batch
@@ -1126,9 +1277,38 @@ class DeviceEncoder:
         L = EncodeLaunch(self.prog, dv, bucket_len(bound, minimum=64), n)
         host = L.pack()
         clock.lap("pack_s")
-        L.upload(host, self.device)
-        clock.lap("h2d_s")
+        metrics.inc("encode.h2d_bytes", host.nbytes)
+        metrics.inc("device.h2d_bytes", host.nbytes)
+        with telemetry.phase("encode.h2d_s", bytes=host.nbytes) as ph:
+            L.upload(host, self.device)
+            clock.sync()
+        clock.add("h2d_s", ph.dt)
         return L
+
+    def _launch(self, L: EncodeLaunch, info) -> device_obs.launch:
+        """The launch record of one batch (kind ``encode.pipeline``); its
+        bucket is the buffer's input bytes and output capacity."""
+        bucket = f"in{L.in_bytes},cap{L.cap}"
+        with self._lock:
+            first = bucket not in self._launched
+            self._launched.add(bucket)
+        rec = device_obs.launch("encode.pipeline", bucket, self.fingerprint,
+                                first, builds=("encode.cu",),
+                                family="encode", info=info)
+        if self.device.type == "cuda" and device_obs.walked_bytes():
+            traffic = []
+
+            def moved(part):
+                def fn(launch):
+                    if not traffic:
+                        traffic.append(rows_traffic(L))
+                    return k3_bytes(traffic[0], launch.info["total"],
+                                    L.R)[part]
+                return fn
+
+            rec.L.add_bytes("encode_rows", moved(0))
+            rec.L.add_bytes("encode_strings", moved(1))
+        return rec
 
     def encode(self, batch: pa.RecordBatch, timings=None) -> pa.Array:
         """Every row as one Avro datum, in a ``BinaryArray``. With a
@@ -1138,20 +1318,30 @@ class DeviceEncoder:
         n = batch.num_rows
         if n == 0:
             return pa.array([], pa.binary())
+        with telemetry.phase("device.pipeline_s", rows=n, op="encode"):
+            return self._encode(batch, n, timings)
+
+    def _encode(self, batch: pa.RecordBatch, n: int, timings) -> pa.Array:
         t0 = time.perf_counter()
         L = self.launch(batch, timings)
-        out, row_sizes = run_program(L, timings)
-        t1 = time.perf_counter()
-        sizes = row_sizes[:n].cpu().numpy()
-        offsets = np.zeros(n + 1, np.int32)
-        np.cumsum(sizes, out=offsets[1:])
-        total = int(offsets[-1])
-        data = out[:total].cpu().numpy()
+        info = {"total": 0}
+        with self._launch(L, info):
+            out, row_sizes = run_program(L, timings)
+        with telemetry.phase("encode.d2h_s") as ph:
+            sizes = row_sizes[:n].cpu().numpy()
+            offsets = np.zeros(n + 1, np.int32)
+            np.cumsum(sizes, out=offsets[1:])
+            total = int(offsets[-1])
+            data = out[:total].cpu().numpy()
+        metrics.inc("encode.d2h_bytes", sizes.nbytes + data.nbytes)
+        metrics.inc("device.d2h_bytes", sizes.nbytes + data.nbytes)
+        info["total"] = total
+        device_obs.flush(final=False)
         t2 = time.perf_counter()
         arr = pa.Array.from_buffers(
             pa.binary(), n,
             [None, pa.py_buffer(offsets), pa.py_buffer(data)])
         if timings is not None:
             t3 = time.perf_counter()
-            timings.update(d2h_s=t2 - t1, wrap_s=t3 - t2, total_s=t3 - t0)
+            timings.update(d2h_s=ph.dt, wrap_s=t3 - t2, total_s=t3 - t0)
         return arr

@@ -43,6 +43,16 @@ finishes is exact) and records each tile's span max; if a lane was cut
 short, the wrapper relaunches, and the kernel then bounds the repeated
 fields up to the first cut one by the tile spans recorded for them (at
 most one relaunch per repeated field; the tables stay on the card).
+
+Telemetry (the reference's, ``pallas_decode.py:304-399``): the phases
+``device.pipeline_s`` and ``decode.pack_s`` (both with
+``kernel="pallas"``), ``decode.h2d_s`` and ``decode.d2h_s``, their byte
+counters, ``device.retries`` with a ``device.retry_s`` span per rung
+climbed, and one :func:`..runtime.device_obs.launch` per rung (kind
+``decode.pallas``) whose kernel runs are timed as ``walk_decode`` with
+the bytes of :func:`launch_bytes`. ``meta["timings"]["pack_s"]`` is
+the ``decode.pack_s`` phase's reading; ``rows_s`` times the row arrays
+built after it.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, MalformedAvro
+from ..runtime import device_obs, metrics, telemetry
 from ..runtime.pack import bucket_len, concat_records, record_lengths
 from . import UnsupportedOnDevice
 from .fieldprog import (
@@ -97,7 +108,7 @@ from .varint import (
     zigzag_decode_pair,
 )
 
-__all__ = ["WalkDecoder", "KernelLaunch", "walk", "walk_plain",
+__all__ = ["WalkDecoder", "KernelLaunch", "walk", "walk_plain", "launch_bytes",
            "walk_padded", "walk_kernel", "walk_supported", "resolve_device",
            "padded_rows", "block_spans", "stage_plan", "input_staging"]
 
@@ -110,6 +121,15 @@ _THREADS = 128              # kernel block size; divides every tile
 _TAIL = 16                  # zero bytes after flat (16-B copy units)
 _IN_STAGE_MAX = 32 << 10    # shared memory for one block's record span
 _OUT_STAGE_MAX = 48 << 10   # shared memory for one block's output slices
+# the builds a bucket's first launch carries (device_obs.note_build)
+_BUILDS = ("walk_decode.cu", "packer")
+
+
+def launch_bytes(record_bytes: int, R: int, output_bytes: int) -> int:
+    """What one ``walk_decode`` launch must move: every record's bytes
+    once (contiguous), ``offs`` (``R + 1`` int64), ``act`` and ``base``
+    once, and every output element (``#err`` included) once."""
+    return record_bytes + (R + 1) * 8 + 4 * R + 4 * R + output_bytes
 
 
 def resolve_device(device) -> torch.device:
@@ -602,7 +622,7 @@ class _WalkKernel:
                            I, I, I, I,         # tile_r fixed_upto in_budget
                                                # out_bytes
                            P, P, P, P,         # span_max in_mask cut err
-                           P]                  # stream
+                           P, P, P]            # stream ev0 ev1
             fn.restype = ctypes.c_int
             smem = lib.cdll.walk_decode_smem_bytes
             smem.argtypes = [I, I, I, I, I]    # code_len n_bufs n_regions
@@ -616,15 +636,19 @@ class _WalkKernel:
     def launch(self, L: KernelLaunch) -> None:
         """One launch on the current stream; no synchronisation."""
         fn = self.library().cdll.walk_decode
-        stream = torch.cuda.current_stream(L.flat.device).cuda_stream
-        rc = fn(L.flat.data_ptr(), L.offs.data_ptr(), L.act.data_ptr(),
+        st = torch.cuda.current_stream(L.flat.device)
+        stream = st.cuda_stream
+        args = (L.flat.data_ptr(), L.offs.data_ptr(), L.act.data_ptr(),
                 L.base.data_ptr(), L.act.numel(), L.BW, L.table.data_ptr(),
                 len(L.prog.code), len(L.bufs), L.n_regions,
                 L.ptrs.data_ptr(), L.tile_r, L.fixed_upto, L.in_budget,
                 L.out_bytes, L.span_max.data_ptr(), L.in_mask.data_ptr(),
                 L.cut.data_ptr(), L.err.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"walk_decode launch failed: CUDA error {rc}")
+        with device_obs.timed("walk_decode", L.flat.device, st) as t:
+            rc = fn(*args, *t.events)
+            if rc != 0:
+                raise RuntimeError(f"walk_decode launch failed: CUDA error "
+                                   f"{rc}")
         with self._lock:
             self.launches += 1
 
@@ -635,7 +659,9 @@ class _WalkKernel:
 
     def run(self, L: KernelLaunch):
         """``(buffers, #err)`` of the walk on ``L``'s inputs: launch, and
-        relaunch while lanes are cut short by their own loop bound."""
+        relaunch while lanes are cut short by their own loop bound. Inside
+        a :func:`..runtime.device_obs.launch` each launch call is timed
+        as ``walk_decode``."""
         while True:
             self.launch(L)
             cut = L.cut.cpu().tolist()
@@ -659,7 +685,8 @@ def walk(flat, offs, act, BW: int, base, prog: Program,
     if flat.device.type == "cuda":
         return walk_kernel(flat, offs, act, BW, base, prog, caps, tile_r)
     if flat.device.type == "cpu":
-        return walk_plain(flat, offs, act, BW, base, prog, caps, tile_r)
+        with device_obs.timed("walk_decode", flat.device):
+            return walk_plain(flat, offs, act, BW, base, prog, caps, tile_r)
     raise RuntimeError(f"no walk for device {flat.device}")
 
 
@@ -672,8 +699,11 @@ class WalkDecoder:
     Same contract as the reference's ``PallasKernelDecoder.decode_to_columns``
     (host column dict, row count, meta)."""
 
-    def __init__(self, ir, device="cuda"):
+    def __init__(self, ir, device="cuda", fingerprint: str = None):
         self.device = resolve_device(device)
+        self.fingerprint = fingerprint  # the launch registry's schema key
+        self._launched: set = set()  # buckets launched (first = compile)
+        self._lock = threading.Lock()
         self.prog = lower(ir)
         if not walk_supported(self.prog):
             raise UnsupportedOnDevice(
@@ -756,34 +786,62 @@ class WalkDecoder:
         holds ``item_totals``, ``flat`` (the concatenated records, which
         every ``#start`` descriptor indexes) and ``timings`` (seconds per
         host-visible phase)."""
+        with telemetry.phase("device.pipeline_s", rows=len(data),
+                             op="decode", kernel="pallas"):
+            return self._decode_to_columns(data)
+
+    def _launch(self, R: int, BW: int, caps, tile_r: int):
+        """The launch record of one rung (kind ``decode.pallas``)."""
+        bucket = (f"g{R // tile_r},tile{tile_r},BW{BW},"
+                  f"caps{'/'.join(map(str, caps))}")
+        with self._lock:
+            first = bucket not in self._launched
+            self._launched.add(bucket)
+        return device_obs.launch("decode.pallas", bucket, self.fingerprint,
+                                 first, builds=_BUILDS,
+                                 family="decode")
+
+    def _decode_to_columns(self, data: Sequence[bytes]):
         t0 = time.perf_counter()
         n = len(data)
         lens = record_lengths(data)
         BW = self.row_words(lens)
         prog = self.prog
         caps = self.first_caps()
-        timings = {"pack_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0}
+        timings = {"pack_s": 0.0, "rows_s": 0.0, "h2d_s": 0.0, "walk_s": 0.0}
         tile_r, R = self.launch_rows(n, BW, caps)  # may raise BatchTooLarge
-        t1 = time.perf_counter()
-        flat_np, offsets = concat_records(data, lens, tail=_TAIL,
-                                          native=self.device.type == "cuda")
-        t2 = time.perf_counter()
-        (flat,) = self.to_device([flat_np])
-        timings["pack_s"] += t2 - t1
-        timings["h2d_s"] += time.perf_counter() - t2
+        with telemetry.phase("decode.pack_s", rows=n, kernel="pallas") as ph:
+            flat_np, offsets = concat_records(
+                data, lens, tail=_TAIL, native=self.device.type == "cuda")
+        timings["pack_s"] += ph.dt
+        record_bytes = int(offsets[-1] - offsets[0])
+        flat = None
         prev_R = None
         while True:
             if R != prev_R:
                 t1 = time.perf_counter()
                 row_np = self.row_arrays(offsets, R)
-                t2 = time.perf_counter()
-                offs, act = self.to_device(row_np)
+                timings["rows_s"] += time.perf_counter() - t1
+                up = ([flat_np] if flat is None else []) + list(row_np)
+                nbytes = sum(a.nbytes for a in up)
+                with telemetry.phase("decode.h2d_s", bytes=nbytes) as ph:
+                    got = self.to_device(up)
+                timings["h2d_s"] += ph.dt
+                metrics.inc("decode.h2d_bytes", nbytes)
+                metrics.inc("device.h2d_bytes", nbytes)
+                if flat is None:
+                    flat = got.pop(0)
+                offs, act = got
                 base = offs[:-1].to(torch.int32)
-                timings["pack_s"] += t2 - t1
-                timings["h2d_s"] += time.perf_counter() - t2
                 prev_R = R
             t1 = time.perf_counter()
-            bufs, err = walk(flat, offs, act, BW, base, prog, caps, tile_r)
+            with self._launch(R, BW, caps, tile_r):
+                bufs, err = walk(flat, offs, act, BW, base, prog, caps,
+                                 tile_r)
+                if device_obs.recording() and flat.device.type == "cuda":
+                    out = sum(b.numel() * b.element_size() for b in bufs)
+                    device_obs.add_bytes("walk_decode", launch_bytes(
+                        record_bytes, R, out + err.numel() * 4))
             # only #err comes back until a rung is clean
             err_np = err.cpu().numpy().view(np.uint32)
             timings["walk_s"] += time.perf_counter() - t1
@@ -794,15 +852,23 @@ class WalkDecoder:
                     f"array/map items exceed the pallas cap ladder "
                     f"({_MAX_CAP}/record); use the XLA pipeline"
                 )
+            metrics.inc("device.retries")
+            telemetry.observe(
+                "device.retry_s", 0.0, reason="item_cap_overflow",
+                capacity=f"caps{'/'.join(map(str, caps))}")
             caps = tuple(0 if c == 0 else c * 2 for c in caps)
             tile_r, R = self.launch_rows(n, BW, caps)
         self._caps = caps
-        t1 = time.perf_counter()
-        host = {
-            key: b.cpu().numpy().view(prog.buffers[key].dtype)
-            for key, b in zip(prog.out_keys, bufs)
-        }
-        timings["d2h_s"] = time.perf_counter() - t1
+        with telemetry.phase("decode.d2h_s") as ph:
+            host = {
+                key: b.cpu().numpy().view(prog.buffers[key].dtype)
+                for key, b in zip(prog.out_keys, bufs)
+            }
+        timings["d2h_s"] = ph.dt
+        nbytes = err_np.nbytes + sum(v.nbytes for v in host.values())
+        metrics.inc("decode.d2h_bytes", nbytes)
+        metrics.inc("device.d2h_bytes", nbytes)
+        device_obs.flush(final=False)
         err = err_np[:n]
         if err.any():
             # every bad row rides in ``indices``, as on the pipeline

@@ -13,11 +13,11 @@ retry. Plans are keyed by (schema fingerprint, ``R``); values are keyed
 by region path and merged by monotonic max, so merging is idempotent and
 order-free.
 
-Not ported yet: persistence through ``ROUTING_PROFILE.json`` and the
-cost model (``entries``/``merge_entries``, ``persist_enabled``) waits for
-``ROADMAP.md`` (a) 8; estimating caps from a host-decoded sample
-(``DeviceDecoder.seed_caps_from_sample``) needs the host tier and waits
-for (a) 4.
+:func:`seed_decoder` counts ``device.capacity.plan_hits`` /
+``.plan_misses`` as the reference does. Not ported yet: persistence
+through ``ROUTING_PROFILE.json`` and the cost model
+(``entries``/``merge_entries``, ``persist_enabled``), which waits for
+``ROADMAP.md`` (a) 6.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Optional, Tuple
 
+from . import metrics
 from .pack import bucket_len
 
 __all__ = ["lookup", "learn", "seed_decoder", "harvest_decoder", "snapshot",
@@ -73,6 +74,7 @@ def seed_decoder(decoder, R: int) -> bool:
     the decoder already climbed to). True when a plan existed."""
     plan = lookup(decoder.fingerprint, R)
     if plan is None:
+        metrics.inc("device.capacity.plan_misses")
         return False
     prog = decoder.prog
     with decoder._lock:
@@ -86,6 +88,7 @@ def seed_decoder(decoder, R: int) -> bool:
                 decoder._tot_cap_mem[(R, rid)] = tcap
         for b in plan["str_full_B"]:
             decoder._str_full.add((R, int(b)))
+    metrics.inc("device.capacity.plan_hits")
     return True
 
 

@@ -1,4 +1,4 @@
-"""Chunking policy (copy of ``pyruhvro_tpu/runtime/chunking.py:24-37``).
+"""Chunking policy (copy of ``pyruhvro_tpu/runtime/chunking.py:18-37``).
 
 ≙ ``clamp_chunks`` (``deserialize.rs:50-55``) and ``build_slices``
 (``deserialize.rs:57-68``): ``num_chunks`` is clamped to
@@ -10,7 +10,13 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-__all__ = ["clamp_chunks", "chunk_bounds"]
+__all__ = ["clamp_chunks", "chunk_bounds", "bounds_rows"]
+
+
+def bounds_rows(ab: Tuple[int, int]) -> int:
+    """Row count of one (start, stop) chunk bound: the pool's per-chunk
+    attribution (the chunk span's ``rows`` and ``pool.worker_rows``)."""
+    return ab[1] - ab[0]
 
 
 def clamp_chunks(num_chunks: int, data_len: int) -> int:

@@ -25,9 +25,10 @@ data error, so it outranks ``on_error``.
 checkpoint, before any launch. ``timeout_s=None`` (the default) defers
 to the knob; no knob means unbounded (one thread-local read per check).
 
-The reference's ``run_bounded`` watchdog thread and its metrics counters
-are not ported: a launch on the card cannot be abandoned from a thread,
-and the port has no metrics plane yet.
+An expiry counts ``deadline.exceeded`` and ``deadline.exceeded.<site>``
+(``deadline.py:196-202``). The reference's ``run_bounded`` watchdog
+thread is not ported: a launch on the card cannot be abandoned from a
+thread.
 """
 
 from __future__ import annotations
@@ -183,7 +184,12 @@ def check(index: Optional[int] = None, site: Optional[str] = None) -> None:
     dl = current()
     if dl is None or time.monotonic() < dl.until:
         return
+    from . import metrics
+
     elapsed = time.monotonic() - dl.t0
+    metrics.inc("deadline.exceeded")
+    if site:
+        metrics.inc("deadline.exceeded." + site)
     at = f" at record {index}" if index is not None else ""
     raise DeadlineExceeded(
         f"{dl.op}: deadline of {dl.budget_s:g}s exceeded after "

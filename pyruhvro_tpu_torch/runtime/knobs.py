@@ -1,19 +1,25 @@
 """Environment knobs the port reads (copy of the parse rules of
 ``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_float``/
-``get_bool``, and of the knobs it registers at ``:82-84``, ``:146-150``,
-``:162-167`` and ``:175``, with their defaults).
+``get_bool``, ``get_tristate``, ``get_str`` and ``get_raw``, and of the
+knobs it registers at ``:82-84``, ``:146-150``, ``:153-159``,
+``:162-167``, ``:175``, ``:189-192`` and ``:211``, with their defaults).
 
 A knob is read at each call, so setting a variable between calls takes
 effect. Unset or empty gives the default; a value that does not parse
-gives the default too (the reference also counts it in its metrics,
-which the port does not have).
+gives the default too, and counts ``knob.parse_error`` and
+``knob.parse_error.<NAME>`` (deferred, as in the reference: read them
+through ``metrics.snapshot()``).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict
 
-__all__ = ["get_bool", "get_int", "get_float", "DEFAULTS"]
+from . import metrics
+
+__all__ = ["get_bool", "get_tristate", "get_int", "get_float", "get_str",
+           "get_raw", "DEFAULTS"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -32,18 +38,74 @@ DEFAULTS = {
     "PYRUHVRO_TPU_DEADLINE_S": None,
     # the host tier: the pure-Python oracle instead of the C++ VM
     "PYRUHVRO_TPU_NO_NATIVE": False,
+    # spans and histograms off from the start (counters stay on)
+    "PYRUHVRO_TPU_NO_TELEMETRY": False,
+    # the JSON-lines span trace: a file path or "stderr"
+    "PYRUHVRO_TPU_TRACE": "",
+    # the W3C traceparent that root spans with no other context join
+    "PYRUHVRO_TPU_TRACEPARENT": "",
+    # launch timing by CUDA events: 1 and unset time them, 0 records none
+    "PYRUHVRO_TPU_DEVICE_SYNC": None,
+    # the window, in seconds, of the per-schema recompile-churn guard
+    "PYRUHVRO_TPU_RECOMPILE_WINDOW": 60.0,
+    # first launches of new buckets within the window that make a storm
+    "PYRUHVRO_TPU_RECOMPILE_STORM": 8,
 }
+
+# parse errors count through DeferredCounts, as in the reference
+_parse_error_counts: Dict[str, metrics.DeferredCount] = {}
+
+
+def _parse_error(name: str) -> None:
+    for key in ("knob.parse_error", "knob.parse_error." + name):
+        dc = _parse_error_counts.get(key)
+        if dc is None:
+            dc = _parse_error_counts.setdefault(
+                key, metrics.DeferredCount(key))
+        dc.bump()
+
+
+def _flush_parse_errors() -> None:
+    for dc in list(_parse_error_counts.values()):
+        dc.flush()
+
+
+metrics.register_flush_hook(_flush_parse_errors)
+
+
+def _boolish(name: str):
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return DEFAULTS[name]
+    if raw in _TRUE:
+        return True
+    if raw in _FALSE:
+        return False
+    _parse_error(name)
+    return DEFAULTS[name]
 
 
 def get_bool(name: str) -> bool:
     """1/true/yes/on → True, 0/false/no/off → False (any case); unset,
     empty or anything else → the default."""
-    raw = os.environ.get(name, "").strip().lower()
-    if raw in _TRUE:
-        return True
-    if raw in _FALSE:
-        return False
-    return DEFAULTS[name]
+    return _boolish(name)
+
+
+def get_tristate(name: str):
+    """True / False / None (the default: auto), in :func:`get_bool`'s
+    vocabulary."""
+    return _boolish(name)
+
+
+def get_str(name: str) -> str:
+    """The raw value, or the default when unset or empty."""
+    return os.environ.get(name, "") or DEFAULTS[name]
+
+
+def get_raw(name: str) -> str:
+    """The raw value of a registered knob (``""`` when unset)."""
+    assert name in DEFAULTS, f"unregistered knob {name}"
+    return os.environ.get(name, "")
 
 
 def _number(name: str, cast):
@@ -53,6 +115,7 @@ def _number(name: str, cast):
     try:
         return cast(raw)
     except ValueError:
+        _parse_error(name)
         return DEFAULTS[name]
 
 

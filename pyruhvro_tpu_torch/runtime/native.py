@@ -156,6 +156,11 @@ def load(name: str) -> NativeModule:
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         _loaded[name] = NativeModule(module, out, cmd, build_s)
+        if build_s:
+            from . import device_obs
+
+            # carried by the first device launch that uses it
+            device_obs.note_build(name, build_s)
         return _loaded[name]
 
 

@@ -10,11 +10,15 @@ error slug and the tier that found it. Callers read them through
 :func:`last` (``pyruhvro_tpu_torch.last_quarantine``) or through
 ``return_errors=True``.
 
-:func:`publish` orders the entries and sets :func:`last`. The
-reference's publish also feeds counters, span attributes, the storm's
-flight dump and the trace id stamp; those need the metrics, telemetry,
-trace-propagation and timeline planes, which the port does not have yet
-(``ROADMAP.md`` (a) 8), so ``trace_id`` stays ``None``. The reference's
+:func:`publish` stamps each entry with the call's trace id
+(``traceprop.current()``), orders the entries, sets :func:`last`,
+annotates the span with ``on_error`` and ``quarantined``, and counts
+``<op>.quarantined``, ``<op>.quarantine.<slug>`` and, at
+:data:`STORM` entries (the reference's default of its
+``PYRUHVRO_TPU_QUARANTINE_STORM``, a knob the port does not read),
+``<op>.quarantine_storms`` with the ``quarantine_storm`` mark
+(``quarantine.py:136-176``). The storm's flight dump and timeline event
+wait for those planes (``ROADMAP.md`` (a) 8). The reference's
 ``collecting`` context, which makes a call's list the thread's active
 collector for its process pool's merges, comes with that pool
 (``ROADMAP.md`` (a) 6): a call here collects into a plain list.
@@ -25,12 +29,18 @@ from __future__ import annotations
 import threading
 from typing import List, NamedTuple, Optional
 
+from . import metrics, telemetry, traceprop
+
 __all__ = [
     "QuarantinedRecord",
     "rebase",
     "last",
     "publish",
+    "STORM",
 ]
+
+# quarantined rows of one call that count as a storm
+STORM = 100
 
 
 class QuarantinedRecord(NamedTuple):
@@ -40,7 +50,7 @@ class QuarantinedRecord(NamedTuple):
     datum: Optional[bytes]  # raw wire bytes (None for encode-side rows)
     error: str              # short slug, e.g. "overrun", "bad_branch"
     tier: str               # "fallback" | "native" | "device" | "policy"
-    # the W3C trace id of the call; None until trace propagation is ported
+    # the W3C trace id of the call that quarantined the row
     trace_id: Optional[str] = None
 
 
@@ -70,8 +80,29 @@ def last() -> List[QuarantinedRecord]:
     return list(getattr(_tls, "last", ()))
 
 
-def publish(entries: List[QuarantinedRecord]) -> None:
-    """Close out one tolerant call: order the entries by index and
-    expose them through :func:`last`."""
+def publish(entries: List[QuarantinedRecord], policy: str,
+            op: str = "decode") -> None:
+    """Close out one tolerant call: stamp the active trace id on the
+    entries, order them by index, expose them through :func:`last`, and
+    feed the ``<op>.quarantined`` counters and the span."""
+    ctx = traceprop.current()
+    if ctx is not None:
+        tid = ctx.trace_id
+        entries[:] = [e if e.trace_id else QuarantinedRecord(
+            e.index, e.datum, e.error, e.tier, tid) for e in entries]
     entries.sort(key=lambda e: e.index)
     _tls.last = list(entries)
+    telemetry.annotate(on_error=policy, quarantined=len(entries))
+    if not entries:
+        return
+    # metric-key: <op>.quarantined
+    metrics.inc(op + ".quarantined", float(len(entries)))
+    for e in entries:
+        # metric-key: <op>.quarantine.<slug>
+        metrics.inc(f"{op}.quarantine.{e.error}")
+    if len(entries) >= STORM:
+        # metric-key: <op>.quarantine_storms
+        metrics.inc(op + ".quarantine_storms")
+        metrics.mark("quarantine_storm")
+        # not ported: the storm's timeline event and flight dump
+        # (ROADMAP.md (a) 8)

@@ -1,0 +1,1014 @@
+"""Per-call span telemetry: where a call went and where its time went
+(the core of ``pyruhvro_tpu/runtime/telemetry.py``: ``_Hist``, ``Span``,
+``attach``, ``root_span``, ``phase``, ``observe``, ``observe_value``,
+``annotate``, ``annotate_root``, ``set_route``, ``worker_scope``,
+``merge_worker``, ``set_span_sink``, ``hist_summaries``,
+``set_enabled``/``enabled``, ``reset``, ``snapshot``, ``prometheus``,
+``perfetto_trace``, the ``PYRUHVRO_TPU_TRACE`` JSON-lines sink,
+``render_report`` and ``main``).
+
+Layered on the flat counters of :mod:`.metrics`, which stay the
+always-on base: each public API call opens a **root span** carrying the
+schema fingerprint, the backend asked for, the row count and the tier
+it was routed to; the phase boundaries (``decode.pack_s``,
+``decode.h2d_s``, each device launch, ``decode.d2h_s``, ``host.vm_s``,
+the pool's chunks) are its **child spans**. One lock per event, on the
+host. ``set_enabled(False)`` (or ``PYRUHVRO_TPU_NO_TELEMETRY=1``) drops
+spans and histograms and keeps the counters.
+
+Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
+with p50/p95/p99, the last root span trees, and a ``device`` section of
+launch registry and memory watermarks from :mod:`.device_obs`),
+:func:`prometheus` (text exposition), :func:`perfetto_trace` (Chrome
+trace-event JSON), and ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON
+line per finished root span. ``python -m pyruhvro_tpu_torch.telemetry
+report|prom|perfetto <snapshot.json>`` renders a saved snapshot.
+
+Keys are ``component.event``; keys ending ``_s`` are seconds and get
+histograms, every other key is a count or a byte counter.
+
+Departures from the reference (``ROADMAP.md`` (c)): nothing here catches
+an exception. A phase or root span records the error's type on its span
+and re-raises it; a span sink or a trace file that fails raises into the
+call, where the reference counts the failure and goes on. The device
+launches' spans are opened at launch and closed when their CUDA events
+are read (:mod:`.device_obs`), at the latest when the root span exits.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from bisect import bisect_left
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+from . import knobs, metrics, traceprop
+
+__all__ = [
+    "SNAPSHOT_SCHEMA_VERSION",
+    "Span",
+    "root_span",
+    "phase",
+    "observe",
+    "observe_value",
+    "current_span",
+    "attach",
+    "annotate",
+    "annotate_root",
+    "set_route",
+    "snapshot",
+    "prometheus",
+    "perfetto_trace",
+    "reset",
+    "set_enabled",
+    "enabled",
+    "render_report",
+    "main",
+    "worker_scope",
+    "merge_worker",
+    "set_span_sink",
+    "hist_summaries",
+]
+
+# fixed log-spaced latency buckets, 1 µs … 500 s (~3/decade); +Inf is
+# implicit
+_BUCKET_BOUNDS: tuple = tuple(
+    m * (10.0 ** e) for e in range(-6, 3) for m in (1.0, 2.5, 5.0)
+)
+
+_MAX_SPANS = 64  # root spans retained for snapshot(); older ones are counted
+
+# the reference's snapshot shape version 3, without the sections of the
+# planes the port does not have yet: slo, timeline, routing and memory
+# (ROADMAP.md (a) 8)
+SNAPSHOT_SCHEMA_VERSION = 3
+
+_lock = threading.Lock()
+_hists: Dict[str, "_Hist"] = {}  # guarded-by: _lock
+_spans: deque = deque(maxlen=_MAX_SPANS)  # guarded-by: _lock
+_roots_seen = 0  # guarded-by: _lock
+# lock-free-ok(single GIL-atomic bool store; readers tolerate staleness)
+_enabled = not knobs.get_bool("PYRUHVRO_TPU_NO_TELEMETRY")
+_tls = threading.local()
+
+
+class _Hist:
+    """Fixed-bucket latency histogram (counts per bucket + sum), with one
+    exemplar: the trace id of the largest traced observation."""
+
+    __slots__ = ("counts", "n", "sum", "ex_value", "ex_trace")
+
+    def __init__(self):
+        self.counts = [0] * (len(_BUCKET_BOUNDS) + 1)
+        self.n = 0
+        self.sum = 0.0
+        self.ex_value = 0.0
+        self.ex_trace: Optional[str] = None
+
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
+        self.counts[bisect_left(_BUCKET_BOUNDS, v)] += 1
+        self.n += 1
+        self.sum += v
+        if trace_id is not None and (self.ex_trace is None
+                                     or v > self.ex_value):
+            self.ex_value = v
+            self.ex_trace = trace_id
+
+    def quantile(self, q: float) -> float:
+        """Upper bucket bound holding the q-quantile (Prometheus-style)."""
+        if not self.n:
+            return 0.0
+        target = q * self.n
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += c
+            if c and cum >= target:
+                return (_BUCKET_BOUNDS[i] if i < len(_BUCKET_BOUNDS)
+                        else float("inf"))
+        return float("inf")
+
+    def summary(self) -> Dict[str, Any]:
+        buckets: List[list] = []
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += c
+            if c:
+                le = (_BUCKET_BOUNDS[i] if i < len(_BUCKET_BOUNDS)
+                      else "+Inf")
+                buckets.append([le, cum])
+        if not buckets or buckets[-1][0] != "+Inf":
+            buckets.append(["+Inf", cum])
+        out = {
+            "count": self.n,
+            "sum": self.sum,
+            "p50": self.quantile(0.50),
+            "p95": self.quantile(0.95),
+            "p99": self.quantile(0.99),
+            "buckets": buckets,  # cumulative [le, n], zero buckets elided
+        }
+        if self.ex_trace is not None:
+            out["exemplar"] = {"value": self.ex_value,
+                               "trace_id": self.ex_trace}
+        return out
+
+
+def _hist_locked(key: str) -> _Hist:
+    """Get-or-create; callers hold ``_lock``."""
+    h = _hists.get(key)
+    if h is None:
+        h = _hists[key] = _Hist()
+    return h
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+
+class Span:
+    """One timed node of a call tree (root = public API call). Roots carry
+    the W3C trace identity (:mod:`.traceprop`): a 128-bit ``trace_id``,
+    their own 64-bit ``span_id`` and, when the call joined a trace, the
+    caller's ``parent_span_id``."""
+
+    __slots__ = ("name", "attrs", "children", "dur_s", "ts", "_t0",
+                 "parent", "trace_id", "span_id", "parent_span_id")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name = name
+        self.attrs = attrs
+        self.children: List[Span] = []
+        self.dur_s: Optional[float] = None
+        self.ts = time.time()
+        self._t0 = time.perf_counter()
+        # up-link for annotate_root (not serialized; to_dict walks down)
+        self.parent: Optional["Span"] = None
+        self.trace_id: Optional[str] = None
+        self.span_id: Optional[str] = None
+        self.parent_span_id: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "ts": round(self.ts, 6),
+            "dur_s": self.dur_s,
+            "attrs": dict(self.attrs),
+        }
+        if self.trace_id is not None:
+            d["trace_id"] = self.trace_id
+            d["span_id"] = self.span_id
+            if self.parent_span_id is not None:
+                d["parent_span_id"] = self.parent_span_id
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
+
+
+def current_span() -> Optional[Span]:
+    """The innermost open span on THIS thread (None outside API calls)."""
+    return getattr(_tls, "span", None)
+
+
+class attach:
+    """Adopt ``span`` as the current span on this thread, with its root's
+    trace context: the pool's worker threads parent their chunk spans
+    under the calling thread's span this way."""
+
+    __slots__ = ("span", "_prev", "_tp")
+
+    def __init__(self, span: Optional[Span]):
+        self.span = span
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "span", None)
+        _tls.span = self.span
+        root = self.span
+        while root is not None and root.parent is not None:
+            root = root.parent
+        ctx = None
+        if root is not None and root.trace_id is not None:
+            ctx = traceprop.TraceContext(root.trace_id, root.span_id)
+        self._tp = traceprop.activate(ctx)
+        self._tp.__enter__()
+        return self.span
+
+    def __exit__(self, *exc):
+        self._tp.__exit__(*exc)
+        _tls.span = self._prev
+        return False
+
+
+class root_span:
+    """Open the per-call root span (one per public API entry).
+
+    Disabled mode is a no-op (the flat counters still flow). A root opened
+    while another is active on the thread attaches as a child of the
+    outer one and is not separately retained. The root joins the context
+    resolved from ``trace_ctx=`` > thread-local >
+    ``PYRUHVRO_TPU_TRACEPARENT``, minting a fresh 128-bit trace id when
+    there is none, and pushes its own context thread-local while open.
+    On the outermost root's exit the device launches still pending are
+    read (:func:`.device_obs.flush`). An exception is recorded on the
+    span (``error``) and propagates."""
+
+    __slots__ = ("span", "_prev", "_trace_ctx", "_tp")
+
+    def __init__(self, name: str, trace_ctx=None, **attrs):
+        self.span = Span(name, attrs) if _enabled else None
+        self._trace_ctx = trace_ctx
+
+    def __enter__(self):
+        s = self.span
+        if s is None:
+            return None
+        self._prev = getattr(_tls, "span", None)
+        if self._prev is not None:
+            with _lock:
+                self._prev.children.append(s)
+            s.parent = self._prev
+        ctx = traceprop.resolve(self._trace_ctx)
+        s.span_id = traceprop.new_span_id()
+        if ctx is not None:
+            s.trace_id = ctx.trace_id
+            s.parent_span_id = ctx.span_id
+        else:
+            s.trace_id = traceprop.new_trace_id()
+        self._tp = traceprop.activate(
+            traceprop.TraceContext(s.trace_id, s.span_id))
+        self._tp.__enter__()
+        _tls.span = s
+        return s
+
+    def __exit__(self, exc_type, exc, tb):
+        s = self.span
+        if s is None:
+            return False
+        if self._prev is None:
+            from . import device_obs
+
+            device_obs.flush()
+        s.dur_s = round(time.perf_counter() - s._t0, 9)
+        if exc_type is not None:
+            s.attrs["error"] = exc_type.__name__
+        _tls.span = self._prev
+        self._tp.__exit__(exc_type, exc, tb)
+        metrics.inc(s.name + "_s", s.dur_s)
+        global _roots_seen
+        with _lock:
+            _hist_locked(s.name + "_s").observe(s.dur_s, s.trace_id)
+            if self._prev is None:
+                _spans.append(s)
+                _roots_seen += 1
+        if self._prev is None:
+            sink = _span_sink
+            if sink is not None:
+                sink(s)
+            _maybe_trace(s)
+            # not ported: the reference's SLO feed (slo.record_root) and
+            # its flight recorder's error dump (ROADMAP.md (a) 8)
+        return False
+
+
+class phase:
+    """``with phase("decode.pack_s"): ...`` — the span-aware timer.
+
+    Always adds the elapsed seconds to the flat counter; when telemetry is
+    enabled it also observes the latency histogram and, under an open
+    root span, attaches a child span. ``dt`` holds the elapsed seconds
+    after exit, so a caller keeps one measurement in two views."""
+
+    __slots__ = ("key", "attrs", "span", "_t0", "_prev", "dt")
+
+    def __init__(self, key: str, **attrs):
+        self.key = key
+        self.attrs = attrs
+        self.span = None
+        self.dt = 0.0
+
+    def __enter__(self):
+        if _enabled:
+            parent = getattr(_tls, "span", None)
+            if parent is not None:
+                self.span = Span(self.key, self.attrs)
+                with _lock:
+                    parent.children.append(self.span)
+                self.span.parent = parent
+                self._prev = parent
+                _tls.span = self.span
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = self.dt = time.perf_counter() - self._t0
+        metrics.inc(self.key, dt)
+        if self.span is not None:
+            self.span.dur_s = round(dt, 9)
+            if exc_type is not None:
+                self.span.attrs["error"] = exc_type.__name__
+            _tls.span = self._prev
+        if _enabled:
+            ctx = traceprop.current()
+            with _lock:
+                _hist_locked(self.key).observe(
+                    dt, ctx.trace_id if ctx else None)
+        return False
+
+
+def observe(key: str, seconds: float, **attrs) -> None:
+    """Record a pre-measured duration: counter + histogram + child span."""
+    metrics.inc(key, seconds)
+    if not _enabled:
+        return
+    parent = getattr(_tls, "span", None)
+    ctx = traceprop.current()
+    with _lock:
+        _hist_locked(key).observe(seconds, ctx.trace_id if ctx else None)
+        if parent is not None:
+            s = Span(key, attrs)
+            # the interval ENDED at creation: shift ts back so the span's
+            # [ts, ts+dur_s] window is the real one in trace timelines
+            s.ts -= seconds
+            s.dur_s = round(seconds, 9)
+            parent.children.append(s)
+
+
+def open_span(key: str, **attrs) -> Optional[Span]:
+    """A child span of the current one whose duration is not known yet
+    (a device launch, timed by events read later); None when disabled or
+    outside a span. :func:`close_span` completes it."""
+    if not _enabled:
+        return None
+    parent = getattr(_tls, "span", None)
+    if parent is None:
+        return None
+    s = Span(key, attrs)
+    s.parent = parent
+    with _lock:
+        parent.children.append(s)
+    return s
+
+
+def close_span(span: Optional[Span], key: str, seconds: float,
+               trace_id: Optional[str] = None) -> None:
+    """Complete a launch measured after the fact: counter, histogram and
+    (when :func:`open_span` made one) the span's duration."""
+    metrics.inc(key, seconds)
+    if not _enabled:
+        return
+    with _lock:
+        _hist_locked(key).observe(seconds, trace_id)
+        if span is not None:
+            span.dur_s = round(seconds, 9)
+
+
+def observe_value(key: str, value: float) -> None:
+    """Counter + histogram for a dimensionless value (a ratio such as
+    ``pool.chunk_efficiency``): no child span."""
+    metrics.inc(key, value)
+    if not _enabled:
+        return
+    with _lock:
+        _hist_locked(key).observe(value)
+
+
+def annotate(**attrs) -> None:
+    """Merge attributes into the current span (no-op outside a span)."""
+    s = getattr(_tls, "span", None)
+    if s is not None:
+        s.attrs.update(attrs)
+
+
+def annotate_root(**attrs) -> None:
+    """Merge attributes into the ROOT of the current span tree (no-op
+    outside a span)."""
+    s = getattr(_tls, "span", None)
+    if s is None:
+        return
+    while s.parent is not None:
+        s = s.parent
+    s.attrs.update(attrs)
+
+
+def set_route(tier: str, reason: Optional[str] = None) -> None:
+    """Record where THIS call was routed (device/native/fallback) and why:
+    on the root span and as flat ``route.*`` counters."""
+    metrics.inc("route." + tier)
+    if reason:
+        metrics.inc("route.reason." + reason)
+    s = getattr(_tls, "span", None)
+    if s is not None:
+        s.attrs["route"] = tier
+        if reason:
+            s.attrs["route_reason"] = reason
+
+
+# not ported: the flight recorder (ring, dumps, SIGUSR1 hook) and the
+# timeline start (ROADMAP.md (a) 8)
+
+
+# ---------------------------------------------------------------------------
+# cross-process worker telemetry
+# ---------------------------------------------------------------------------
+
+
+class worker_scope:
+    """Capture one pool or process worker's telemetry for the parent::
+
+        with telemetry.worker_scope("pool.worker", rows=n) as w:
+            result = do_chunk()
+        return result, w.payload
+
+    Inside the scope a ``pool.worker`` root span times the work and every
+    counter increment is also recorded as a delta. On exit ``payload`` is
+    a picklable dict (counter deltas and the span tree) that the parent
+    folds back with :func:`merge_worker`. The reference's routing
+    observations ride along there; the port has no router yet
+    (``ROADMAP.md`` (a) 8)."""
+
+    __slots__ = ("name", "attrs", "payload", "_rec", "_delta", "_root",
+                 "_trace_ctx")
+
+    def __init__(self, name: str = "pool.worker", trace_ctx=None, **attrs):
+        self.name = name
+        self.attrs = attrs
+        self.payload: Optional[Dict[str, Any]] = None
+        # the caller's shipped trace context: the worker's root joins it
+        self._trace_ctx = trace_ctx
+
+    def __enter__(self) -> "worker_scope":
+        self._rec = metrics.record_deltas()
+        self._delta = self._rec.__enter__()
+        self._root = root_span(self.name, trace_ctx=self._trace_ctx,
+                               pid=os.getpid(), **self.attrs)
+        self._root.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._root.__exit__(exc_type, exc, tb)
+        self._rec.__exit__(exc_type, exc, tb)
+        span = self._root.span
+        self.payload = {
+            "pid": os.getpid(),
+            "rows": self.attrs.get("rows"),
+            "counters": dict(self._delta),
+            "span": span.to_dict() if span is not None else None,
+        }
+        return False
+
+
+def _span_from_dict(d: Dict[str, Any]) -> Span:
+    s = Span(d.get("name", "?"), dict(d.get("attrs") or {}))
+    ts = d.get("ts")
+    if ts is not None:
+        s.ts = ts
+    s.dur_s = d.get("dur_s")
+    s.trace_id = d.get("trace_id")
+    s.span_id = d.get("span_id")
+    s.parent_span_id = d.get("parent_span_id")
+    s.children = [_span_from_dict(c) for c in d.get("children") or []]
+    return s
+
+
+def merge_worker(payload: Dict[str, Any], *, counters: bool = True) -> None:
+    """Fold a worker's exported telemetry into THIS process.
+
+    ``counters=True`` (process workers): the delta dict adds into the flat
+    counters; ``counters=False`` for same-process thread workers whose
+    increments already landed. The worker's span tree re-parents under
+    the caller's current open span, ``pool.worker_rows`` adds the worker's
+    rows and ``pool.worker_merges`` counts the merge. The reference also
+    folds quarantine entries and routing observations shipped with the
+    payload; both come with the process pool and the router
+    (``ROADMAP.md`` (a) 6, 8)."""
+    if not payload:
+        return
+    if counters:
+        metrics.merge(payload.get("counters") or {})
+        rows = payload.get("rows")
+        if rows:
+            metrics.inc("pool.worker_rows", float(rows))
+    metrics.inc("pool.worker_merges")
+    sd = payload.get("span")
+    if sd and _enabled:
+        parent = getattr(_tls, "span", None)
+        if parent is not None:
+            s = _span_from_dict(sd)
+            with _lock:
+                parent.children.append(s)
+
+
+# the finished-root-span hook: one callable, invoked outside the lock
+# lock-free-ok(single GIL-atomic store; readers tolerate staleness)
+_span_sink = None
+
+
+def set_span_sink(fn) -> None:
+    """Register (or clear, with None) the finished-root-span hook. What it
+    raises propagates into the call that finished."""
+    global _span_sink
+    _span_sink = fn
+
+
+def hist_summaries() -> Dict[str, Any]:
+    """Histogram summaries only."""
+    with _lock:
+        return {k: h.summary() for k, h in sorted(_hists.items())}
+
+
+def set_enabled(flag: bool) -> None:
+    """Toggle spans + histograms (flat counters always stay on)."""
+    global _enabled
+    _enabled = bool(flag)
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def reset() -> None:
+    """Clear spans, histograms, the device registry AND the flat counters
+    (test isolation); closes an open trace file."""
+    global _roots_seen, _trace_memo
+    with _lock:
+        _hists.clear()
+        _spans.clear()
+        _roots_seen = 0
+    from . import device_obs
+
+    device_obs.reset()
+    with _trace_lock:
+        if _trace_memo is not None:
+            fh = _trace_memo[1]
+            if fh is not sys.stderr:
+                fh.close()
+            _trace_memo = None
+    metrics.reset()
+
+
+# ---------------------------------------------------------------------------
+# exporters
+# ---------------------------------------------------------------------------
+
+
+def snapshot() -> Dict[str, Any]:
+    """Structured export: flat counters + histogram summaries + the most
+    recent root span trees (oldest→newest; ``spans_dropped`` counts roots
+    aged out of the ring), a ``device`` section when a device launch was
+    recorded (:mod:`.device_obs`), and ``gauges`` when any was set."""
+    with _lock:
+        hists = {k: h.summary() for k, h in sorted(_hists.items())}
+        spans = [s.to_dict() for s in _spans]
+        dropped = _roots_seen - len(_spans)
+    out = {
+        "schema_version": SNAPSHOT_SCHEMA_VERSION,
+        "pid": os.getpid(),
+        "counters": metrics.snapshot(),
+        "histograms": hists,
+        "spans": spans,
+        "spans_dropped": dropped,
+    }
+    from . import device_obs
+
+    dev = device_obs.snapshot()
+    if dev:
+        out["device"] = dev
+    # not ported: the routing, slo, sampling, drift, audit, breakers,
+    # memory, serving and timeline sections (ROADMAP.md (a) 8)
+    g = metrics.gauges()
+    if g:
+        out["gauges"] = g
+    return out
+
+
+def _prom_name(key: str) -> str:
+    base = key[:-2] + "_seconds" if key.endswith("_s") else key
+    name = "".join(ch if ch.isalnum() or ch == "_" else "_" for ch in base)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return "pyruhvro_tpu_" + name
+
+
+def prometheus(snap: Optional[Dict[str, Any]] = None, *,
+               exemplars: bool = False) -> str:
+    """Prometheus text exposition of a snapshot (default: live state).
+
+    Counters export as ``*_total`` counters (keys ending ``_s`` as
+    ``*_seconds_total``); gauges as gauges; histograms as
+    ``_bucket``/``_sum``/``_count`` families with the fixed bucket
+    bounds. ``exemplars=True`` appends OpenMetrics exemplar syntax to the
+    bucket holding each histogram's worst traced call. The metric names
+    keep the reference's ``pyruhvro_tpu_`` prefix, so one dashboard reads
+    both packages."""
+    if snap is None:
+        snap = snapshot()
+    lines: List[str] = []
+    for key, v in sorted(snap.get("counters", {}).items()):
+        name = _prom_name(key) + "_total"
+        lines.append(f"# HELP {name} pyruhvro_tpu counter {key}")
+        lines.append(f"# TYPE {name} counter")
+        lines.append(f"{name} {float(v)!r}")
+    for key, v in sorted(snap.get("gauges", {}).items()):
+        name = _prom_name(key)
+        lines.append(f"# HELP {name} pyruhvro_tpu gauge {key}")
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {float(v)!r}")
+    for key, h in sorted(snap.get("histograms", {}).items()):
+        name = _prom_name(key)
+        lines.append(f"# HELP {name} pyruhvro_tpu latency histogram {key}")
+        lines.append(f"# TYPE {name} histogram")
+        ex = h.get("exemplar") if exemplars else None
+        ex_done = False
+        seen_inf = False
+        for le, cum in h.get("buckets", []):
+            if le == "+Inf":
+                seen_inf = True
+                line = f'{name}_bucket{{le="+Inf"}} {cum}'
+            else:
+                line = f'{name}_bucket{{le="{float(le)!r}"}} {cum}'
+            if ex and not ex_done and (
+                    le == "+Inf" or ex["value"] <= float(le)):
+                line += (f' # {{trace_id="{ex["trace_id"]}"}} '
+                         f'{float(ex["value"])!r}')
+                ex_done = True
+            lines.append(line)
+        if not seen_inf:
+            lines.append(f'{name}_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"{name}_sum {float(h['sum'])!r}")
+        lines.append(f"{name}_count {h['count']}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- Chrome/Perfetto trace_event exporter -----------------------------------
+#
+# Each root span tree renders into its process row (spans re-parented from
+# process-pool workers carry their worker's ``pid`` attr and get their own
+# row); siblings that overlap in time (concurrent pool chunks) spread
+# across ``tid`` lanes so the flame view nests like the span tree.
+
+
+def perfetto_trace(snap: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Render a snapshot's span trees as a Chrome trace-event document
+    (default: live state), loadable in ui.perfetto.dev."""
+    if snap is None:
+        snap = snapshot()
+    main_pid = int(snap.get("pid") or os.getpid())
+    events: List[Dict[str, Any]] = []
+    seen_pids: Dict[int, str] = {}
+    next_tid: Dict[int, int] = {}
+    worker_tids: Dict[int, List[tuple]] = {}  # pid -> [(tid, label)]
+
+    def alloc_tid(pid: int) -> int:
+        t = next_tid.get(pid, 2)
+        next_tid[pid] = t + 1
+        return t
+
+    def emit(span: Dict[str, Any], pid: int, tid: int) -> None:
+        attrs = dict(span.get("attrs") or {})
+        span_pid = attrs.get("pid")
+        if isinstance(span_pid, (int, float)) and int(span_pid) != pid:
+            pid = int(span_pid)
+            tid = 1
+            seen_pids.setdefault(pid, f"pyruhvro_tpu worker {pid}")
+        ts = float(span.get("ts") or 0.0) * 1e6
+        dur = max(float(span.get("dur_s") or 0.0), 0.0) * 1e6
+        events.append({
+            "name": str(span.get("name", "?")),
+            "cat": str(span.get("name", "?")).split(".")[0],
+            "ph": "X",
+            "ts": round(ts, 3),
+            "dur": round(dur, 3),
+            "pid": pid,
+            "tid": tid,
+            "args": {k: v for k, v in attrs.items()
+                     if isinstance(v, (str, int, float, bool))},
+        })
+        children = sorted(
+            span.get("children") or [],
+            key=lambda c: float(c.get("ts") or 0.0),
+        )
+        lane_end = [float("-inf")]
+        lane_tid = {0: tid}
+        for c in children:
+            cts = float(c.get("ts") or 0.0) * 1e6
+            cdur = max(float(c.get("dur_s") or 0.0), 0.0) * 1e6
+            lane = None
+            for i, end in enumerate(lane_end):
+                if cts >= end - 1.0:  # 1 µs slack for rounding
+                    lane = i
+                    break
+            if lane is None:
+                lane = len(lane_end)
+                lane_end.append(float("-inf"))
+            lane_end[lane] = cts + cdur
+            if lane not in lane_tid:
+                lane_tid[lane] = alloc_tid(pid)
+                worker_tids.setdefault(pid, []).append(
+                    (lane_tid[lane], f"pool lane {lane}")
+                )
+            emit(c, pid, lane_tid[lane])
+
+    seen_pids[main_pid] = "pyruhvro_tpu"
+    for root in snap.get("spans") or []:
+        emit(root, main_pid, 1)
+    meta: List[Dict[str, Any]] = []
+    for pid, name in sorted(seen_pids.items()):
+        meta.append({"name": "process_name", "ph": "M", "pid": pid,
+                     "tid": 0, "args": {"name": name}})
+        meta.append({"name": "thread_name", "ph": "M", "pid": pid,
+                     "tid": 1, "args": {"name": "calls"}})
+        for tid, label in worker_tids.get(pid, []):
+            meta.append({"name": "thread_name", "ph": "M", "pid": pid,
+                         "tid": tid, "args": {"name": label}})
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
+# -- JSON-lines trace stream (opt-in) ---------------------------------------
+
+_trace_lock = threading.Lock()
+_trace_memo: Optional[tuple] = None  # guarded-by: _trace_lock (path, handle)
+
+
+def _trace_sink():
+    """Resolve PYRUHVRO_TPU_TRACE to a writable handle (memoized per path;
+    re-resolved when the variable changes). A file that cannot be opened
+    raises ``OSError`` into the call."""
+    global _trace_memo
+    path = knobs.get_raw("PYRUHVRO_TPU_TRACE")
+    if not path:
+        return None
+    memo = _trace_memo
+    if memo is not None and memo[0] == path:
+        return memo[1]
+    with _trace_lock:
+        if _trace_memo is None or _trace_memo[0] != path:
+            old = _trace_memo[1] if _trace_memo else None
+            if old is not None and old is not sys.stderr:
+                old.close()
+            fh = sys.stderr if path in ("stderr", "-") else \
+                open(path, "a", encoding="utf-8")
+            _trace_memo = (path, fh)
+        return _trace_memo[1]
+
+
+def _maybe_trace(span: Span) -> None:
+    fh = _trace_sink()
+    if fh is None:
+        return
+    line = json.dumps(span.to_dict(), default=str)
+    with _trace_lock:
+        fh.write(line + "\n")
+        fh.flush()
+
+
+# ---------------------------------------------------------------------------
+# report rendering (CLI: python -m pyruhvro_tpu_torch.telemetry report)
+# ---------------------------------------------------------------------------
+
+
+def _fmt_ms(v) -> str:
+    if v is None:
+        return "-"
+    if v == float("inf"):
+        return "inf"
+    return f"{v * 1e3:.3f}"
+
+
+def _phase_table(hists: Dict[str, Any], seconds: Dict[str, float]) -> List[str]:
+    header = (f"{'phase':<36} {'count':>7} {'total_s':>10} "
+              f"{'p50_ms':>9} {'p95_ms':>9} {'p99_ms':>9}")
+    rows = [header, "-" * len(header)]
+    for k in sorted(set(hists) | set(seconds)):
+        h = hists.get(k)
+        if h:
+            rows.append(
+                f"{k:<36} {h['count']:>7} {h['sum']:>10.4f} "
+                f"{_fmt_ms(h.get('p50')):>9} {_fmt_ms(h.get('p95')):>9} "
+                f"{_fmt_ms(h.get('p99')):>9}"
+            )
+        else:
+            rows.append(
+                f"{k:<36} {'-':>7} {seconds[k]:>10.4f} "
+                f"{'-':>9} {'-':>9} {'-':>9}"
+            )
+    return rows
+
+
+def _fmt_bytes(v: float) -> str:
+    if v >= 1e9:
+        return f"{v / 1e9:.2f} GB"
+    if v >= 1e6:
+        return f"{v / 1e6:.2f} MB"
+    if v >= 1e3:
+        return f"{v / 1e3:.1f} kB"
+    return f"{v:.0f} B"
+
+
+def _device_section(counters: Dict[str, float],
+                    device: Dict[str, Any]) -> List[str]:
+    """The device-tier breakdown: first-launch vs launch split, the
+    launch registry's hit ratio, transfer bytes, retry/storm counts, the
+    kernels' bound bytes, per-entry registry rows and memory watermarks.
+    [] when the snapshot never exercised the device tier."""
+    keys = {k: v for k, v in counters.items() if k.startswith("device.")}
+    if not keys and not device:
+        return []
+    out = ["== device tier =="]
+    comp = keys.get("device.compile_s", 0.0)
+    launch = keys.get("device.launch_s", 0.0)
+    pipe = keys.get("device.pipeline_s", 0.0)
+    line = (f"compile {comp * 1e3:.3f} ms / launch {launch * 1e3:.3f} ms")
+    if pipe:
+        line += (f" (pipeline {pipe * 1e3:.3f} ms, "
+                 f"{(comp + launch) / pipe * 100:.1f}% compile+launch)")
+    out.append(line)
+    hits = keys.get("device.jit_cache.hits", 0.0)
+    misses = keys.get("device.jit_cache.misses", 0.0)
+    if hits or misses:
+        total = hits + misses
+        out.append(f"jit cache: {misses:.0f} miss(es) / {hits:.0f} hit(s)"
+                   f" = {hits / total * 100:.1f}% hit ratio")
+    h2d = keys.get("device.h2d_bytes", 0.0)
+    d2h = keys.get("device.d2h_bytes", 0.0)
+    if h2d or d2h:
+        out.append(f"transfers: h2d {_fmt_bytes(h2d)} / "
+                   f"d2h {_fmt_bytes(d2h)}")
+    retries = keys.get("device.retries", 0.0)
+    storms = keys.get("device.recompile_storm", 0.0)
+    if retries or storms:
+        out.append(f"capacity retries: {retries:.0f}; "
+                   f"recompile storms: {storms:.0f}")
+    flops = keys.get("device.cost.flops", 0.0)
+    ba = keys.get("device.cost.bytes_accessed", 0.0)
+    if flops or ba:
+        # the reference's line reads XLA's cost model summed over
+        # compiles; the port's sums each kernel launch's bound bytes
+        out.append(f"kernel bounds: {flops:,.0f} flops, "
+                   f"{_fmt_bytes(ba)} accessed (sum over launches)")
+    cache = (device or {}).get("jit_cache") or {}
+    if cache:
+        out.append("executables (fingerprint|kind|bucket):")
+        rows = sorted(cache.items(),
+                      key=lambda kv: -(kv[1].get("compile_s") or 0.0))
+        for key, e in rows[:12]:
+            out.append(
+                f"  {key}: {e.get('compiles', 0)} compile(s) "
+                f"{(e.get('compile_s') or 0) * 1e3:.1f} ms, "
+                f"{e.get('launches', 0)} launch(es) "
+                f"{(e.get('launch_s') or 0) * 1e3:.1f} ms, "
+                f"{e.get('hits', 0)} hit(s)"
+            )
+        if len(rows) > 12:
+            out.append(f"  ... {len(rows) - 12} more")
+    mem = (device or {}).get("memory") or {}
+    for dev_id, m in sorted(mem.items()):
+        out.append(
+            f"memory[{dev_id}]: in use {_fmt_bytes(m.get('bytes_in_use', 0))}"
+            f", peak {_fmt_bytes(m.get('peak_bytes_in_use', 0))}"
+        )
+    return out
+
+
+def _render_span(s: Dict[str, Any], indent: int, out: List[str]) -> None:
+    attrs = " ".join(f"{k}={v}" for k, v in s.get("attrs", {}).items())
+    dur = s.get("dur_s")
+    dur_txt = "-" if dur is None else f"{dur * 1e3:.3f} ms"
+    out.append("  " * indent + f"{s.get('name', '?')}  {dur_txt}"
+               + (f"  [{attrs}]" if attrs else ""))
+    for c in s.get("children", []):
+        _render_span(c, indent + 1, out)
+
+
+def render_report(data: Dict[str, Any]) -> str:
+    """Phase-breakdown table from a :func:`snapshot` dict. Not ported:
+    the reference's ``BENCH_DETAILS.json`` branch (the port has no bench
+    yet) and the native profiler, routing ledger, slo, sampling, memory,
+    drift and audit sections, whose planes wait for ``ROADMAP.md``
+    (a) 8."""
+    out: List[str] = []
+    counters = data.get("counters", {})
+    hists = data.get("histograms", {})
+    out.append("== phase breakdown ==")
+    out.extend(_phase_table(
+        hists,
+        {k: v for k, v in counters.items()
+         if k.endswith("_s") and k not in hists},
+    ))
+    dev = _device_section(counters, data.get("device") or {})
+    if dev:
+        out += [""]
+        out.extend(dev)
+    workers = {k: v for k, v in counters.items()
+               if k.startswith(("pool.worker", "pool.proc"))}
+    if workers.get("pool.worker_rows") or workers.get("pool.worker_merges"):
+        out += ["", "== pool workers =="]
+        out.extend(f"{k:<36} {v:>14.0f}"
+                   for k, v in sorted(workers.items()))
+    routes = {k: v for k, v in counters.items()
+              if k.startswith(("route.", "router."))}
+    if routes:
+        out += ["", "== routing =="]
+        out.extend(f"{k:<36} {v:>10.0f}" for k, v in sorted(routes.items()))
+    other = {k: v for k, v in counters.items()
+             if not k.endswith("_s")
+             and not k.startswith(("route.", "router."))
+             and not k.startswith("device.")  # rendered above
+             and k not in workers}
+    if other:
+        out += ["", "== counters =="]
+        out.extend(f"{k:<36} {v:>14.0f}" for k, v in sorted(other.items()))
+    spans = data.get("spans") or []
+    if spans:
+        out += ["", "== last call span =="]
+        _render_span(spans[-1], 0, out)
+    return "\n".join(out) + "\n"
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """CLI: ``report <file>`` (phase table), ``prom <file>`` (text
+    exposition), ``perfetto <file> [-o out.json]`` (Chrome/Perfetto
+    trace-event timeline). ``<file>`` is a JSON dict saved from
+    :func:`snapshot`."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m pyruhvro_tpu_torch.telemetry",
+        description="Render pyruhvro_tpu_torch telemetry snapshots.",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p_rep = sub.add_parser("report",
+                           help="phase-breakdown table from a snapshot")
+    p_rep.add_argument("path")
+    p_prom = sub.add_parser(
+        "prom", help="Prometheus text format from a snapshot JSON")
+    p_prom.add_argument("path")
+    p_prom.add_argument("--exemplars", action="store_true",
+                        help="append OpenMetrics exemplars (worst "
+                             "traced call per histogram)")
+    p_perf = sub.add_parser(
+        "perfetto", help="Chrome trace-event JSON (load in "
+                         "ui.perfetto.dev) from a snapshot JSON")
+    p_perf.add_argument("path")
+    p_perf.add_argument("-o", "--out",
+                        help="write the trace here instead of stdout")
+    args = ap.parse_args(argv)
+    with open(args.path, encoding="utf-8") as f:
+        snap = json.load(f)
+    if not isinstance(snap, dict):
+        ap.error(f"{args.path} holds a JSON {type(snap).__name__}, not a "
+                 f"snapshot dict")
+    if args.cmd == "report":
+        sys.stdout.write(render_report(snap))
+    elif args.cmd == "prom":
+        sys.stdout.write(prometheus(snap, exemplars=args.exemplars))
+    else:
+        doc = json.dumps(perfetto_trace(snap))
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                f.write(doc)
+        else:
+            sys.stdout.write(doc + "\n")
+    return 0

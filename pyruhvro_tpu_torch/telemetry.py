@@ -1,0 +1,20 @@
+"""Public alias and CLI of :mod:`pyruhvro_tpu_torch.runtime.telemetry`
+(the counterpart of ``pyruhvro_tpu/telemetry.py``).
+
+Usage::
+
+    python -m pyruhvro_tpu_torch.telemetry report snapshot.json
+    python -m pyruhvro_tpu_torch.telemetry prom snapshot.json
+    python -m pyruhvro_tpu_torch.telemetry perfetto snapshot.json -o trace.json
+
+``snapshot.json`` is ``json.dump(telemetry.snapshot(), f)``; the
+``perfetto`` output loads in ui.perfetto.dev.
+"""
+
+import sys
+
+from .runtime.telemetry import *  # noqa: F401,F403
+from .runtime.telemetry import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -626,9 +626,11 @@ def test_kernel_model_matches_plain_version(name):
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_rows_traffic_counts_what_the_kernel_reads(name):
-    """``chip_smoke.rows_traffic``, the walk behind ``encode_rows``' byte
-    bound, counts exactly the lane entries the kernel's model reads and
-    the ``#dst`` entries it writes."""
+    """``encode.rows_traffic``, the walk behind ``encode_rows``' byte
+    bound (``chip_smoke.py`` and the launch telemetry read it), counts
+    exactly the lane entries the kernel's model reads and the ``#dst``
+    entries it writes, and the payloads placed and their bytes as the
+    plain version's ``#dst`` lanes give them."""
     schema, batch = FIXTURES[name]
     enc = _encoder(schema)
     if batch.num_rows == 0:
@@ -648,7 +650,15 @@ def test_rows_traffic_counts_what_the_kernel_reads(name):
         else:
             got["lanes"] += 16 if kind == "dec" else \
                 L.dv_np[key].itemsize
-    assert chip_smoke.rows_traffic(np, encode, L) == got
+    traffic = encode.rows_traffic(L)
+    assert {k: traffic[k] for k in got} == got
+    _out, _sizes, dst = encode.rows_plain(L.dv(), enc.prog, L.cap)
+    placed = payload = 0
+    for col in enc.prog.string_cols:
+        keep = dst[col.path] >= 0
+        placed += int(keep.sum())
+        payload += int(L.view(col.path + "#len")[keep].to(torch.int64).sum())
+    assert (traffic["placed"], traffic["payload"]) == (placed, payload)
 
 
 def test_launch_buffer_is_aligned_and_names_every_lane():

@@ -57,7 +57,7 @@ from pyruhvro_tpu_torch.gate import host_supported  # noqa: E402
 from pyruhvro_tpu_torch.hostpath import program  # noqa: E402
 from pyruhvro_tpu_torch.hostpath.codec import NativeHostCodec  # noqa: E402
 from pyruhvro_tpu_torch.ops import UnsupportedOnDevice  # noqa: E402
-from pyruhvro_tpu_torch.runtime import deadline, knobs, native, pool  # noqa: E402
+from pyruhvro_tpu_torch.runtime import deadline, knobs, metrics, native, pool  # noqa: E402
 from pyruhvro_tpu_torch.runtime.ingest import DatumView  # noqa: E402
 from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema  # noqa: E402
 from pyruhvro_tpu_torch.utils import datagen  # noqa: E402
@@ -94,6 +94,11 @@ FIXED_DECIMAL = ('{"type":"record","name":"FD2","fields":[{"name":"d","type":'
 NULL_FIXED_DECIMAL = ('{"type":"record","name":"NFD2","fields":[{"name":"d",'
                       '"type":["null",{"type":"fixed","name":"G2","size":2,'
                       '"logicalType":"decimal","precision":5,"scale":0}]}]}')
+
+
+def lane_count(key: str) -> float:
+    """A lane counter of the port's metrics since the last reset."""
+    return metrics.snapshot().get(key, 0.0)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -224,14 +229,15 @@ def test_decode_equals_the_reference_and_the_oracle(name, lane, codecs,
         dec = (lambda d, **kw: c.decode(d, **kw))
     e, c, r = codecs(SHAPES[name])
     datums = datums_of(name, 300, seed=7)
-    c.reset_counts()
+    metrics.reset()
     got = dec(datums)
     same(got, r.decode(datums))
     same(got, oracle(e, datums))
     if lane == "plan":
-        assert c.counts["decode_fused"] == 0
+        assert lane_count("decode.fused") == 0
     else:
-        assert c.counts["decode_fused"] + c.counts["decode_fused_declined"] \
+        assert lane_count("decode.fused") \
+            + lane_count("decode.fused_fallback") \
             == 1
     # a BinaryArray reaches the VM through its buffers, a slice of it too
     arr = pa.array(datums, pa.binary())
@@ -266,9 +272,9 @@ def test_uuid_text_forms_and_invalid_utf8(codecs):
     good = [mk(b"12345678-1234-5678-1234-567812345678"),
             mk(b"{ABCDEF00-1234-5678-1234-567812345678}"),
             mk(b"12345678123456781234567812345678")]
-    c.reset_counts()
+    metrics.reset()
     got = c.decode(good)
-    assert c.counts["decode_fused_declined"] == 1
+    assert lane_count("decode.fused_fallback") == 1
     same(got, r.decode(good))
     same(got, oracle(e, good))
     for bad in ([mk(b"junk")], [mk(b"\xff\xfe")]):
@@ -300,7 +306,7 @@ def test_decode_threaded_equals_the_reference(name, mode, codecs,
         monkeypatch.setenv("PYRUHVRO_TPU_NO_NATIVE_SHARDS", "1")
     e, c, r = codecs(SHAPES[name])
     datums = datums_of(name, 101, seed=3)
-    c.reset_counts()
+    metrics.reset()
     got = c.decode_threaded(datums, 4)
     want = r.decode_threaded(datums, 4, pool="shard" if mode == "shards"
                              else "thread")
@@ -310,7 +316,7 @@ def test_decode_threaded_equals_the_reference(name, mode, codecs,
     whole = oracle(e, datums)
     for g, (a, b) in zip(got, [(0, 25), (25, 50), (50, 75), (75, 101)]):
         same(g, whole.slice(a, b - a))
-    assert c.counts["decode_shards"] == (mode != "slice")
+    assert lane_count("shard.native") == (mode != "slice")
 
 
 # -- (c) malformed records --------------------------------------------------------
@@ -391,14 +397,14 @@ def test_encode_equals_the_reference_and_the_oracle(name, lane, codecs,
     e, c, r = codecs(SHAPES[name])
     datums = datums_of(name, 300, seed=5)
     batch = oracle(e, datums)
-    c.reset_counts()
+    metrics.reset()
     got = wire(c.encode(batch) if lane == "native"
                else c._encode_host_mode(batch, batch.num_rows))
     assert got == datums
     assert got == wire(r.encode(batch))
     assert got == [bytes(d) for d in encode_record_batch(
         batch, e.ir, compile_encoder_plan(e.ir))]
-    assert c.counts["extract_native"] == (lane == "native")
+    assert lane_count("extract.native") == (lane == "native")
     chunks = c.encode_threaded(batch, 3)
     assert [len(a) for a in chunks] == [100, 100, 100]
     assert wire(chunks) == datums
@@ -470,14 +476,14 @@ def test_chunked_encode_modes(codecs, monkeypatch):
     batch = oracle(e, datums)
     monkeypatch.setattr(NativeHostCodec, "_PER_CHUNK_ROWS", 8)
     monkeypatch.setattr(RefCodec, "_PER_CHUNK_ROWS", 8)
-    c.reset_counts()
+    metrics.reset()
     shards = c.encode_threaded(batch, 4)
-    assert c.counts["encode_shards"] == 1
+    assert lane_count("shard.native") == 1
     # where the shard runner declines, one encode per chunk on the pool
     monkeypatch.setattr(NativeHostCodec, "_encode_native_shards",
                         lambda self, b, bounds: None)
     per_chunk = c.encode_threaded(batch, 4)
-    assert c.counts["encode_shards"] == 1
+    assert lane_count("shard.native") == 1
     want = r.encode_threaded(batch, 4, pool="thread")
     for g in (shards, per_chunk):
         assert [len(a) for a in g] == [len(a) for a in want]
@@ -504,15 +510,15 @@ def test_host_backend_takes_the_native_tier(codecs, monkeypatch):
     entry = get_or_parse_schema(KAFKA)
     tier, impl = api._codec(entry, "host", "cuda")
     assert tier == "native" and isinstance(impl, NativeHostCodec)
-    impl.reset_counts()
+    metrics.reset()
     got = port.deserialize_array_threaded(datums, KAFKA, 4, backend="host")
-    assert impl.counts["decode_fused"] == 1
+    assert lane_count("decode.fused") == 1
     want = ref.deserialize_array_threaded(datums, KAFKA, 4, backend="host")
     for g, w in zip(got, want):
         same(g, w)
     arrays = port.serialize_record_batch(oracle(entry, datums), KAFKA, 4,
                                          backend="host")
-    assert impl.counts["extract_native"] == 1
+    assert lane_count("extract.native") == 1
     assert wire(arrays) == datums
     # a BinaryArray equals the list
     for g, w in zip(port.deserialize_array_threaded(
@@ -521,11 +527,11 @@ def test_host_backend_takes_the_native_tier(codecs, monkeypatch):
     # under PYRUHVRO_TPU_NO_NATIVE the oracle serves
     monkeypatch.setenv("PYRUHVRO_TPU_NO_NATIVE", "1")
     assert api._codec(entry, "host", "cuda") == ("fallback", None)
-    impl.reset_counts()
+    metrics.reset()
     for g, w in zip(port.deserialize_array_threaded(datums, KAFKA, 4,
                                                     backend="host"), got):
         same(g, w)
-    assert impl.counts["decode_fused"] == 0
+    assert lane_count("decode.fused") == 0
 
 
 def test_outside_the_subset_the_oracle_serves():

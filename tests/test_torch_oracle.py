@@ -197,7 +197,7 @@ def test_quarantine_records_follow_the_reference():
     assert got[0].trace_id is None and got[0].index == 15
     assert quarantine.QuarantinedRecord._fields == \
         ref_quarantine.QuarantinedRecord._fields
-    quarantine.publish(list(got))
+    quarantine.publish(list(got), "skip")
     assert [e.index for e in quarantine.last()] == [12, 15]
 
 
