@@ -97,8 +97,19 @@ exits non-zero before the last line:
    K2's breakdown at path 1's shapes (each pass, each item region's
    offsets, the epilogue, the host's enqueue, ``torch.take`` per item
    pass); the string copy's two modes in turns on paths 5 and 4e;
-7. ``{"host": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON
-   lines, then
+   then the ``telemetry`` phase (T1-T4) and the ``route`` phase
+   (:func:`route_phase`): R1 ``backend="auto"`` on paths 1 and 5 (the
+   static verdict ``device_selected``, the device path's launches, equal
+   batches, the ledger's predicted and observed seconds), R3
+   ``PYRUHVRO_TPU_POOL=process`` on the host tier (path 1 and P1 against
+   the shard runner in turns, the workers' spans under the caller's
+   trace, no worker on the card), R2 ``PYRUHVRO_TPU_AUTOTUNE=1`` on 10k,
+   100k and 1M Kafka records (each arm's predicted and observed seconds,
+   the settled arm), R4 capacity plans persisted by one fresh process and
+   read by the next (``PYRUHVRO_TPU_CAPACITY_PERSIST=1``), R5 the host
+   answer to a record past ``_MAX_ITEM_CAP`` under ``"auto"`` only;
+7. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
+   ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -2352,6 +2363,406 @@ def telemetry_phase(api, torch, telemetry, traceprop, dm, em, data,
     return out
 
 
+# R3's trace context: the workers' spans must join it
+ROUTE_TP = "00-" + "7e" * 16 + "-" + "c3" * 8 + "-01"
+# R2: every second autotuned call explores (the least-observed arm)
+ROUTE_EXPLORE = "0.5"
+ROUTE_CALLS = 6             # R2: autotuned calls per row band
+# R3's P1 on the host tier: its first records (1,000 poisoned). The native
+# tier's tolerant path decodes a chunk's tail again after each bad row, so
+# the whole P1 takes about 110 s a call on the shard arm (this phase with
+# ROUTE_P1_ROWS = 1,000,000 on an H100 machine; PERF.md §5)
+ROUTE_P1_ROWS = 100_000
+
+# R4's child: warm the card and the kernel libraries, then time the first
+# device call of each dataset file (paths 1 and 4) in a fresh process
+ROUTE_CHILD = r"""
+import json, sys, time
+import pyarrow as pa
+import torch
+sys.path.insert(0, sys.argv[1])
+from pyruhvro_tpu_torch import deserialize_array_threaded
+from pyruhvro_tpu_torch.ops import decode as dm
+from pyruhvro_tpu_torch.runtime import capacity, costmodel, metrics, native
+from pyruhvro_tpu_torch.utils import datagen
+dev, chunks = sys.argv[2], int(sys.argv[3])
+if dev == "cuda":
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    dm.walk_kernel.library()
+    dm.finalize_kernel.library()
+native.load("packer")
+out = {"loaded_plans": len(capacity.entries())}
+for label, path in zip(sys.argv[4::2], sys.argv[5::2]):
+    with pa.ipc.open_file(path) as f:
+        rows = f.read_all().column(0).combine_chunks().to_pylist()
+    dm.walk_kernel.launches = dm.finalize_kernel.launches = 0
+    before = metrics.snapshot()
+    t0 = time.perf_counter()
+    deserialize_array_threaded(rows, datagen.KAFKA_SCHEMA_JSON, chunks,
+                               device=dev)
+    cold = time.perf_counter() - t0
+    now = metrics.snapshot()
+    out[label] = {"cold_s": cold, "decode_walk": dm.walk_kernel.launches,
+                  "decode_finalize": dm.finalize_kernel.launches, **{
+                      k.split(".")[-1]: now.get(k, 0) - before.get(k, 0)
+                      for k in ("device.capacity.plan_hits",
+                                "device.capacity.plan_misses",
+                                "device.retries", "device.seed_s")}}
+print(json.dumps(out))
+"""
+
+
+def turns_of(call_a, call_b, labels):
+    """Warm calls of two arms in turns, A B B A twice."""
+    times = {k: [] for k in labels}
+    for leg in [labels[0], labels[1], labels[1], labels[0]] * 2:
+        t0 = time.perf_counter()
+        out = (call_a if leg == labels[0] else call_b)()
+        times[leg].append(time.perf_counter() - t0)
+        del out
+    return times
+
+
+def smi_compute_pids():
+    """The pids ``nvidia-smi`` lists as holding a compute context."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+def route_child(here, env, files, card_dev):
+    """One R4 child (:data:`ROUTE_CHILD`) → its JSON line."""
+    args = [sys.executable, "-c", ROUTE_CHILD, str(here), card_dev,
+            str(MAIN_CHUNKS)]
+    for label, path in files:
+        args += [label, str(path)]
+    proc = subprocess.run(args, cwd=str(here), env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"route R4: the child failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
+                warm_launches, here, card):
+    """The routing plane on the card. R1 ``backend="auto"`` on path 1 and
+    path 5: the static verdict ``device_selected``, the kernels launched
+    as on the device path's warm call (K1 and K2 per chunk, K3), the
+    batches equal to ``backend="device"``'s, the ledger entry's predicted
+    and observed seconds. R3 ``PYRUHVRO_TPU_POOL=process`` with
+    ``backend="host"`` on path 1 and on P1's first ``ROUTE_P1_ROWS``
+    records: the cold call (spawning workers that import torch) and warm calls in turns with the shard arm, the
+    batches, quarantine entries and ``MalformedAvro``'s index equal to the
+    shard arm's, one ``pool.worker`` span per chunk under the caller's
+    trace id, and no worker in ``nvidia-smi``'s compute apps. R2
+    ``PYRUHVRO_TPU_AUTOTUNE=1`` (every second call exploring, the profile
+    in a temporary directory) on Kafka batches of 10k, 100k and 1M rows:
+    each arm's predicted and observed seconds, the arm the model settles
+    on, ``router.override``; every result equal to the device call's. R4
+    ``PYRUHVRO_TPU_CAPACITY_PERSIST=1`` in a fresh child that decodes
+    paths 1 and 4 and exits, then a second fresh child: the first device
+    call's launches, planner counts and cold seconds without and with the
+    profile. R5 a batch whose item counts pass ``_MAX_ITEM_CAP``: the
+    oracle's batch under ``"auto"`` (the host answer),
+    ``DeviceCapacityExceeded`` under ``"device"``. Fails on any check."""
+    import os
+    import shutil
+
+    from pyruhvro_tpu_torch import DeviceCapacityExceeded, MalformedAvro
+    from pyruhvro_tpu_torch.fallback.decoder import (compile_reader,
+                                                     decode_to_record_batch)
+    from pyruhvro_tpu_torch.runtime import (costmodel, metrics, pool,
+                                            router, telemetry)
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    out = {}
+    card_dev = DEVICE
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    enc = {"encode_rows": em.encode_kernel.rows,
+           "encode_strings": em.encode_kernel.strings}
+    tmp = here / "build" / "route_phase"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+
+    def ledger_check(label, reason):
+        e = router.last_entry()
+        if e is None or e["reason"] != reason or e["tier"] != "device" or \
+                e["observed_s"] is None or e["predicted_s"] is None:
+            raise SystemExit(f"route {label}: ledger entry {e}: must be the "
+                             f"device tier by {reason} with predicted and "
+                             f"observed seconds")
+        return e
+
+    # R1: backend="auto" keeps path 1 and path 5 on the card
+    telemetry.reset()
+    want = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+    zero(pipe)
+    got = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                         backend="auto")
+    counts = launched("route R1 (path 1, auto)", pipe)
+    if counts != {k: int(v) for k, v in warm_launches.items()}:
+        raise SystemExit(f"route R1: backend='auto' launched {counts} on "
+                         f"path 1, the device path's warm call "
+                         f"{warm_launches}")
+    same_columns("route R1 path 1", got, want)
+    e1 = ledger_check("R1 path 1", "device_selected")
+    del got, want
+    want = api.serialize_record_batch(kafka_batch, schema, MAIN_CHUNKS)
+    zero(enc)
+    got = api.serialize_record_batch(kafka_batch, schema, MAIN_CHUNKS,
+                                     backend="auto")
+    ecounts = launched("route R1 (path 5, auto)", enc)
+    if wire_of(got) != wire_of(want):
+        raise SystemExit("route R1: path 5 under backend='auto' differs from "
+                         "backend='device'")
+    e5 = ledger_check("R1 path 5", "device_selected")
+    del got, want
+    out["r1"] = {"path1": {"launches": counts, "arm": e1["arm"],
+                           "predicted_s": e1["predicted_s"],
+                           "observed_s": e1["observed_s"]},
+                 "path5": {"launches": ecounts, "arm": e5["arm"],
+                           "predicted_s": e5["predicted_s"],
+                           "observed_s": e5["observed_s"]}}
+    print(f"route R1: backend='auto' on path 1 {e1['arm']} "
+          f"({e1['mode']}, {e1['reason']}) launched {counts}, predicted "
+          f"{e1['predicted_s']:.4f} s, observed {e1['observed_s']:.4f} s; "
+          f"path 5 {e5['arm']} ({e5['reason']}) launched {ecounts}, "
+          f"predicted {e5['predicted_s']:.4f} s, observed "
+          f"{e5['observed_s']:.4f} s; both equal to backend='device' {card}")
+
+    # R3: the process pool against the shard runner on the host tier
+    poisoned, bad = poison(data[:ROUTE_P1_ROWS], POLICY_EVERY)
+
+    def host(rows, **kw):
+        return api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS,
+                                              backend="host", **kw)
+
+    def on_process(call):
+        os.environ["PYRUHVRO_TPU_POOL"] = "process"
+        try:
+            return call()
+        finally:
+            os.environ.pop("PYRUHVRO_TPU_POOL", None)
+
+    shard = host(data)
+    telemetry.reset()
+    t0 = time.perf_counter()
+    got = on_process(lambda: host(data, trace_ctx=ROUTE_TP))
+    cold = time.perf_counter() - t0
+    e = router.last_entry()
+    if e["arm"] != f"native/c{MAIN_CHUNKS}/process" or e.get("degraded"):
+        raise SystemExit(f"route R3: the process arm did not serve: {e}")
+    root = telemetry.snapshot()["spans"][-1]
+    workers = [c for c in root["children"] if c["name"] == "pool.worker"]
+    trace_id = ROUTE_TP.split("-")[1]
+    if len(workers) != MAIN_CHUNKS or \
+            {w["trace_id"] for w in workers} != {trace_id} or \
+            root["trace_id"] != trace_id:
+        raise SystemExit(f"route R3: {len(workers)} pool.worker spans under "
+                         f"trace ids {sorted({w['trace_id'] for w in workers})}"
+                         f": one per chunk under {trace_id} expected")
+    worker_pids = sorted({w["attrs"]["pid"] for w in workers})
+    smi_pids = smi_compute_pids() if card_dev == "cuda" else []
+    if set(smi_pids) & set(worker_pids) or len(smi_pids) > 1:
+        raise SystemExit(f"route R3: nvidia-smi lists compute apps "
+                         f"{smi_pids} (workers {worker_pids}, parent "
+                         f"{os.getpid()}): a worker initialised CUDA")
+    same_columns("route R3 path 1", got, shard)
+    del got
+    turns = turns_of(lambda: on_process(lambda: host(data)),
+                     lambda: host(data), ("process", "shard"))
+    got_q = on_process(lambda: host(poisoned, on_error="skip",
+                                    return_errors=True))
+    want_q = host(poisoned, on_error="skip", return_errors=True)
+    same_columns("route R3 P1", got_q[0], want_q[0])
+    if entry_fields(got_q[1]) != entry_fields(want_q[1]) or \
+            [q.index for q in got_q[1]] != bad:
+        raise SystemExit("route R3: P1's quarantine on the process arm "
+                         "differs from the shard arm's")
+    p1_turns = turns_of(
+        lambda: on_process(lambda: host(poisoned, on_error="skip")),
+        lambda: host(poisoned, on_error="skip"), ("process", "shard"))
+    errs = []
+    for call in (lambda: on_process(lambda: host(poisoned)),
+                 lambda: host(poisoned)):
+        try:
+            call()
+            raise SystemExit("route R3: P1 under 'raise' did not raise")
+        except MalformedAvro as err:
+            errs.append((err.index, err.err_name, err.tier))
+    if errs[0] != errs[1] or errs[0][0] != bad[0]:
+        raise SystemExit(f"route R3: MalformedAvro {errs[0]} on the process "
+                         f"arm, {errs[1]} on the shard arm (first bad row "
+                         f"{bad[0]})")
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    p1_med = {k: statistics.median(v) for k, v in p1_turns.items()}
+    out["r3"] = {"cold_s": cold, "turns_s": turns, "p1_turns_s": p1_turns,
+                 "worker_pids": worker_pids, "smi_pids": smi_pids,
+                 "parent_pid": os.getpid(), "malformed": list(errs[0])}
+    print(f"route R3: PYRUHVRO_TPU_POOL=process, backend='host' on path 1: "
+          f"cold call (spawning {len(worker_pids)} workers) {cold:.3f} s; "
+          f"warm in turns (A B B A twice) process median "
+          f"{med['process']:.3f} s {[round(x, 3) for x in turns['process']]}"
+          f", shard median {med['shard']:.3f} s "
+          f"{[round(x, 3) for x in turns['shard']]}; P1's first "
+          f"{len(poisoned)} records (skip) in turns process "
+          f"{p1_med['process']:.3f} s, shard {p1_med['shard']:.3f} s; "
+          f"{len(workers)} pool.worker spans under the caller's trace; "
+          f"batches, {len(got_q[1])} quarantine entries and MalformedAvro "
+          f"{errs[0]} equal to the shard arm's; nvidia-smi compute apps "
+          f"{smi_pids} (parent {os.getpid()}, workers {worker_pids}) {card}")
+    del got_q, want_q, poisoned
+
+    # R2: autotune over three row bands
+    wants = {n: api.deserialize_array_threaded(data[:n], schema, MAIN_CHUNKS)
+             for n in (10_000, 100_000, 1_000_000)}
+    router.reset()
+    env = {"PYRUHVRO_TPU_AUTOTUNE": "1",
+           "PYRUHVRO_TPU_EXPLORE": ROUTE_EXPLORE,
+           "PYRUHVRO_TPU_ROUTING_PROFILE": str(tmp / "profile.json")}
+    os.environ.update(env)
+    fp = get_or_parse_schema(schema).fingerprint
+    r2 = {}
+    try:
+        for n, want in wants.items():
+            overrides = metrics.snapshot().get("router.override", 0)
+            rows, seen = data[:n], []
+            for _ in range(ROUTE_CALLS):
+                got = api.deserialize_array_threaded(rows, schema,
+                                                     MAIN_CHUNKS,
+                                                     backend="auto")
+                same_columns(f"route R2 {n}", got, want)
+                del got
+                seen.append(router.last_entry())
+            band = seen[-1]["band"]
+            arms = sorted({a for e in seen for a in
+                           [e["arm"], *e["counterfactual_s"]]})
+            per_arm = {}
+            for a in arms:
+                obs = [e["observed_s"] for e in seen if e["arm"] == a]
+                per_arm[a] = {
+                    "calls": len(obs),
+                    "observed_s": statistics.median(obs) if obs else None,
+                    "predicted_s": costmodel.predict(fp, "decode", band, a,
+                                                     n)}
+            unobserved = [a for a, v in per_arm.items() if not v["calls"]]
+            if unobserved:
+                raise SystemExit(f"route R2 {n}: arms never observed "
+                                 f"{unobserved}")
+            for e in seen:
+                if e["mode"] == "model" and e["predicted_s"] is None:
+                    raise SystemExit(f"route R2 {n}: the model picked the "
+                                     f"unobserved arm {e['arm']}")
+            settled = min(per_arm, key=lambda a: per_arm[a]["predicted_s"])
+            r2[str(n)] = {"arms": per_arm, "settled": settled,
+                          "modes": [(e["arm"], e["mode"]) for e in seen],
+                          "override": metrics.snapshot().get(
+                              "router.override", 0) - overrides}
+            print(f"route R2: {n} Kafka records, {ROUTE_CALLS} autotuned "
+                  f"calls {r2[str(n)]['modes']}; per arm predicted / "
+                  f"observed median s "
+                  + ", ".join(f"{a} {v['predicted_s']:.4f} / "
+                              f"{v['observed_s']:.4f} ({v['calls']})"
+                              for a, v in per_arm.items())
+                  + f"; the model settles on {settled}; router.override "
+                  f"{r2[str(n)]['override']:.0f}; every result equal to the "
+                  f"device call's {card}")
+        saved = costmodel.save_profile()
+        doc = json.loads(Path(saved).read_text())
+        if doc.get("package") != "pyruhvro_tpu_torch" or not doc["entries"]:
+            raise SystemExit(f"route R2: the saved profile {saved} is wrong")
+        print(f"route R2: profile saved to {saved} with "
+              f"{len(doc['entries'])} arm entries and "
+              f"{len(doc.get('capacity', []))} capacity plans")
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    out["r2"] = r2
+    del wants
+    pool.shutdown_process_pool()
+
+    # R4: capacity plans persisted by one process, seeding the next
+    files = []
+    for label, rows in (("path1", data), ("path4", large)):
+        path = tmp / f"{label}.arrow"
+        arr = pa.array(rows, pa.binary())
+        with pa.ipc.new_file(str(path), pa.schema([("d", arr.type)])) as w:
+            w.write_batch(pa.record_batch([arr], names=["d"]))
+        files.append((label, path))
+        del arr
+    child_env = {k: v for k, v in os.environ.items()
+                 if not k.startswith("PYRUHVRO_TPU_")}
+    child_env.update(PYRUHVRO_TPU_CAPACITY_PERSIST="1",
+                     PYRUHVRO_TPU_ROUTING_PROFILE=str(tmp / "capacity.json"))
+    without = route_child(here, child_env, files, card_dev)
+    doc = json.loads((tmp / "capacity.json").read_text())
+    if doc.get("package") != "pyruhvro_tpu_torch" or \
+            len(doc.get("capacity", [])) < 2:
+        raise SystemExit(f"route R4: the first child saved "
+                         f"{len(doc.get('capacity', []))} capacity plans")
+    with_plan = route_child(here, child_env, files, card_dev)
+    for label, _p in files:
+        if with_plan[label]["plan_hits"] < 1 or \
+                with_plan[label]["plan_misses"] or \
+                without[label]["plan_misses"] < 1:
+            raise SystemExit(f"route R4 {label}: without the profile "
+                             f"{without[label]}, with it {with_plan[label]}")
+    out["r4"] = {"without": without, "with": with_plan,
+                 "plans_saved": len(doc["capacity"])}
+    for label, _p in files:
+        a, b = without[label], with_plan[label]
+        print(f"route R4 {label}: a fresh process's first device call "
+              f"without the profile {a['cold_s']:.3f} s (decode_walk "
+              f"{a['decode_walk']}, decode_finalize {a['decode_finalize']}, "
+              f"retries {a['retries']:.0f}, plan misses "
+              f"{a['plan_misses']:.0f}, sample seeding {a['seed_s']:.4f} s)"
+              f"; with it {b['cold_s']:.3f} s (decode_walk "
+              f"{b['decode_walk']}, decode_finalize {b['decode_finalize']}, "
+              f"retries {b['retries']:.0f}, plan hits {b['plan_hits']:.0f}, "
+              f"sample seeding {b['seed_s']:.4f} s); "
+              f"{len(doc['capacity'])} plans persisted {card}")
+
+    # R5: the host answers a batch the card cannot take, under "auto" only
+    big = kafka_batch.slice(0, 16)
+    emails = big.column("emails").to_pylist()
+    emails[5] = [""] * (dm._MAX_ITEM_CAP + 1)
+    big = big.set_column(big.schema.get_field_index("emails"),
+                         big.schema.field("emails"),
+                         pa.array(emails, big.schema.field("emails").type))
+    rows = wire_of(api.serialize_record_batch(big, schema, 1,
+                                              backend="host"))
+    try:
+        api.deserialize_array(rows, schema)
+        raise SystemExit("route R5: backend='device' decoded a record past "
+                         "_MAX_ITEM_CAP")
+    except DeviceCapacityExceeded as err:
+        device_err = str(err)
+    answers = metrics.snapshot().get("device.host_answer", 0)
+    t0 = time.perf_counter()
+    got = api.deserialize_array(rows, schema, backend="auto")
+    auto_s = time.perf_counter() - t0
+    e = router.last_entry()
+    entry = get_or_parse_schema(schema)
+    want = decode_to_record_batch(rows, entry.ir, entry.arrow_schema,
+                                  compile_reader(entry.ir))
+    same_values("route R5", [got], [want])
+    if metrics.snapshot().get("device.host_answer", 0) <= answers or \
+            e["reason"] != "device_selected":
+        raise SystemExit(f"route R5: the host did not answer under 'auto' "
+                         f"({e})")
+    out["r5"] = {"items": dm._MAX_ITEM_CAP + 1, "auto_s": auto_s,
+                 "device_error": device_err}
+    print(f"route R5: a record of {dm._MAX_ITEM_CAP + 1} items: "
+          f"backend='device' raises DeviceCapacityExceeded ({device_err}); "
+          f"backend='auto' ({e['reason']}) answers on the host in "
+          f"{auto_s:.3f} s, equal to the oracle's batch {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     """The public call contract on the card, each case against the same
     call with ``device="cpu"``: P1 ``on_error="skip"`` on path 1's records
@@ -2928,6 +3339,14 @@ def main() -> int:
         here, card)
     print(f"telemetry phase: {time.perf_counter() - t0:.1f} s")
 
+    # 8. the routing plane: backend="auto", the process pool, autotune,
+    # persisted capacity plans, the host answers
+    t0 = time.perf_counter()
+    route = route_phase(port, pa, dm, em, data, kafka,
+                        enc_batches["kafka_encode"][0], large,
+                        results["kafka"]["warm_launches"], here, card)
+    print(f"route phase: {time.perf_counter() - t0:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -2970,6 +3389,7 @@ def main() -> int:
         r["registers"] = regs[r["source"]]
     print(json.dumps({"host": host}))
     print(json.dumps({"telemetry": tel}))
+    print(json.dumps({"route": route}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -18,17 +18,38 @@ native C++ VM (:mod:`.hostpath`, tier ``"native"``) serves the schemas
 inside :func:`.gate.host_supported`, the pure-Python oracle
 (:mod:`.fallback`, tier ``"fallback"``) the rest, and every schema under
 ``PYRUHVRO_TPU_NO_NATIVE=1`` (the reference's ``_route_candidates`` and
-``_native_host_codec``, ``api.py:222-306``). The reference's ``"auto"``
-(its tier router) and ``"tpu"`` raise ``ValueError``: the router is not
-ported (``ROADMAP.md`` (a) 8) and the port has no TPU. ``tenant=`` waits
-for memory accounting (``ROADMAP.md`` (a) 8) and raises ``TypeError``.
+``_native_host_codec``, ``api.py:222-306``). ``"auto"`` (the reference's
+default) lets the router choose (``runtime/router.py``): the static
+verdict keeps a call on the card whenever a card is present (reason
+``device_selected``), sends it to the host tier when the caller passed
+``device="cpu"`` (``devices_cpu_only``), when it has fewer rows than
+``PYRUHVRO_TPU_DEVICE_MIN_ROWS`` (``device_min_rows``) or when the schema
+is outside the device subset (``gate_fail``); under
+``PYRUHVRO_TPU_AUTOTUNE=1`` the learned cost model picks the arm
+(``autotune_model``, ``autotune_explore``). Under ``"auto"`` the batches
+the card cannot take are answered on the host tier
+(``ops/codec.py`` :meth:`~.ops.codec.DeviceCodec.with_host_answers`); a
+failed build or launch, or no card under ``device="cuda"``, raises under
+every backend (``ROADMAP.md`` (c) 9: the reference's per-schema
+device-failure latch, its ``device_backend`` breaker and its host retry
+are not ported). ``"tpu"`` raises ``ValueError``: the port has no TPU.
+``tenant=`` waits for memory accounting (``ROADMAP.md`` (a) 8) and
+raises ``TypeError``.
+
+Every call goes through ``router.decide`` and ends with
+``router.observe``, which leaves one entry in the routing ledger
+(``telemetry.snapshot()["routing"]``). ``PYRUHVRO_TPU_POOL=process``
+fans a chunked call of the host tier out to spawned worker processes
+(:func:`_proc_map`), each re-entering this API with ``backend="host"``
+on its chunk.
 
 Telemetry (``runtime/telemetry.py``): each call opens the reference's
 root span (``api.deserialize_array``, ``api.deserialize_array_threaded``
 or ``api.serialize_record_batch``) with ``rows``, ``backend`` and
 ``schema`` (the fingerprint), and records its tier with
 ``set_route(tier, reason)`` (tiers ``device``, ``native``,
-``fallback``; reasons ``backend_device`` and ``backend_host``). The
+``fallback``; reasons ``backend_device``, ``backend_host`` and the
+router's). The
 oracle's work runs under ``fallback.decode_s`` / ``fallback.encode_s``,
 the tolerant paths under ``decode.tolerant_s`` / ``encode.tolerant_s``.
 ``trace_ctx=`` (a W3C ``traceparent`` string, a
@@ -86,8 +107,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import pyarrow as pa
 
-from .errors import MalformedAvro, is_value_error, mark_value_error
-from .gate import host_supported
+from .errors import (MalformedAvro, is_value_error, mark_value_error,
+                     shift_malformed)
+from .gate import device_supported, host_supported
 from .fallback.decoder import (
     compile_reader,
     decode_pairs_tolerant,
@@ -97,11 +119,13 @@ from .fallback.decoder import (
 from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
-from .runtime import deadline, device_obs, knobs, quarantine, telemetry
+from .runtime import (deadline, device_obs, knobs, metrics, quarantine, router,
+                      telemetry, traceprop)
+from .runtime.deadline import DeadlineExceeded
 from .runtime.chunking import bounds_rows, chunk_bounds
 from .runtime.ingest import as_datum_input
 from .runtime.pack import record_lengths
-from .runtime.pool import map_chunks
+from .runtime.pool import map_chunks, map_chunks_proc
 from .schema.cache import SchemaEntry, get_or_parse_schema
 from .schema.model import Union
 
@@ -120,14 +144,13 @@ _DATA_ERRORS = (ValueError, OverflowError)
 
 
 def _check_backend(backend: str) -> str:
-    if backend in ("auto", "tpu"):
+    if backend == "tpu":
         raise ValueError(
-            f"backend={backend!r} is not available in the port: the tier "
-            f"router ('auto') is not ported (ROADMAP.md (a) 8) and the port "
-            f"has no TPU ('tpu'); use 'device' or 'host'")
-    if backend not in ("device", "host"):
+            "backend='tpu' is not available in the port, which has no TPU; "
+            "use 'auto', 'device' or 'host'")
+    if backend not in ("auto", "device", "host"):
         raise ValueError(
-            f"backend must be 'device' or 'host', got {backend!r}")
+            f"backend must be 'auto', 'device' or 'host', got {backend!r}")
     return backend
 
 
@@ -139,25 +162,88 @@ def _check_on_error(on_error: str) -> str:
     return on_error
 
 
-def _codec(entry: SchemaEntry, backend: str, device):
-    """The call's ``(tier, impl)``: ``("device", DeviceCodec)``,
-    ``("native", NativeHostCodec)`` or ``("fallback", None)`` (the
-    oracle), recorded on the call's root span by ``set_route``."""
-    if backend != "host":
-        tier, impl = "device", get_device_codec(entry, device)
+def _route_candidates(entry: SchemaEntry, backend: str, n_rows: int,
+                      device):
+    """The static verdict and the tiers the router may choose among →
+    ``(tier, impl, reason, candidates)`` (the reference's
+    ``_route_candidates``, ``api.py:206-262``). ``impl`` is the tier's
+    codec: a ``DeviceCodec`` (under ``"auto"`` its
+    :meth:`~.ops.codec.DeviceCodec.with_host_answers` view), a
+    ``NativeHostCodec``, or None for the oracle. A device codec that the
+    static gate passes over stays a candidate: under
+    ``PYRUHVRO_TPU_AUTOTUNE=1`` the cost model decides whether it runs. A
+    card that is missing or fails to build raises here under
+    ``"device"`` and ``"auto"`` alike (``ROADMAP.md`` (c) 9)."""
+    codec = None
+    reason = None
+    host_pref = None
+    if backend == "host":
+        reason = "backend_host"
+    elif backend == "auto" and not device_supported(entry.ir):
+        reason = "gate_fail"
     else:
-        native = _native_host_codec(entry)
-        tier, impl = ("fallback", None) if native is None else \
-            ("native", native)
-    telemetry.set_route(tier, "backend_" + backend)
-    return tier, impl
+        codec = get_device_codec(entry, device)
+        if backend == "auto":
+            host_pref = _auto_prefers_host(entry, n_rows, codec)
+            codec = codec.with_host_answers()
+    native = None if backend == "device" else _native_host_codec(entry)
+    candidates = {}
+    if codec is not None:
+        candidates["device"] = codec
+    if backend != "device":
+        if native is not None:
+            candidates["native"] = native
+        else:
+            candidates["fallback"] = None
+    if codec is not None and host_pref is None:
+        return "device", codec, ("backend_device" if backend == "device"
+                                 else "device_selected"), candidates
+    if host_pref is not None:
+        reason = host_pref
+    if native is not None:
+        return "native", native, reason, candidates
+    return "fallback", None, reason, candidates
 
 
-def _note_memory(tier: str, impl) -> None:
+def _auto_prefers_host(entry: SchemaEntry, n_rows: int, codec):
+    """Under ``backend="auto"`` with both a device codec and the native
+    host VM: the reason to serve the call on the host, else None (the
+    reference's ``_auto_prefers_host``, ``api.py:308-345``).
+    ``PYRUHVRO_TPU_DEVICE_MIN_ROWS=<n>`` gives ``device_min_rows`` below
+    n rows and replaces the other signal: ``devices_cpu_only``, which
+    holds exactly when the caller passed ``device="cpu"`` (the kernels'
+    plain versions are a slower CPU program than the native VM, as
+    JAX's CPU platform is for the reference). There is no interconnect
+    probe: the card is local."""
+    if _native_host_codec(entry) is None:
+        return None
+    min_rows = knobs.get_int("PYRUHVRO_TPU_DEVICE_MIN_ROWS")
+    if min_rows is not None:
+        return "device_min_rows" if n_rows < min_rows else None
+    if codec.device.type == "cpu":
+        return "devices_cpu_only"
+    return None
+
+
+def _decide(entry: SchemaEntry, backend: str, n_rows: int, device, *,
+            op: str, chunks: int = 1):
+    """One routed decision (``api.py:281-291`` of the reference): the
+    static verdict feeds the router as its cold-start policy, the router
+    acts (the ledger, autotune), and the verdict lands on the call's
+    span."""
+    tier, impl, reason, cands = _route_candidates(entry, backend, n_rows,
+                                                  device)
+    dec = router.decide(entry, backend, n_rows, op=op, chunks=chunks,
+                        candidates=cands, static=(tier, impl, reason))
+    telemetry.set_route(dec.tier, dec.reason)
+    return dec
+
+
+def _note_memory(dec) -> None:
     """The card's memory watermarks (``device_obs.note_memory``), once
     per call of the device tier with telemetry on."""
-    if tier == "device" and telemetry.enabled():
-        device_obs.note_memory(impl.decoder.device)
+    if dec.tier == "device" and telemetry.enabled():
+        device_obs.note_memory(dec.impl.decoder.device)
 
 
 def _native_host_codec(entry: SchemaEntry):
@@ -286,10 +372,12 @@ def _named_rows(e, n: int) -> Optional[dict]:
 
 
 def _first_bad(tier, e, n: int) -> Optional[int]:
-    """The native VM's first bad row of a pass of ``n`` rows, else None."""
+    """The first bad row of a pass of ``n`` rows that a host tier named
+    (the native VM's, or a host answer's under ``backend="auto"``), else
+    None."""
     k = getattr(e, "index", None)
-    if tier == "native" and isinstance(e, MalformedAvro) and \
-            k is not None and 0 <= k < n:
+    if isinstance(e, MalformedAvro) and k is not None and 0 <= k < n and \
+            (tier == "native" or e.tier in ("native", "fallback")):
         return k
     return None
 
@@ -485,6 +573,77 @@ def _apply_null_policy(batch, entries, base, n, policy, entry):
         return batch
 
 
+# -- the process pool (PYRUHVRO_TPU_POOL=process) ----------------------------
+#
+# A chunked call of the host tier can fan its chunks out to the spawn
+# process pool: each worker re-enters this API with backend="host" on its
+# slice under a telemetry.worker_scope, and ships its counter deltas, span
+# tree, routing observations and quarantine entries back with the result;
+# map_chunks_proc merges them, so the parent's snapshot covers the whole
+# fan-out. The device tier never fans out this way. Copies of
+# pyruhvro_tpu/api.py:700-781 without the chaos seam (faults.fire).
+
+
+def _proc_decode_task(payload):
+    schema, data, base, on_error, tp = payload
+    with telemetry.worker_scope("pool.worker", rows=len(data),
+                                op="decode", trace_ctx=tp) as w:
+        try:
+            if on_error == "raise":
+                batch = deserialize_array(data, schema, backend="host")
+                errs = []
+            else:
+                batch, errs = deserialize_array(
+                    data, schema, backend="host", on_error=on_error,
+                    return_errors=True)
+        except MalformedAvro as e:
+            # the worker sees a chunk: re-base to the call's row index
+            # before the error crosses the process boundary (__reduce__
+            # keeps its fields)
+            raise shift_malformed(e, base) from None
+    if errs:
+        w.payload["quarantine"] = quarantine.rebase(errs, base)
+    return batch, w.payload
+
+
+def _proc_encode_task(payload):
+    schema, batch, base, on_error, tp = payload
+    with telemetry.worker_scope("pool.worker", rows=batch.num_rows,
+                                op="encode", trace_ctx=tp) as w:
+        if on_error == "raise":
+            [arr] = serialize_record_batch(batch, schema, 1, backend="host")
+            errs = []
+        else:
+            [arr], errs = serialize_record_batch(
+                batch, schema, 1, backend="host", on_error=on_error,
+                return_errors=True)
+    if errs:
+        w.payload["quarantine"] = quarantine.rebase(errs, base)
+    return arr, w.payload
+
+
+def _proc_map(task, payloads, rows):
+    """Fan out on the process pool; None means: serve on the thread path
+    (counted ``pool.process_fallback``), since a failure of the pool's
+    infrastructure must degrade, not fail the call. A worker's
+    ``MalformedAvro`` (with the worker's error name and the call's row
+    index) re-raises and counts ``pool.worker_malformed``; a
+    ``DeadlineExceeded`` re-raises too. Any other worker error falls
+    back as well, and the thread path then raises it in this process if
+    it recurs."""
+    try:
+        return map_chunks_proc(task, payloads, rows=rows)
+    except MalformedAvro:
+        metrics.inc("pool.worker_malformed")
+        raise
+    except DeadlineExceeded:
+        # the budget is spent: the thread path would only overrun it
+        raise
+    except Exception:
+        metrics.inc("pool.process_fallback")
+        return None
+
+
 # -- the entry points --------------------------------------------------------
 
 
@@ -504,11 +663,18 @@ def deserialize_array(
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
             deadline.scope(timeout_s, op="deserialize_array"):
-        tier, impl = _codec(entry, backend, device)
-        deadline.check(site="call_start")
-        out = _deserialize_one(tier, impl, entry, data, on_error,
-                               return_errors)
-        _note_memory(tier, impl)
+        dec = _decide(entry, backend, len(data), device, op="decode")
+        try:
+            # after the decision: a timeout_s=0 probe still leaves a
+            # ledger entry
+            deadline.check(site="call_start")
+            out = _deserialize_one(dec.tier, dec.impl, entry, data,
+                                   on_error, return_errors)
+            _note_memory(dec)
+        except Exception as e:
+            router.observe(dec, error=e)
+            raise
+        router.observe(dec)
         return out
 
 
@@ -539,30 +705,52 @@ def deserialize_array_threaded(
     ≙ ``src/lib.rs:73-89``). On the device tier the batch decodes once
     and is sliced. Chunk bounds are computed on the input rows: under
     ``"skip"`` a chunk's batch holds its surviving rows (``"null"`` keeps
-    each chunk's row count on all-nullable schemas)."""
+    each chunk's row count on all-nullable schemas). On the process-pool
+    arm the call's trace context ships to every worker, so the chunks'
+    spans join the caller's trace."""
     _check_backend(backend)
     _check_on_error(on_error)
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
+    bounds = chunk_bounds(len(data), num_chunks)
     with telemetry.root_span("api.deserialize_array_threaded",
                              rows=len(data), chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
             deadline.scope(timeout_s, op="deserialize_array_threaded"):
-        tier, impl = _codec(entry, backend, device)
-        deadline.check(site="call_start")
-        out = _deserialize_chunks(tier, impl, entry, data, num_chunks,
-                                  on_error, return_errors)
-        _note_memory(tier, impl)
+        dec = _decide(entry, backend, len(data), device, op="decode",
+                      chunks=len(bounds))
+        try:
+            deadline.check(site="call_start")
+            out = _deserialize_chunks(dec, entry, data, schema, num_chunks,
+                                      bounds, on_error, return_errors)
+            _note_memory(dec)
+        except Exception as e:
+            router.observe(dec, error=e)
+            raise
+        router.observe(dec)
         return out
 
 
-def _deserialize_chunks(tier, impl, entry, data, num_chunks, on_error,
-                        return_errors):
-    """The chunked decode body (the reference's without its process
-    pool, ``ROADMAP.md`` (a) 6)."""
+def _deserialize_chunks(dec, entry, data, schema, num_chunks, bounds,
+                        on_error, return_errors):
+    """The chunked decode body, on the decided (tier, pool) arm."""
+    tier, impl = dec.tier, dec.impl
+    use_proc = dec.pool == "process"
+    # the caller's live trace context, shipped so that the workers' spans
+    # join the caller's trace
+    tp = traceprop.current_traceparent()
+    if use_proc:
+        payloads = [(schema, list(data[a:b]), a, on_error, tp)
+                    for a, b in bounds]
     if on_error == "raise":
         _enforce_max_datum(data)
+        if use_proc:
+            out = _proc_map(_proc_decode_task, payloads,
+                            rows=lambda p: len(p[1]))
+            if out is not None:
+                return (out, []) if return_errors else out
+            dec.degraded = True  # the thread path serves a process arm
         if tier != "fallback":
             out = impl.decode_threaded(data, num_chunks)
         else:
@@ -575,10 +763,18 @@ def _deserialize_chunks(tier, impl, entry, data, num_chunks, on_error,
                         data[a:b], entry.ir, entry.arrow_schema, reader,
                         index_base=a)
 
-            out = map_chunks(decode_chunk,
-                             chunk_bounds(len(data), num_chunks),
-                             rows=bounds_rows)
+            out = map_chunks(decode_chunk, bounds, rows=bounds_rows)
         return (out, []) if return_errors else out
+    if use_proc:
+        # the workers apply the policy to their own chunk and ship their
+        # entries back, which merge_worker folds into ``quar``
+        with quarantine.collecting() as quar:
+            out = _proc_map(_proc_decode_task, payloads,
+                            rows=lambda p: len(p[1]))
+            if out is not None:
+                quarantine.publish(quar, on_error)
+                return (out, quar) if return_errors else out
+        dec.degraded = True
     out, quar = _decode_tolerant(tier, impl, entry, data, num_chunks,
                                  on_error)
     return (out, quar) if return_errors else out
@@ -613,7 +809,7 @@ def serialize_record_batch(
     surviving rows; ``"null"`` encodes them as all-null rows on
     all-nullable schemas. The device tier raises
     :class:`~.errors.BatchTooLarge` for one row whose output passes the
-    launch budget."""
+    launch budget (under ``"auto"`` the host tier encodes it)."""
     _check_backend(backend)
     _check_on_error(on_error)
     entry = get_or_parse_schema(schema)
@@ -621,24 +817,42 @@ def serialize_record_batch(
         batches = batch.combine_chunks().to_batches()
         batch = batches[0] if batches else pa.RecordBatch.from_pylist(
             [], schema=batch.schema)
+    bounds = chunk_bounds(batch.num_rows, num_chunks)
     with telemetry.root_span("api.serialize_record_batch",
                              rows=batch.num_rows, chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
             deadline.scope(timeout_s, op="serialize_record_batch"):
-        tier, impl = _codec(entry, backend, device)
-        deadline.check(site="call_start")
-        out = _serialize_chunks(tier, impl, entry, batch, num_chunks,
-                                on_error, return_errors)
-        _note_memory(tier, impl)
+        dec = _decide(entry, backend, batch.num_rows, device, op="encode",
+                      chunks=len(bounds))
+        try:
+            deadline.check(site="call_start")
+            out = _serialize_chunks(dec, entry, batch, schema, num_chunks,
+                                    bounds, on_error, return_errors)
+            _note_memory(dec)
+        except Exception as e:
+            router.observe(dec, error=e)
+            raise
+        router.observe(dec)
         return out
 
 
-def _serialize_chunks(tier, impl, entry, batch, num_chunks, on_error,
-                      return_errors):
-    """The chunked encode body (the reference's without its process
-    pool)."""
+def _serialize_chunks(dec, entry, batch, schema, num_chunks, bounds,
+                      on_error, return_errors):
+    """The chunked encode body, on the decided (tier, pool) arm."""
+    tier, impl = dec.tier, dec.impl
+    use_proc = dec.pool == "process"
+    tp = traceprop.current_traceparent()  # ships the caller's trace
+    if use_proc:
+        payloads = [(schema, batch.slice(a, b - a), a, on_error, tp)
+                    for a, b in bounds]
     if on_error == "raise":
+        if use_proc:
+            out = _proc_map(_proc_encode_task, payloads,
+                            rows=lambda p: p[1].num_rows)
+            if out is not None:
+                return (out, []) if return_errors else out
+            dec.degraded = True  # the thread path serves a process arm
         if tier != "fallback":
             out = impl.encode_threaded(batch, num_chunks)
         else:
@@ -650,10 +864,22 @@ def _serialize_chunks(tier, impl, entry, batch, num_chunks, on_error,
                     return pa.array(encode_record_batch(
                         batch.slice(a, b - a), entry.ir, plan), pa.binary())
 
-            out = map_chunks(encode_chunk,
-                             chunk_bounds(batch.num_rows, num_chunks),
-                             rows=bounds_rows)
+            out = map_chunks(encode_chunk, bounds, rows=bounds_rows)
         return (out, []) if return_errors else out
+    if use_proc:
+        with quarantine.collecting() as quar:
+            out = _proc_map(_proc_encode_task, payloads,
+                            rows=lambda p: p[1].num_rows)
+            if out is not None:
+                if quar:
+                    # one array per input chunk → the documented shape:
+                    # chunks taken over the surviving rows
+                    whole = pa.concat_arrays(out)
+                    out = [whole.slice(a, b - a)
+                           for a, b in chunk_bounds(len(whole), num_chunks)]
+                quarantine.publish(quar, on_error, op="encode")
+                return (out, quar) if return_errors else out
+        dec.degraded = True
     with telemetry.phase("encode.tolerant_s", rows=batch.num_rows,
                          tier=tier):
         arr, quar = _tolerant_encode(tier, impl, entry, batch, on_error)

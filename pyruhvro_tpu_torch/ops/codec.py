@@ -18,20 +18,31 @@ engine is always one launch. A batch over the engine's single-launch
 budget is halved (each half still decodes on the device) with the
 malformed row index re-based to the whole batch, and the threaded entry
 decodes once and slices the result per chunk, compacting sliced sparse
-unions. ``DeviceCapacityExceeded`` reaches the caller: the
-port has no host tier.
+unions.
 
 Encode (``codec.py:382-430``): the encoder (:class:`.encode.DeviceEncoder`,
 K3) is built on the first call; a batch whose output bound passes the
 launch budget is halved (each half still encodes on the device), and
 ``BatchTooLarge(n, -1)`` is raised when the halves' concatenation would
 overflow int32 offsets; ``encode_threaded`` encodes once and slices.
-Where the reference serves from its host tier (a schema outside the
-encode subset, one row over the budget, a backend fault), the port
+
+The host answers (``codec.py:268-298, 404-430`` of the reference) apply
+only where the caller allowed the host tier, ``backend="auto"``, which
+calls through :meth:`DeviceCodec.with_host_answers`: a batch the card
+cannot take (``DeviceCapacityExceeded``), one datum over the launch
+budget (``BatchTooLarge`` at one row), ``UnsupportedOnDevice`` per batch
+(K4's tile budget), and on encode a schema outside the encode subset or
+one row over the budget are served by the native host tier, or by the
+oracle outside its subset, each counted in ``device.host_answer`` and
+``device.host_answer.<why>`` and annotated on the span as
+``device_host_answer``. Under ``backend="device"`` every one of them
 raises. A backend fault (``RuntimeError``, ``OSError``,
 ``MemoryError``, but not a deadline: the reference's
-``faults.degradable``) is first counted in ``device.call_failure`` and
-annotated on the span as ``device_degraded`` (``codec.py:110-117``).
+``faults.degradable``) raises under both backends: it is counted in
+``device.call_failure`` and annotated on the span as
+``device_degraded`` (``codec.py:110-117``), and the reference's
+``device_backend`` breaker and host retry are not ported
+(``ROADMAP.md`` (c) 9).
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ from typing import List, Sequence
 
 import pyarrow as pa
 
-from ..errors import BatchTooLarge, MalformedAvro, shift_malformed
+from ..errors import (BatchTooLarge, DeviceCapacityExceeded, MalformedAvro,
+                      mark_value_error, shift_malformed)
 from ..runtime import deadline, metrics, telemetry
 from ..runtime.chunking import chunk_bounds
 from ..schema.cache import SchemaEntry
@@ -50,7 +62,7 @@ from .arrow_build import build_record_batch, compact_union_slices
 from .decode import DeviceDecoder, overlap_chunks
 from .walk_decode import WalkDecoder, resolve_device
 
-__all__ = ["DeviceCodec", "get_device_codec", "pallas_mode"]
+__all__ = ["DeviceCodec", "HostAnswering", "get_device_codec", "pallas_mode"]
 
 
 def _degradable(e: BaseException) -> bool:
@@ -62,9 +74,10 @@ def _degradable(e: BaseException) -> bool:
 
 
 def _device_call_failed(e: BaseException) -> None:
-    """Count and annotate one device fault (the reference's
-    ``_device_call_failed`` without its breaker, which waits for the
-    router); the caller re-raises it."""
+    """Count and annotate one device fault; the caller re-raises it. Not
+    ported: the reference's ``device_backend`` breaker, which this feeds
+    there, and its host retry (``ROADMAP.md`` (c) 9: a failure of the
+    card raises)."""
     metrics.inc("device.call_failure")
     telemetry.annotate(device_degraded=type(e).__name__)
 
@@ -83,6 +96,7 @@ class DeviceCodec:
     """Schema-bound decode on one torch device."""
 
     def __init__(self, entry: SchemaEntry, device="cuda", pallas="off"):
+        self.entry = entry
         self.ir = entry.ir
         self.arrow_schema = entry.arrow_schema
         self.fingerprint = entry.fingerprint
@@ -98,6 +112,56 @@ class DeviceCodec:
                                          fingerprint=entry.fingerprint)
         self.device = device
         self._encoder = None
+        # the encode subset's refusal of this schema, kept so that it is
+        # found once (raised under backend="device", answered on the
+        # host under "auto")
+        self._encode_unsupported = None
+        self._host_view = None
+
+    def with_host_answers(self) -> "HostAnswering":
+        """This codec as ``backend="auto"`` calls it: the batches the card
+        cannot take are answered on the host tier."""
+        if self._host_view is None:
+            self._host_view = HostAnswering(self)
+        return self._host_view
+
+    def _host_answer(self, why: str) -> None:
+        metrics.inc("device.host_answer")
+        # metric-key: device.host_answer.<why>
+        metrics.inc("device.host_answer." + why)
+        telemetry.annotate(device_host_answer=why)
+
+    def _host_decode(self, data, why: str) -> pa.RecordBatch:
+        """Decode a batch the card handed back on the host tier: the
+        native VM inside its subset, else the oracle (the reference's
+        ``_host_decode``)."""
+        from ..api import _host_reader, _native_host_codec
+        from ..fallback.decoder import decode_to_record_batch
+
+        self._host_answer(why)
+        native = _native_host_codec(self.entry)
+        if native is not None:
+            return native.decode(data)
+        with telemetry.phase("fallback.decode_s", rows=len(data)):
+            return decode_to_record_batch(data, self.ir, self.arrow_schema,
+                                          _host_reader(self.entry))
+
+    def _host_encode(self, batch: pa.RecordBatch, why: str) -> pa.Array:
+        """Encode a batch the card handed back on the host tier."""
+        from ..api import _host_plan, _native_host_codec
+        from ..fallback.encoder import encode_record_batch
+
+        self._host_answer(why)
+        native = _native_host_codec(self.entry)
+        if native is not None:
+            return native.encode(batch)
+        with telemetry.phase("fallback.encode_s", rows=batch.num_rows):
+            try:
+                return pa.array(encode_record_batch(batch, self.ir,
+                                                    _host_plan(self.entry)),
+                                pa.binary())
+            except (ValueError, OverflowError) as e:
+                raise mark_value_error(e)  # the oracle has no device fault
 
     def _decode_triples(self, data: Sequence[bytes]):
         """One ``(host, n, meta)`` triple per launch chunk: the overlapped
@@ -110,84 +174,140 @@ class DeviceCodec:
                 return dec.decode_to_columns_overlapped(data, k)
         return [dec.decode_to_columns(data)]
 
-    def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
+    def decode(self, data: Sequence[bytes], *,
+               host_ok: bool = False) -> pa.RecordBatch:
+        """Decode ``data`` into one RecordBatch on the card; ``host_ok``
+        (``backend="auto"``) lets the host tier answer the batches the
+        card cannot take."""
         try:
-            return self._decode(data)
+            return self._decode(data, host_ok)
         except Exception as e:
             if _degradable(e):
                 _device_call_failed(e)
             raise
 
-    def _decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
+    def _decode(self, data: Sequence[bytes], host_ok: bool) -> pa.RecordBatch:
         try:
             triples = self._decode_triples(data)
         except BatchTooLarge:
             # one launch is bounded in bytes: halve the batch — each half
             # still decodes on the device — and concatenate the results
             if len(data) < 2:
+                if host_ok:  # one datum over the budget
+                    return self._host_decode(data, "batch_too_large")
                 raise
             mid = len(data) // 2
-            left = self._decode(data[:mid])
+            left = self._decode(data[:mid], host_ok)
             try:
-                right = self._decode(data[mid:])
+                right = self._decode(data[mid:], host_ok)
             except MalformedAvro as e:
                 # the right half reports half-local row indices
                 raise shift_malformed(e, mid) from None
             return _concat_batches([left, right])
+        except DeviceCapacityExceeded:
+            # valid Avro whose item counts pass the card's limits
+            if host_ok:
+                return self._host_decode(data, "capacity")
+            raise
+        except UnsupportedOnDevice:
+            # a per-batch limit of the row-padded engine (K4's tile)
+            if host_ok:
+                return self._host_decode(data, "unsupported")
+            raise
         batches = [build_record_batch(self.ir, self.arrow_schema, host, n,
                                       meta) for host, n, meta in triples]
         return batches[0] if len(batches) == 1 else _concat_batches(batches)
 
-    def decode_threaded(self, data: Sequence[bytes],
-                        num_chunks: int) -> List[pa.RecordBatch]:
+    def decode_threaded(self, data: Sequence[bytes], num_chunks: int, *,
+                        host_ok: bool = False) -> List[pa.RecordBatch]:
         """Decode once, then slice per chunk with the reference's chunk
         bounds (``deserialize.rs:57-68``)."""
-        batch = self.decode(data)
+        batch = (self.decode(data, host_ok=True) if host_ok
+                 else self.decode(data))
         return [
             compact_union_slices(batch.slice(a, b - a))
             for a, b in chunk_bounds(len(data), num_chunks)
         ]
 
 
-    def encode(self, batch: pa.RecordBatch) -> pa.Array:
-        """Every row as one Avro datum, in one ``BinaryArray``."""
+    def encode(self, batch: pa.RecordBatch, *,
+               host_ok: bool = False) -> pa.Array:
+        """Every row as one Avro datum, in one ``BinaryArray``; ``host_ok``
+        as for :meth:`decode`."""
         try:
-            return self._encode(batch)
+            return self._encode(batch, host_ok)
         except Exception as e:
             if _degradable(e):
                 _device_call_failed(e)
             raise
 
-    def _encode(self, batch: pa.RecordBatch) -> pa.Array:
-        if self._encoder is None:
+    def _encode(self, batch: pa.RecordBatch, host_ok: bool) -> pa.Array:
+        if self._encoder is None and self._encode_unsupported is None:
             from .encode import DeviceEncoder
 
-            self._encoder = DeviceEncoder(self.ir, self.arrow_schema,
-                                          self.device,
-                                          fingerprint=self.fingerprint)
+            try:
+                self._encoder = DeviceEncoder(self.ir, self.arrow_schema,
+                                              self.device,
+                                              fingerprint=self.fingerprint)
+            except UnsupportedOnDevice as e:
+                self._encode_unsupported = e
+        if self._encode_unsupported is not None:
+            # a schema outside the encode subset
+            if host_ok:
+                return self._host_encode(batch, "unsupported")
+            raise self._encode_unsupported
         try:
             return self._encoder.encode(batch)
         except BatchTooLarge:
             # the output would pass the launch budget: halve the batch,
             # each half still on the device
             if batch.num_rows < 2:
+                if host_ok:  # one row over the budget
+                    return self._host_encode(batch, "batch_too_large")
                 raise
             mid = batch.num_rows // 2
             try:
-                return pa.concat_arrays([self._encode(batch.slice(0, mid)),
-                                         self._encode(batch.slice(mid))])
+                return pa.concat_arrays([
+                    self._encode(batch.slice(0, mid), host_ok),
+                    self._encode(batch.slice(mid), host_ok)])
             except pa.lib.ArrowInvalid:
                 # the halves fit, their concatenation overflows int32
                 # offsets
                 raise BatchTooLarge(batch.num_rows, -1) from None
 
-    def encode_threaded(self, batch: pa.RecordBatch,
-                        num_chunks: int) -> List[pa.Array]:
+    def encode_threaded(self, batch: pa.RecordBatch, num_chunks: int, *,
+                        host_ok: bool = False) -> List[pa.Array]:
         """Encode the whole batch once and slice the ``BinaryArray`` with
         the reference's chunk bounds (``serialize.rs:38-66``)."""
-        arr = self.encode(batch)
+        arr = (self.encode(batch, host_ok=True) if host_ok
+               else self.encode(batch))
         return [arr.slice(a, b - a)
                 for a, b in chunk_bounds(batch.num_rows, num_chunks)]
+
+
+class HostAnswering:
+    """A :class:`DeviceCodec` as ``backend="auto"`` calls it: the same
+    codec, decoder and kernels, with ``host_ok=True`` on every call."""
+
+    __slots__ = ("codec", "decoder")
+
+    def __init__(self, codec: DeviceCodec):
+        self.codec = codec
+        self.decoder = codec.decoder
+
+    def decode(self, data: Sequence[bytes]) -> pa.RecordBatch:
+        return self.codec.decode(data, host_ok=True)
+
+    def decode_threaded(self, data: Sequence[bytes],
+                        num_chunks: int) -> List[pa.RecordBatch]:
+        return self.codec.decode_threaded(data, num_chunks, host_ok=True)
+
+    def encode(self, batch: pa.RecordBatch) -> pa.Array:
+        return self.codec.encode(batch, host_ok=True)
+
+    def encode_threaded(self, batch: pa.RecordBatch,
+                        num_chunks: int) -> List[pa.Array]:
+        return self.codec.encode_threaded(batch, num_chunks, host_ok=True)
 
 
 def _concat_batches(batches: List[pa.RecordBatch]) -> pa.RecordBatch:

@@ -1,6 +1,7 @@
-"""The in-process capacity planner (copy of
-``pyruhvro_tpu/runtime/capacity.py:66-212``: ``lookup``, ``learn``,
-``seed_decoder``, ``harvest_decoder``, ``snapshot``, ``reset``).
+"""The capacity planner and its persistence (copy of
+``pyruhvro_tpu/runtime/capacity.py:60-212``: ``persist_enabled``,
+``lookup``, ``learn``, ``seed_decoder``, ``harvest_decoder``,
+``entries``, ``merge_entries``, ``snapshot``, ``reset``).
 
 Every converged ladder teaches the planner its final rung: the item cap
 of each region path, the item total of each (``R``, region path), and
@@ -14,27 +15,39 @@ by region path and merged by monotonic max, so merging is idempotent and
 order-free.
 
 :func:`seed_decoder` counts ``device.capacity.plan_hits`` /
-``.plan_misses`` as the reference does. Not ported yet: persistence
-through ``ROUTING_PROFILE.json`` and the cost model
-(``entries``/``merge_entries``, ``persist_enabled``), which waits for
-``ROADMAP.md`` (a) 6.
+``.plan_misses`` as the reference does.
+
+Persistence rides the routing profile (:mod:`.costmodel`, version 2 of
+its document, ``PYRUHVRO_TPU_ROUTING_PROFILE``): :func:`entries` gives
+the plans as the document's ``capacity`` rows and :func:`merge_entries`
+max-merges rows back. It is armed by ``PYRUHVRO_TPU_AUTOTUNE=1`` or, for
+the plans alone, ``PYRUHVRO_TPU_CAPACITY_PERSIST=1`` (:func:`persist_enabled`):
+the profile then loads at import and is saved at exit, so a fresh
+process's first device call starts at the learned rung.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
-from . import metrics
+from . import knobs, metrics
 from .pack import bucket_len
 
-__all__ = ["lookup", "learn", "seed_decoder", "harvest_decoder", "snapshot",
+__all__ = ["persist_enabled", "lookup", "learn", "seed_decoder",
+           "harvest_decoder", "entries", "merge_entries", "snapshot",
            "reset"]
 
 _lock = threading.Lock()
 # (schema fingerprint, R) -> {"item_caps": {path: int},
 #                             "tot_caps": {path: int}, "str_full_B": set}
 _plans: Dict[Tuple[str, int], Dict[str, Any]] = {}  # guarded-by: _lock
+
+
+def persist_enabled() -> bool:
+    """``PYRUHVRO_TPU_CAPACITY_PERSIST=1``: the plans arm the routing
+    profile's persistence on their own, without autotune."""
+    return knobs.get_bool("PYRUHVRO_TPU_CAPACITY_PERSIST")
 
 
 def lookup(fingerprint: str, R: int) -> Optional[Dict[str, Any]]:
@@ -108,6 +121,42 @@ def harvest_decoder(decoder, R: int) -> None:
     learn(decoder.fingerprint, R, item_caps, tot_caps, str_full)
 
 
+def entries() -> List[Dict[str, Any]]:
+    """The plans as JSON rows for the profile's ``capacity`` section."""
+    with _lock:
+        return [
+            {
+                "schema": fp,
+                "R": R,
+                "item_caps": dict(plan["item_caps"]),
+                "tot_caps": dict(plan["tot_caps"]),
+                "str_full_B": sorted(plan["str_full_B"]),
+            }
+            for (fp, R), plan in sorted(_plans.items())
+        ]
+
+
+def merge_entries(rows) -> int:
+    """Fold profile ``capacity`` rows into the planner (max-merge); a
+    malformed row is skipped, so an old or foreign profile never fails
+    the load. Returns the rows merged."""
+    merged = 0
+    for row in rows or ():
+        try:
+            learn(
+                str(row["schema"]), int(row["R"]),
+                {str(k): int(v) for k, v in (row.get("item_caps")
+                                             or {}).items()},
+                {str(k): int(v) for k, v in (row.get("tot_caps")
+                                             or {}).items()},
+                [int(b) for b in row.get("str_full_B") or ()],
+            )
+            merged += 1
+        except (KeyError, TypeError, ValueError, AttributeError):
+            continue
+    return merged
+
+
 def snapshot() -> Dict[str, Any]:
     """How many plans, and for how many schemas."""
     with _lock:
@@ -115,6 +164,7 @@ def snapshot() -> Dict[str, Any]:
 
 
 def reset() -> None:
-    """Forget every plan (test isolation)."""
+    """Forget every plan (test isolation; ``costmodel.reset()`` calls it).
+    The profile on disk stays."""
     with _lock:
         _plans.clear()

@@ -57,9 +57,11 @@ and later-launch counts, seconds and bytes. :func:`note_memory` keeps
 ``torch.cuda.memory_stats`` watermarks per ``cuda:<index>``; the churn
 guard (:func:`note_compile`) counts first launches per schema in
 ``PYRUHVRO_TPU_RECOMPILE_WINDOW`` seconds and, at
-``PYRUHVRO_TPU_RECOMPILE_STORM``, counts ``device.recompile_storm``.
-Not ported: the storm's flight dump and cost penalty, ``track_holder``,
-the lifecycle eviction and ``cachelife`` (``ROADMAP.md`` (a) 8).
+``PYRUHVRO_TPU_RECOMPILE_STORM``, counts ``device.recompile_storm`` and
+penalizes the schema in the cost model (``costmodel.penalize``), so the
+router withholds its device arm for the window. Not ported: the storm's
+flight dump, ``track_holder``, the lifecycle eviction and ``cachelife``
+(``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
@@ -426,8 +428,9 @@ def note_compile(fingerprint: str, kind: str, bucket: str) -> None:
     """Feed the churn guard one first launch: at
     ``PYRUHVRO_TPU_RECOMPILE_STORM`` of them for one schema within the
     window it counts ``device.recompile_storm``, marks
-    ``recompile_storm``, annotates the span and clears the window so one
-    storm counts once."""
+    ``recompile_storm``, annotates the span, penalizes the schema's
+    device arm in the cost model and clears the window so one storm
+    counts once."""
     storm = False
     now = time.monotonic()
     with _lock:
@@ -443,8 +446,13 @@ def note_compile(fingerprint: str, kind: str, bucket: str) -> None:
         metrics.inc("device.recompile_storm")
         metrics.mark("recompile_storm")
         telemetry.annotate(recompile_storm=True)
-        # not ported: the storm's flight dump and the router's cost
-        # penalty (ROADMAP.md (a) 8)
+        # not ported: the storm's flight dump (ROADMAP.md (a) 8). A
+        # storming schema's device arm is withheld from the router for
+        # the churn window: a hard penalty, not one the model must
+        # learn by paying more first launches
+        from . import costmodel
+
+        costmodel.penalize(fingerprint, churn_window_s())
 
 
 def note_memory(device) -> None:

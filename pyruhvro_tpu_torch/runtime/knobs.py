@@ -1,8 +1,13 @@
 """Environment knobs the port reads (copy of the parse rules of
 ``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_float``/
-``get_bool``, ``get_tristate``, ``get_str`` and ``get_raw``, and of the
-knobs it registers at ``:82-84``, ``:146-150``, ``:153-159``,
-``:162-167``, ``:175``, ``:189-192`` and ``:211``, with their defaults).
+``get_bool``, ``get_tristate``, ``get_str``, ``get_raw``, ``is_set`` and
+``get_enum``, and of the knobs it registers at ``:82-100``, ``:146-150``,
+``:153-159``, ``:162-167``, ``:175-183``, ``:189-192``, ``:211``,
+``:223-226`` and ``:237``, with their defaults).
+
+One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
+``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
+tests share one checkout, never read each other's routing profile.
 
 A knob is read at each call, so setting a variable between calls takes
 effect. Unset or empty gives the default; a value that does not parse
@@ -19,7 +24,7 @@ from typing import Dict
 from . import metrics
 
 __all__ = ["get_bool", "get_tristate", "get_int", "get_float", "get_str",
-           "get_raw", "DEFAULTS"]
+           "get_raw", "get_enum", "is_set", "DEFAULTS", "CHOICES"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -50,6 +55,35 @@ DEFAULTS = {
     "PYRUHVRO_TPU_RECOMPILE_WINDOW": 60.0,
     # first launches of new buckets within the window that make a storm
     "PYRUHVRO_TPU_RECOMPILE_STORM": 8,
+    # backend="auto": the card serves batches of at least n rows, the host
+    # tier the smaller ones (replaces the static gate's other signals)
+    "PYRUHVRO_TPU_DEVICE_MIN_ROWS": None,
+    # the chunk fan-out of host-tier chunked calls: thread or process
+    "PYRUHVRO_TPU_POOL": "thread",
+    # backend="auto" picks its arm from the learned cost model
+    "PYRUHVRO_TPU_AUTOTUNE": False,
+    # the share of autotuned calls that try the least-observed arm
+    "PYRUHVRO_TPU_EXPLORE": 0.05,
+    # where routing knowledge persists ("" set: no persistence)
+    "PYRUHVRO_TPU_ROUTING_PROFILE": "ROUTING_PROFILE.torch.json",
+    # entries of the routing decision ledger kept
+    "PYRUHVRO_TPU_LEDGER_N": 256,
+    # failures that open a circuit breaker (overrides each one's default)
+    "PYRUHVRO_TPU_BREAKER_THRESHOLD": None,
+    # the breakers' base backoff in seconds (overrides the default)
+    "PYRUHVRO_TPU_BREAKER_BACKOFF": None,
+    # the fast/slow EWMA ratio that counts as latency drift
+    "PYRUHVRO_TPU_DRIFT_RATIO": 1.5,
+    # drifted observations in a row before a detection fires
+    "PYRUHVRO_TPU_DRIFT_SUSTAIN": 5,
+    # persist the capacity planner's plans in the routing profile even
+    # without autotune
+    "PYRUHVRO_TPU_CAPACITY_PERSIST": False,
+}
+
+# the accepted (lower-case) values of the enum knobs
+CHOICES = {
+    "PYRUHVRO_TPU_POOL": ("thread", "process"),
 }
 
 # parse errors count through DeferredCounts, as in the reference
@@ -106,6 +140,27 @@ def get_raw(name: str) -> str:
     """The raw value of a registered knob (``""`` when unset)."""
     assert name in DEFAULTS, f"unregistered knob {name}"
     return os.environ.get(name, "")
+
+
+def is_set(name: str) -> bool:
+    """Is the knob in the environment at all (even empty)? For knobs whose
+    set-but-empty value differs from unset
+    (``PYRUHVRO_TPU_ROUTING_PROFILE``: empty turns persistence off)."""
+    assert name in DEFAULTS, f"unregistered knob {name}"
+    return name in os.environ
+
+
+def get_enum(name: str) -> str:
+    """The lower-cased value when it is one of the knob's choices; unset
+    or empty gives the default, anything else the default and a parse
+    error."""
+    raw = os.environ.get(name, "").strip().lower()
+    if not raw:
+        return DEFAULTS[name]
+    if raw in CHOICES[name]:
+        return raw
+    _parse_error(name)
+    return DEFAULTS[name]
 
 
 def _number(name: str, cast):

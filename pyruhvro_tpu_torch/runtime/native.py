@@ -31,7 +31,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_packer", "load_host_codec", "load_extract", "load",
+__all__ = ["load_packer", "load_host_codec", "load_extract", "load", "loaded",
            "build_path", "source_files", "cpu_tag", "NativeModule",
            "SOURCES"]
 
@@ -162,6 +162,12 @@ def load(name: str) -> NativeModule:
             # carried by the first device launch that uses it
             device_obs.note_build(name, build_s)
         return _loaded[name]
+
+
+def loaded(name: str) -> bool:
+    """Is ``SOURCES[name]`` built and imported in this process? Never
+    builds."""
+    return name in _loaded
 
 
 def load_packer() -> NativeModule:

@@ -1,6 +1,7 @@
-"""The process-global host thread pool and its chunk fan-out (copy of
-``pyruhvro_tpu/runtime/pool.py``: ``get_pool``, ``fanout_stats``,
-``map_chunks`` and ``_gather``).
+"""The process-global host pools and their chunk fan-outs (copy of
+``pyruhvro_tpu/runtime/pool.py``: ``pool_mode``, ``process_available``,
+``shard_available``, ``get_pool``, ``get_process_pool``,
+``fanout_stats``, ``map_chunks``, ``_gather`` and ``map_chunks_proc``).
 
 Python threads overlap only where the work releases the interpreter lock:
 the native host VM and extractor do for essentially the whole call, so
@@ -11,8 +12,18 @@ own counter deltas; a fan-out of more than one chunk opens a
 ``pool.fanout_s`` span carrying its parallel efficiency. The counters
 are the reference's: ``pool.chunks``, ``pool.fanouts``,
 ``pool.worker_rows``, ``pool.eff_fanouts``, ``pool.chunk_efficiency``
-and ``deadline.cancelled_futures``. The reference's process pool
-(``map_chunks_proc``) waits for ``ROADMAP.md`` (a) 6.
+and ``deadline.cancelled_futures``.
+
+``PYRUHVRO_TPU_POOL=process`` sends the host tier's chunks to a
+**spawn** process pool (:func:`map_chunks_proc`; spawn, never fork: the
+parent may hold a CUDA context, pool threads and their locks). Each
+worker runs its chunk under ``telemetry.worker_scope`` and ships its
+counter deltas, span tree, routing observations and quarantine entries
+home with the result; nothing is merged until every chunk has answered.
+A broken pool opens the ``process_pool`` circuit breaker (:mod:`.breaker`):
+calls degrade to the thread path at once, and after the backoff one
+fan-out probes the pool back in. Left out: the reference's chaos seam
+(``_run_with_chaos_env`` and its ``faults`` env; ``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
@@ -20,16 +31,40 @@ from __future__ import annotations
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
 from typing import Callable, List, Optional, Sequence
 
-from . import deadline, metrics, telemetry
+from . import breaker, deadline, knobs, metrics, native, telemetry
 
-__all__ = ["get_pool", "map_chunks", "fanout_stats"]
+__all__ = ["get_pool", "map_chunks", "get_process_pool", "map_chunks_proc",
+           "pool_mode", "process_available", "shard_available",
+           "fanout_stats", "shutdown_process_pool"]
 
-_pool = None  # guarded-by: _lock
+_pool = None       # guarded-by: _lock
+_proc_pool = None  # guarded-by: _lock
 _lock = threading.Lock()
+
+
+def pool_mode() -> str:
+    """``thread`` (default) or ``process`` (``PYRUHVRO_TPU_POOL``)."""
+    return knobs.get_enum("PYRUHVRO_TPU_POOL")
+
+
+def process_available() -> bool:
+    """Can a process-pool arm be offered? False while the
+    ``process_pool`` breaker is open (the spawn pool broke and its
+    backoff has not passed); half-open reads True: the next fan-out is
+    the probe."""
+    return breaker.get("process_pool").allow()
+
+
+def shard_available() -> bool:
+    """Can the one-call native shard-runner arm be offered? True once the
+    host tier's module is loaded. Unlike the reference's there is no
+    breaker and no knob: a module that does not build raises
+    (``ROADMAP.md`` (c) 7), so a loaded module is a working runner."""
+    return native.loaded("host_codec")
 
 
 class fanout_stats:
@@ -102,6 +137,25 @@ def get_pool() -> ThreadPoolExecutor:
                     thread_name_prefix="pyruhvro_torch",
                 )
     return _pool
+
+
+def get_process_pool() -> ProcessPoolExecutor:
+    """The spawn process pool (made at first use, ``min(cpu_count, 8)``
+    workers, which start as chunks arrive). Spawn, not fork: the parent
+    may hold a CUDA context and live pool threads whose locks a forked
+    child could inherit mid-acquire. A worker imports the port and so
+    torch, and never touches ``torch.cuda``: it runs the host tier."""
+    global _proc_pool
+    if _proc_pool is None:
+        with _lock:
+            if _proc_pool is None:
+                import multiprocessing
+
+                _proc_pool = ProcessPoolExecutor(
+                    max_workers=min(os.cpu_count() or 4, 8),
+                    mp_context=multiprocessing.get_context("spawn"),
+                )
+    return _proc_pool
 
 
 def map_chunks(fn: Callable, chunks: Sequence,
@@ -184,3 +238,85 @@ def _gather(futures: List, site: str) -> List:
         for f in futures:
             f.cancel()
         raise
+
+
+def map_chunks_proc(task: Callable, payloads: Sequence,
+                    rows: Optional[Callable] = None) -> List:
+    """Run ``task(payload)`` per chunk on the PROCESS pool, in order.
+    ``task`` is a picklable module-level callable returning ``(result,
+    worker_payload)``, the payload from ``telemetry.worker_scope``; every
+    worker's counters, spans, routing observations and quarantine
+    entries merge here once all chunks have answered, so a fan-out that
+    dies midway leaves the parent's counters, quarantine collector and
+    cost model untouched. Raises what the pool raises (a pickling error,
+    a broken pool): the caller falls back to the thread path and counts
+    it.
+
+    A BROKEN pool is torn down and the ``process_pool`` breaker records
+    the failure (it opens at its threshold, default 1); its half-open
+    probe's success here closes it again. A deadline-bounded call waits
+    with the remaining budget and cancels unstarted chunks on expiry;
+    the expiry fails a half-open probe but never counts against a
+    closed breaker. A worker's ``MalformedAvro`` proves the pool
+    healthy: it closes a probing breaker."""
+    from concurrent.futures.process import BrokenProcessPool
+
+    global _proc_pool
+    br = breaker.get("process_pool")
+    if not br.acquire():
+        raise RuntimeError("process pool circuit open")
+    metrics.inc("pool.proc_chunks", len(payloads))
+    if len(payloads) > 1:
+        metrics.inc("pool.proc_fanouts")
+    try:
+        with fanout_stats(len(payloads), pool="process") as stats:
+            futures = [get_process_pool().submit(task, p) for p in payloads]
+            # every result before any merge: partial merges would count
+            # twice the work the thread path then redoes
+            results = _gather(futures, site="pool.proc_fanout")
+            for _result, payload in results:
+                dur = ((payload or {}).get("span") or {}).get("dur_s")
+                if dur:
+                    stats.chunk(float(dur))
+        out = []
+        for i, (result, payload) in enumerate(results):
+            telemetry.merge_worker(payload)
+            out.append(result)
+            n = rows(payloads[i]) if rows is not None else None
+            if n is not None and not (payload or {}).get("rows"):
+                metrics.inc("pool.worker_rows", float(n))
+        br.record_success()
+        return out
+    except BrokenProcessPool:
+        with _lock:
+            broken, _proc_pool = _proc_pool, None
+        if broken is not None:
+            broken.shutdown(wait=False, cancel_futures=True)
+        br.record_failure()
+        raise
+    except deadline.DeadlineExceeded:
+        # an expiry judges the pool only when it was the recovery probe
+        if br.state() == "half_open":
+            br.record_failure()
+        raise
+    except BaseException as e:
+        # a worker's structured data error means workers spawned, ran and
+        # reported: the pool is healthy. Anything else (a pickling error)
+        # fails a probe but never opens a closed breaker
+        from ..errors import MalformedAvro
+
+        if isinstance(e, MalformedAvro):
+            br.record_success()
+        elif br.state() == "half_open":
+            br.record_failure()
+        raise
+
+
+def shutdown_process_pool() -> None:
+    """Stop the spawn pool's workers (the next fan-out makes a new
+    pool). For tests and scripts that must leave no process behind."""
+    global _proc_pool
+    with _lock:
+        p, _proc_pool = _proc_pool, None
+    if p is not None:
+        p.shutdown(wait=True, cancel_futures=True)

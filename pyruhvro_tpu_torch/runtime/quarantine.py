@@ -1,6 +1,7 @@
 """The quarantine channel of the error policies (copy of
 ``pyruhvro_tpu/runtime/quarantine.py``: ``QuarantinedRecord``,
-``rebase``, ``publish`` and ``last``).
+``collecting``, ``rebase``, ``extend_current``, ``publish`` and
+``last``).
 
 Under ``on_error="skip"`` or ``"null"`` (``api.py``) a corrupt datum no
 longer aborts the batch: each offender is captured as a
@@ -18,10 +19,14 @@ annotates the span with ``on_error`` and ``quarantined``, and counts
 ``PYRUHVRO_TPU_QUARANTINE_STORM``, a knob the port does not read),
 ``<op>.quarantine_storms`` with the ``quarantine_storm`` mark
 (``quarantine.py:136-176``). The storm's flight dump and timeline event
-wait for those planes (``ROADMAP.md`` (a) 8). The reference's
-``collecting`` context, which makes a call's list the thread's active
-collector for its process pool's merges, comes with that pool
-(``ROADMAP.md`` (a) 6): a call here collects into a plain list.
+wait for those planes (``ROADMAP.md`` (a) 8).
+
+A call that fans out to the process pool opens :func:`collecting`: the
+workers' entries (re-based to the call's row indices by :func:`rebase`
+in the worker) reach that list through ``telemetry.merge_worker`` and
+:func:`extend_current`. The workers counted them already, so
+:func:`publish` does not count them again. Every other tolerant call
+collects into a plain list.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from . import metrics, telemetry, traceprop
 
 __all__ = [
     "QuarantinedRecord",
+    "collecting",
     "rebase",
+    "extend_current",
     "last",
     "publish",
     "STORM",
@@ -57,18 +64,50 @@ class QuarantinedRecord(NamedTuple):
 _tls = threading.local()
 
 
+class collecting:
+    """Open the quarantine collector of the current API call: the list is
+    the context's value, and process-pool merges reach it through
+    :func:`extend_current` on the calling thread."""
+
+    __slots__ = ("entries", "_prev", "_prev_merged")
+
+    def __enter__(self) -> List[QuarantinedRecord]:
+        self._prev = getattr(_tls, "active", None)
+        self._prev_merged = getattr(_tls, "merged", 0)
+        self.entries: List[QuarantinedRecord] = []
+        _tls.active = self.entries
+        _tls.merged = 0
+        return self.entries
+
+    def __exit__(self, *exc):
+        _tls.active = self._prev
+        _tls.merged = self._prev_merged
+        return False
+
+
 def rebase(entries, base: int) -> List[QuarantinedRecord]:
-    """Shift every entry's global row index by ``base``. Accepts records
-    or plain tuples; always returns :class:`QuarantinedRecord`\\ s. No
-    call of the port needs it yet: it is the re-indexing rule of the
-    reference's pool merge, kept (and held to the reference's) for the
-    process pool of ``ROADMAP.md`` (a) 6, whose workers quarantine at
-    chunk-local indices."""
+    """Shift every entry's global row index by ``base`` (a process
+    worker's chunk starts at its offset in the caller's input). Accepts
+    records or plain tuples; always returns
+    :class:`QuarantinedRecord`\\ s."""
     out: List[QuarantinedRecord] = []
     for e in entries:
         t = tuple(e)
         out.append(QuarantinedRecord(t[0] + base, *t[1:]))
     return out
+
+
+def extend_current(entries) -> None:
+    """Fold worker-shipped entries into the active collector (a no-op
+    outside :func:`collecting`). The workers fed the quarantine counters
+    in their own processes, and those deltas merge on their own, so the
+    merged count is remembered for :func:`publish`."""
+    active = getattr(_tls, "active", None)
+    if active is None or not entries:
+        return
+    for e in entries:
+        active.append(QuarantinedRecord(*e))
+    _tls.merged = getattr(_tls, "merged", 0) + len(entries)
 
 
 def last() -> List[QuarantinedRecord]:
@@ -95,11 +134,19 @@ def publish(entries: List[QuarantinedRecord], policy: str,
     telemetry.annotate(on_error=policy, quarantined=len(entries))
     if not entries:
         return
-    # metric-key: <op>.quarantined
-    metrics.inc(op + ".quarantined", float(len(entries)))
-    for e in entries:
-        # metric-key: <op>.quarantine.<slug>
-        metrics.inc(f"{op}.quarantine.{e.error}")
+    # entries merged from process workers were counted in the worker
+    # (and its deltas merged): only entries found here feed the counters
+    merged = min(getattr(_tls, "merged", 0), len(entries))
+    if merged == 0:
+        # metric-key: <op>.quarantined
+        metrics.inc(op + ".quarantined", float(len(entries)))
+        for e in entries:
+            # metric-key: <op>.quarantine.<slug>
+            metrics.inc(f"{op}.quarantine.{e.error}")
+    elif merged < len(entries):
+        # mixed sources (no call of the port has both): count the rest
+        # without their slugs
+        metrics.inc(op + ".quarantined", float(len(entries) - merged))
     if len(entries) >= STORM:
         # metric-key: <op>.quarantine_storms
         metrics.inc(op + ".quarantine_storms")

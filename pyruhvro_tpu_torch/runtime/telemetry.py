@@ -18,11 +18,14 @@ spans and histograms and keeps the counters.
 
 Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
 with p50/p95/p99, the last root span trees, and a ``device`` section of
-launch registry and memory watermarks from :mod:`.device_obs`),
+launch registry and memory watermarks from :mod:`.device_obs`, and the
+``routing``, ``breakers`` and ``drift`` sections of :mod:`.router`,
+:mod:`.breaker` and :mod:`.drift`),
 :func:`prometheus` (text exposition), :func:`perfetto_trace` (Chrome
 trace-event JSON), and ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON
 line per finished root span. ``python -m pyruhvro_tpu_torch.telemetry
-report|prom|perfetto <snapshot.json>`` renders a saved snapshot.
+report|prom|perfetto|route-report|what-if <snapshot.json>`` renders a
+saved snapshot.
 
 Keys are ``component.event``; keys ending ``_s`` are seconds and get
 histograms, every other key is a count or a byte counter.
@@ -465,12 +468,11 @@ class worker_scope:
     Inside the scope a ``pool.worker`` root span times the work and every
     counter increment is also recorded as a delta. On exit ``payload`` is
     a picklable dict (counter deltas and the span tree) that the parent
-    folds back with :func:`merge_worker`. The reference's routing
-    observations ride along there; the port has no router yet
-    (``ROADMAP.md`` (a) 8)."""
+    folds back with :func:`merge_worker`; the cost-model observations the
+    worker's own API calls made ride along (``routing``)."""
 
     __slots__ = ("name", "attrs", "payload", "_rec", "_delta", "_root",
-                 "_trace_ctx")
+                 "_robs", "_trace_ctx")
 
     def __init__(self, name: str = "pool.worker", trace_ctx=None, **attrs):
         self.name = name
@@ -480,8 +482,12 @@ class worker_scope:
         self._trace_ctx = trace_ctx
 
     def __enter__(self) -> "worker_scope":
+        from . import costmodel
+
         self._rec = metrics.record_deltas()
         self._delta = self._rec.__enter__()
+        self._robs = costmodel.record_observations()
+        self._robs.__enter__()
         self._root = root_span(self.name, trace_ctx=self._trace_ctx,
                                pid=os.getpid(), **self.attrs)
         self._root.__enter__()
@@ -489,6 +495,7 @@ class worker_scope:
 
     def __exit__(self, exc_type, exc, tb):
         self._root.__exit__(exc_type, exc, tb)
+        self._robs.__exit__(exc_type, exc, tb)
         self._rec.__exit__(exc_type, exc, tb)
         span = self._root.span
         self.payload = {
@@ -497,6 +504,8 @@ class worker_scope:
             "counters": dict(self._delta),
             "span": span.to_dict() if span is not None else None,
         }
+        if self._robs.obs:
+            self.payload["routing"] = list(self._robs.obs)
         return False
 
 
@@ -520,10 +529,10 @@ def merge_worker(payload: Dict[str, Any], *, counters: bool = True) -> None:
     counters; ``counters=False`` for same-process thread workers whose
     increments already landed. The worker's span tree re-parents under
     the caller's current open span, ``pool.worker_rows`` adds the worker's
-    rows and ``pool.worker_merges`` counts the merge. The reference also
-    folds quarantine entries and routing observations shipped with the
-    payload; both come with the process pool and the router
-    (``ROADMAP.md`` (a) 6, 8)."""
+    rows and ``pool.worker_merges`` counts the merge. Quarantine entries
+    shipped with the payload go to the caller's collector
+    (``quarantine.extend_current``), routing observations to the cost
+    model (``costmodel.merge_observations``)."""
     if not payload:
         return
     if counters:
@@ -532,6 +541,16 @@ def merge_worker(payload: Dict[str, Any], *, counters: bool = True) -> None:
         if rows:
             metrics.inc("pool.worker_rows", float(rows))
     metrics.inc("pool.worker_merges")
+    q = payload.get("quarantine")
+    if q:
+        from . import quarantine
+
+        quarantine.extend_current(q)
+    robs = payload.get("routing")
+    if robs:
+        from . import costmodel
+
+        costmodel.merge_observations(robs)
     sd = payload.get("span")
     if sd and _enabled:
         parent = getattr(_tls, "span", None)
@@ -570,16 +589,22 @@ def enabled() -> bool:
 
 
 def reset() -> None:
-    """Clear spans, histograms, the device registry AND the flat counters
-    (test isolation); closes an open trace file."""
+    """Clear spans, histograms, the device registry, the router (ledger,
+    cost model, capacity plans), the breakers, drift AND the flat
+    counters (test isolation); closes an open trace file. Unlike the
+    reference's, it resets the breakers too, whose tests do that on
+    their own."""
     global _roots_seen, _trace_memo
     with _lock:
         _hists.clear()
         _spans.clear()
         _roots_seen = 0
-    from . import device_obs
+    from . import breaker, device_obs, drift, router
 
     device_obs.reset()
+    router.reset()
+    drift.reset()
+    breaker.reset()
     with _trace_lock:
         if _trace_memo is not None:
             fh = _trace_memo[1]
@@ -598,7 +623,10 @@ def snapshot() -> Dict[str, Any]:
     """Structured export: flat counters + histogram summaries + the most
     recent root span trees (oldest→newest; ``spans_dropped`` counts roots
     aged out of the ring), a ``device`` section when a device launch was
-    recorded (:mod:`.device_obs`), and ``gauges`` when any was set."""
+    recorded (:mod:`.device_obs`), ``routing`` (the ledger and the cost
+    model) once a call was routed, ``drift`` once the detector saw a
+    call, ``breakers`` once a breaker was touched, and ``gauges`` when
+    any was set."""
     with _lock:
         hists = {k: h.summary() for k, h in sorted(_hists.items())}
         spans = [s.to_dict() for s in _spans]
@@ -611,13 +639,22 @@ def snapshot() -> Dict[str, Any]:
         "spans": spans,
         "spans_dropped": dropped,
     }
-    from . import device_obs
+    from . import breaker, device_obs, drift, router
 
     dev = device_obs.snapshot()
     if dev:
         out["device"] = dev
-    # not ported: the routing, slo, sampling, drift, audit, breakers,
-    # memory, serving and timeline sections (ROADMAP.md (a) 8)
+    routing = router.snapshot_routing()
+    if routing:
+        out["routing"] = routing
+    dr = drift.snapshot_drift()
+    if dr:
+        out["drift"] = dr
+    brs = breaker.snapshot_breakers()
+    if brs:
+        out["breakers"] = brs
+    # not ported: the slo, sampling, audit, memory, serving and timeline
+    # sections (ROADMAP.md (a) 8)
     g = metrics.gauges()
     if g:
         out["gauges"] = g
@@ -925,9 +962,8 @@ def _render_span(s: Dict[str, Any], indent: int, out: List[str]) -> None:
 def render_report(data: Dict[str, Any]) -> str:
     """Phase-breakdown table from a :func:`snapshot` dict. Not ported:
     the reference's ``BENCH_DETAILS.json`` branch (the port has no bench
-    yet) and the native profiler, routing ledger, slo, sampling, memory,
-    drift and audit sections, whose planes wait for ``ROADMAP.md``
-    (a) 8."""
+    yet) and the native profiler, slo, sampling, memory and audit
+    sections, whose planes wait for ``ROADMAP.md`` (a) 8."""
     out: List[str] = []
     counters = data.get("counters", {})
     hists = data.get("histograms", {})
@@ -952,6 +988,25 @@ def render_report(data: Dict[str, Any]) -> str:
     if routes:
         out += ["", "== routing =="]
         out.extend(f"{k:<36} {v:>10.0f}" for k, v in sorted(routes.items()))
+    routing = data.get("routing") or {}
+    if routing.get("ledger"):
+        out.append(
+            f"decision ledger: {len(routing['ledger'])} entr"
+            f"{'y' if len(routing['ledger']) == 1 else 'ies'} "
+            f"(autotune {'on' if routing.get('autotune') else 'off'}"
+            ") — render with the route-report / what-if subcommands")
+    dr = data.get("drift") or {}
+    if dr.get("entries"):
+        hot = [e for e in dr["entries"] if e.get("detections")]
+        out += ["", "== latency drift =="]
+        out.append(f"{len(dr['entries'])} (schema, arm) pair(s) "
+                   f"tracked; {len(hot)} with detections")
+        for e in hot[:8]:
+            out.append(
+                f"  {e.get('schema')} {e.get('op', '?')} "
+                f"band={e.get('band', '?')} {e.get('arm')}: "
+                f"{e.get('detections')} detection(s), "
+                f"fast/slow={e.get('ratio')}")
     other = {k: v for k, v in counters.items()
              if not k.endswith("_s")
              and not k.startswith(("route.", "router."))
@@ -970,8 +1025,10 @@ def render_report(data: Dict[str, Any]) -> str:
 def main(argv: Optional[List[str]] = None) -> int:
     """CLI: ``report <file>`` (phase table), ``prom <file>`` (text
     exposition), ``perfetto <file> [-o out.json]`` (Chrome/Perfetto
-    trace-event timeline). ``<file>`` is a JSON dict saved from
-    :func:`snapshot`."""
+    trace-event timeline), ``route-report <file>`` (the routing ledger
+    and the learned cost model), ``what-if <file>`` (the ledger replayed:
+    where another arm would have won). ``<file>`` is a JSON dict saved
+    from :func:`snapshot`."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -994,6 +1051,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_perf.add_argument("path")
     p_perf.add_argument("-o", "--out",
                         help="write the trace here instead of stdout")
+    p_route = sub.add_parser(
+        "route-report", help="routing decision ledger + learned cost "
+                             "model from a snapshot JSON")
+    p_route.add_argument("path")
+    p_whatif = sub.add_parser(
+        "what-if", help="replay a snapshot's routing ledger: where "
+                        "would a different arm have won?")
+    p_whatif.add_argument("path")
     args = ap.parse_args(argv)
     with open(args.path, encoding="utf-8") as f:
         snap = json.load(f)
@@ -1002,6 +1067,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                  f"snapshot dict")
     if args.cmd == "report":
         sys.stdout.write(render_report(snap))
+    elif args.cmd in ("route-report", "what-if"):
+        from . import router
+
+        render = (router.render_route_report if args.cmd == "route-report"
+                  else router.render_what_if)
+        sys.stdout.write(render(snap))
     elif args.cmd == "prom":
         sys.stdout.write(prometheus(snap, exemplars=args.exemplars))
     else:

@@ -6,9 +6,12 @@ Usage::
     python -m pyruhvro_tpu_torch.telemetry report snapshot.json
     python -m pyruhvro_tpu_torch.telemetry prom snapshot.json
     python -m pyruhvro_tpu_torch.telemetry perfetto snapshot.json -o trace.json
+    python -m pyruhvro_tpu_torch.telemetry route-report snapshot.json
+    python -m pyruhvro_tpu_torch.telemetry what-if snapshot.json
 
 ``snapshot.json`` is ``json.dump(telemetry.snapshot(), f)``; the
-``perfetto`` output loads in ui.perfetto.dev.
+``perfetto`` output loads in ui.perfetto.dev; ``route-report`` renders the
+routing ledger and the learned cost model, ``what-if`` replays the ledger.
 """
 
 import sys

@@ -196,11 +196,25 @@ def test_outside_the_subset_raises_in_both():
         assert host_supported(get_or_parse_schema(schema).ir)
 
 
+# the port's own routing profile: the two packages' tests share one
+# checkout and must never read each other's profile (ROADMAP.md (c) 9)
+KNOB_DEPARTURES = {
+    "PYRUHVRO_TPU_ROUTING_PROFILE": ("ROUTING_PROFILE.torch.json",
+                                     "ROUTING_PROFILE.json"),
+}
+
+
 def test_knob_defaults_are_the_reference():
     registry = ref_knobs.registry()
     assert "PYRUHVRO_TPU_NO_NATIVE" in knobs.DEFAULTS
     for name, default in knobs.DEFAULTS.items():
+        if name in KNOB_DEPARTURES:
+            assert (default, registry[name].default) == \
+                KNOB_DEPARTURES[name], name
+            continue
         assert default == registry[name].default, name
+    for name, choices in knobs.CHOICES.items():
+        assert choices == registry[name].choices, name
 
 
 # -- (b) decode -------------------------------------------------------------------
@@ -508,7 +522,7 @@ def poisoned(schema, n, seed):
 def test_host_backend_takes_the_native_tier(codecs, monkeypatch):
     datums = datagen.kafka_style_datums(200, seed=12)
     entry = get_or_parse_schema(KAFKA)
-    tier, impl = api._codec(entry, "host", "cuda")
+    tier, impl = api._route_candidates(entry, "host", 200, "cuda")[:2]
     assert tier == "native" and isinstance(impl, NativeHostCodec)
     metrics.reset()
     got = port.deserialize_array_threaded(datums, KAFKA, 4, backend="host")
@@ -526,7 +540,8 @@ def test_host_backend_takes_the_native_tier(codecs, monkeypatch):
         same(g, w)
     # under PYRUHVRO_TPU_NO_NATIVE the oracle serves
     monkeypatch.setenv("PYRUHVRO_TPU_NO_NATIVE", "1")
-    assert api._codec(entry, "host", "cuda") == ("fallback", None)
+    assert api._route_candidates(entry, "host", 0, "cuda")[:2] == \
+        ("fallback", None)
     metrics.reset()
     for g, w in zip(port.deserialize_array_threaded(datums, KAFKA, 4,
                                                     backend="host"), got):
@@ -538,7 +553,8 @@ def test_outside_the_subset_the_oracle_serves():
     from decimal import Decimal as D
 
     entry = get_or_parse_schema(WIDE_FIXED_DECIMAL)
-    assert api._codec(entry, "host", "cuda") == ("fallback", None)
+    assert api._route_candidates(entry, "host", 0, "cuda")[:2] == \
+        ("fallback", None)
     batch = pa.RecordBatch.from_pydict(
         {"d": pa.array([D(5), D(-7), D(10) ** 30], pa.decimal128(38, 0))})
     wire_ = port.serialize_record_batch(batch, WIDE_FIXED_DECIMAL, 1,
