@@ -108,8 +108,22 @@ exits non-zero before the last line:
    the settled arm), R4 capacity plans persisted by one fresh process and
    read by the next (``PYRUHVRO_TPU_CAPACITY_PERSIST=1``), R5 the host
    answer to a record past ``_MAX_ITEM_CAP`` under ``"auto"`` only;
-7. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
-   ``{"paths": ...}`` and ``{"kernels": [...]}`` JSON lines, then
+7. the ``multichip`` phase (:func:`multichip_phase`), K5: M1
+   ``ShardedDecoder`` over every visible card on path 1's records (each
+   shard's blob and ``#err`` bit-equal to the plain versions' and the
+   one-card pipeline's at the same rung, K1/K2 counted from 0; with two
+   cards or more the codec's fan-out under ``device="cuda"`` and the
+   one-card path on ``cuda:1``), a batch of fewer rows than shards; M2
+   ``MULTI_SHARDS`` shards on card 0 through the codec (the shards'
+   batches returned as they are), warm calls in turns with path 1, each
+   shard's K1/K2 by CUDA events; M3 path 3 from a cold decoder (rungs
+   and ``device.retries`` equal to a cold one-card launch's); M4
+   ``ShardedEncoder`` on path 5's batch (each shard's K3 bit-equal to
+   the plain encode, the wire equal to the input datums); M5 bad rows in
+   shards 2 and 6 (one ``MalformedAvro`` equal to the one-card path's);
+8. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
+   ``{"multichip": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}``
+   JSON lines (K5 as ``sharded_fanout``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -2973,6 +2987,390 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     return out
 
 
+MULTI_SHARDS = 8            # M2-M5: shards on one card (repeated device)
+MULTI_BAD = (250_017, 300_000, 750_005, 874_999)  # M5: in shards 2 and 6
+
+
+def keep_last_rung(sd):
+    """Make the sharded decoder ``sd`` keep its last rung's inputs and
+    outputs in ``sd.last_rung``: each shard's packed launch buffer and row
+    count, the rung (R, B, caps, compact) and each shard's blob and
+    ``#err``, still on the device."""
+    real = sd._rung
+
+    def kept(packed, ns, R, B, item_caps, tot_caps, compact, timings):
+        blobs, errs, spec = real(packed, ns, R, B, item_caps, tot_caps,
+                                 compact, timings)
+        sd.last_rung = dict(packed=packed, ns=ns, R=R, B=B,
+                            item_caps=item_caps, tot_caps=tot_caps,
+                            compact=compact, blobs=blobs, errs=errs)
+        return blobs, errs, spec
+
+    sd._rung = kept
+
+
+def hold_shards(torch, dm, sd, label, one_card=True):
+    """Each shard's blob and ``#err`` of ``sd``'s last rung bit-equal to the
+    plain versions on the same packed buffer and, with ``one_card``, to
+    the one-card pipeline's (K1 then K2 through ``DeviceDecoder.pipeline``
+    on that buffer at the same rung). Returns per shard ``(record bytes,
+    bytes K1 + K2 must move)``; fails on any difference."""
+    r = sd.last_rung
+    prog, R, B = sd.base.prog, r["R"], r["B"]
+    caps, tots, compact = r["item_caps"], r["tot_caps"], r["compact"]
+    layout = dm.blob_layout(prog, R, B, caps, tots, compact)
+    runner = dm.DeviceDecoder(prog.ir, r["packed"][0].device)
+    out = []
+    for d, (p, n) in enumerate(zip(r["packed"], r["ns"])):
+        words, starts, lengths = dm.DeviceDecoder.launch_views(p, R, B)
+        with torch.cuda.device(p.device):
+            pb, pe = dm.walk_plain(words, starts, lengths, n, prog, caps)
+            pblob = dm.finalize_plain(pb, pe, prog, R, B, caps, tots,
+                                      compact)
+            want = [("plain", pblob, pe)]
+            if one_card:
+                blob1, err1 = runner.pipeline(p, R, B, n, caps, tots,
+                                              compact)
+                want.append(("one-card pipeline", blob1, err1))
+            for name, blob, err in want:
+                if not torch.equal(r["blobs"][d], blob) or \
+                        not torch.equal(r["errs"][d][:n], err[:n]):
+                    raise SystemExit(f"{label}: shard {d}'s blob or #err "
+                                     f"differs from the {name}'s at caps "
+                                     f"{caps}")
+            host = dm.split_blob(pblob.cpu().numpy()[:-dm.STATUS_BYTES],
+                                 layout)
+            totals = {rid: int(host["#red:sum:" + path][0])
+                      for rid, path in enumerate(prog.regions) if rid}
+            plan = dm.FinalizePlan(pb, pe, prog, R, B, caps, tots, compact)
+            record_bytes = int(lengths[:n].to(torch.int64).sum())
+            moved = dm.walk_bytes(record_bytes, R, dm.walk_out_bytes(
+                prog, R, caps)) + dm.finalize_bytes(dm.finalize_spec(plan),
+                                                    totals)
+            out.append((record_bytes, moved))
+            del pb, pe, pblob, plan, want
+    return out
+
+
+def shard_kernel_ms(torch, dm, sd, plain_of=None):
+    """Per shard of ``sd``'s last rung, ``(K1, K2)`` ms by CUDA events on
+    its card, best of 5 after one warm run, as :func:`pipeline_kernels`
+    times them (K1 one launch of the settled walk, K2 every pass and the
+    epilogue); with ``plain_of`` a shard's index, also that shard's plain
+    K1 + K2 (best of 2), as ``(per shard, plain ms)``."""
+    r = sd.last_rung
+    prog, R, B = sd.base.prog, r["R"], r["B"]
+    caps = r["item_caps"]
+    out, plain_ms = [], None
+    for d, (p, n) in enumerate(zip(r["packed"], r["ns"])):
+        words, starts, lengths = dm.DeviceDecoder.launch_views(p, R, B)
+        with torch.cuda.device(p.device):
+            L = dm.WalkLaunch(words, starts, lengths, n, prog, caps)
+            bufs, err = dm.walk_kernel.run(L)
+            k1 = cuda_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
+            plan = dm.FinalizePlan(bufs, err, prog, R, B, caps,
+                                   r["tot_caps"], r["compact"])
+            k2 = cuda_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
+            out.append((k1, k2))
+            if d == plain_of:
+                plain_ms = cuda_ms(torch, lambda: dm.walk_plain(
+                    words, starts, lengths, n, prog, caps), 2) + \
+                    cuda_ms(torch, lambda: dm.finalize_plain(
+                        bufs, err, prog, R, B, caps, r["tot_caps"],
+                        r["compact"]), 2)
+            del L, bufs, err, plan
+    return out, plain_ms
+
+
+def malformed_of(call):
+    """``(message, index, slug, indices)`` of the ``MalformedAvro`` that
+    ``call`` raises; fails if it raises none."""
+    try:
+        call()
+    except ValueError as e:
+        return (str(e), e.index, e.err_name, e.indices)
+    raise SystemExit("expected a MalformedAvro")
+
+
+def multichip_phase(api, torch, dm, em, par, pse, codec_mod, parse_schema,
+                    get_or_parse_schema, data, nested, kafka_batch, kafka,
+                    nested_schema, card):
+    """K5, the chunk fan-out (``pyruhvro_tpu_torch/parallel``). M1:
+    ``ShardedDecoder`` over every visible card on path 1's records, each
+    shard's blob bit-equal to the plain versions' and the one-card
+    pipeline's at the same rung, K1/K2 counted from 0 over the call; with
+    two cards or more also ``deserialize_array_threaded(..., device=
+    "cuda", num_chunks=D)`` (the codec's fan-out) and ``device="cuda:1"``;
+    a batch of fewer rows than shards. M2: ``MULTI_SHARDS`` shards on
+    card 0 through the codec's route (the shards' batches returned as
+    they are, equal to path 1's), warm calls in turns with path 1, each
+    shard's K1 and K2. M3: path 3 from a cold decoder at
+    ``MULTI_SHARDS`` shards, its rungs and ``device.retries`` equal to a
+    cold one-card decoder's on one launch, the shards bit-equal to the
+    plain versions. M4: ``ShardedEncoder`` on path 5's batch, each shard's
+    K3 bit-equal to the plain encode, the wire equal to the one-card
+    call's. M5: path 1 with bad rows in shards 2 and 6: one
+    ``MalformedAvro`` equal to the one-card path's."""
+    from pyruhvro_tpu_torch.runtime import metrics
+
+    res = {}
+    D = torch.cuda.device_count()
+    card0 = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+    ir, nested_ir = parse_schema(kafka), parse_schema(nested_schema)
+    walk, fin = dm.walk_kernel, dm.finalize_kernel
+    # the one-card path of card 0 (with several cards, device="cuda" fans
+    # out)
+    one_card = api.deserialize_array_threaded(data, kafka, MAIN_CHUNKS,
+                                              device=card0)
+
+    # M1: every visible card, one chunk each
+    t0 = time.perf_counter()
+    sd = par.ShardedDecoder(ir, devices=None if DEVICE == "cuda"
+                            else [card0])
+    keep_last_rung(sd)
+    walk.launches = fin.launches = 0
+    t1 = time.perf_counter()
+    got = sd.decode(data)
+    cold = time.perf_counter() - t1
+    launches = {"decode_walk": walk.launches,
+                "decode_finalize": fin.launches}
+    if min(launches.values()) < sd.D:
+        raise SystemExit(f"M1: {sd.D} shards launched {launches}")
+    t1 = time.perf_counter()
+    got = sd.decode(data)
+    warm = time.perf_counter() - t1
+    want = api.deserialize_array_threaded(data, kafka, sd.D, device=card0)
+    same_columns("M1", got, want)
+    shards = hold_shards(torch, dm, sd, "M1")
+    big = max(range(sd.D), key=lambda d: shards[d][0])
+    ms, plain_ms = shard_kernel_ms(torch, dm, sd, plain_of=big)
+    res["M1"] = {"shards": sd.D, "launches": launches, "cold_s": cold,
+                 "warm_s": warm, "kernel_ms": ms,
+                 "bound_ms": [s[1] / (HBM_BYTES_PER_S / 1e3)
+                              for s in shards],
+                 "plain_ms": plain_ms, "largest": big}
+    print(f"multichip M1: ShardedDecoder over {sd.D} card(s) "
+          f"{[str(x) for x in sd.devices]} on {len(data)} Kafka records: "
+          f"launches {launches} from 0, cold {cold:.3f} s, warm "
+          f"{warm:.3f} s; every shard's blob and #err bit-equal to the "
+          f"plain versions and the one-card pipeline at caps "
+          f"{sd.last_rung['item_caps']}; K1/K2 ms per shard {ms}; equal to "
+          f"deserialize_array_threaded(..., {sd.D}) {card}")
+    del got, want
+    if D >= 2:
+        # a schema string of its own: the route phase's R5 left the plain
+        # string's decoder at 2^20-item caps, whose slots no launch of
+        # path 1's rows holds (the codec would halve it on one card)
+        fresh = kafka + " "
+        codec = codec_mod.get_device_codec(get_or_parse_schema(fresh), "cuda")
+        fan = codec._sharded_decoder()
+        if fan is None:
+            raise SystemExit("M1: device='cuda' with several cards has no "
+                             "fan-out")
+        keep_last_rung(fan)
+        t1 = time.perf_counter()
+        got = api.deserialize_array_threaded(data, fresh, D)
+        fan_s = time.perf_counter() - t1
+        cards = {str(p.device) for p in getattr(fan, "last_rung",
+                                                {}).get("packed", [])}
+        if len(got) != D or len(cards) != D:
+            raise SystemExit(f"M1: device='cuda' gave {len(got)} batches "
+                             f"from the cards {cards}")
+        same_columns("M1 fan-out", got, api.deserialize_array_threaded(
+            data, fresh, D, device=card0))
+        turns = {"fan_out": [], "cuda:0": []}
+        for leg in ["fan_out", "cuda:0", "cuda:0", "fan_out"]:
+            t1 = time.perf_counter()
+            batches = api.deserialize_array_threaded(
+                data, fresh, D, device="cuda" if leg == "fan_out" else card0)
+            turns[leg].append(time.perf_counter() - t1)
+            del batches
+        res["M1"]["fan_out_turns_s"] = turns
+        same_columns("M1 cuda:1", api.deserialize_array_threaded(
+            data, kafka, MAIN_CHUNKS, device="cuda:1"), one_card)
+        enc1 = api.serialize_record_batch(kafka_batch, kafka, MAIN_CHUNKS,
+                                          device="cuda:1")
+        if wire_of(enc1) != data:
+            raise SystemExit("M1: serialize_record_batch on cuda:1 differs "
+                             "from the input datums")
+        res["M1"]["fan_out_s"] = fan_s
+        print(f"multichip M1: deserialize_array_threaded(device='cuda', "
+              f"num_chunks={D}) fanned out over {D} cards in {fan_s:.3f} s, "
+              f"equal to cuda:0; warm in turns (A B B A) {turns}; "
+              f"device='cuda:1' decode and encode equal {card}")
+        del got, enc1
+    else:
+        print("multichip M1: one card visible: the codec's fan-out across "
+              "cards and device='cuda:1' are not exercised here")
+    few = par.ShardedDecoder(ir, devices=[card0] * MULTI_SHARDS)
+    pads = few.decode(data[:3])
+    if [b.num_rows for b in pads] != [1, 1, 1] + [0] * (MULTI_SHARDS - 3):
+        raise SystemExit(f"M1: 3 records in {MULTI_SHARDS} shards gave "
+                         f"{[b.num_rows for b in pads]}")
+    same_columns("M1 pads", pads[:3], api.deserialize_array_threaded(
+        data[:3], kafka, 3, device="cpu"))
+    res["M1"]["s"] = time.perf_counter() - t0
+    del sd, few, pads
+
+    # M2: MULTI_SHARDS shards on card 0 through the codec's route (card
+    # 0's codec: R5 left device="cuda"'s at 2^20-item caps)
+    t0 = time.perf_counter()
+    codec = codec_mod.get_device_codec(get_or_parse_schema(kafka), card0)
+    sd8 = par.ShardedDecoder(base=codec.decoder,
+                             devices=[card0] * MULTI_SHARDS)
+    keep_last_rung(sd8)
+    seen = []
+    real_decode = sd8.decode
+
+    def recorded(*args, **kwargs):
+        out = real_decode(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    sd8.decode = recorded
+    before = codec._sharded
+    codec._sharded = sd8
+    try:
+        got = api.deserialize_array_threaded(data, kafka, MAIN_CHUNKS,
+                                             device=card0)
+        if len(seen) != 1 or not all(g is s for g, s in zip(got, seen[0])):
+            raise SystemExit("M2: the codec did not return the shards' "
+                             "batches as they are")
+        same_columns("M2", got, one_card)
+        del got
+        times = {"overlapped": [], "shards": []}
+        for leg in ["overlapped", "shards", "shards", "overlapped"] * 2:
+            codec._sharded = sd8 if leg == "shards" else False
+            t1 = time.perf_counter()
+            batches = api.deserialize_array_threaded(data, kafka,
+                                                     MAIN_CHUNKS,
+                                                     device=card0)
+            times[leg].append(time.perf_counter() - t1)
+            del batches
+    finally:
+        codec._sharded = before
+    ms8, _plain = shard_kernel_ms(torch, dm, sd8)
+    res["M2"] = {"shards": MULTI_SHARDS, "turns_s": times,
+                 "kernel_ms": ms8, "s": time.perf_counter() - t0}
+    print(f"multichip M2: {MULTI_SHARDS} shards on {card0} through the "
+          f"codec, the shards' batches returned as they are, equal to path "
+          f"1; warm calls in turns (A B B A twice), s: "
+          + "; ".join(f"{k} median {statistics.median(v):.3f} "
+                      f"{[round(x, 3) for x in v]}" for k, v in times.items())
+          + f"; K1/K2 ms per shard {[(round(a, 3), round(b, 3)) for a, b in ms8]} "
+          f"{card}")
+    del sd8
+
+    # M3: path 3 from a cold decoder, shards against one launch
+    t0 = time.perf_counter()
+    retries0 = metrics.snapshot().get("device.retries", 0)
+    one = dm.DeviceDecoder(nested_ir, card0)
+    _h, _n, meta = one.decode_to_columns(nested)
+    one_rungs = meta["timings"]["rungs"]
+    one_retries = metrics.snapshot().get("device.retries", 0) - retries0
+    del _h, meta, one
+    sd3 = par.ShardedDecoder(nested_ir, devices=[card0] * MULTI_SHARDS)
+    keep_last_rung(sd3)
+    retries0 = metrics.snapshot().get("device.retries", 0)
+    triples = sd3.decode_to_chunk_columns(nested)
+    rungs = triples[0][2]["timings"]["rungs"]
+    retries = metrics.snapshot().get("device.retries", 0) - retries0
+    del triples
+    if retries != one_retries or rungs != one_rungs:
+        raise SystemExit(f"M3: {MULTI_SHARDS} shards climbed {rungs} rungs "
+                         f"({retries} retries), one launch {one_rungs} "
+                         f"({one_retries})")
+    t1 = time.perf_counter()
+    hold_shards(torch, dm, sd3, "M3", one_card=False)
+    hold_s = time.perf_counter() - t1
+    same_columns("M3", sd3.decode(nested), api.deserialize_array_threaded(
+        nested, nested_schema, MULTI_SHARDS, device=card0))
+    res["M3"] = {"rungs": rungs, "retries": retries,
+                 "one_launch_rungs": one_rungs, "hold_s": hold_s,
+                 "s": time.perf_counter() - t0}
+    print(f"multichip M3: {len(nested)} nested records in {MULTI_SHARDS} "
+          f"shards from a cold decoder: {rungs} rungs, device.retries "
+          f"{retries}, as a cold one-card decoder's one launch; shards "
+          f"bit-equal to the plain versions; equal to path 3 {card}")
+    del sd3
+
+    # M4: the sharded encoder on path 5's batch
+    t0 = time.perf_counter()
+    enc = par.ShardedEncoder(parse_schema(kafka), kafka_batch.schema,
+                             devices=[card0] * MULTI_SHARDS)
+    kept = []
+    real_run = pse.run_program
+
+    def keep(L, timings=None):
+        out = real_run(L, timings)
+        kept.append((L, out))
+        return out
+
+    em.encode_kernel.rows.launches = em.encode_kernel.strings.launches = 0
+    pse.run_program = keep
+    try:
+        t1 = time.perf_counter()
+        arrays = enc.encode(kafka_batch)
+        enc_s = time.perf_counter() - t1
+    finally:
+        pse.run_program = real_run
+    k3 = {"encode_rows": em.encode_kernel.rows.launches,
+          "encode_strings": em.encode_kernel.strings.launches}
+    if k3 != {"encode_rows": 2 * MULTI_SHARDS,
+              "encode_strings": MULTI_SHARDS}:
+        raise SystemExit(f"M4: {MULTI_SHARDS} shards launched {k3}")
+    for d, (L, (out, sizes)) in enumerate(kept):
+        dv = L.dv()
+        p_out, p_sizes, p_dst = em.rows_plain(dv, L.prog, L.cap)
+        em.strings_plain(p_out, dv, L.prog, p_dst)
+        total = int(p_sizes.to(torch.int64).sum())
+        worst = max(max_abs_diff(torch, sizes, p_sizes),
+                    max_abs_diff(torch, out[:total], p_out[:total]))
+        for path, dst in L.dst().items():
+            worst = max(worst, max_abs_diff(torch, dst, p_dst[path]))
+        if worst:
+            raise SystemExit(f"M4: shard {d}'s encode kernels != plain "
+                             f"(max abs diff {worst})")
+        del dv, p_out, p_sizes, p_dst
+    del kept
+    want = api.serialize_record_batch(kafka_batch, kafka, MULTI_SHARDS)
+    if len(arrays) != MULTI_SHARDS or \
+            not all(a.equals(w) for a, w in zip(arrays, want)) or \
+            wire_of(arrays) != data:
+        raise SystemExit("M4: the sharded encode differs from the one-card "
+                         "call or the input datums")
+    res["M4"] = {"launches": k3, "encode_s": enc_s,
+                 "s": time.perf_counter() - t0}
+    print(f"multichip M4: ShardedEncoder, {MULTI_SHARDS} shards of "
+          f"{kafka_batch.num_rows} rows in {enc_s:.3f} s: launches {k3} from "
+          f"0, each shard's K3 bit-equal to the plain encode, the wire "
+          f"equal to the one-card call and the input datums {card}")
+    del enc, arrays, want
+
+    # M5: bad rows in shards 2 and 6, one MalformedAvro
+    t0 = time.perf_counter()
+    bad = list(data)
+    for i in MULTI_BAD:
+        bad[i] = b"\x01"
+    sd5 = par.ShardedDecoder(ir, devices=[card0] * MULTI_SHARDS)
+    got = malformed_of(lambda: sd5.decode(bad))
+    want = malformed_of(lambda: api.deserialize_array_threaded(
+        bad, kafka, MULTI_SHARDS, device=card0))
+    if got != want or [i for i, _s in got[3]] != list(MULTI_BAD):
+        raise SystemExit(f"M5: the shards raised {got[:3]} with indices "
+                         f"{got[3]}, the one-card path {want[:3]} with "
+                         f"{want[3]}")
+    res["M5"] = {"message": got[0], "indices": got[3],
+                 "s": time.perf_counter() - t0}
+    print(f"multichip M5: bad rows {list(MULTI_BAD)} in shards 2 and 6: one "
+          f"MalformedAvro {got[0]!r}, indices {got[3]}, equal to the "
+          f"one-card path's {card}")
+    print("multichip phase parts, s: " + ", ".join(
+        f"{k} {v['s']:.1f}" for k, v in res.items()))
+    return res
+
+
 def main() -> int:
     import os
 
@@ -3005,6 +3403,9 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops import decode as dm
     from pyruhvro_tpu_torch.ops import encode as em
     from pyruhvro_tpu_torch.ops import walk_decode as wd
+    from pyruhvro_tpu_torch.ops import codec as codec_mod
+    from pyruhvro_tpu_torch import parallel as par
+    from pyruhvro_tpu_torch.parallel import sharded_encode as pse
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
     from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
     import pyruhvro_tpu_torch as port
@@ -3347,6 +3748,15 @@ def main() -> int:
                         results["kafka"]["warm_launches"], here, card)
     print(f"route phase: {time.perf_counter() - t0:.1f} s")
 
+    # 9. the chunk fan-out (K5): every visible card, and MULTI_SHARDS
+    # shards on card 0
+    t0 = time.perf_counter()
+    multi = multichip_phase(port, torch, dm, em, par, pse, codec_mod,
+                            parse_schema, get_or_parse_schema, data, nested,
+                            enc_batches["kafka_encode"][0], kafka,
+                            nested_schema, card)
+    print(f"multichip phase: {time.perf_counter() - t0:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -3387,9 +3797,27 @@ def main() -> int:
     ]
     for r in rows:
         r["registers"] = regs[r["source"]]
+    m1 = multi["M1"]
+    big = m1["largest"]
+    rows.append(
+        {"name": "sharded_fanout", "route": "cuda",
+         "source": "pyruhvro_tpu_torch/parallel/sharded.py",
+         "replaces": "pyruhvro_tpu/parallel/sharded.py:144",
+         "replaces_function": "ShardedDecoder._sharded_fn (per_shard; "
+                              "sharded_encode.py:81 for encode)",
+         "launches": sum(m1["launches"].values()), "max_abs_err": 0,
+         "ms": sum(m1["kernel_ms"][big]), "plain_ms": m1["plain_ms"],
+         "bound_ms": m1["bound_ms"][big], "bound_by": "bytes",
+         "library_ms": None, "shards": m1["shards"],
+         "launches_by_kernel": m1["launches"],
+         "shard_k1_k2_ms": m1["kernel_ms"],
+         "d8_shard_k1_k2_ms": multi["M2"]["kernel_ms"],
+         "d8_encode_launches": multi["M4"]["launches"],
+         "bit_equal": True})
     print(json.dumps({"host": host}))
     print(json.dumps({"telemetry": tel}))
     print(json.dumps({"route": route}))
+    print(json.dumps({"multichip": multi}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -16,9 +16,19 @@ chunk concatenated into one (``_decode_triples``, ``codec.py:253-263``);
 ``PYRUHVRO_TPU_OVERLAP=0`` keeps it on one launch, and the row-padded
 engine is always one launch. A batch over the engine's single-launch
 budget is halved (each half still decodes on the device) with the
-malformed row index re-based to the whole batch, and the threaded entry
-decodes once and slices the result per chunk, compacting sliced sparse
-unions.
+malformed row index re-based to the whole batch. The threaded entry
+fans out over the cards (K5, :class:`..parallel.ShardedDecoder`,
+``codec.py:316-380`` of the reference) when the codec is on the pipeline
+engine, the caller's device is ``"cuda"`` without an index and more than
+one card is visible: one chunk per card, the shards' batches returned as
+they are when their count is the caller's, else concatenated and sliced
+again. Otherwise (one card, ``"cuda:k"``, ``device="cpu"``, the
+row-padded engine) it decodes once and slices the result per chunk,
+compacting sliced sparse unions. A shard over the launch's byte budget
+sends the call to the one-card path, which halves it; a capacity limit
+answers on the host under ``"auto"`` and raises under ``"device"``; a
+fault of the fan-out raises (the reference decodes such a call again on
+one chip, ``ROADMAP.md`` (c) 10).
 
 Encode (``codec.py:382-430``): the encoder (:class:`.encode.DeviceEncoder`,
 K3) is built on the first call; a batch whose output bound passes the
@@ -51,6 +61,7 @@ import os
 from typing import List, Sequence
 
 import pyarrow as pa
+import torch
 
 from ..errors import (BatchTooLarge, DeviceCapacityExceeded, MalformedAvro,
                       mark_value_error, shift_malformed)
@@ -117,6 +128,7 @@ class DeviceCodec:
         # host under "auto")
         self._encode_unsupported = None
         self._host_view = None
+        self._sharded = None  # the fan-out: None = not decided yet
 
     def with_host_answers(self) -> "HostAnswering":
         """This codec as ``backend="auto"`` calls it: the batches the card
@@ -218,16 +230,61 @@ class DeviceCodec:
                                       meta) for host, n, meta in triples]
         return batches[0] if len(batches) == 1 else _concat_batches(batches)
 
+    def _sharded_decoder(self):
+        """The fan-out over every visible card, or None
+        (``codec.py:316-334`` of the reference): only on the pipeline
+        engine, for ``device="cuda"`` without an index, and with more than
+        one card visible."""
+        if self._sharded is None:
+            fan_out = (isinstance(self.decoder, DeviceDecoder)
+                       and self.device.type == "cuda"
+                       and self.device.index is None
+                       and torch.cuda.device_count() > 1)
+            if fan_out:
+                from ..parallel import ShardedDecoder
+
+                self._sharded = ShardedDecoder(base=self.decoder)
+            else:
+                self._sharded = False
+        return self._sharded or None
+
     def decode_threaded(self, data: Sequence[bytes], num_chunks: int, *,
                         host_ok: bool = False) -> List[pa.RecordBatch]:
-        """Decode once, then slice per chunk with the reference's chunk
-        bounds (``deserialize.rs:57-68``)."""
+        """One RecordBatch per chunk, with the reference's chunk bounds
+        (``deserialize.rs:57-68``; ``codec.py:336-380`` of the reference):
+        on the fan-out when there is one, else decoded once and sliced."""
+        bounds = chunk_bounds(len(data), num_chunks)
+        sd = self._sharded_decoder() if len(data) else None
+        if sd is not None:
+            batches = self._decode_sharded(sd, data, host_ok)
+            if batches is not None:
+                if len(batches) == len(bounds):
+                    # the shards were cut with the reference's bounds too
+                    return batches
+                whole = _concat_batches(batches)
+                return [compact_union_slices(whole.slice(a, b - a))
+                        for a, b in bounds]
         batch = (self.decode(data, host_ok=True) if host_ok
                  else self.decode(data))
-        return [
-            compact_union_slices(batch.slice(a, b - a))
-            for a, b in chunk_bounds(len(data), num_chunks)
-        ]
+        return [compact_union_slices(batch.slice(a, b - a))
+                for a, b in bounds]
+
+    def _decode_sharded(self, sd, data: Sequence[bytes], host_ok: bool):
+        """The shards' batches; None when a shard passes the launch's byte
+        budget (the one-card path halves the batch, still on the card)."""
+        try:
+            return sd.decode(data, self.ir, self.arrow_schema)
+        except BatchTooLarge:
+            return None
+        except DeviceCapacityExceeded:
+            if host_ok:
+                return [self._host_decode(data, "capacity")]
+            raise
+        except Exception as e:
+            # no quiet fall-through to one card: a fault raises
+            if _degradable(e):
+                _device_call_failed(e)
+            raise
 
 
     def encode(self, batch: pa.RecordBatch, *,

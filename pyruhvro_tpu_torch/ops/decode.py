@@ -691,7 +691,7 @@ class WalkLaunch:
         self.prog, self.caps, self.R = prog, tuple(item_caps), R
         self.n_regions = len(prog.regions)
         self.fold = _fold
-        self.in_budget = walk_kernel.budget(prog, self.stack, in_max) \
+        self.in_budget = walk_kernel.budget(prog, self.stack, in_max, dev) \
             if dev.type == "cuda" else walk_budget(None, in_max)
         self.blocks = (0, 0)
         self.esize = [prog.buffers[k].dtype.itemsize for k in prog.out_keys]
@@ -898,36 +898,42 @@ class _DecodeWalkKernel:
             len(prog.code), len(prog.out_keys), len(prog.regions),
             in_budget)
 
-    def blocks_per_sm(self, stack: int, smem_bytes: int) -> int:
+    def blocks_per_sm(self, stack: int, smem_bytes: int,
+                      device=None) -> int:
         """Blocks of the ``stack``-level instantiation that fit one SM at
-        ``smem_bytes`` of dynamic shared memory (the CUDA occupancy query)."""
-        got = self.library().cdll.decode_walk_blocks_per_sm(stack,
-                                                            smem_bytes)
+        ``smem_bytes`` of dynamic shared memory (the CUDA occupancy query,
+        on ``device``, by default the current card)."""
+        with torch.cuda.device(device):
+            got = self.library().cdll.decode_walk_blocks_per_sm(stack,
+                                                                smem_bytes)
         if got < 0:
             raise RuntimeError(f"decode_walk occupancy query failed: CUDA "
                                f"error {-got}")
         return got
 
-    def budget(self, prog: Program, stack: int, in_max) -> int:
-        """:func:`walk_budget` by the occupancy query, once per program
-        shape, instantiation and cap given."""
-        key = (len(prog.code), len(prog.out_keys), len(prog.regions), stack,
-               in_max)
+    def budget(self, prog: Program, stack: int, in_max, device) -> int:
+        """:func:`walk_budget` by the occupancy query on ``device`` (a
+        tensor's card), once per card, program shape, instantiation and
+        cap given."""
+        key = (device, len(prog.code), len(prog.out_keys), len(prog.regions),
+               stack, in_max)
         with self._lock:
             got = self._budgets.get(key)
         if got is None:
             got = walk_budget(lambda x: self.blocks_per_sm(
-                stack, self.smem_bytes(prog, x)), in_max)
+                stack, self.smem_bytes(prog, x), device), in_max)
             with self._lock:
                 self._budgets[key] = got
         return got
 
     def launch(self, L: WalkLaunch) -> None:
-        """One launch on the current stream; no synchronisation."""
-        if L.words.device.type != "cuda":
+        """One launch on the current stream of the tensors' card; no
+        synchronisation."""
+        dev = L.words.device
+        if dev.type != "cuda":
             raise RuntimeError("walk_kernel takes CUDA tensors")
         fn = self.library().cdll.decode_walk
-        st = torch.cuda.current_stream(L.words.device)
+        st = torch.cuda.current_stream(dev)
         stream = st.cuda_stream
         args = (L.words.data_ptr(), L.words.numel(), L.starts.data_ptr(),
                 L.lengths.data_ptr(), L.n, L.R, L.table.data_ptr(),
@@ -936,7 +942,8 @@ class _DecodeWalkKernel:
                 L.status.data_ptr(), L.log.data_ptr(), L.log_cap,
                 L.err.data_ptr(), stream)
         L.reset()
-        with device_obs.timed("walk", L.words.device, st) as t:
+        with torch.cuda.device(dev), \
+                device_obs.timed("walk", dev, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"decode_walk launch failed: CUDA error "
@@ -954,11 +961,19 @@ class _DecodeWalkKernel:
         with the reference's bound (``WalkLaunch.settle``). Inside a
         :func:`..runtime.device_obs.launch` each launch call is timed as
         ``walk`` (the host's status reads between them are not)."""
-        for _ in range(_MAX_WALK_LAUNCHES):
-            self.launch(L)
+        self.launch(L)
+        return self.settle(L)
+
+    def settle(self, L: WalkLaunch):
+        """:meth:`run` after its first launch, which the caller made (the
+        sharded decoder enqueues every card's first launch before it reads
+        a status)."""
+        for k in range(1, _MAX_WALK_LAUNCHES + 1):
             if L.settle():
                 L.apply_log()
                 return L.bufs, L.err
+            if k < _MAX_WALK_LAUNCHES:
+                self.launch(L)
         raise RuntimeError(f"decode_walk: loop bounds did not settle in "
                            f"{_MAX_WALK_LAUNCHES} launches; the last one "
                            f"recorded {L.unsettled}")
@@ -1190,7 +1205,8 @@ class _FinalizeKernel:
                 p["jobs_d"].data_ptr(), len(p["jobs"]),
                 plan.src_ptrs.data_ptr(), plan.src_lens.data_ptr(),
                 plan.blob.data_ptr(), off_at, plan.red.data_ptr(), stream)
-        with device_obs.timed("finalize", plan.dev, st) as t:
+        with torch.cuda.device(plan.dev), \
+                device_obs.timed("finalize", plan.dev, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"decode_finalize launch failed: CUDA "
@@ -1202,7 +1218,8 @@ class _FinalizeKernel:
         st = torch.cuda.current_stream(plan.dev)
         args = (plan.entries.data_ptr(), plan.entries.shape[0],
                 plan.blob.data_ptr(), plan.red.data_ptr(), st.cuda_stream)
-        with device_obs.timed("finalize", plan.dev, st) as t:
+        with torch.cuda.device(plan.dev), \
+                device_obs.timed("finalize", plan.dev, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"decode_finalize epilogue failed: CUDA "
@@ -1383,7 +1400,8 @@ class DeviceDecoder:
         self._planned: set = set()
         # (R, region) pairs a host sample was taken for
         self._seed_tried: set = set()
-        self._copy_stream = None
+        # card index -> the stream that copies the arenas to that card
+        self._copy_streams: Dict[int, torch.cuda.Stream] = {}
         # the buckets this decoder launched: a bucket's first launch is
         # its device.compile_s
         self._launched: set = set()
@@ -1587,21 +1605,23 @@ class DeviceDecoder:
 
     def _put_packed(self, arena: _Arena, timings) -> torch.Tensor:
         """The arena's device buffer, its host buffer copied in: on the card
-        one copy from pinned memory on the decoder's copy stream, started
-        after the last launch that read the device buffer; the current
-        stream waits on its event. The copy's device time goes into
-        ``timings["h2d_ms"]`` once the call resolves its events. Counts the
+        one copy from pinned memory on the decoder's copy stream of the
+        arena's card, started after the last launch that read the device
+        buffer; that card's current stream waits on its event. The copy's
+        device time goes into ``timings["h2d_ms"]`` once the call resolves
+        its events. Counts the
         arena's bytes in ``decode.h2d_bytes`` / ``device.h2d_bytes`` (on
         the CPU the arena is the launch's input itself)."""
         nbytes = arena.host_t.nbytes
         metrics.inc("decode.h2d_bytes", nbytes)
         metrics.inc("device.h2d_bytes", nbytes)
-        if self.device.type != "cuda":
+        dev = arena.dev.device
+        if dev.type != "cuda":
             return arena.dev
         with self._lock:
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            copy = self._copy_stream
+            copy = self._copy_streams.get(dev.index)
+            if copy is None:
+                copy = self._copy_streams[dev.index] = torch.cuda.Stream(dev)
         if arena.consumed is not None:
             copy.wait_event(arena.consumed)
         # written on the copy stream: the allocator must not hand the
@@ -1614,16 +1634,17 @@ class DeviceDecoder:
             arena.dev.copy_(arena.host_t, non_blocking=True)
         end.record(copy)
         arena.copied = end
-        torch.cuda.current_stream(self.device).wait_event(end)
+        torch.cuda.current_stream(dev).wait_event(end)
         timings["_events"].append(("h2d_ms", start, end))
         return arena.dev
 
     def _mark_consumed(self, arena: _Arena) -> None:
-        """Record, on the current stream, that every launch so far that
-        reads ``arena``'s device buffer is enqueued."""
-        if self.device.type == "cuda":
+        """Record, on the current stream of its card, that every launch so
+        far that reads ``arena``'s device buffer is enqueued."""
+        dev = arena.dev.device
+        if dev.type == "cuda":
             arena.consumed = torch.cuda.Event()
-            arena.consumed.record(torch.cuda.current_stream(self.device))
+            arena.consumed.record(torch.cuda.current_stream(dev))
 
     def _fetch(self, blob: torch.Tensor, timings):
         """Start the blob's copy to the host: on the card into pinned
@@ -1634,7 +1655,7 @@ class DeviceDecoder:
         host = torch.empty(blob.numel(), dtype=torch.uint8, pin_memory=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        stream = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.current_stream(blob.device)
         start.record(stream)
         host.copy_(blob, non_blocking=True)
         end.record(stream)

@@ -952,7 +952,7 @@ class _EncodeKernel:
         self.rows = _Entry("encode_rows")
         self.strings = _Entry("encode_strings")
         self._lock = threading.Lock()
-        self._free: Dict[Tuple[int, int], int] = {}
+        self._free: Dict[tuple, int] = {}  # (card, lanes, code) -> bytes
 
     def library(self):
         from ._build import load_kernel_library
@@ -987,21 +987,24 @@ class _EncodeKernel:
     def free_span_bytes(self, L: EncodeLaunch) -> int:
         """The largest span staging (16-B steps, at most ``SPAN_MAX``) at
         which as many ``encode_rows`` blocks fit an SM as with none, by
-        the CUDA occupancy query; kept per table size."""
-        key = (len(L.prog.lanes), len(L.prog.code))
+        the CUDA occupancy query (on the current card, which
+        :meth:`launch_rows` sets to the launch's); kept per card and table
+        size."""
+        shape = (len(L.prog.lanes), len(L.prog.code))
+        key = (L.buf.device, *shape)
         free = self._free.get(key)
         if free is None:
             cdll = self.library().cdll
             smem = cdll.encode_rows_smem_bytes
             per_sm = cdll.encode_rows_blocks_per_sm
-            want = per_sm(smem(*key, 0))
+            want = per_sm(smem(*shape, 0))
             if want <= 0:
                 raise RuntimeError(f"encode_rows occupancy query failed: "
                                    f"CUDA error {-want}")
             lo, hi = 0, SPAN_MAX // 16
             while lo < hi:
                 mid = (lo + hi + 1) // 2
-                if per_sm(smem(*key, 16 * mid)) >= want:
+                if per_sm(smem(*shape, 16 * mid)) >= want:
                     lo = mid
                 else:
                     hi = mid - 1
@@ -1027,7 +1030,8 @@ class _EncodeKernel:
         if L.buf.device.type != "cuda":
             raise RuntimeError("encode_kernel takes CUDA tensors")
         if write and budget is None:
-            budget = L.span_budget = self.span_budget(L)
+            with torch.cuda.device(L.buf.device):
+                budget = L.span_budget = self.span_budget(L)
         fn = self.library().cdll.encode_rows
         st = torch.cuda.current_stream(L.buf.device)
         stream = st.cuda_stream
@@ -1038,7 +1042,8 @@ class _EncodeKernel:
                 None if cum is None else cum.data_ptr(),
                 row_sizes.data_ptr(), None if out is None else out.data_ptr(),
                 stream)
-        with device_obs.timed("encode_rows", L.buf.device, st) as t:
+        with torch.cuda.device(L.buf.device), \
+                device_obs.timed("encode_rows", L.buf.device, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"encode_rows launch failed: CUDA error "
@@ -1058,7 +1063,8 @@ class _EncodeKernel:
         args = (L.buf.data_ptr(), L.lanes_view().data_ptr(),
                 L.cols_view().data_ptr(), len(L.cols), L.n_windows,
                 out.data_ptr(), stream)
-        with device_obs.timed("encode_strings", L.buf.device, st) as t:
+        with torch.cuda.device(L.buf.device), \
+                device_obs.timed("encode_strings", L.buf.device, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"encode_strings launch failed: CUDA "

@@ -542,7 +542,8 @@ class KernelLaunch:
         self.in_budget, self.blocks_staged, self.blocks_global = \
             input_staging(offs, in_max)
         if out_max is None:
-            out_max = self._free_out_bytes()
+            with torch.cuda.device(dev):
+                out_max = self._free_out_bytes()
         self.stage, self.out_bytes = stage_plan(prog, caps, out_max)
         esize = [prog.buffers[k].dtype.itemsize for k in prog.out_keys]
         region = [prog.buffers[k].region for k in prog.out_keys]
@@ -565,7 +566,8 @@ class KernelLaunch:
     def _free_out_bytes(self) -> int:
         """The largest output staging area (16-B steps, at most
         ``_OUT_STAGE_MAX``) at which as many blocks fit an SM as with
-        none, by the CUDA occupancy query."""
+        none, by the CUDA occupancy query (on the current card, which
+        ``__init__`` sets to the launch's)."""
         per_sm = walk_kernel.library().cdll.walk_decode_blocks_per_sm
         want = per_sm(self.smem_bytes(0))
         lo, hi = 0, _OUT_STAGE_MAX // 16
@@ -634,7 +636,8 @@ class _WalkKernel:
         return lib
 
     def launch(self, L: KernelLaunch) -> None:
-        """One launch on the current stream; no synchronisation."""
+        """One launch on the current stream of the tensors' card; no
+        synchronisation."""
         fn = self.library().cdll.walk_decode
         st = torch.cuda.current_stream(L.flat.device)
         stream = st.cuda_stream
@@ -644,7 +647,8 @@ class _WalkKernel:
                 L.ptrs.data_ptr(), L.tile_r, L.fixed_upto, L.in_budget,
                 L.out_bytes, L.span_max.data_ptr(), L.in_mask.data_ptr(),
                 L.cut.data_ptr(), L.err.data_ptr(), stream)
-        with device_obs.timed("walk_decode", L.flat.device, st) as t:
+        with torch.cuda.device(L.flat.device), \
+                device_obs.timed("walk_decode", L.flat.device, st) as t:
             rc = fn(*args, *t.events)
             if rc != 0:
                 raise RuntimeError(f"walk_decode launch failed: CUDA error "

@@ -59,15 +59,18 @@ guard (:func:`note_compile`) counts first launches per schema in
 ``PYRUHVRO_TPU_RECOMPILE_WINDOW`` seconds and, at
 ``PYRUHVRO_TPU_RECOMPILE_STORM``, counts ``device.recompile_storm`` and
 penalizes the schema in the cost model (``costmodel.penalize``), so the
-router withholds its device arm for the window. Not ported: the storm's
-flight dump, ``track_holder``, the lifecycle eviction and ``cachelife``
-(``ROADMAP.md`` (a) 8).
+router withholds its device arm for the window. :func:`track_holder`
+keeps (weakly) the objects that hold launch state across calls, the
+sharded decoder and encoder (:mod:`..parallel`), for the lifecycle
+planes; not ported: the storm's flight dump, the lifecycle eviction and
+``cachelife`` (``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -85,6 +88,8 @@ __all__ = [
     "note_build",
     "note_compile",
     "note_memory",
+    "track_holder",
+    "holders",
     "snapshot",
     "reset",
 ]
@@ -100,6 +105,8 @@ _compile_log: Dict[str, deque] = {}  # guarded-by: _lock
 _builds: Dict[str, float] = {}  # guarded-by: _lock
 # (device index, stream) -> timing events free for reuse
 _pools: Dict[Tuple[int, int], List[Any]] = {}  # guarded-by: _lock
+# objects holding launch state across calls (track_holder)
+_holders: "weakref.WeakSet" = weakref.WeakSet()  # guarded-by: _lock
 _POOL_MAX = 256      # events kept per stream
 _PENDING_MAX = 4096  # launches a thread keeps unread before dropping
 _tls = threading.local()
@@ -123,6 +130,20 @@ def count_walked_bytes(on: bool) -> None:
 def walked_bytes() -> bool:
     """Are bytes that need a walk over the data counted?"""
     return _walked
+
+
+def track_holder(holder) -> None:
+    """Register an object that holds arenas, streams or kernel plans
+    across calls (the reference's ``track_holder``, for its lifecycle
+    planes); kept weakly, so registering keeps nothing alive."""
+    with _lock:
+        _holders.add(holder)
+
+
+def holders() -> list:
+    """The registered holders still alive."""
+    with _lock:
+        return list(_holders)
 
 
 def churn_window_s() -> float:
