@@ -121,9 +121,21 @@ exits non-zero before the last line:
    ``ShardedEncoder`` on path 5's batch (each shard's K3 bit-equal to
    the plain encode, the wire equal to the input datums); M5 bad rows in
    shards 2 and 6 (one ``MalformedAvro`` equal to the one-card path's);
-8. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
-   ``{"multichip": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}``
-   JSON lines (K5 as ``sharded_fanout``), then
+8. the ``planes`` phase (:func:`planes_phase`) on the first
+   ``PLANES_ROWS`` of path 1's records: C1 arrays of null items encode
+   on the card to the oracle's wire; F1 ``device_launch`` and ``h2d``
+   faults raise ``FaultInjected`` under ``backend="device"`` and
+   ``"auto"``, counted, with no host answer, the next call equal to
+   the CPU call; F2 an ``h2d`` hang under ``timeout_s=0.5`` raises
+   ``DeadlineExceeded``; F3 two threads decode on the card under
+   ``schedtest.run_interleaved`` for three seeds, equal, no stall; S1 a
+   deep-sampled call (each launch waited on, the waits counted) against
+   a plain one in turns, with the sampler's overhead estimate; L1 an SLO breached by
+   the card's calls, its flight dump holding the device launches'
+   spans, its ``alert_command`` run;
+9. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
+   ``{"multichip": ...}``, ``{"planes": ...}``, ``{"paths": ...}`` and
+   ``{"kernels": [...]}`` JSON lines (K5 as ``sharded_fanout``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -545,8 +557,9 @@ def encode_fixtures(pa, datagen, parse_schema, decode, rows: int):
     cases = []
     for name, schema, datums, bad in pipeline_fixtures(datagen, parse_schema,
                                                        rows):
-        # arrays of null items do not encode: the extractor rejects their
-        # null values at a non-nullable position, as the reference's does
+        # arrays of null items stay out: the reference's extractor, which
+        # the encode tests hold these fixtures against, rejects them (the
+        # port writes the oracle's wire, ROADMAP.md (c) 1; planes C1)
         if not bad and schema not in (NULLS_SCHEMA, GLOBAL_BOUND_SCHEMA):
             cases.append((name, schema, decode(datums, schema)))
     lir = parse_schema(LOGICAL_SCHEMA)
@@ -3371,6 +3384,307 @@ def multichip_phase(api, torch, dm, em, par, pse, codec_mod, parse_schema,
     return res
 
 
+PLANES_ROWS = 100_000       # the planes phase: Kafka records per call
+PLANES_SEEDS = (0, 1, 2)    # F3: schedules of the two decoding threads
+PLANES_HANG_S = 2.0         # F2: the h2d hang against a 0.5 s budget
+PLANES_TURNS = 2            # S1: rounds of A B B A twice (8 calls a side)
+
+
+def nulls_datums(n: int):
+    """``n`` rows of :data:`NULLS_SCHEMA` with 0 to 4 null items each: the
+    count, no bytes per item, the block end, then a 1-byte string."""
+    return [(zz(k % 5) + zz(0) if k % 5 else zz(0)) + zz(1) + b"x"
+            for k in range(n)]
+
+
+def counter_delta(metrics, before, prefixes):
+    """Counters under ``prefixes`` that moved since ``before``."""
+    now = metrics.snapshot()
+    return {k: now[k] - before.get(k, 0.0) for k in now
+            if k.startswith(prefixes) and now[k] != before.get(k, 0.0)}
+
+
+def planes_phase(api, torch, dm, em, data, schema, here, card):
+    """The planes above the codec on the card, each held against the same
+    call on the CPU (``device="cpu"``) or a card call that was:
+
+    * C1: :data:`NULLS_SCHEMA`'s batch (arrays of null items) encodes on
+      the card (``encode_rows`` counted from 0) to the oracle's wire,
+      which is the input, ``b"\\x04\\x00\\x02x"`` for 2 items;
+    * F1: ``device_launch:error:1``, then ``h2d:error:1``, each under
+      ``backend="device"`` and ``"auto"``: ``FaultInjected`` raised,
+      ``fault.injected.<site>`` counted once, no host tier or host
+      answer counted, and the next call without a spec equal to the
+      CPU call;
+    * F2: ``h2d:hang`` with ``PYRUHVRO_TPU_FAULT_HANG_S`` =
+      :data:`PLANES_HANG_S` under ``timeout_s=0.5`` raises
+      ``DeadlineExceeded``;
+    * F3: two threads decode on the card under
+      ``schedtest.run_interleaved`` for :data:`PLANES_SEEDS`: both equal
+      the CPU call, no stall;
+    * S1: a deep-sampled call (each launch waited on at its end) and a
+      plain one in turns, A B B A twice, :data:`PLANES_TURNS` times:
+      both calls' seconds, the
+      sampler's ``overhead_fraction`` beside the measured ratio,
+      ``sampling.deep_calls``, and ``device.sync_waits``: a deep call
+      waits once on each of its K1 / K2 launches, a plain call never; the
+      batches equal;
+    * L1: an SLO whose ``threshold_s`` is under the warm call breaches
+      after ``min_calls``: a flight dump whose records hold the device
+      launches' spans, and its ``alert_command`` run.
+
+    ``data`` is :data:`PLANES_ROWS` records of ``schema``, which the
+    phase decodes under a schema string of its own: a fresh decoder that
+    no earlier phase has left at sticky item caps (a record past the
+    item limit, R5). Every failure exits non-zero. Returns the phase's
+    figures."""
+    import os
+
+    from pyruhvro_tpu_torch.runtime import (faults, metrics, sampling,
+                                            schedtest, slo, telemetry)
+    from pyruhvro_tpu_torch.runtime.deadline import DeadlineExceeded
+
+    doc = json.loads(schema)
+    doc["doc"] = "planes phase"
+    schema = json.dumps(doc)
+    out = {}
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    host_keys = ("route.native", "route.fallback", "device.host_answer")
+
+    # C1: arrays of null items on the card
+    nulls = nulls_datums(4096)
+    batch = api.deserialize_array(nulls, NULLS_SCHEMA)
+    enc = {"encode_rows": em.encode_kernel.rows}
+    zero(enc)
+    arrays = api.serialize_record_batch(batch, NULLS_SCHEMA, 2)
+    c1_launches = launched("planes C1", enc)
+    wire = [d for a in arrays for d in a.to_pylist()]
+    cpu = api.serialize_record_batch(batch, NULLS_SCHEMA, 2, device="cpu")
+    if wire != nulls or wire != [d for a in cpu for d in a.to_pylist()]:
+        raise SystemExit("planes C1: the card's wire of null items is not "
+                         "the oracle's")
+    if wire[2] != b"\x04\x00\x02x":
+        raise SystemExit(f"planes C1: row 2 encodes to {wire[2]!r}")
+    out["C1"] = {"rows": len(nulls), "launches": c1_launches,
+                 "row2": wire[2].hex()}
+    print(f"planes C1: {len(nulls)} rows of null items encode on the card "
+          f"to the oracle's wire (row 2 {wire[2]!r}), launches "
+          f"{c1_launches}")
+
+    # the reference for F1-S1: the card's call, held once against the CPU
+    t0 = time.perf_counter()
+    want = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_want = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+    same_values("planes: the card call", card_want, want)
+    del want
+
+    # F1: the device seams raise under "device" and "auto"
+    f1 = {}
+    for site in ("device_launch", "h2d"):
+        for backend in ("device", "auto"):
+            label = f"planes F1 {site} {backend}"
+            faults.reset()
+            before = metrics.snapshot()
+            os.environ["PYRUHVRO_TPU_FAULTS"] = f"{site}:error:1"
+            try:
+                api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                               backend=backend)
+            except faults.FaultInjected as e:
+                if e.site != site:
+                    raise SystemExit(f"{label}: raised at {e.site}")
+            else:
+                raise SystemExit(f"{label}: the call did not raise")
+            finally:
+                os.environ.pop("PYRUHVRO_TPU_FAULTS")
+            moved = counter_delta(metrics, before,
+                                  ("fault.", *host_keys))
+            if moved != {f"fault.injected.{site}": 1.0}:
+                raise SystemExit(f"{label}: counters {moved}")
+            got = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                                 backend=backend)
+            same_columns(f"{label}: the next call", got, card_want)
+            f1[f"{site}/{backend}"] = moved
+    out["F1"] = f1
+    print(f"planes F1: device_launch and h2d faults raised FaultInjected "
+          f"under device and auto, counted once each, no host answer; "
+          f"the next calls equal the CPU call ({cpu_s:.1f} s)")
+
+    # F2: a hung copy against the call's deadline
+    os.environ["PYRUHVRO_TPU_FAULTS"] = "h2d:hang:1"
+    os.environ["PYRUHVRO_TPU_FAULT_HANG_S"] = str(PLANES_HANG_S)
+    t0 = time.perf_counter()
+    try:
+        api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                       timeout_s=0.5)
+    except DeadlineExceeded as e:
+        f2 = {"raised_s": time.perf_counter() - t0, "site": e.site,
+              "elapsed_s": e.elapsed_s}
+    else:
+        raise SystemExit("planes F2: the hung call did not raise "
+                         "DeadlineExceeded")
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_FAULTS")
+        os.environ.pop("PYRUHVRO_TPU_FAULT_HANG_S")
+    out["F2"] = f2
+    print(f"planes F2: h2d hang of {PLANES_HANG_S} s under timeout_s=0.5 "
+          f"raised DeadlineExceeded at {f2['site']} after "
+          f"{f2['raised_s']:.3f} s")
+
+    # F3: two decoding threads under the interleaving harness
+    f3 = []
+    for seed in PLANES_SEEDS:
+        res = {}
+
+        def worker(k):
+            def run():
+                res[k] = api.deserialize_array_threaded(data, schema,
+                                                        MAIN_CHUNKS)
+            return run
+
+        t0 = time.perf_counter()
+        h = schedtest.run_interleaved([worker(0), worker(1)], seed=seed,
+                                      timeout_s=120.0)
+        secs = time.perf_counter() - t0
+        if h.stalls:
+            raise SystemExit(f"planes F3 seed {seed}: {h.stalls} stalls")
+        for k in (0, 1):
+            same_columns(f"planes F3 seed {seed} thread {k}", res[k],
+                         card_want)
+        points = {}
+        for _t, p in h.trace:
+            points[p] = points.get(p, 0) + 1
+        f3.append({"seed": seed, "switch_points": len(h.trace),
+                   "points": points, "s": secs})
+    out["F3"] = f3
+    print(f"planes F3: two card threads under {len(PLANES_SEEDS)} seeded "
+          f"schedules, no stall, both equal the CPU call; yield points "
+          f"{[r['switch_points'] for r in f3]}")
+
+    # S1: deep-sampled against plain, in turns; the sampler starts from
+    # nothing (the harness's slow calls above would weigh in its
+    # estimate of a plain call) and learns one plain call first
+    sampling.reset()
+    sampling.set_enabled(True)
+    deep_before = metrics.snapshot().get("sampling.deep_calls", 0.0)
+    launches = []
+    waits = {"deep": [], "plain": []}
+    outs = {}
+
+    def call(deep):
+        # period 1 samples this call; a period past the call count never
+        sampling._period = 1 if deep else 1 << 16
+        sampling._pending_resample = False
+        zero(pipe)
+        w0 = metrics.snapshot().get("device.sync_waits", 0.0)
+        got = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+        # a deep call waits once on each launch's end, a plain one never
+        # (and the CPU's plain versions of a rehearsal have nothing to
+        # wait on)
+        waited = metrics.snapshot().get("device.sync_waits", 0.0) - w0
+        launched = sum(c.launches for c in pipe.values())
+        if waited != (launched if deep and DEVICE != "cpu" else 0):
+            raise SystemExit(f"planes S1: a {'deep' if deep else 'plain'} "
+                             f"call waited {waited:.0f} times on its "
+                             f"{launched} launches")
+        waits["deep" if deep else "plain"].append(waited)
+        if deep:
+            launches.append({k: c.launches for k, c in pipe.items()})
+        outs["deep" if deep else "plain"] = got
+        return got
+
+    try:
+        call(False)
+        times = {"deep": [], "plain": []}
+        for _ in range(PLANES_TURNS):
+            for k, v in turns_of(lambda: call(True), lambda: call(False),
+                                 ("deep", "plain")).items():
+                times[k] += v
+    finally:
+        sampling.set_enabled(None)
+    deep_calls = metrics.snapshot().get("sampling.deep_calls", 0.0) - \
+        deep_before
+    if deep_calls != 4 * PLANES_TURNS:
+        raise SystemExit(f"planes S1: {deep_calls} deep calls of "
+                         f"{4 * PLANES_TURNS}")
+    same_columns("planes S1 deep", outs["deep"], card_want)
+    same_columns("planes S1 plain", outs["plain"], card_want)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    s1 = {"deep_s": times["deep"], "plain_s": times["plain"],
+          "measured_ratio": med["deep"] / med["plain"] - 1.0,
+          "overhead_fraction": sampling.overhead_fraction(),
+          "period_after": sampling.period(),
+          "deep_calls": deep_calls, "deep_launches": launches[0],
+          "sync_waits": waits,
+          "snapshot": sampling.snapshot_sampling()}
+    out["S1"] = s1
+    print(f"planes S1: deep {spread(times['deep'])} ms, plain "
+          f"{spread(times['plain'])} ms ({s1['measured_ratio'] * 100:+.2f} "
+          f"%), the sampler's overhead_fraction "
+          f"{s1['overhead_fraction'] * 100:.2f} %, {deep_calls:.0f} deep "
+          f"calls, each waited {waits['deep'][0]:.0f} times on "
+          f"{launches[0]}, a plain call {waits['plain'][0]:.0f} times "
+          f"{card}")
+
+    # L1: an SLO breached by the card's calls
+    build = here / "build" / "planes"
+    build.mkdir(parents=True, exist_ok=True)
+    for f in build.iterdir():
+        f.unlink()
+    flag = build / "alert_fired"
+    slo_path = build / "slo.json"
+    slo_path.write_text(json.dumps({"version": 1, "objectives": [{
+        "name": "card-decode", "op": "decode", "threshold_s": 0.001,
+        "target": 0.5, "windows_s": [60, 120], "burn_threshold": 1.5,
+        "min_calls": 5,
+        "alert_command": f"{sys.executable} -c \"open(r'{flag}', "
+                         f"'w').write('x')\""}]}))
+    os.environ["PYRUHVRO_TPU_SLO_FILE"] = str(slo_path)
+    os.environ["PYRUHVRO_TPU_FLIGHT_DIR"] = str(build)
+    try:
+        telemetry._flight_last_auto = 0.0
+        calls = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+            calls.append(time.perf_counter() - t0)
+            time.sleep(0.3)  # past the engine's 0.25 s evaluation step
+        breached = slo.breached()
+        for _ in range(200):  # the hook runs detached
+            if flag.exists():
+                break
+            time.sleep(0.05)
+        dumps = sorted(build.glob("flight_*_slo_breach.json"))
+        section = slo.snapshot_slo()
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_SLO_FILE")
+        os.environ.pop("PYRUHVRO_TPU_FLIGHT_DIR")
+        slo.reset()
+    if breached != ["card-decode"] or len(dumps) != 1 or not flag.exists():
+        raise SystemExit(f"planes L1: breached {breached}, dumps {dumps}, "
+                         f"alert {flag.exists()}")
+    doc = json.loads(dumps[0].read_text())
+    launch_phases = {k: v for r in doc["records"]
+                     for k, v in r["phases"].items()
+                     if k.startswith("device.")}
+    if "device.launch_s" not in launch_phases:
+        raise SystemExit(f"planes L1: the flight dump holds no device "
+                         f"launch spans: {launch_phases}")
+    out["L1"] = {"calls_s": calls, "records": len(doc["records"]),
+                 "device_phases_s": launch_phases,
+                 "objective": section["objectives"][0]}
+    print(f"planes L1: the SLO breached after {len(calls)} calls "
+          f"({spread(calls)} ms), one flight dump of "
+          f"{len(doc['records'])} records with device phases "
+          f"{sorted(launch_phases)}, the alert command ran")
+    for f in build.iterdir():
+        f.unlink()
+    build.rmdir()
+    return out
+
+
 def main() -> int:
     import os
 
@@ -3757,6 +4071,13 @@ def main() -> int:
                             nested_schema, card)
     print(f"multichip phase: {time.perf_counter() - t0:.1f} s")
 
+    # 10. the planes above the codec: null items, fault seams, the
+    # interleaving harness, deep sampling, SLOs and the flight recorder
+    t0 = time.perf_counter()
+    planes = planes_phase(port, torch, dm, em, data[:PLANES_ROWS], kafka,
+                          here, card)
+    print(f"planes phase: {time.perf_counter() - t0:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -3818,6 +4139,7 @@ def main() -> int:
     print(json.dumps({"telemetry": tel}))
     print(json.dumps({"route": route}))
     print(json.dumps({"multichip": multi}))
+    print(json.dumps({"planes": planes}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -45,7 +45,10 @@ on its chunk.
 
 Telemetry (``runtime/telemetry.py``): each call opens the reference's
 root span (``api.deserialize_array``, ``api.deserialize_array_threaded``
-or ``api.serialize_record_batch``) with ``rows``, ``backend`` and
+or ``api.serialize_record_batch``) and, inside it, the deep sampler's
+``sampling.call_scope`` (``runtime/sampling.py``: about one call in a
+period runs the deep path, ``RouteDecision.sampled``), with ``rows``,
+``backend`` and
 ``schema`` (the fingerprint), and records its tier with
 ``set_route(tier, reason)`` (tiers ``device``, ``native``,
 ``fallback``; reasons ``backend_device``, ``backend_host`` and the
@@ -119,8 +122,8 @@ from .fallback.decoder import (
 from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
-from .runtime import (deadline, device_obs, knobs, metrics, quarantine, router,
-                      telemetry, traceprop)
+from .runtime import (deadline, device_obs, faults, knobs, metrics, quarantine,
+                      router, sampling, telemetry, traceprop)
 from .runtime.deadline import DeadlineExceeded
 from .runtime.chunking import bounds_rows, chunk_bounds
 from .runtime.ingest import as_datum_input
@@ -581,13 +584,17 @@ def _apply_null_policy(batch, entries, base, n, policy, entry):
 # tree, routing observations and quarantine entries back with the result;
 # map_chunks_proc merges them, so the parent's snapshot covers the whole
 # fan-out. The device tier never fans out this way. Copies of
-# pyruhvro_tpu/api.py:700-781 without the chaos seam (faults.fire).
+# pyruhvro_tpu/api.py:700-781.
 
 
 def _proc_decode_task(payload):
     schema, data, base, on_error, tp = payload
     with telemetry.worker_scope("pool.worker", rows=len(data),
                                 op="decode", trace_ctx=tp) as w:
+        # the chaos seam inside the spawned worker (the parent's fault
+        # spec reaches it through pool._run_with_chaos_env): error fails
+        # the chunk, exit kills the worker mid-fan-out
+        faults.fire("pool_worker")
         try:
             if on_error == "raise":
                 batch = deserialize_array(data, schema, backend="host")
@@ -610,6 +617,7 @@ def _proc_encode_task(payload):
     schema, batch, base, on_error, tp = payload
     with telemetry.worker_scope("pool.worker", rows=batch.num_rows,
                                 op="encode", trace_ctx=tp) as w:
+        faults.fire("pool_worker")
         if on_error == "raise":
             [arr] = serialize_record_batch(batch, schema, 1, backend="host")
             errs = []
@@ -662,8 +670,11 @@ def deserialize_array(
     with telemetry.root_span("api.deserialize_array", rows=len(data),
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
+            sampling.call_scope("decode", entry.fingerprint,
+                                len(data)) as smp, \
             deadline.scope(timeout_s, op="deserialize_array"):
         dec = _decide(entry, backend, len(data), device, op="decode")
+        dec.sampled = smp.sampled
         try:
             # after the decision: a timeout_s=0 probe still leaves a
             # ledger entry
@@ -717,9 +728,12 @@ def deserialize_array_threaded(
                              rows=len(data), chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
+            sampling.call_scope("decode", entry.fingerprint,
+                                len(data)) as smp, \
             deadline.scope(timeout_s, op="deserialize_array_threaded"):
         dec = _decide(entry, backend, len(data), device, op="decode",
                       chunks=len(bounds))
+        dec.sampled = smp.sampled
         try:
             deadline.check(site="call_start")
             out = _deserialize_chunks(dec, entry, data, schema, num_chunks,
@@ -822,9 +836,12 @@ def serialize_record_batch(
                              rows=batch.num_rows, chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
                              schema=entry.fingerprint), \
+            sampling.call_scope("encode", entry.fingerprint,
+                                batch.num_rows) as smp, \
             deadline.scope(timeout_s, op="serialize_record_batch"):
         dec = _decide(entry, backend, batch.num_rows, device, op="encode",
                       chunks=len(bounds))
+        dec.sampled = smp.sampled
         try:
             deadline.check(site="call_start")
             out = _serialize_chunks(dec, entry, batch, schema, num_chunks,

@@ -30,14 +30,28 @@ on encode; the lane counters ``decode.fused`` /
 ``pool.fanout_s`` span with the shard runner's own efficiency
 (``pool.eff_fanouts``), and ``chunk_mode`` on the call's span.
 
-Departures from the reference (``ROADMAP.md`` (c)): a failed build, or an
-error of the VM or the shard runner, raises (the reference degrades to
-the oracle or to its serial chunk loop). The specialiser and the
+The native profiler (the reference's, ``hostpath/codec.py:35-52``):
+under ``PYRUHVRO_TPU_NATIVE_PROF=1`` the modules are their profiled
+builds (:mod:`..runtime.native`), and each call drains their per-opcode
+counters into ``vm.op.*`` / ``vm.encop.*`` / ``extract.op.*``
+(:func:`_drain_native_prof`). A deep-sampled decode
+(:mod:`..runtime.sampling`) runs through the profiled VM instead of the
+plain one, marks its deep path as run and drains with the sampler's
+period as weight.
+
+Fault seams (:mod:`..runtime.faults`, the reference's ``:193``, ``:371``,
+``:535``, ``:761``): ``vm_decode`` before the VM's decode pass,
+``shard_worker`` once per chunk before a shard-runner decode or encode,
+``native_extract`` before the native extractor's call.
+
+Departures from the reference (``ROADMAP.md`` (c)): a failed build, an
+error of the VM or the shard runner, and an injected fault at any of
+these seams raise (the reference degrades to the oracle or to its serial
+chunk loop, behind breakers the port has not). The specialiser and the
 superoptimizer are not ported: the raw program runs, the reference's
 ``PYRUHVRO_TPU_NO_SPECIALIZE=1`` / ``PYRUHVRO_TPU_NO_OPT=1`` arm. The
-profiler, sampling, breaker and fault hooks wait for ``ROADMAP.md``
-(a) 8, and the writer's bounds-checked debug mode
-(``PYRUHVRO_DEBUG_BOUNDS``) is not ported.
+writer's bounds-checked debug mode (``PYRUHVRO_DEBUG_BOUNDS``) and the
+sanitizer builds are not ported (``ROADMAP.md`` (a) 9).
 """
 
 from __future__ import annotations
@@ -57,7 +71,7 @@ from ..ops.arrow_build import (
 )
 from ..ops.encode_extract import batch_to_struct, run_extractor
 from ..ops.varint import ERR_NAMES, ERR_SLUGS
-from ..runtime import deadline, metrics, native, telemetry
+from ..runtime import deadline, faults, metrics, native, sampling, telemetry
 from ..runtime.chunking import bounds_rows, chunk_bounds
 from ..runtime.pool import fanout_stats, map_chunks
 from .program import (
@@ -70,6 +84,24 @@ from .program import (
 )
 
 __all__ = ["NativeHostCodec"]
+
+
+def _drain_native_prof(*mods, scale: float = 1.0) -> None:
+    """Fold the profiled modules' per-opcode counters into the flat
+    counters: ``vm.op.*`` / ``vm.encop.*`` / ``extract.op.*`` hit
+    counts plus ``*_s`` self seconds (copy of the reference's
+    ``hostpath/codec.py:35``). A no-op for a plain build, which has no
+    ``prof_drain``. ``scale`` is the deep sampler's weight: a sampled
+    call stands in for about ``period`` calls."""
+    for mod in mods:
+        drain = getattr(mod, "prof_drain", None)
+        if drain is None:
+            continue
+        for key, (hits, ns) in drain().items():
+            if hits:
+                metrics.inc(key, float(hits) * scale)
+            if ns:
+                metrics.inc(key + "_s", ns * 1e-9 * scale)
 
 
 def _value_error(e: Exception) -> Exception:
@@ -101,6 +133,7 @@ class NativeHostCodec:
         self.arrow_schema = arrow_schema
         self.prog: HostProgram = lower_host(ir)  # raises UnsupportedOnDevice
         self._plan = self.prog.buffer_plan()
+        self._prof = native.prof_active()
         self._mod = native.load_host_codec().module  # raises RuntimeError
         self._extract_mod = None  # built at the first native extract
         # the last Arrow schema the native extractor declined on shape:
@@ -116,15 +149,27 @@ class NativeHostCodec:
         directly) into one RecordBatch; ``nthreads`` 0 lets the VM pick
         its shard-thread count."""
         n = len(data)
+        # a deep-sampled call decodes through the profiled VM (loaded on
+        # a background thread; None until it is there)
+        deep_mod = None
+        if not self._prof and sampling.deep_active():
+            deep_mod = sampling.prof_codec_module()
         with telemetry.phase("host.decode_s", rows=n):
             deadline.check(index=0, site="host.vm")
+            faults.fire("vm_decode")
             native_data = (data.native_parts()
                            if hasattr(data, "native_parts") else data)
             prog = self.prog
+            eng = self._mod if deep_mod is None else deep_mod
             with telemetry.phase("host.vm_s", specialized=False, fused=True):
-                payload, err_rec, err_bits = self._mod.decode_arrow(
+                payload, err_rec, err_bits = eng.decode_arrow(
                     prog.ops, prog.coltypes, prog.op_aux, native_data,
                     nthreads)
+            if self._prof:
+                _drain_native_prof(self._mod)
+            elif deep_mod is not None:
+                sampling.note_deep_ran()
+                _drain_native_prof(deep_mod, scale=sampling.deep_weight())
             self._raise_malformed(err_rec, err_bits)
             tag, body = payload
             if tag == "arrow":
@@ -188,6 +233,7 @@ class NativeHostCodec:
         rows out over its workers; the batch is sliced per chunk."""
         for a, _b in bounds:
             deadline.check(index=a, site="host.chunk")
+            faults.fire("shard_worker")
         telemetry.annotate(chunk_mode="native_shard")
         self._drain_shard_stats()  # discard counts from other callers
         with fanout_stats(len(bounds), native=True) as stats:
@@ -239,6 +285,7 @@ class NativeHostCodec:
             return None
         if self._extract_mod is None:
             self._extract_mod = native.load_extract().module
+        faults.fire("native_extract")
         try:
             struct = batch_to_struct(self.ir, batch)
         except (ValueError, OverflowError) as e:
@@ -258,6 +305,8 @@ class NativeHostCodec:
             if "decimal" in str(e):
                 raise _value_error(e)  # a batch split cannot help
             raise BatchTooLarge(n, -1)
+        if self._prof:
+            _drain_native_prof(self._extract_mod)
         if isinstance(res, int):
             # 1 = an Arrow shape outside the native surface; 2 = a data
             # error the Python extractor reports with its exact message
@@ -343,6 +392,8 @@ class NativeHostCodec:
             if "decimal" in str(e):
                 raise _value_error(e)  # the oracle's int.to_bytes overflow
             raise BatchTooLarge(n, -1)
+        if self._prof:
+            _drain_native_prof(self._mod)
         return self._wrap_blob(blob, offs, n)
 
     def _encode_native_shards(self, batch: pa.RecordBatch, bounds):
@@ -350,6 +401,8 @@ class NativeHostCodec:
         spreading rows over its workers; the array is sliced per chunk.
         None when the native extractor declines the batch, or the batch
         passes int32 offsets: the per-chunk path then serves."""
+        for _a, _b in bounds:
+            faults.fire("shard_worker")
         telemetry.annotate(chunk_mode="native_shard")
         self._drain_shard_stats()  # discard counts from other callers
         try:

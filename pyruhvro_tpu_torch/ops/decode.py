@@ -56,8 +56,11 @@ flight, row errors of every chunk are raised once. After a planner miss
 the item caps are seeded from the host oracle's decode of the first 128
 records (:meth:`DeviceDecoder.seed_caps_from_sample`), as in the
 reference; a deadline (:mod:`..runtime.deadline`) is checked at each
-ladder rung and each chunk. Out of this slice: persisting the planner's
-plans.
+ladder rung and each chunk. The ``h2d`` fault seam
+(:mod:`..runtime.faults`) fires before each arena's copy to the card and
+raises into the call (``ROADMAP.md`` (c) 9); the ``arena.checkout``
+yield point (:mod:`..runtime.schedtest`) sits before the arena lookup.
+Out of this slice: persisting the planner's plans.
 
 Telemetry (the reference's, ``decode.py:699-1187``): the phases
 ``device.pipeline_s`` (the whole device part of a call),
@@ -87,7 +90,8 @@ import numpy as np
 import torch
 
 from ..errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
-from ..runtime import capacity, deadline, device_obs, knobs, metrics, telemetry
+from ..runtime import (capacity, deadline, device_obs, faults, knobs, metrics,
+                       schedtest, telemetry)
 from ..runtime.chunking import chunk_bounds
 from ..runtime.pack import (
     LAUNCH_MAX_BYTES,
@@ -1580,6 +1584,7 @@ class DeviceDecoder:
         threads decoding same-bucket batches never overwrite each other's
         packed bytes. Only the largest B per (R, slot, thread) is kept."""
         key = (R, B, slot, threading.get_ident())
+        schedtest.yp("arena.checkout")
         with self._lock:
             arena = self._arenas.get(key)
             if arena is None:
@@ -1612,6 +1617,7 @@ class DeviceDecoder:
         its events. Counts the
         arena's bytes in ``decode.h2d_bytes`` / ``device.h2d_bytes`` (on
         the CPU the arena is the launch's input itself)."""
+        faults.fire("h2d")
         nbytes = arena.host_t.nbytes
         metrics.inc("decode.h2d_bytes", nbytes)
         metrics.inc("device.h2d_bytes", nbytes)

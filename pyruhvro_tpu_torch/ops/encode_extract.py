@@ -159,6 +159,11 @@ class _Extractor:
             self.extract(t.non_null_variant, arr, path, region, sub)
             return
 
+        if isinstance(t, Primitive) and t.name == "null":
+            # a null at a null position is its only value: zero wire
+            # bytes, as the oracle writes it (a departure from the
+            # reference, whose extractor rejects it; ROADMAP.md (c) 1)
+            return
         self._require_valid(arr, path, parent)
 
         if isinstance(t, Primitive):

@@ -22,9 +22,10 @@ is ``telemetry.snapshot()["breakers"]``.
 In the port only the ``process_pool`` breaker is fed (by
 :func:`.pool.map_chunks_proc`). The reference's ``device_backend``
 breaker and its feeds are not ported: a failure of the card raises
-(``ROADMAP.md`` (c) 9). Not ported either: the ``timeline`` events of
-the state changes and the ``schedtest`` yield points (``ROADMAP.md``
-(a) 8).
+(``ROADMAP.md`` (c) 9). The ``breaker.acquire`` / ``.record`` /
+``.release`` yield points of :mod:`.schedtest` sit just outside the
+lock, as in the reference. Not ported: the ``timeline`` events of the
+state changes (``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from . import knobs, metrics
+from . import knobs, metrics, schedtest
 
 __all__ = [
     "CircuitBreaker",
@@ -132,6 +133,7 @@ class CircuitBreaker:
         MUST end with :meth:`record_success` or :meth:`record_failure`);
         concurrent callers are refused until the probe reports (or its
         TTL lapses)."""
+        schedtest.yp("breaker.acquire")
         with self._lock:
             now = time.monotonic()
             st = self._state_locked(now)
@@ -158,6 +160,7 @@ class CircuitBreaker:
         the seam broken, so it opens. Ownership only gates the
         no-verdict exit, where a stale release would free a live
         probe's slot without any evidence at all."""
+        schedtest.yp("breaker.record")
         with self._lock:
             self._failures = 0
             self._probe_at = None
@@ -171,6 +174,7 @@ class CircuitBreaker:
         """A call through the seam failed. In half-open (failed probe)
         or past the threshold in closed: open with exponential backoff.
         """
+        schedtest.yp("breaker.record")
         with self._lock:
             now = time.monotonic()
             st = self._state_locked(now)
@@ -198,6 +202,7 @@ class CircuitBreaker:
         TTL-forfeited and the slot re-acquired by someone else — is a
         no-op, so it can never free a live probe and admit a second
         concurrent one."""
+        schedtest.yp("breaker.release")
         with self._lock:
             if self._probe_owner == threading.get_ident():
                 self._probe_at = None

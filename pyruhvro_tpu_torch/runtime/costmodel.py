@@ -28,8 +28,10 @@ profile loads at import and a merge-save registers at exit.
 
 The recompile-storm guard (``device_obs.note_compile``) feeds
 :func:`penalize`: a storming schema's device arms are withheld from the
-router for the churn window. The reference's ``faults`` and
-``schedtest`` seams are not ported (``ROADMAP.md`` (a) 8).
+router for the churn window. The reference's seams are in place: the
+``profile_load`` / ``profile_save`` faults (:mod:`.faults`; counted as a
+load or save error, the call goes on) and the ``costmodel.observe`` /
+``costmodel.save`` yield points (:mod:`.schedtest`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import fsio, knobs, metrics
+from . import fsio, knobs, metrics, schedtest
 
 __all__ = [
     "PROFILE_VERSION",
@@ -180,6 +182,7 @@ def observe(schema: str, op: str, band: int, arm: str, rows: int,
         return
     x = seconds / rows
     key = (schema, op, int(band), arm)
+    schedtest.yp("costmodel.observe")
     with _lock:
         st = _stats.get(key)
         if st is None:
@@ -492,16 +495,19 @@ def load_profile(path: Optional[str] = None) -> bool:
     corrupt, stale-version or foreign file is a COLD START, not an
     error: counted as ``router.profile_load_error`` and the process
     routes statically until it learns — never raises."""
+    from . import faults
+
     path = path or profile_path()
     if not path:
         return False
     try:
+        faults.fire("profile_load")
         with open(path, encoding="utf-8") as f:
             doc = json.load(f)
         merge_doc(doc, loaded=True)
     except FileNotFoundError:
         return False  # no profile yet is the normal first run, not an error
-    except (OSError, ValueError):
+    except (OSError, ValueError, faults.FaultInjected):
         metrics.inc("router.profile_load_error")
         return False
     metrics.inc("router.profile_loaded")
@@ -532,6 +538,7 @@ def save_profile(path: Optional[str] = None) -> Optional[str]:
             contrib = _subtract(st, _loaded.get(key))
             if contrib is not None and contrib[0] > 0:
                 own[key] = contrib
+    schedtest.yp("costmodel.save")
     # serialize concurrent savers (two processes exiting together):
     # without the lock, both read the same disk doc and the second
     # rename silently drops the first writer's evidence. flock is
@@ -574,10 +581,13 @@ def save_profile(path: Optional[str] = None) -> Optional[str]:
         cap_rows = capacity.entries()
         if cap_rows:
             doc["capacity"] = cap_rows
+        from . import faults
+
         try:
+            faults.fire("profile_save")
             fsio.atomic_write_json(path, doc, sort_keys=True,
                                    default=None)
-        except (OSError, ValueError):
+        except (OSError, ValueError, faults.FaultInjected):
             metrics.inc("router.profile_save_error")
             return None
     finally:

@@ -35,8 +35,24 @@ small pool per stream, and nothing synchronises: they are read
 (:func:`flush`) only once the call has already waited past them (its
 device-to-host wait), and at the latest when the root span exits.
 ``PYRUHVRO_TPU_DEVICE_SYNC=0``, or telemetry disabled, records no
-event at all; ``=1`` and unset both time by events (the card has no
-remote interconnect to spare).
+event at all.
+
+**Sync mode** (:func:`sync_mode`, the reference's
+``device_obs.py:106-131``) is the card's deep path: a deep-sampled call
+(:mod:`.sampling`) waits on each launch's end event before the host goes
+on, so every launch is bounded on its own stream, and tells the sampler
+that its deep path ran (``sampling.note_deep_ran``). A :class:`launch`
+decides it once, on entry, for the kernels inside it; each wait counts
+``device.sync_waits``.
+``PYRUHVRO_TPU_DEVICE_SYNC=1`` does the same for every call. Unset keeps
+the event timing above, which waits on nothing; the reference's unset
+means "bounded whenever telemetry is on" (``ROADMAP.md`` (c) 8).
+
+**Faults** (:mod:`.faults`): ``device_compile`` fires at a bucket's
+first launch (:class:`launch`), ``device_launch`` at each kernel's launch
+call (:class:`timed`, on the CPU's plain versions too). Both raise into
+the call: nothing in the port sends a device fault to the host tier
+(``ROADMAP.md`` (c) 9).
 
 **Bytes.** ``device.cost.bytes_accessed`` adds, per kernel of a launch,
 the bytes its bound in ``PERF.md`` reckons at that launch's shapes (each
@@ -62,8 +78,10 @@ penalizes the schema in the cost model (``costmodel.penalize``), so the
 router withholds its device arm for the window. :func:`track_holder`
 keeps (weakly) the objects that hold launch state across calls, the
 sharded decoder and encoder (:mod:`..parallel`), for the lifecycle
-planes; not ported: the storm's flight dump, the lifecycle eviction and
-``cachelife`` (``ROADMAP.md`` (a) 8).
+planes. A storm also auto-dumps the flight recorder
+(``telemetry._flight_autodump("recompile_storm")``); not ported: its
+timeline event, the lifecycle eviction and ``cachelife`` (``ROADMAP.md``
+(a) 8).
 """
 
 from __future__ import annotations
@@ -74,7 +92,7 @@ import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import knobs, metrics, telemetry, traceprop
+from . import faults, knobs, metrics, telemetry, traceprop
 
 __all__ = [
     "launch",
@@ -84,7 +102,7 @@ __all__ = [
     "count_walked_bytes",
     "walked_bytes",
     "flush",
-    "events_on",
+    "sync_mode",
     "note_build",
     "note_compile",
     "note_memory",
@@ -113,11 +131,30 @@ _tls = threading.local()
 _walked = False  # lock-free-ok(a flag set between calls)
 
 
-def events_on() -> bool:
-    """Time launches now? Not with telemetry disabled or under
-    ``PYRUHVRO_TPU_DEVICE_SYNC=0``."""
-    return telemetry.enabled() and \
-        knobs.get_tristate("PYRUHVRO_TPU_DEVICE_SYNC") is not False
+def sync_mode() -> bool:
+    """Should each launch be bounded (waited on at its end) right now?
+    ``PYRUHVRO_TPU_DEVICE_SYNC=1`` always, ``=0`` never; unset only
+    inside a deep-sampled call (:func:`.sampling.deep_active`), which
+    is then marked as having run deep. Inside a :class:`launch` this is
+    the answer its entry took; the CPU's plain versions consult it too,
+    so a deep-sampled ``device="cpu"`` call is marked alike."""
+    s = getattr(_tls, "sync", None)
+    if s is not None:
+        return s
+    return _sync_now(knobs.get_tristate("PYRUHVRO_TPU_DEVICE_SYNC"))
+
+
+def _sync_now(v: Optional[bool]) -> bool:
+    """:func:`sync_mode` under the knob's value ``v``."""
+    from . import sampling
+
+    deep = sampling.deep_active()
+    if v is False:
+        return False
+    if deep:
+        sampling.note_deep_ran()
+        return True
+    return v is True
 
 
 def count_walked_bytes(on: bool) -> None:
@@ -219,7 +256,7 @@ class Launch:
 
     __slots__ = ("kind", "bucket", "fingerprint", "first", "span",
                  "segments", "nbytes", "info", "build_s", "trace_id",
-                 "_prev")
+                 "_prev", "_prev_sync")
 
     def __init__(self, kind, bucket, fingerprint, first):
         self.kind, self.bucket = kind, str(bucket)
@@ -267,6 +304,7 @@ class launch:
             metrics.inc("device.jit_cache.misses")
             # metric-key: <op>.compiles
             metrics.inc(self.family + ".compiles")
+            faults.fire("device_compile")
             L.build_s = _take_builds(self.builds)
             note_compile(L.fingerprint, L.kind, L.bucket)
             L.span = telemetry.open_span(
@@ -278,13 +316,20 @@ class launch:
             metrics.inc(self.family + ".launches")
             L.span = telemetry.open_span("device.launch_s", kind=L.kind,
                                          bucket=L.bucket)
+        # one read of the knob for the events and the sync mode of
+        # every kernel inside
+        v = knobs.get_tristate("PYRUHVRO_TPU_DEVICE_SYNC")
         L._prev = getattr(_tls, "current", None)
-        _tls.current = L if events_on() else None
+        L._prev_sync = getattr(_tls, "sync", None)
+        _tls.sync = _sync_now(v)
+        _tls.current = L if telemetry.enabled() and v is not False \
+            else None
         return L
 
     def __exit__(self, exc_type, exc, tb):
         L = self.L
         _tls.current = L._prev
+        _tls.sync = L._prev_sync
         if exc_type is not None and L.span is not None:
             L.span.attrs["error"] = exc_type.__name__
         if L.segments:
@@ -307,7 +352,9 @@ class timed:
     current stream) right before and right after its kernel; on the CPU
     two ``perf_counter`` readings around the body. ``(None, None)`` and
     a no-op outside a launch or with events off; nothing is recorded when
-    the body raises (a wrapper raises on a failed launch inside it)."""
+    the body raises (a wrapper raises on a failed launch inside it).
+    The ``device_launch`` fault fires on entry, before the launch call;
+    under :func:`sync_mode` the exit waits for the kernel's end."""
 
     __slots__ = ("kernel", "device", "events", "_seg", "_stream")
 
@@ -317,6 +364,7 @@ class timed:
         self._seg, self._stream = None, stream
 
     def __enter__(self):
+        faults.fire("device_launch")
         L = getattr(_tls, "current", None)
         if L is None:
             return self
@@ -337,14 +385,23 @@ class timed:
 
     def __exit__(self, exc_type, exc, tb):
         seg = self._seg
-        if seg is None:
-            return False
         if exc_type is not None:
-            if seg.key is not None:
+            if seg is not None and seg.key is not None:
                 _release(seg.key, [seg.start, seg.end])
             return False
-        if seg.key is None:
+        if seg is not None and seg.key is None:
             seg.end = time.perf_counter()
+        if sync_mode() and self.device.type == "cuda":
+            metrics.inc("device.sync_waits")
+            if seg is not None:
+                seg.end.synchronize()
+            else:
+                import torch
+
+                (self._stream or torch.cuda.current_stream(
+                    self.device)).synchronize()
+        if seg is None:
+            return False
         L = getattr(_tls, "current", None)
         L.segments.setdefault(self.kernel, []).append(seg)
         return False
@@ -467,8 +524,9 @@ def note_compile(fingerprint: str, kind: str, bucket: str) -> None:
         metrics.inc("device.recompile_storm")
         metrics.mark("recompile_storm")
         telemetry.annotate(recompile_storm=True)
-        # not ported: the storm's flight dump (ROADMAP.md (a) 8). A
-        # storming schema's device arm is withheld from the router for
+        # not ported: the storm's timeline event (ROADMAP.md (a) 8)
+        telemetry._flight_autodump("recompile_storm")
+        # a storming schema's device arm is withheld from the router for
         # the churn window: a hard penalty, not one the model must
         # learn by paying more first launches
         from . import costmodel

@@ -18,9 +18,9 @@ key has **drifted**:
   carry the regression for a cool-down window.
 
 After a detection the slow EWMA adopts the fast one and the detector
-re-arms. Fed by ``router.observe`` on clean calls only. Not ported: the
-detection's ``timeline`` event and flight-recorder dump (``ROADMAP.md``
-(a) 8).
+re-arms. Fed by ``router.observe`` on clean calls only. A detection
+auto-dumps the flight recorder (``PYRUHVRO_TPU_FLIGHT_DIR``); not
+ported: its ``timeline`` event (``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
@@ -89,7 +89,8 @@ def observe(schema: str, op: str, band: int, arm: str,
     from . import costmodel, telemetry
 
     telemetry.annotate(drift_arm=arm)
-    # not ported: the timeline event and the flight dump (ROADMAP.md (a) 8)
+    # not ported: the timeline event (ROADMAP.md (a) 8)
+    telemetry._flight_autodump("drift")
     costmodel.penalize_arm(schema, arm, _PENALTY_WINDOW_S,
                            factor=factor)
     if arm.startswith("device/"):

@@ -2,8 +2,9 @@
 ``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_float``/
 ``get_bool``, ``get_tristate``, ``get_str``, ``get_raw``, ``is_set`` and
 ``get_enum``, and of the knobs it registers at ``:82-100``, ``:146-150``,
-``:153-159``, ``:162-167``, ``:175-183``, ``:189-192``, ``:211``,
-``:223-226`` and ``:237``, with their defaults).
+``:153-159``, ``:162-167``, ``:170-183``, ``:189-198``, ``:208``,
+``:211``, ``:220-226``, ``:237`` and ``:287-293``, with their
+defaults).
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
 ``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
@@ -49,7 +50,8 @@ DEFAULTS = {
     "PYRUHVRO_TPU_TRACE": "",
     # the W3C traceparent that root spans with no other context join
     "PYRUHVRO_TPU_TRACEPARENT": "",
-    # launch timing by CUDA events: 1 and unset time them, 0 records none
+    # launch timing by CUDA events: unset times them, 1 also waits on each
+    # launch's end (the deep path's sync mode), 0 records none
     "PYRUHVRO_TPU_DEVICE_SYNC": None,
     # the window, in seconds, of the per-schema recompile-churn guard
     "PYRUHVRO_TPU_RECOMPILE_WINDOW": 60.0,
@@ -79,6 +81,26 @@ DEFAULTS = {
     # persist the capacity planner's plans in the routing profile even
     # without autotune
     "PYRUHVRO_TPU_CAPACITY_PERSIST": False,
+    # deterministic fault injection: site:kind:rate[:seed][,...]
+    "PYRUHVRO_TPU_FAULTS": "",
+    # the sleep of the "hang" fault kind, in seconds
+    "PYRUHVRO_TPU_FAULT_HANG_S": 2.0,
+    # the interleaving harness: the default schedule seed, the seeds a
+    # sweep runs per window, and the yield points that take part
+    "PYRUHVRO_TPU_SCHED_SEED": None,
+    "PYRUHVRO_TPU_SCHED_SEEDS": 20,
+    "PYRUHVRO_TPU_SCHED_POINTS": "",
+    # the native host modules' per-opcode-profiled build (vm.op.* keys)
+    "PYRUHVRO_TPU_NATIVE_PROF": False,
+    # the deep sampler's share of wall time (<= 0 turns it off)
+    "PYRUHVRO_TPU_SAMPLE_BUDGET": 0.01,
+    # the JSON file of latency and error objectives for the SLO engine
+    "PYRUHVRO_TPU_SLO_FILE": "",
+    # the flight recorder: the auto-dump directory (also arms SIGUSR1
+    # and SIGUSR2), the ring's size and the dumps kept (0 = no limit)
+    "PYRUHVRO_TPU_FLIGHT_DIR": "",
+    "PYRUHVRO_TPU_FLIGHT_N": 64,
+    "PYRUHVRO_TPU_FLIGHT_MAX_FILES": 32,
 }
 
 # the accepted (lower-case) values of the enum knobs

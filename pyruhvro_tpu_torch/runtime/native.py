@@ -13,7 +13,22 @@ flags and the CPU's ISA flags (the reference's ``_cpu_tag``): an edited
 header, another interpreter or a ``-march=native`` build met on another
 CPU rebuilds. The module loads through ``importlib`` from that path. A
 failed build raises ``RuntimeError``: nothing falls back to Python code.
-The reference's profiler and sanitizer flavours are not ported.
+
+The profiled flavour (the reference's ``build.py:157-200`` and
+``:266-292``): ``load(name, prof=True)`` builds the same source with
+``-DPYRUHVRO_NATIVE_PROF=1`` into its own file (``<stem>.prof-<hash>``),
+whose module also exports ``prof_drain()`` (per-opcode hits and self
+nanoseconds, ``vm.op.*`` / ``vm.encop.*`` / ``extract.op.*``). Under
+``PYRUHVRO_TPU_NATIVE_PROF=1`` :func:`load_host_codec` and
+:func:`load_extract` return it; :func:`load_host_codec_prof` returns it
+whatever the knob says, for the deep sampler (:mod:`.sampling`). A
+failed profiled build raises like any other, where the reference warns
+and loads the plain module (``ROADMAP.md`` (c) 7). The sanitizer
+flavours (``PYRUHVRO_TPU_NATIVE_SAN``, ``_TSAN``) are not ported.
+
+The ``native_build`` fault seam (:mod:`.faults`) fires at every
+:func:`load` and raises into the caller; it is not memoized, so the
+module loads again once the spec clears.
 """
 
 from __future__ import annotations
@@ -31,14 +46,15 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_packer", "load_host_codec", "load_extract", "load", "loaded",
-           "build_path", "source_files", "cpu_tag", "NativeModule",
-           "SOURCES"]
+__all__ = ["load_packer", "load_host_codec", "load_host_codec_prof",
+           "load_extract", "load", "loaded", "build_path", "source_files",
+           "cpu_tag", "prof_active", "NativeModule", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyruhvro_tpu_torch"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 NATIVE_FLAGS = ["-march=native"]
+PROF_FLAGS = ["-DPYRUHVRO_NATIVE_PROF=1"]
 
 # name → (source under csrc/, the PyInit_ name it exports)
 SOURCES = {
@@ -49,8 +65,10 @@ SOURCES = {
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
-_loaded: dict = {}   # guarded-by: _locks[name]
-_locks = {name: threading.Lock() for name in SOURCES}
+_loaded: dict = {}   # guarded-by: _locks[key]
+# one build lock per flavour: "<name>" and "<name>@prof"
+_locks = {name + sfx: threading.Lock() for name in SOURCES
+          for sfx in ("", "@prof")}
 
 
 class NativeModule:
@@ -103,34 +121,50 @@ def source_files(src: Path) -> list:
     return seen
 
 
-def build_path(name: str) -> Path:
+def prof_active() -> bool:
+    """Do the host modules load as their profiled flavour
+    (``PYRUHVRO_TPU_NATIVE_PROF``)?"""
+    from . import knobs
+
+    return knobs.get_bool("PYRUHVRO_TPU_NATIVE_PROF")
+
+
+def build_path(name: str, prof: bool = False) -> Path:
     """Where the build of ``SOURCES[name]`` lives: its name carries a hash
     of the source and its headers, the interpreter, the flags and
-    :func:`cpu_tag`."""
+    :func:`cpu_tag`; the profiled flavour's stem ends ``.prof``."""
     src = CSRC / SOURCES[name][0]
     include = sysconfig.get_paths()["include"]
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     key = hashlib.sha256()
     for path in source_files(src):
         key.update(path.name.encode() + b"\0" + path.read_bytes())
-    key.update(f"{sys.version}|{include}|{CXX_FLAGS}|{NATIVE_FLAGS}|"
+    flags = CXX_FLAGS + (PROF_FLAGS if prof else [])
+    key.update(f"{sys.version}|{include}|{flags}|{NATIVE_FLAGS}|"
                f"{cpu_tag()}".encode())
-    return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}{suffix}"
+    stem = src.stem + (".prof" if prof else "")
+    return BUILD_DIR / f"{stem}-{key.hexdigest()[:16]}{suffix}"
 
 
-def load(name: str) -> NativeModule:
+def load(name: str, prof: bool = False) -> NativeModule:
     """Compile the source ``SOURCES[name]`` (once per content of it and
-    its headers, interpreter and CPU) and import it. Raises
-    ``RuntimeError`` when the build fails."""
-    with _locks[name]:
-        if name in _loaded:
-            return _loaded[name]
+    its headers, interpreter, CPU and flavour) and import it; ``prof``
+    selects the profiled flavour. Raises ``RuntimeError`` when the build
+    fails, and ``FaultInjected`` under a ``native_build`` fault."""
+    from . import faults
+
+    faults.fire("native_build")
+    key = name + ("@prof" if prof else "")
+    with _locks[key]:
+        if key in _loaded:
+            return _loaded[key]
         rel, module_name = SOURCES[name]
         src = CSRC / rel
-        out = build_path(name)
+        out = build_path(name, prof)
         cxx = _cxx()
         include = sysconfig.get_paths()["include"]
-        base = [cxx, *CXX_FLAGS, f"-I{include}", str(src), "-o"]
+        base = [cxx, *CXX_FLAGS, *(PROF_FLAGS if prof else []),
+                f"-I{include}", str(src), "-o"]
         cmd = [cxx, *NATIVE_FLAGS, *base[1:], str(out)]
         build_s = 0.0
         if not out.exists():
@@ -155,19 +189,19 @@ def load(name: str) -> NativeModule:
         spec = importlib.util.spec_from_file_location(module_name, out)
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
-        _loaded[name] = NativeModule(module, out, cmd, build_s)
-        if build_s:
+        _loaded[key] = NativeModule(module, out, cmd, build_s)
+        if build_s and not prof:
             from . import device_obs
 
             # carried by the first device launch that uses it
             device_obs.note_build(name, build_s)
-        return _loaded[name]
+        return _loaded[key]
 
 
-def loaded(name: str) -> bool:
-    """Is ``SOURCES[name]`` built and imported in this process? Never
-    builds."""
-    return name in _loaded
+def loaded(name: str, prof: bool = False) -> bool:
+    """Is ``SOURCES[name]`` (the profiled flavour with ``prof``) built
+    and imported in this process? Never builds."""
+    return name + ("@prof" if prof else "") in _loaded
 
 
 def load_packer() -> NativeModule:
@@ -176,11 +210,19 @@ def load_packer() -> NativeModule:
 
 
 def load_host_codec() -> NativeModule:
-    """The host tier's decode/encode VM (``csrc/host/host_codec.cpp``)."""
-    return load("host_codec")
+    """The host tier's decode/encode VM (``csrc/host/host_codec.cpp``),
+    profiled under ``PYRUHVRO_TPU_NATIVE_PROF=1``."""
+    return load("host_codec", prof_active())
+
+
+def load_host_codec_prof() -> NativeModule:
+    """The profiled VM whatever the knob says: the deep sampler runs
+    single calls through it while the rest stay on the plain build."""
+    return load("host_codec", True)
 
 
 def load_extract() -> NativeModule:
     """The host tier's Arrow-native extractor and fused encode
-    (``csrc/host/extract.cpp``)."""
-    return load("extract")
+    (``csrc/host/extract.cpp``), profiled under
+    ``PYRUHVRO_TPU_NATIVE_PROF=1``."""
+    return load("extract", prof_active())

@@ -22,8 +22,10 @@ counter deltas, span tree, routing observations and quarantine entries
 home with the result; nothing is merged until every chunk has answered.
 A broken pool opens the ``process_pool`` circuit breaker (:mod:`.breaker`):
 calls degrade to the thread path at once, and after the backoff one
-fan-out probes the pool back in. Left out: the reference's chaos seam
-(``_run_with_chaos_env`` and its ``faults`` env; ``ROADMAP.md`` (a) 8).
+fan-out probes the pool back in. Each chunk runs through
+:func:`_run_with_chaos_env`, which hands the worker the parent's live
+fault spec (``PYRUHVRO_TPU_FAULTS``, ``_FAULT_HANG_S``) for the
+``pool_worker`` seam, as in the reference.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def shard_available() -> bool:
     host tier's module is loaded. Unlike the reference's there is no
     breaker and no knob: a module that does not build raises
     (``ROADMAP.md`` (c) 7), so a loaded module is a working runner."""
-    return native.loaded("host_codec")
+    return native.loaded("host_codec", native.prof_active())
 
 
 class fanout_stats:
@@ -240,6 +242,20 @@ def _gather(futures: List, site: str) -> List:
         raise
 
 
+_CHAOS_ENV_KEYS = ("PYRUHVRO_TPU_FAULTS", "PYRUHVRO_TPU_FAULT_HANG_S")
+
+
+def _run_with_chaos_env(task: Callable, env, payload):
+    """Worker-side shim: sync the chaos env vars to the parent's view,
+    then run the real task (module-level, so picklable for spawn)."""
+    for k, v in env.items():
+        if v:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    return task(payload)
+
+
 def map_chunks_proc(task: Callable, payloads: Sequence,
                     rows: Optional[Callable] = None) -> List:
     """Run ``task(payload)`` per chunk on the PROCESS pool, in order.
@@ -270,7 +286,10 @@ def map_chunks_proc(task: Callable, payloads: Sequence,
         metrics.inc("pool.proc_fanouts")
     try:
         with fanout_stats(len(payloads), pool="process") as stats:
-            futures = [get_process_pool().submit(task, p) for p in payloads]
+            chaos_env = {k: os.environ.get(k, "") for k in _CHAOS_ENV_KEYS}
+            futures = [get_process_pool().submit(
+                           _run_with_chaos_env, task, chaos_env, p)
+                       for p in payloads]
             # every result before any merge: partial merges would count
             # twice the work the thread path then redoes
             results = _gather(futures, site="pool.proc_fanout")

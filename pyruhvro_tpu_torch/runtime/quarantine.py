@@ -18,8 +18,9 @@ annotates the span with ``on_error`` and ``quarantined``, and counts
 :data:`STORM` entries (the reference's default of its
 ``PYRUHVRO_TPU_QUARANTINE_STORM``, a knob the port does not read),
 ``<op>.quarantine_storms`` with the ``quarantine_storm`` mark
-(``quarantine.py:136-176``). The storm's flight dump and timeline event
-wait for those planes (``ROADMAP.md`` (a) 8).
+(``quarantine.py:136-182``), and auto-dumps the flight recorder
+(``PYRUHVRO_TPU_FLIGHT_DIR``). The storm's timeline event waits for its
+plane (``ROADMAP.md`` (a) 8).
 
 A call that fans out to the process pool opens :func:`collecting`: the
 workers' entries (re-based to the call's row indices by :func:`rebase`
@@ -151,5 +152,5 @@ def publish(entries: List[QuarantinedRecord], policy: str,
         # metric-key: <op>.quarantine_storms
         metrics.inc(op + ".quarantine_storms")
         metrics.mark("quarantine_storm")
-        # not ported: the storm's timeline event and flight dump
-        # (ROADMAP.md (a) 8)
+        # not ported: the storm's timeline event (ROADMAP.md (a) 8)
+        telemetry._flight_autodump("quarantine")

@@ -26,11 +26,12 @@ withheld.
 The arm space departs from the reference in one place (``ROADMAP.md``
 (c) 9): the port's native tier has no per-chunk thread loop, so its
 pools are ``shard`` and, when the spawn pool is available, ``process``,
-never ``thread``. The sampling plane is not ported (``ROADMAP.md``
-(a) 8): ``RouteDecision.sampled`` stays False, and the reference's
-``sampling.corrected_seconds`` / ``note_arm`` are left out of
-:func:`observe`. Nor is the ledger's memory probe (memory accounting
-waits for the same item).
+never ``thread``. A deep-sampled call (:mod:`.sampling`) carries
+``RouteDecision.sampled``; :func:`observe` tells the sampler which arm
+served it (``sampling.note_arm``) and divides the deep path's estimated
+overhead out of its seconds (``sampling.corrected_seconds``) before the
+cost model learns them, as in the reference. The ledger's memory probe
+is not ported (memory accounting, ``ROADMAP.md`` (a) 8).
 
 ``python -m pyruhvro_tpu_torch.telemetry route-report <snapshot>``
 renders the ledger and the model; ``what-if <snapshot>`` replays the
@@ -44,7 +45,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import breaker, costmodel, deadline, drift, knobs, metrics, telemetry
+from . import (breaker, costmodel, deadline, drift, knobs, metrics, sampling,
+               telemetry)
 
 __all__ = [
     "RouteDecision",
@@ -79,8 +81,8 @@ class RouteDecision:
         # decided arm (a process fan-out that degraded to threads): the
         # observation then must NOT teach the model that arm's cost
         self.degraded = False
-        # the reference's deep-sampled call; always False here (no
-        # sampling plane, ROADMAP.md (a) 8)
+        # set by the API body from its sampling.call_scope: this call
+        # ran the deep path (its seconds are corrected in observe)
         self.sampled = False
         self.tier = tier
         self.impl = impl
@@ -254,9 +256,20 @@ def observe(dec: Optional[RouteDecision],
         return
     dec._done = True
     dt = time.perf_counter() - dec._t0
-    # not ported: the sampling plane's correction of a deep-sampled
-    # call's seconds (sampling.note_arm / corrected_seconds; ROADMAP.md
-    # (a) 8), so no call is sampled and every clean call teaches
+    # a deep-sampled call's wall time includes the deep path's tax:
+    # divide the estimated overhead back out so the model learns the
+    # arm's true cost. Only calls whose deep path actually ran need the
+    # correction, and until the sampler has measured the overhead once
+    # a deep call is ledgered but teaches nothing
+    ran_deep = dec.sampled and sampling.deep_ran()
+    uncorrectable = ran_deep and not sampling.overhead_known()
+    # the sampler's overhead EWMAs key by the arm that served the call;
+    # a degraded call's labeled arm did not run
+    arm = None if dec.degraded else dec.arm
+    sampling.note_arm(arm)
+    if ran_deep and not uncorrectable:
+        dt = sampling.corrected_seconds(dt, dec.schema, dec.op,
+                                        dec.band, arm)
     metrics.inc("router.calls")
     if dec.explore:
         metrics.inc("router.explored")
@@ -265,7 +278,7 @@ def observe(dec: Optional[RouteDecision],
         # degradation): ledger it, but a mislabeled observation would
         # poison the model's estimate for the arm that did NOT run
         metrics.inc("router.degraded")
-    elif error is None:
+    elif error is None and not uncorrectable:
         costmodel.observe(dec.schema, dec.op, dec.band, dec.arm,
                           dec.rows, dt)
         if dec.rows > 0:

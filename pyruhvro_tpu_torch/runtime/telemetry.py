@@ -4,8 +4,9 @@
 ``annotate``, ``annotate_root``, ``set_route``, ``worker_scope``,
 ``merge_worker``, ``set_span_sink``, ``hist_summaries``,
 ``set_enabled``/``enabled``, ``reset``, ``snapshot``, ``prometheus``,
-``perfetto_trace``, the ``PYRUHVRO_TPU_TRACE`` JSON-lines sink,
-``render_report`` and ``main``).
+``perfetto_trace``, the ``PYRUHVRO_TPU_TRACE`` JSON-lines sink, the
+flight recorder (``flight_dump``, ``install_flight_signal``, the
+auto-dumps and their rotation), ``render_report`` and ``main``).
 
 Layered on the flat counters of :mod:`.metrics`, which stay the
 always-on base: each public API call opens a **root span** carrying the
@@ -19,13 +20,34 @@ spans and histograms and keeps the counters.
 Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
 with p50/p95/p99, the last root span trees, and a ``device`` section of
 launch registry and memory watermarks from :mod:`.device_obs`, and the
-``routing``, ``breakers`` and ``drift`` sections of :mod:`.router`,
-:mod:`.breaker` and :mod:`.drift`),
+``routing``, ``breakers``, ``drift``, ``slo`` and ``sampling`` sections
+of :mod:`.router`, :mod:`.breaker`, :mod:`.drift`, :mod:`.slo` and
+:mod:`.sampling`, and the flight recorder's ``flight_records``),
 :func:`prometheus` (text exposition), :func:`perfetto_trace` (Chrome
 trace-event JSON), and ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON
 line per finished root span. ``python -m pyruhvro_tpu_torch.telemetry
-report|prom|perfetto|route-report|what-if <snapshot.json>`` renders a
-saved snapshot.
+report|prom|perfetto|route-report|what-if|slo-report <snapshot.json>``
+renders a saved snapshot.
+
+**The flight recorder** keeps the last ``PYRUHVRO_TPU_FLIGHT_N`` root
+spans (default 64; read again by :func:`reset`) and makes each a compact
+record when it is read: name, duration, attributes, per-phase time
+totals (the device launches' spans among them) and the trace id.
+:func:`flight_dump` returns them or writes them atomically, through the
+``flight_dump`` fault seam. With
+``PYRUHVRO_TPU_FLIGHT_DIR`` set, an errored root span, an SLO breach and
+the quarantine, recompile and drift storms auto-dump into that
+directory as ``flight_<pid>_<seq>_<tag>.json``, at most one a second,
+keeping the newest ``PYRUHVRO_TPU_FLIGHT_MAX_FILES`` such files (default
+32, 0 = no limit; other files are never touched); a failed dump counts
+``flight.dump_error`` and never fails the call. The same variable arms
+SIGUSR1 (a dump) and SIGUSR2 (deep sampling on or off,
+:func:`.sampling.install_toggle_signal`) at import; the obs server's
+half of that opt-in waits for ``ROADMAP.md`` (a) 8.
+
+Every finished root span feeds the SLO engine (:func:`.slo.record_root`)
+with its seconds corrected for the deep sampler's tax
+(:func:`.sampling.consume_last_correction`).
 
 Keys are ``component.event``; keys ending ``_s`` are seconds and get
 histograms, every other key is a count or a byte counter.
@@ -42,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import threading
 import time
@@ -49,7 +72,7 @@ from bisect import bisect_left
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-from . import knobs, metrics, traceprop
+from . import knobs, metrics, slo, traceprop
 
 __all__ = [
     "SNAPSHOT_SCHEMA_VERSION",
@@ -75,6 +98,8 @@ __all__ = [
     "merge_worker",
     "set_span_sink",
     "hist_summaries",
+    "flight_dump",
+    "install_flight_signal",
 ]
 
 # fixed log-spaced latency buckets, 1 µs … 500 s (~3/decade); +Inf is
@@ -86,13 +111,24 @@ _BUCKET_BOUNDS: tuple = tuple(
 _MAX_SPANS = 64  # root spans retained for snapshot(); older ones are counted
 
 # the reference's snapshot shape version 3, without the sections of the
-# planes the port does not have yet: slo, timeline, routing and memory
+# planes the port does not have yet: timeline, memory, audit and serving
 # (ROADMAP.md (a) 8)
 SNAPSHOT_SCHEMA_VERSION = 3
+
+
+def _flight_n() -> int:
+    """The flight ring's size in root spans (``PYRUHVRO_TPU_FLIGHT_N``,
+    read at import and by :func:`reset`)."""
+    return max(1, knobs.get_int("PYRUHVRO_TPU_FLIGHT_N"))
+
 
 _lock = threading.Lock()
 _hists: Dict[str, "_Hist"] = {}  # guarded-by: _lock
 _spans: deque = deque(maxlen=_MAX_SPANS)  # guarded-by: _lock
+# flight recorder: the last N finished root spans, kept even after they
+# age out of the snapshot ring, and made compact records when read (the
+# reference builds each record at the span's exit)
+_flight: deque = deque(maxlen=_flight_n())  # guarded-by: _lock
 _roots_seen = 0  # guarded-by: _lock
 # lock-free-ok(single GIL-atomic bool store; readers tolerate staleness)
 _enabled = not knobs.get_bool("PYRUHVRO_TPU_NO_TELEMETRY")
@@ -255,7 +291,9 @@ class root_span:
     ``PYRUHVRO_TPU_TRACEPARENT``, minting a fresh 128-bit trace id when
     there is none, and pushes its own context thread-local while open.
     On the outermost root's exit the device launches still pending are
-    read (:func:`.device_obs.flush`). An exception is recorded on the
+    read (:func:`.device_obs.flush`), the span joins the flight
+    recorder and the SLO engine is fed; an errored root span
+    auto-dumps the flight recorder. An exception is recorded on the
     span (``error``) and propagates."""
 
     __slots__ = ("span", "_prev", "_trace_ctx", "_tp")
@@ -305,14 +343,28 @@ class root_span:
             _hist_locked(s.name + "_s").observe(s.dur_s, s.trace_id)
             if self._prev is None:
                 _spans.append(s)
+                _flight.append(s)
                 _roots_seen += 1
         if self._prev is None:
             sink = _span_sink
             if sink is not None:
                 sink(s)
             _maybe_trace(s)
-            # not ported: the reference's SLO feed (slo.record_root) and
-            # its flight recorder's error dump (ROADMAP.md (a) 8)
+            # every finished API call is one good/bad/errored event for
+            # the matching SLO objectives; a deep-sampled call feeds its
+            # comparable cost, so the sampler's tax trips no breach (the
+            # reference also subtracts an audit shadow's seconds, which
+            # waits for that plane, ROADMAP.md (a) 8)
+            from . import sampling as _sampling
+
+            slo.record_root(
+                s.name, s.attrs.get("schema"),
+                _sampling.consume_last_correction(s.dur_s),
+                exc_type is not None)
+            if exc_type is not None:
+                # a failed decode/encode leaves a replayable artifact
+                # when PYRUHVRO_TPU_FLIGHT_DIR points somewhere
+                _flight_autodump("error")
         return False
 
 
@@ -449,8 +501,226 @@ def set_route(tier: str, reason: Optional[str] = None) -> None:
             s.attrs["route_reason"] = reason
 
 
-# not ported: the flight recorder (ring, dumps, SIGUSR1 hook) and the
-# timeline start (ROADMAP.md (a) 8)
+# ---------------------------------------------------------------------------
+# flight recorder (the reference's telemetry.py:490-697)
+# ---------------------------------------------------------------------------
+#
+# A ring of the last N finished root spans, reduced to compact records
+# (schema fingerprint, routing verdict, per-phase time totals), dumpable
+# as JSON when something goes wrong: on any decode/encode error, an SLO
+# breach or a storm (when PYRUHVRO_TPU_FLIGHT_DIR names a directory), on
+# SIGUSR1 (same gate), or explicitly via flight_dump().
+
+# lock-free-ok(mutated from signal context where locks deadlock; a racing
+# pair costs at worst one extra dump / a reused dump filename)
+_flight_seq = 0
+_flight_last_auto = 0.0  # lock-free-ok(see _flight_seq above)
+_flight_signal_installed = False  # lock-free-ok(idempotent install flag)
+
+
+def _flight_record(s: Span) -> Dict[str, Any]:
+    phases: Dict[str, float] = {}
+
+    def walk(node: Span) -> None:
+        for c in node.children:
+            if c.dur_s is not None:
+                phases[c.name] = round(
+                    phases.get(c.name, 0.0) + c.dur_s, 9)
+            walk(c)
+
+    walk(s)
+    rec = {
+        "ts": round(s.ts, 6),
+        # paired monotonic clock (perf_counter at span open): epoch ts
+        # alone cannot time-align dumps across replicas whose wall
+        # clocks drift
+        "mono": round(s._t0, 6),
+        "name": s.name,
+        "dur_s": s.dur_s,
+        "attrs": dict(s.attrs),
+        "phases": phases,
+    }
+    if s.trace_id is not None:
+        rec["trace_id"] = s.trace_id
+    return rec
+
+
+def _flight_records(blocking: bool = True) -> List[Dict[str, Any]]:
+    """Copy the ring. ``blocking=False`` is the signal-handler path: the
+    handler runs on the main thread at a bytecode boundary, possibly
+    INSIDE a ``with _lock:`` region of the very frame it interrupted —
+    blocking there would deadlock on the non-reentrant lock, so fall
+    back to a best-effort unlocked copy (the interrupted mutator is
+    paused; a concurrent thread's append at worst raises the RuntimeError
+    swallowed here)."""
+    if _lock.acquire(blocking=blocking):
+        try:
+            roots = list(_flight)
+        finally:
+            _lock.release()
+    else:
+        try:
+            roots = list(_flight)
+        except RuntimeError:
+            return []
+    return [_flight_record(s) for s in roots]
+
+
+def flight_dump(path: Optional[str] = None, *, blocking: bool = True):
+    """The flight-recorder contents: as a dict (``path=None``) or
+    written to ``path`` as JSON (returns the path), through the
+    ``flight_dump`` fault seam. File writes are atomic (tmp + rename,
+    :mod:`.fsio`): a process killed mid-dump never leaves a truncated
+    artifact."""
+    from . import faults, fsio
+
+    records = _flight_records(blocking)
+    doc = {
+        "pid": os.getpid(),
+        "time": round(time.time(), 3),
+        "records": records,
+    }
+    if path is None:
+        return doc
+    if blocking:
+        # signal-ok: gated to the non-signal path — fire() takes the
+        # metrics/faults locks, which the interrupted frame may hold
+        faults.fire("flight_dump")
+    return fsio.atomic_write_json(path, doc)
+
+
+def _flight_max_files() -> int:
+    """Auto-dump retention cap (``PYRUHVRO_TPU_FLIGHT_MAX_FILES``,
+    default 32, 0 = unlimited): sustained storms must not grow the dump
+    directory without bound."""
+    return max(0, knobs.get_int("PYRUHVRO_TPU_FLIGHT_MAX_FILES"))
+
+
+# rotation deletions / dump errors observed from SIGNAL context defer
+# their count (metrics._lock is not reentrant and the handler may have
+# interrupted a frame inside it); flushed on the next normal-path pass
+_flight_dropped = metrics.DeferredCount("flight.dump_dropped")
+_flight_dump_errors = metrics.DeferredCount("flight.dump_error")
+
+
+def _rotate_flight_dir(d: str, keep: int, counters: bool = True) -> int:
+    """Delete the oldest ``flight_*.json`` dumps past ``keep`` files;
+    each deletion counts ``flight.dump_dropped``. Only auto-dump-shaped
+    names are touched — operator-written files are never rotated.
+    ``counters=False`` is the signal-handler path: deletions are
+    deferred to the ``_flight_dropped`` tally instead of taking the
+    metrics lock (which the interrupted frame may hold). Returns the
+    number dropped; never raises (best-effort cleanup)."""
+    if counters:
+        # flush BEFORE the early returns below: deletions deferred from
+        # signal context must not wait for the next over-limit rotation
+        _flight_dropped.flush()
+    if keep <= 0:
+        return 0
+    try:
+        # only the exact auto-dump shape flight_<pid>_<seq>_<tag>.json:
+        # an operator's hand-saved flight_incident.json must survive
+        files = [
+            os.path.join(d, f) for f in os.listdir(d)
+            if re.fullmatch(r"flight_\d+_\d+_\w+\.json", f)
+        ]
+    except OSError:
+        return 0
+    if len(files) <= keep:
+        return 0
+
+    def mtime(p: str) -> float:
+        try:
+            return os.path.getmtime(p)
+        except OSError:
+            return 0.0
+
+    files.sort(key=mtime)
+    dropped = 0
+    for p in files[: len(files) - keep]:
+        try:
+            os.remove(p)
+            dropped += 1
+        except OSError:
+            continue
+    if dropped:
+        _flight_dropped.bump(dropped)  # signal-safe: increment only
+        if counters:
+            _flight_dropped.flush()
+    return dropped
+
+
+def _flight_autodump(tag: str, blocking: bool = True) -> Optional[str]:
+    """Write a flight dump into PYRUHVRO_TPU_FLIGHT_DIR (no-op when
+    unset); rate-limited to one per second so an error storm cannot
+    flood the disk, rotated to PYRUHVRO_TPU_FLIGHT_MAX_FILES retained
+    dumps so a long-running storm cannot fill it either, and never
+    allowed to fail the call it observes. ``blocking=False`` from
+    signal context (see _flight_records)."""
+    global _flight_seq, _flight_last_auto
+    d = knobs.get_str("PYRUHVRO_TPU_FLIGHT_DIR")
+    if not d:
+        return None
+    now = time.monotonic()
+    if now - _flight_last_auto < 1.0:
+        return None
+    _flight_last_auto = now
+    _flight_seq += 1
+    path = os.path.join(d, f"flight_{os.getpid()}_{_flight_seq}_{tag}.json")
+    from .faults import FaultInjected
+
+    try:
+        out = flight_dump(path, blocking=blocking)
+    except (OSError, ValueError, FaultInjected):
+        # a failed dump (incl. injected chaos) must never fail the call
+        # it observes; the count defers (signal-safe) and flushes
+        # immediately on the normal path
+        _flight_dump_errors.bump()
+        if blocking:
+            _flight_dump_errors.flush()
+        return None
+    _rotate_flight_dir(d, _flight_max_files(), counters=blocking)
+    return out
+
+
+def install_flight_signal() -> bool:
+    """Register a SIGUSR1 handler that dumps the flight recorder into
+    PYRUHVRO_TPU_FLIGHT_DIR. Safe to call repeatedly; returns False
+    when unavailable (non-main thread, platform without SIGUSR1). The
+    previous handler is chained, not replaced."""
+    global _flight_signal_installed
+    if _flight_signal_installed:
+        return True
+    import signal
+
+    if not hasattr(signal, "SIGUSR1"):
+        return False
+
+    prev = signal.getsignal(signal.SIGUSR1)
+
+    def handler(signum, frame):
+        _flight_autodump("sigusr1", blocking=False)
+        if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+            prev(signum, frame)
+
+    try:
+        signal.signal(signal.SIGUSR1, handler)
+    except ValueError:  # not the main thread
+        return False
+    _flight_signal_installed = True
+    return True
+
+
+# operators who configure a dump directory get the SIGUSR1 dump and the
+# SIGUSR2 deep-sampling toggle without any code change; everyone else
+# pays nothing (no handler installed). The obs server's half of the
+# reference's opt-in (PYRUHVRO_TPU_OBS_PORT) and the timeline start wait
+# for their planes (ROADMAP.md (a) 8)
+if knobs.get_str("PYRUHVRO_TPU_FLIGHT_DIR"):
+    install_flight_signal()
+    from . import sampling as _sampling
+
+    _sampling.install_toggle_signal()
 
 
 # ---------------------------------------------------------------------------
@@ -589,21 +859,28 @@ def enabled() -> bool:
 
 
 def reset() -> None:
-    """Clear spans, histograms, the device registry, the router (ledger,
-    cost model, capacity plans), the breakers, drift AND the flat
-    counters (test isolation); closes an open trace file. Unlike the
-    reference's, it resets the breakers too, whose tests do that on
-    their own."""
-    global _roots_seen, _trace_memo
+    """Clear spans, histograms, the flight recorder (and re-arm its
+    auto-dump rate limit), the device registry, the router (ledger,
+    cost model, capacity plans), the sampler, the SLO engine, the
+    breakers, drift AND the flat counters (test isolation); closes an
+    open trace file. Unlike the reference's, it resets the breakers
+    too, whose tests do that on their own; the fault injector's
+    counters stay (``faults.reset()``), as in the reference."""
+    global _roots_seen, _trace_memo, _flight_last_auto, _flight
     with _lock:
         _hists.clear()
         _spans.clear()
+        _flight = deque(maxlen=_flight_n())
         _roots_seen = 0
-    from . import breaker, device_obs, drift, router
+        _flight_last_auto = 0.0  # re-arm the auto-dump rate limiter
+    _flight_dropped.reset()
+    from . import breaker, device_obs, drift, router, sampling
 
     device_obs.reset()
     router.reset()
+    sampling.reset()
     drift.reset()
+    slo.reset()
     breaker.reset()
     with _trace_lock:
         if _trace_memo is not None:
@@ -624,13 +901,18 @@ def snapshot() -> Dict[str, Any]:
     recent root span trees (oldest→newest; ``spans_dropped`` counts roots
     aged out of the ring), a ``device`` section when a device launch was
     recorded (:mod:`.device_obs`), ``routing`` (the ledger and the cost
-    model) once a call was routed, ``drift`` once the detector saw a
+    model) once a call was routed, ``slo`` with an SLO file set,
+    ``sampling`` once the sampler ran, ``drift`` once the detector saw a
     call, ``breakers`` once a breaker was touched, and ``gauges`` when
-    any was set."""
+    any was set; ``flight_records`` counts the flight recorder's ring."""
+    # rotation drops deferred from signal context surface on the next
+    # export even if no further rotation ever runs
+    _flight_dropped.flush()
     with _lock:
         hists = {k: h.summary() for k, h in sorted(_hists.items())}
         spans = [s.to_dict() for s in _spans]
         dropped = _roots_seen - len(_spans)
+        flight_n = len(_flight)
     out = {
         "schema_version": SNAPSHOT_SCHEMA_VERSION,
         "pid": os.getpid(),
@@ -638,8 +920,9 @@ def snapshot() -> Dict[str, Any]:
         "histograms": hists,
         "spans": spans,
         "spans_dropped": dropped,
+        "flight_records": flight_n,
     }
-    from . import breaker, device_obs, drift, router
+    from . import breaker, device_obs, drift, router, sampling
 
     dev = device_obs.snapshot()
     if dev:
@@ -647,14 +930,20 @@ def snapshot() -> Dict[str, Any]:
     routing = router.snapshot_routing()
     if routing:
         out["routing"] = routing
+    slo_sec = slo.snapshot_slo()
+    if slo_sec:
+        out["slo"] = slo_sec
+    samp = sampling.snapshot_sampling()
+    if samp:
+        out["sampling"] = samp
     dr = drift.snapshot_drift()
     if dr:
         out["drift"] = dr
     brs = breaker.snapshot_breakers()
     if brs:
         out["breakers"] = brs
-    # not ported: the slo, sampling, audit, memory, serving and timeline
-    # sections (ROADMAP.md (a) 8)
+    # not ported: the audit, memory, serving and timeline sections
+    # (ROADMAP.md (a) 8)
     g = metrics.gauges()
     if g:
         out["gauges"] = g
@@ -874,6 +1163,44 @@ def _phase_table(hists: Dict[str, Any], seconds: Dict[str, float]) -> List[str]:
     return rows
 
 
+# native-profiler key families: rendered as their own section, kept out
+# of the generic phase and counter tables. Each maps to the parent phase
+# its self-times decompose.
+_PROF_FAMILIES = (
+    ("vm.op.", "host.vm_s"),
+    ("vm.encop.", "host.encode_vm_s"),
+    ("extract.op.", "host.extract_native_s"),
+)
+_PROF_PREFIXES = tuple(p for p, _ in _PROF_FAMILIES)
+
+
+def _prof_tables(counters: Dict[str, float]) -> List[str]:
+    out: List[str] = []
+    for pfx, parent_key in _PROF_FAMILIES:
+        entries: Dict[str, list] = {}
+        for k, v in counters.items():
+            if not k.startswith(pfx):
+                continue
+            name = k[len(pfx):]
+            if name.endswith("_s"):
+                entries.setdefault(name[:-2], [0.0, 0.0])[1] = v
+            else:
+                entries.setdefault(name, [0.0, 0.0])[0] = v
+        if not entries:
+            continue
+        tot = sum(s for _h, s in entries.values())
+        parent = counters.get(parent_key)
+        head = f"{pfx}* ({tot * 1e3:.3f} ms self time"
+        if parent:
+            head += f" = {tot / parent * 100:.1f}% of {parent_key}"
+        out.append(head + ")")
+        for name, (h, s) in sorted(entries.items(), key=lambda kv: -kv[1][1]):
+            share = (s / tot * 100) if tot else 0.0
+            out.append(f"  {name:<12} {h:>12.0f} hits "
+                       f"{s * 1e3:>10.3f} ms {share:>5.1f}%")
+    return out
+
+
 def _fmt_bytes(v: float) -> str:
     if v >= 1e9:
         return f"{v / 1e9:.2f} GB"
@@ -960,10 +1287,12 @@ def _render_span(s: Dict[str, Any], indent: int, out: List[str]) -> None:
 
 
 def render_report(data: Dict[str, Any]) -> str:
-    """Phase-breakdown table from a :func:`snapshot` dict. Not ported:
-    the reference's ``BENCH_DETAILS.json`` branch (the port has no bench
-    yet) and the native profiler, slo, sampling, memory and audit
-    sections, whose planes wait for ``ROADMAP.md`` (a) 8."""
+    """Phase-breakdown table from a :func:`snapshot` dict, with the
+    native profiler's per-opcode tables, the device tier, routing, SLO,
+    deep-sampling and drift sections. Not ported: the reference's
+    ``BENCH_DETAILS.json`` branch (the port has no bench yet) and the
+    memory and audit sections, whose planes wait for ``ROADMAP.md``
+    (a) 8."""
     out: List[str] = []
     counters = data.get("counters", {})
     hists = data.get("histograms", {})
@@ -971,8 +1300,13 @@ def render_report(data: Dict[str, Any]) -> str:
     out.extend(_phase_table(
         hists,
         {k: v for k, v in counters.items()
-         if k.endswith("_s") and k not in hists},
+         if k.endswith("_s") and k not in hists
+         and not k.startswith(_PROF_PREFIXES)},
     ))
+    prof = _prof_tables(counters)
+    if prof:
+        out += ["", "== native profiler (per-opcode self time) =="]
+        out.extend(prof)
     dev = _device_section(counters, data.get("device") or {})
     if dev:
         out += [""]
@@ -995,6 +1329,24 @@ def render_report(data: Dict[str, Any]) -> str:
             f"{'y' if len(routing['ledger']) == 1 else 'ies'} "
             f"(autotune {'on' if routing.get('autotune') else 'off'}"
             ") — render with the route-report / what-if subcommands")
+    slo_sec = data.get("slo") or {}
+    if slo_sec:
+        breached = slo_sec.get("breached") or []
+        out += ["", "== slo =="]
+        out.append(
+            f"{len(slo_sec.get('objectives') or [])} objective(s); "
+            f"breached: {', '.join(breached) or 'none'} — render "
+            "with the slo-report subcommand")
+    samp = data.get("sampling") or {}
+    if samp:
+        out += ["", "== adaptive deep sampling =="]
+        out.append(
+            f"deep {samp.get('deep_calls', 0)}/"
+            f"{samp.get('calls', 0)} call(s), period "
+            f"{samp.get('period')}, est. deep overhead "
+            f"{(samp.get('overhead_frac') or 0) * 100:.2f}% per "
+            f"sampled call (budget "
+            f"{(samp.get('budget') or 0) * 100:.2f}% of total)")
     dr = data.get("drift") or {}
     if dr.get("entries"):
         hot = [e for e in dr["entries"] if e.get("detections")]
@@ -1010,11 +1362,15 @@ def render_report(data: Dict[str, Any]) -> str:
     other = {k: v for k, v in counters.items()
              if not k.endswith("_s")
              and not k.startswith(("route.", "router."))
+             and not k.startswith(_PROF_PREFIXES)
              and not k.startswith("device.")  # rendered above
              and k not in workers}
     if other:
         out += ["", "== counters =="]
         out.extend(f"{k:<36} {v:>14.0f}" for k, v in sorted(other.items()))
+    if data.get("flight_records"):
+        out += ["", f"flight recorder: {data['flight_records']} record(s)"
+                    " buffered (telemetry.flight_dump())"]
     spans = data.get("spans") or []
     if spans:
         out += ["", "== last call span =="]
@@ -1027,8 +1383,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     exposition), ``perfetto <file> [-o out.json]`` (Chrome/Perfetto
     trace-event timeline), ``route-report <file>`` (the routing ledger
     and the learned cost model), ``what-if <file>`` (the ledger replayed:
-    where another arm would have won). ``<file>`` is a JSON dict saved
-    from :func:`snapshot`."""
+    where another arm would have won), ``slo-report <file>`` (objectives,
+    burn rates and breaches). ``<file>`` is a JSON dict saved from
+    :func:`snapshot`."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -1059,6 +1416,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         "what-if", help="replay a snapshot's routing ledger: where "
                         "would a different arm have won?")
     p_whatif.add_argument("path")
+    p_slo = sub.add_parser(
+        "slo-report", help="SLO objectives, burn rates and breach "
+                           "state from a snapshot JSON")
+    p_slo.add_argument("path")
     args = ap.parse_args(argv)
     with open(args.path, encoding="utf-8") as f:
         snap = json.load(f)
@@ -1073,6 +1434,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         render = (router.render_route_report if args.cmd == "route-report"
                   else router.render_what_if)
         sys.stdout.write(render(snap))
+    elif args.cmd == "slo-report":
+        sys.stdout.write(slo.render_slo_report(snap))
     elif args.cmd == "prom":
         sys.stdout.write(prometheus(snap, exemplars=args.exemplars))
     else:

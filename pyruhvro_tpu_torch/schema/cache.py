@@ -3,8 +3,11 @@
 ≙ upstream's ``schema_cache``/``get_or_parse_schema`` (``src/lib.rs:35-54``):
 a lock-guarded map keyed by the raw schema string. Each entry holds the
 parsed IR, the translated Arrow schema and (through :meth:`get_extra`)
-the per-schema codecs. The reference's lifecycle planes (LRU/TTL
-eviction, memory accounting, telemetry) are not part of this slice.
+the per-schema codecs. The ``schema_cache.get`` / ``.insert`` /
+``.memo`` yield points of :mod:`..runtime.schedtest` are the
+reference's. Not ported: the lifecycle planes (LRU/TTL eviction and
+its ``schema_cache.evict`` yield point, memory accounting, telemetry;
+``ROADMAP.md`` (a) 8).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Dict, Optional
 
 import pyarrow as pa
 
+from ..runtime import schedtest
 from .arrow_map import to_arrow_schema
 from .model import AvroType
 from .parser import parse_schema
@@ -57,6 +61,7 @@ class SchemaEntry:
             return self._extras[key]
         except KeyError:
             pass
+        schedtest.yp("schema_cache.memo")
         with self._lock:
             if key not in self._extras:
                 self._extras[key] = factory()
@@ -72,8 +77,10 @@ def get_or_parse_schema(schema_str: str) -> SchemaEntry:
     first sight (double-checked, like ``src/lib.rs:44-54``)."""
     entry = _cache.get(schema_str)
     if entry is not None:
+        schedtest.yp("schema_cache.get")
         return entry
     ir = parse_schema(schema_str)  # parse outside the lock; parsing is pure
+    schedtest.yp("schema_cache.insert")
     with _cache_lock:
         entry = _cache.get(schema_str)
         if entry is None:

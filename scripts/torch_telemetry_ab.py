@@ -34,6 +34,18 @@ one row in 100 replaced by ``b"\\x01"``, ``on_error="skip"``) and path 5
   ``device.launch_s`` per kernel kind for a call without the profiler
   and for the profiled call itself.
 
+* **seams**: the per-call work of the fault, sampling, SLO and flight
+  seams in this tree: how often each runs in one path 5 call, and its
+  microseconds alone, each over a loop of 100,000.
+
+``--cases`` picks the cases of A/B and on/off. ``--aa DIR`` adds a third
+worker on a second copy of the parent to the A/B turns, so that one call
+shows the harness's own bias between two processes of the same code;
+``--sample-off`` adds a leg of this tree's worker under
+``PYRUHVRO_TPU_SAMPLE_BUDGET=0``. Each round runs the legs in order and
+then mirrored (parent, aa, this, sample-off, sample-off, this, aa,
+parent). ``--this DIR`` tests another tree than this checkout.
+
 Everything goes to stdout and to ``--out`` (by default
 ``build/telemetry_ab.json``; ``build/`` is git-ignored).
 ``--device cpu`` and a few thousand ``--rows`` rehearse it without a
@@ -200,6 +212,53 @@ def kernels():
     return {"registry": plain, "registry_traced": traced, "trace": per}
 
 
+def seams():
+    """The per-call work of the fault, sampling, SLO and flight seams in
+    one path 5 call: how often each runs (``faults.fire`` counted by
+    site through one call), and its microseconds alone, over a loop."""
+    from pyruhvro_tpu_torch.runtime import (device_obs, faults, knobs,
+                                            sampling, slo)
+    fired = {}
+    fire = faults.fire
+
+    def counting(site):
+        fired[site] = fired.get(site, 0) + 1
+        return fire(site)
+
+    faults.fire = counting
+    try:
+        CASES["path5"]()
+    finally:
+        faults.fire = fire
+    root = telemetry._spans[-1]
+    n = 100_000
+
+    def us(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def scope():
+        with sampling.call_scope("encode", schema, rows):
+            pass
+
+    got = {
+        "fired": fired,
+        "root_children": len(root.children),
+        "fire_us": us(lambda: faults.fire("device_launch")),
+        "sync_knob_us": us(lambda: knobs.get_tristate(
+            "PYRUHVRO_TPU_DEVICE_SYNC")),
+        "sync_mode_us": us(device_obs.sync_mode),
+        "call_scope_us": us(scope),
+        "slo_record_root_us": us(lambda: slo.record_root(
+            root.name, schema, 0.5, False)),
+        "flight_record_us": us(lambda: telemetry._flight_record(root)),
+    }
+    sampling.reset()
+    return got
+
+
 print(json.dumps({"ready": True, "telemetry": telemetry is not None}),
       flush=True)
 for line in sys.stdin:
@@ -219,6 +278,8 @@ for line in sys.stdin:
         got = gc_stats(CASES[cmd["case"]])
     elif cmd["mode"] == "cprofile":
         got = cprofile(CASES[cmd["case"]])
+    elif cmd["mode"] == "seams":
+        got = seams()
     else:
         got = kernels()
     if telemetry is not None:
@@ -234,6 +295,7 @@ class Worker:
             [sys.executable, "-c", WORKER, str(root), str(rows), device],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
             cwd=root)
+        self.root = root
 
     def ready(self) -> dict:
         return self._read()
@@ -262,11 +324,21 @@ def med(xs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--this", type=Path, default=HERE,
+                    help="the tree under test (default: this checkout)")
+    ap.add_argument("--aa", type=Path, default=None,
+                    help="a copy of the parent, run as a third worker in "
+                    "the A/B turns (the harness's own bias)")
+    ap.add_argument("--sample-off", action="store_true",
+                    help="add an A/B leg of this tree under "
+                    "PYRUHVRO_TPU_SAMPLE_BUDGET=0 (no deep sampling)")
+    ap.add_argument("--cases", default="path1,P1,path5",
+                    help="comma-separated cases for ab and onoff")
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--sections", default="ab,onoff,gc,cprofile,kernels",
-                    help="comma-separated sections to run")
+                    help="comma-separated sections to run (and seams)")
     ap.add_argument("--out", type=Path,
                     default=HERE / "build" / "telemetry_ab.json")
     args = ap.parse_args(argv)
@@ -279,37 +351,73 @@ def main(argv=None) -> int:
         print(card, flush=True)
     t_start = time.perf_counter()
     workers = {"parent": Worker("parent", args.parent.resolve(), args.rows,
-                                args.device),
-               "this": Worker("this", HERE, args.rows, args.device)}
+                                args.device)}
+    if args.aa is not None:
+        workers["aa"] = Worker("aa", args.aa.resolve(), args.rows,
+                               args.device)
+    workers["this"] = Worker("this", args.this.resolve(), args.rows,
+                             args.device)
     try:
         for w in workers.values():
             w.ready()
         print(f"workers ready in {time.perf_counter() - t_start:.1f} s",
               flush=True)
         out = {"card": card, "rows": args.rows, "ab": {}, "on_off": {}}
-        cases = ("path1", "P1", "path5")
+        cases = tuple(args.cases.split(","))
         for case in cases:
             for w in workers.values():
                 for _ in range(2):
                     w.ask(mode="time", case=case)
         sections = set(args.sections.split(","))
+        # legs: (label, worker, env); the order is mirrored in each round
+        off = {"PYRUHVRO_TPU_SAMPLE_BUDGET": "0"}
+        on = {"PYRUHVRO_TPU_SAMPLE_BUDGET": None}
+        legs_order = [("parent", "parent", on)]
+        if "aa" in workers:
+            legs_order.append(("aa", "aa", on))
+        legs_order.append(("this", "this", on))
+        if args.sample_off:
+            legs_order.append(("this_sample_off", "this", off))
         for case in cases if "ab" in sections else ():
-            legs = {"parent": [], "this": []}
+            legs = {label: [] for label, _w, _e in legs_order}
             for _ in range(args.rounds):
-                for label in ("parent", "this", "this", "parent"):
-                    legs[label].append(workers[label].ask(mode="time",
-                                                          case=case))
+                for label, w, env in legs_order + legs_order[::-1]:
+                    legs[label].append(workers[w].ask(mode="time",
+                                                      case=case, env=env))
+            workers["this"].ask(mode="time", case=case, env=on)
             out["ab"][case] = legs
             p = [x["s"] for x in legs["parent"]]
-            t = [x["s"] for x in legs["this"]]
             print(f"A/B {case}: parent median {med(p):.4f} s "
-                  f"{[round(x, 4) for x in p]}, this {med(t):.4f} s "
-                  f"{[round(x, 4) for x in t]}; this - parent "
-                  f"{med(t) - med(p):+.4f} s ({(med(t) / med(p) - 1) * 100:+.2f}"
-                  f" %); collector s per call parent "
-                  f"{med([x['gc_s'] for x in legs['parent']]):.4f}, this "
-                  f"{med([x['gc_s'] for x in legs['this']]):.4f} {card}",
-                  flush=True)
+                  f"{[round(x, 4) for x in p]} {card}", flush=True)
+            for label in legs:
+                if label == "parent":
+                    continue
+                t = [x["s"] for x in legs[label]]
+                # each leg against the parent legs of its own rounds
+                pairs = [b / a - 1 for a, b in zip(p, t)]
+                print(f"A/B {case}: {label} median {med(t):.4f} s "
+                      f"{[round(x, 4) for x in t]}; {label} - parent "
+                      f"{med(t) - med(p):+.4f} s "
+                      f"({(med(t) / med(p) - 1) * 100:+.2f} %); median of "
+                      f"the {len(pairs)} paired ratios "
+                      f"{med(pairs) * 100:+.2f} %, {label} slower in "
+                      f"{sum(r > 0 for r in pairs)}; collector s per call "
+                      f"{med([x['gc_s'] for x in legs[label]]):.4f} {card}",
+                      flush=True)
+        if "seams" in sections:
+            sm = out["seams"] = workers["this"].ask(mode="seams")
+            launches = sm["fired"].get("device_launch", 0)
+            per_call = (launches * (sm["fire_us"] + sm["sync_mode_us"])
+                        + sm["call_scope_us"] + sm["slo_record_root_us"])
+            print(f"seams path5: per call {sm['fired']} fault seams, "
+                  f"{sm['root_children']} child spans; us each: "
+                  f"faults.fire {sm['fire_us']:.3f}, the sync knob "
+                  f"{sm['sync_knob_us']:.3f}, sync_mode outside a launch "
+                  f"{sm['sync_mode_us']:.3f}, call_scope "
+                  f"{sm['call_scope_us']:.3f}, slo.record_root "
+                  f"{sm['slo_record_root_us']:.3f}, a flight record (read "
+                  f"time) {sm['flight_record_us']:.3f}; at most "
+                  f"{per_call:.1f} us a call {card}", flush=True)
         this = workers["this"]
         for case in cases if "onoff" in sections else ():
             legs = {"on": [], "off": []}

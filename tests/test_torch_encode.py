@@ -150,10 +150,24 @@ SCHEMAS_ERR = {**SCHEMAS, "null_items": chip_smoke.NULLS_SCHEMA}
 
 
 @pytest.mark.parametrize("case", sorted(_bad_batches()))
-def test_value_errors_match_reference(case):
+def test_value_errors_match_reference(case, monkeypatch):
     name, batch = _bad_batches()[case]
     schema = SCHEMAS_ERR[name]
     e, re_ = get_or_parse_schema(schema), ref_entry(schema)
+    if case == "array of null items":
+        # the port departs here (ROADMAP.md (c) 1): a null item is the
+        # only value of a null position, so every tier writes the
+        # oracle's wire, zero bytes per item, where the reference's
+        # extractor raises
+        want = encode_record_batch(batch, re_.ir)
+        assert want == [b"\x04\x00\x02x"]
+        for backend, no_native in (("device", ""), ("host", ""),
+                                   ("host", "1")):
+            monkeypatch.setenv("PYRUHVRO_TPU_NO_NATIVE", no_native)
+            got = serialize_record_batch(batch, schema, 2, device="cpu",
+                                         backend=backend)
+            assert [v for a in got for v in a.to_pylist()] == want
+        return
     with pytest.raises(ValueError) as want:
         ref_encode.extract_batch(ref_encode.lower_encoder(re_.ir), batch,
                                  re_.ir)

@@ -740,15 +740,46 @@ def test_finalize_bytes_from_the_blob_totals_are_the_plan_offsets():
 # -- (j) source scan ------------------------------------------------------------------
 
 
+# the flight recorder's best-effort functions (the reference's contract:
+# a failed dump, rotation or signal install is counted or reported by
+# its return value, and never fails the call it observes)
+FLIGHT_BEST_EFFORT = {"_flight_records", "_rotate_flight_dir", "mtime",
+                      "_flight_autodump", "install_flight_signal"}
+
+
 @pytest.mark.parametrize("module", ["telemetry", "device_obs"])
 def test_no_synchronise_and_no_swallowed_exception(module):
     path = REPO / "pyruhvro_tpu_torch" / "runtime" / f"{module}.py"
     src = path.read_text()
+    tree = ast.parse(src)
     assert "torch.cuda.synchronize" not in src
-    assert ".synchronize(" not in src
-    for node in ast.walk(ast.parse(src)):
+    parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
+
+    def inside(node, pred):
+        while node in parents:
+            node = parents[node]
+            if pred(node):
+                return node
+        return None
+
+    def sync_mode_if(node):
+        return isinstance(node, ast.If) and any(
+            isinstance(c, ast.Call) and getattr(c.func, "id", "") ==
+            "sync_mode" for c in ast.walk(node.test))
+
+    # the only waits are sync mode's (a deep-sampled call, or
+    # PYRUHVRO_TPU_DEVICE_SYNC=1), inside ``if sync_mode() ...:``
+    waits = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "attr", "") == "synchronize"]
+    assert len(waits) == (2 if module == "device_obs" else 0)
+    for n in waits:
+        assert inside(n, sync_mode_if) is not None, (module, n.lineno)
+    for node in ast.walk(tree):
         if isinstance(node, ast.ExceptHandler):
-            # every handler re-raises what it caught
+            fn = inside(node, lambda p: isinstance(p, ast.FunctionDef))
+            if fn is not None and fn.name in FLIGHT_BEST_EFFORT:
+                continue
+            # every other handler re-raises what it caught
             assert any(isinstance(n, ast.Raise) and n.exc is None
                        for n in ast.walk(node)), (module, node.lineno)
 
