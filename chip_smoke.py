@@ -3685,6 +3685,372 @@ def planes_phase(api, torch, dm, em, data, schema, here, card):
     return out
 
 
+INCIDENT_ROWS = 100_000     # the incident phase: Kafka records per call
+INCIDENT_FLIP = (2, 1234)   # A3: the flipped byte's (chunk, row in chunk)
+INCIDENT_COLUMN = "created_at"
+
+
+def flip_byte(pa, batch, name, row):
+    """One flipped byte of one row of a fixed-width column (the reference's
+    ``tests/test_audit.py`` ``_flip_buffer_byte``, the array's offset
+    honoured): the smallest silent corruption."""
+    idx = batch.schema.names.index(name)
+    arr = batch.column(idx)
+    width = arr.type.bit_width // 8
+    bufs = arr.buffers()
+    data = bytearray(bufs[1].to_pybytes())
+    data[(arr.offset + row) * width] ^= 0x01
+    cols = list(batch.columns)
+    cols[idx] = pa.Array.from_buffers(
+        arr.type, len(arr), [bufs[0], pa.py_buffer(bytes(data))],
+        offset=arr.offset)
+    return pa.RecordBatch.from_arrays(cols, schema=batch.schema)
+
+
+def http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def countable(delta):
+    """A counter delta without the audit's own keys, the timeline's tick
+    count (its thread ticks when it will) and the seconds."""
+    return {k: v for k, v in delta.items()
+            if not k.startswith(("audit.", "timeline."))
+            and not k.endswith("_s")}
+
+
+def incident_phase(api, pa, dm, em, data, schema, card):
+    """The incident plane against the card's decode and encode, under the
+    reference's defaults (the audit on, the timeline ticking), with
+    ``PYRUHVRO_TPU_INCIDENT_DIR`` a temporary directory:
+
+    * A1: ``audit.force_next()``, then ``deserialize_array_threaded`` on
+      the card: audited once, no mismatch (K1/K2's output digests equal
+      the oracle's); the shadow's seconds, and the root span's SLO feed
+      is its duration less them; the counters other than ``audit.*``
+      (and seconds) equal those of the same call unaudited;
+    * A2: the same for ``serialize_record_batch`` of those rows: K3's wire
+      round-trips through the oracle clean;
+    * A3: one byte flipped in the card's result before the seam
+      (:data:`INCIDENT_FLIP`): the mismatch in :data:`INCIDENT_COLUMN`
+      at the exact row, the caller's batches untouched, the arm and the
+      schema's device tier penalised, and the next ``backend="device"``
+      call still launches K1/K2 and equals the first;
+    * O1: an ``ObsServer`` on 127.0.0.1: ``/healthz`` 503 with
+      ``audit_mismatch`` set, ``/metrics`` byte-identical to
+      ``telemetry.prometheus()``, ``/audit``, ``/timeline`` and
+      ``/incidents`` parse;
+    * I1: within ``incident.DEBOUNCE_S`` the tick thread writes exactly
+      one bundle, holding the ``audit.mismatch`` event, the flight ring
+      and the routing tail; ``incident-report`` renders it;
+    * T1: ``timeline.tick_now()`` over the phase: each counter's deltas
+      sum to its cumulative value.
+
+    ``data`` is :data:`INCIDENT_ROWS` records of ``schema``, decoded under
+    a schema string of its own (sticky caps after R5). The phase starts
+    from ``telemetry.reset()`` and keeps the deep sampler off, so that
+    two calls' counters compare. Every failure exits non-zero. Returns
+    the phase's figures."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from pyruhvro_tpu_torch import api as api_mod
+    from pyruhvro_tpu_torch.runtime import (audit, costmodel, incident,
+                                            metrics, obs_server, sampling,
+                                            slo, telemetry, timeline)
+    from pyruhvro_tpu_torch.runtime.chunking import chunk_bounds
+
+    doc = json.loads(schema)
+    doc["doc"] = "incident phase"
+    schema = json.dumps(doc)
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    enc = {"encode_rows": em.encode_kernel.rows}
+    # what the audit saw of the earlier phases' calls, at its defaults
+    seen = audit.snapshot_audit()
+    out = {"before": {k: seen.get(k) for k in ("calls", "audited",
+                                               "period", "cost_ratio")}}
+    tmp = tempfile.mkdtemp(prefix="pyruhvro-incidents-")
+    os.environ["PYRUHVRO_TPU_INCIDENT_DIR"] = tmp
+    telemetry.reset()
+    sampling.set_enabled(False)
+    srv = None
+    try:
+        # A1: an audited decode on the card against an unaudited one
+        card_out = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+        fed, consumed = [], []
+        feed, consume = slo.record_root, audit.consume_shadow_seconds
+
+        def feed_spy(name, fp, dur, err):
+            fed.append(dur)
+            return feed(name, fp, dur, err)
+
+        def consume_spy():
+            consumed.append(consume())
+            return consumed[-1]
+
+        def audited(call):
+            """(plain delta, audited delta, audited result): a warm call,
+            then a plain one and an audited one"""
+            call()
+            before = metrics.snapshot()
+            call()
+            mid = metrics.snapshot()
+            audit.force_next()
+            zero(pipe)
+            zero(enc)
+            fed.clear()
+            consumed.clear()
+            slo.record_root = feed_spy
+            audit.consume_shadow_seconds = consume_spy
+            try:
+                got = call()
+            finally:
+                slo.record_root = feed
+                audit.consume_shadow_seconds = consume
+            after = metrics.snapshot()
+            plain = {k: mid[k] - before.get(k, 0.0) for k in mid
+                     if mid[k] != before.get(k, 0.0)}
+            aud = {k: after[k] - mid.get(k, 0.0) for k in after
+                   if after[k] != mid.get(k, 0.0)}
+            return plain, aud, got
+
+        def check_audited(label, plain, aud, launches):
+            mine = {k: v for k, v in aud.items() if k.startswith("audit.")}
+            if mine.get("audit.audited") != 1 or \
+                    mine.get("audit.mismatches") or \
+                    mine.get("audit.shadow_error"):
+                raise SystemExit(f"incident {label}: audit counters {mine}")
+            if countable(plain) != countable(aud):
+                raise SystemExit(f"incident {label}: the audited call's "
+                                 f"counters {countable(aud)} differ from "
+                                 f"the plain call's {countable(plain)}")
+            span = telemetry._spans[-1]
+            if len(consumed) != 1 or consumed[0] <= 0 or len(fed) != 1 or \
+                    abs(fed[0] - (span.dur_s - consumed[0])) > 1e-6:
+                raise SystemExit(f"incident {label}: the SLO feed {fed} is "
+                                 f"not the root's {span.dur_s} s less the "
+                                 f"shadow's {consumed}")
+            return {"shadow_s": consumed[0],
+                    "primary_s": span.dur_s - consumed[0],
+                    "root_s": span.dur_s, "slo_fed_s": fed[0],
+                    "audited_rows": aud["audit.audited_rows"],
+                    "launches": launches,
+                    "counters_compared": len(countable(aud))}
+
+        plain, aud, got = audited(lambda: api.deserialize_array_threaded(
+            data, schema, MAIN_CHUNKS))
+        a1 = check_audited("A1", plain, aud, launched("incident A1", pipe))
+        same_columns("incident A1", got, card_out)
+        sec = audit.snapshot_audit()
+        a1.update(ratio=a1["shadow_s"] / a1["primary_s"],
+                  cost_ratio=sec["cost_ratio"], period=sec["period"])
+        out["A1"] = a1
+        print(f"incident A1: the card's decode of {len(data)} rows audited "
+              f"clean, shadow {a1['shadow_s']:.3f} s against the primary's "
+              f"{a1['primary_s']:.3f} s (x{a1['ratio']:.1f}), the audit's "
+              f"cost ratio {sec['cost_ratio']} and period {sec['period']}; "
+              f"the SLO fed {a1['slo_fed_s']:.4f} s; "
+              f"{a1['counters_compared']} counters equal the plain call's; "
+              f"launches {a1['launches']} {card}")
+
+        # A2: an audited encode on the card, round-tripped by the oracle
+        table = pa.Table.from_batches(card_out)
+        plain, aud, arrays = audited(lambda: api.serialize_record_batch(
+            table, schema, MAIN_CHUNKS))
+        a2 = check_audited("A2", plain, aud, launched("incident A2", enc))
+        wire = [d for a in arrays for d in a.to_pylist()]
+        if wire != list(data):
+            raise SystemExit("incident A2: the card's wire is not the input")
+        sec = audit.snapshot_audit()
+        a2.update(ratio=a2["shadow_s"] / a2["primary_s"],
+                  cost_ratio=sec["cost_ratio"], period=sec["period"])
+        out["A2"] = a2
+        print(f"incident A2: the card's encode audited clean by the round "
+              f"trip, shadow {a2['shadow_s']:.3f} s against "
+              f"{a2['primary_s']:.3f} s (x{a2['ratio']:.1f}), cost ratio "
+              f"{sec['cost_ratio']}, period {sec['period']}; launches "
+              f"{a2['launches']} {card}")
+
+        # A3: one flipped byte in the card's result, before the seam
+        bounds = chunk_bounds(len(data), MAIN_CHUNKS)
+        chunk, row = INCIDENT_FLIP
+        real = api_mod._maybe_audit_decode
+
+        def corrupting(dec, entry, d, b, on_error, result):
+            real(dec, entry, d, b, on_error, [
+                flip_byte(pa, x, INCIDENT_COLUMN, row) if i == chunk else x
+                for i, x in enumerate(result)])
+
+        api_mod._maybe_audit_decode = corrupting
+        audit.force_next()
+        try:
+            got = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
+        finally:
+            api_mod._maybe_audit_decode = real
+        t_mismatch = time.perf_counter()
+        wall_mismatch = time.time()
+        same_columns("incident A3: the caller's batches", got, card_out)
+        recs = audit.mismatches()
+        want_row = bounds[chunk][0] + row
+        if len(recs) != 1 or recs[0]["column"] != INCIDENT_COLUMN or \
+                recs[0]["row_index"] != want_row or recs[0]["op"] != "decode":
+            raise SystemExit(f"incident A3: mismatches {recs}, not "
+                             f"{INCIDENT_COLUMN} row {want_row}")
+        m = recs[0]
+        if not (costmodel.arm_penalized(m["schema"], m["arm"])
+                and costmodel.device_penalized(m["schema"])
+                and m["arm"].startswith("device/")):
+            raise SystemExit(f"incident A3: the arm {m['arm']} is not "
+                             f"penalised")
+        zero(pipe)
+        again = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS,
+                                               backend="device")
+        after = launched("incident A3: the next device call", pipe)
+        same_columns("incident A3: the next device call", again, card_out)
+        last = telemetry.snapshot()["routing"]["ledger"][-1]
+        if last["tier"] != "device":
+            raise SystemExit(f"incident A3: the next call ran on "
+                             f"{last['tier']}")
+        out["A3"] = {"mismatch": m, "next_launches": after,
+                     "counters": {k: v for k, v in metrics.snapshot().items()
+                                  if k.startswith(("audit.mismatch",
+                                                   "router."))}}
+        print(f"incident A3: a byte flipped at chunk {chunk} row {row} "
+              f"found in {m['column']} row {m['row_index']}, the caller's "
+              f"batches untouched, {m['arm']} and the device tier "
+              f"penalised; the next backend=\"device\" call launched "
+              f"{after} on the card")
+
+        # O1: the obs server
+        srv = obs_server.ObsServer(port=0).start()
+        code, body = http_get(srv.url + "/healthz")
+        health = json.loads(body)
+        if code != 503 or not health["unhealthy_bits"]["audit_mismatch"]:
+            raise SystemExit(f"incident O1: /healthz {code} {health}")
+        diffs = []
+        for attempt in range(3):
+            # each export recomputes the audit's coverage gauge decayed
+            # to its own instant (its last digit may move between two
+            # reads), and a tick of the timeline thread between them
+            # counts timeline.ticks: read both again
+            code, body = http_get(srv.url + "/metrics")
+            text = telemetry.prometheus()
+            same_metrics = body.decode() == text
+            if same_metrics:
+                break
+            diffs.append(sorted(set(body.decode().splitlines())
+                                ^ set(text.splitlines()))[:8])
+        if code != 200 or not same_metrics:
+            raise SystemExit("incident O1: /metrics is not "
+                             "telemetry.prometheus()")
+        metrics_bytes = len(body)
+        docs = {}
+        for path in ("/audit", "/timeline", "/incidents"):
+            code, body = http_get(srv.url + path)
+            if code != 200:
+                raise SystemExit(f"incident O1: {path} answered {code}")
+            docs[path] = json.loads(body)
+        if docs["/audit"]["mismatches"] != 1:
+            raise SystemExit(f"incident O1: /audit {docs['/audit']}")
+        out["O1"] = {"healthz": health, "metrics_bytes": metrics_bytes,
+                     "metrics_attempts": attempt + 1,
+                     "metrics_diffs": diffs,
+                     "audit_mismatches": docs["/audit"]["mismatches"],
+                     "timeline_events": [
+                         e["name"] for e in docs["/timeline"]["events"]],
+                     "incidents": docs["/incidents"]["incidents"]}
+        print(f"incident O1: /healthz 503 with audit_mismatch, /metrics "
+              f"byte-identical ({attempt + 1} read(s)), /audit, /timeline "
+              f"and /incidents parse")
+
+        # I1: one bundle, written by the tick thread
+        while time.perf_counter() - t_mismatch < incident.DEBOUNCE_S and \
+                not [f for f in os.listdir(tmp) if f.startswith("incident_")]:
+            time.sleep(0.05)
+        # seen by this poll, at most: the thread wrote it earlier
+        found_s = time.perf_counter() - t_mismatch
+        time.sleep(0.5)
+        bundles = sorted(f for f in os.listdir(tmp)
+                         if f.startswith("incident_"))
+        if len(bundles) != 1:
+            raise SystemExit(f"incident I1: bundles {bundles}")
+        path = os.path.join(tmp, bundles[0])
+        with open(path, encoding="utf-8") as f:
+            bundle = json.load(f)
+        names = [e["name"] for e in bundle["timeline"]["events"]]
+        if bundle["trigger"] != "audit.mismatch" or \
+                "audit.mismatch" not in names or \
+                not bundle["flight"]["records"] or \
+                not bundle["routing_tail"] or \
+                bundle["health"]["code"] != 503 or \
+                bundle.get("section_errors"):
+            raise SystemExit(f"incident I1: the bundle {bundles[0]}: "
+                             f"trigger {bundle['trigger']}, events {names}, "
+                             f"errors {bundle.get('section_errors')}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = telemetry.main(["incident-report", path])
+        report = text.getvalue()
+        if rc != 0 or "breach interval" not in report or \
+                "audit.mismatch" not in report or "503" not in report:
+            raise SystemExit(f"incident I1: incident-report exit {rc}:\n"
+                             f"{report}")
+        event_ts = [e["ts"] for e in bundle["timeline"]["events"]
+                    if e["name"] == "audit.mismatch"][0]
+        written_s = bundle["time"] - event_ts
+        out["I1"] = {"file": bundles[0], "found_s": found_s,
+                     "written_after_event_s": written_s,
+                     "event_after_call_s": event_ts - wall_mismatch,
+                     "bytes": os.path.getsize(path), "sections": sorted(
+                         bundle), "flight_records": len(
+                         bundle["flight"]["records"]),
+                     "routing_tail": len(bundle["routing_tail"]),
+                     "report_lines": len(report.splitlines())}
+        print(f"incident I1: the tick thread wrote one bundle "
+              f"({out['I1']['bytes']} bytes) {written_s:.3f} s after the "
+              f"mismatch event: {len(bundle['flight']['records'])} flight "
+              f"records, {len(bundle['routing_tail'])} ledger entries; "
+              f"incident-report renders it")
+    finally:
+        if srv is not None:
+            srv.stop()
+        sampling.set_enabled(None)
+        os.environ.pop("PYRUHVRO_TPU_INCIDENT_DIR", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # T1: the ticks' counter deltas over the phase re-sum to the counters
+    timeline.tick_now()
+    sec = timeline.snapshot_timeline()
+    totals = {}
+    for t in sec["ticks"]:
+        for k, v in t["counters"].items():
+            totals[k] = totals.get(k, 0.0) + v
+    now = metrics.snapshot()
+    # the tick counts itself after its record
+    off = {k: (totals.get(k, 0.0), v) for k, v in now.items()
+           if k != "timeline.ticks" and abs(totals.get(k, 0.0) - v) >
+           1e-9 * max(1.0, abs(v))}
+    if off:
+        raise SystemExit(f"incident T1: deltas and counters differ: {off}")
+    out["T1"] = {"ticks": len(sec["ticks"]), "counters": len(now),
+                 "events": [e["name"] for e in sec["events"]]}
+    print(f"incident T1: {len(sec['ticks'])} tick(s), the deltas of "
+          f"{len(now)} counters re-sum to them; events "
+          f"{out['T1']['events']}")
+    return out
+
+
 def main() -> int:
     import os
 
@@ -4078,6 +4444,14 @@ def main() -> int:
                           here, card)
     print(f"planes phase: {time.perf_counter() - t0:.1f} s")
 
+    # 11. the incident plane: the audit shadow of the card's decode and
+    # encode, the obs server, incident bundles and the timeline
+    t0 = time.perf_counter()
+    incident = incident_phase(port, pa, dm, em, data[:INCIDENT_ROWS], kafka,
+                              card)
+    incident["phase_s"] = time.perf_counter() - t0
+    print(f"incident phase: {incident['phase_s']:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -4140,6 +4514,7 @@ def main() -> int:
     print(json.dumps({"route": route}))
     print(json.dumps({"multichip": multi}))
     print(json.dumps({"planes": planes}))
+    print(json.dumps({"incident": incident}, default=str))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

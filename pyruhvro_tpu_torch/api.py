@@ -43,6 +43,14 @@ fans a chunked call of the host tier out to spawned worker processes
 (:func:`_proc_map`), each re-entering this API with ``backend="host"``
 on its chunk.
 
+A clean call is then offered to the differential audit
+(``runtime/audit.py``; on by default, ``PYRUHVRO_TPU_AUDIT_BUDGET``
+0.005): about one call in ``cost ratio / budget`` is decoded again
+through the oracle (an encode is decoded back from its wire) inside the
+call's root span, sampler scope and deadline, and the per-column digests
+are compared (:func:`_maybe_audit_decode`, :func:`_maybe_audit_encode`).
+A mismatch or a shadow error never changes the result or its tier.
+
 Telemetry (``runtime/telemetry.py``): each call opens the reference's
 root span (``api.deserialize_array``, ``api.deserialize_array_threaded``
 or ``api.serialize_record_batch``) and, inside it, the deep sampler's
@@ -122,8 +130,9 @@ from .fallback.decoder import (
 from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
-from .runtime import (deadline, device_obs, faults, knobs, metrics, quarantine,
-                      router, sampling, telemetry, traceprop)
+from .runtime import (audit, coldigest, deadline, device_obs, faults, knobs,
+                      metrics, quarantine, router, sampling, telemetry,
+                      traceprop)
 from .runtime.deadline import DeadlineExceeded
 from .runtime.chunking import bounds_rows, chunk_bounds
 from .runtime.ingest import as_datum_input
@@ -471,16 +480,7 @@ def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
                 raise
 
     def run_chunk(ab):
-        a, b = ab
-        entries = [quarantine.QuarantinedRecord(j, data[j], "datum_too_large",
-                                                "policy")
-                   for j in too_long if a <= j < b]
-        drop = {e.index for e in entries}
-        pairs = [(j, d) for j, d in enumerate(data[a:b], a) if j not in drop]
-        with telemetry.phase("decode.tolerant_s", rows=b - a, tier=tier):
-            batch = _tolerant_decode(tier, impl, entry, pairs, entries)
-        return _apply_null_policy(batch, entries, a, b - a, policy,
-                                  entry), entries
+        return _tolerant_chunk(tier, impl, entry, data, ab, too_long, policy)
 
     if tier == "native":
         done = map_chunks(run_chunk, bounds)
@@ -489,6 +489,23 @@ def _decode_tolerant(tier, impl, entry, data, num_chunks, policy):
     quar = [e for _batch, entries in done for e in entries]
     quarantine.publish(quar, policy)
     return [batch for batch, _entries in done], quar
+
+
+def _tolerant_chunk(tier, impl, entry, data, ab, too_long, policy):
+    """One chunk ``[a, b)`` of a tolerant decode → ``(batch, entries)``:
+    the rows in ``too_long`` quarantined as ``datum_too_large``, the rest
+    through :func:`_tolerant_decode`, then the null policy. Publishes
+    nothing: the caller does, once for the call."""
+    a, b = ab
+    entries = [quarantine.QuarantinedRecord(j, data[j], "datum_too_large",
+                                            "policy")
+               for j in too_long if a <= j < b]
+    drop = {e.index for e in entries}
+    pairs = [(j, d) for j, d in enumerate(data[a:b], a) if j not in drop]
+    with telemetry.phase("decode.tolerant_s", rows=b - a, tier=tier):
+        batch = _tolerant_decode(tier, impl, entry, pairs, entries)
+    return _apply_null_policy(batch, entries, a, b - a, policy,
+                              entry), entries
 
 
 def _encode_bisect(encode_fn, batch, base, quar, tier):
@@ -652,6 +669,91 @@ def _proc_map(task, payloads, rows):
         return None
 
 
+# -- the differential audit's seams (pyruhvro_tpu/api.py:781-862) ----------
+#
+# Called right after router.observe on a clean call, still inside the root
+# span, the sampler's call_scope and the deadline scope: the cost model
+# never sees shadow seconds, the sampler and the SLO feed subtract them
+# (runtime/audit.py's thread-local), and the caller's deadline bounds the
+# shadow. The shadow always runs the port's pure-Python oracle
+# (fallback/), the tier every other tier is held equal to; on the device
+# tier that holds K1/K2's and K3's output against it. A mismatch or a
+# shadow error never changes the caller's result or its tier.
+
+
+def _audit_shadow_decode(entry, data, bounds, on_error):
+    """Decode the SAME rows again, per chunk, through the oracle under
+    the caller's policy; the chunk bounds matter only for the tolerant
+    policies' row indices (the digests do not see chunking)."""
+    reader = _host_reader(entry)
+    too_long = [] if on_error == "raise" else [int(j)
+                                               for j in _too_long(data)]
+    out = []
+    for a, b in bounds:
+        deadline.check(site="audit.shadow")
+        if on_error == "raise":
+            out.append(decode_to_record_batch(
+                data[a:b], entry.ir, entry.arrow_schema, reader,
+                index_base=a))
+        else:
+            out.append(_tolerant_chunk("fallback", None, entry, data,
+                                       (a, b), too_long, on_error)[0])
+    return out
+
+
+def _audit_shadow_roundtrip(entry, arrays):
+    """The encode shadow: the produced wire bytes decoded back through
+    the oracle; ``decode(encode(x))`` must equal ``x``."""
+    reader = _host_reader(entry)
+    out = []
+    base = 0
+    for arr in arrays:
+        deadline.check(site="audit.shadow")
+        datums = arr.to_pylist()
+        out.append(decode_to_record_batch(
+            datums, entry.ir, entry.arrow_schema, reader, index_base=base))
+        base += len(datums)
+    return out
+
+
+def _maybe_audit_decode(dec, entry, data, bounds, on_error, result):
+    if not audit.enabled():
+        return
+    batches = result if isinstance(result, list) else [result]
+    audit.maybe_audit(
+        dec, "decode",
+        expected=lambda: batches,
+        shadow=lambda: _audit_shadow_decode(entry, data, bounds, on_error),
+        input_fn=lambda: coldigest.input_digest(data),
+        chunks=len(bounds),
+    )
+
+
+def _maybe_audit_encode(dec, entry, batch, bounds, on_error, arrays, quar):
+    if not audit.enabled():
+        return
+    if quar is None and on_error != "raise":
+        quar = quarantine.last()
+    skip = None
+    if quar:
+        # re-chunking the survivors (or re-encoding nulls) breaks the row
+        # alignment between the input batch and the round trip
+        skip = "quarantine"
+    elif not batch.schema.equals(entry.arrow_schema):
+        # a caller-typed batch: the digests cover types, not coercions
+        skip = "schema"
+    audit.maybe_audit(
+        dec, "encode",
+        expected=lambda: [batch],
+        shadow=lambda: _audit_shadow_roundtrip(entry, arrays),
+        input_fn=lambda: coldigest.input_digest(batch),
+        result_fn=lambda: (coldigest.array_digest(
+            pa.chunked_array(arrays)) if arrays else ""),
+        chunks=len(bounds),
+        skip_reason=skip,
+    )
+
+
 # -- the entry points --------------------------------------------------------
 
 
@@ -686,6 +788,8 @@ def deserialize_array(
             router.observe(dec, error=e)
             raise
         router.observe(dec)
+        _maybe_audit_decode(dec, entry, data, [(0, len(data))], on_error,
+                            out[0] if return_errors else out)
         return out
 
 
@@ -743,6 +847,8 @@ def deserialize_array_threaded(
             router.observe(dec, error=e)
             raise
         router.observe(dec)
+        _maybe_audit_decode(dec, entry, data, bounds, on_error,
+                            out[0] if return_errors else out)
         return out
 
 
@@ -851,6 +957,9 @@ def serialize_record_batch(
             router.observe(dec, error=e)
             raise
         router.observe(dec)
+        _maybe_audit_encode(dec, entry, batch, bounds, on_error,
+                            out[0] if return_errors else out,
+                            out[1] if return_errors else None)
         return out
 
 

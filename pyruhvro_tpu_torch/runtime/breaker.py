@@ -24,8 +24,9 @@ In the port only the ``process_pool`` breaker is fed (by
 breaker and its feeds are not ported: a failure of the card raises
 (``ROADMAP.md`` (c) 9). The ``breaker.acquire`` / ``.record`` /
 ``.release`` yield points of :mod:`.schedtest` sit just outside the
-lock, as in the reference. Not ported: the ``timeline`` events of the
-state changes (``ROADMAP.md`` (a) 8).
+lock, as in the reference. Each state change also publishes a
+``breaker.opened`` (severity ``warn``), ``.half_open`` or ``.closed``
+event on :mod:`.timeline`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from . import knobs, metrics, schedtest
+from . import knobs, metrics, schedtest, timeline
 
 __all__ = [
     "CircuitBreaker",
@@ -110,6 +111,8 @@ class CircuitBreaker:
             self._probe_at = None
             self._probe_owner = None
             metrics.inc(f"breaker.{self.name}.half_open")
+            timeline.event("breaker.half_open",
+                           attrs={"breaker": self.name})
         if (self._state == "half_open" and self._probe_at is not None
                 and now - self._probe_at > _PROBE_TTL_S):
             # forfeited probe: allow another (the forfeiter's eventual
@@ -169,6 +172,8 @@ class CircuitBreaker:
                 self._state = "closed"
                 self._opens = 0
                 metrics.inc(f"breaker.{self.name}.closed")
+                timeline.event("breaker.closed",
+                               attrs={"breaker": self.name})
 
     def record_failure(self) -> None:
         """A call through the seam failed. In half-open (failed probe)
@@ -188,6 +193,10 @@ class CircuitBreaker:
                 self._open_until = now + self._next_backoff_s()
                 metrics.inc(f"breaker.{self.name}.opened")
                 metrics.mark("breaker_open")
+                timeline.event("breaker.opened", severity="warn",
+                               attrs={"breaker": self.name,
+                                      "failures": self._failures,
+                                      "opens": self._opens})
 
     def release(self) -> None:
         """Return an acquired half-open probe slot WITHOUT a verdict:
@@ -220,6 +229,9 @@ class CircuitBreaker:
             self._probe_owner = None
             metrics.inc(f"breaker.{self.name}.opened")
             metrics.mark("breaker_open")
+            timeline.event("breaker.opened", severity="warn",
+                           attrs={"breaker": self.name, "forced": True,
+                                  "opens": self._opens})
 
     def export(self) -> Dict[str, Any]:
         with self._lock:

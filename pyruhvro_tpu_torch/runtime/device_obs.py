@@ -79,9 +79,10 @@ router withholds its device arm for the window. :func:`track_holder`
 keeps (weakly) the objects that hold launch state across calls, the
 sharded decoder and encoder (:mod:`..parallel`), for the lifecycle
 planes. A storm also auto-dumps the flight recorder
-(``telemetry._flight_autodump("recompile_storm")``); not ported: its
-timeline event, the lifecycle eviction and ``cachelife`` (``ROADMAP.md``
-(a) 8).
+(``telemetry._flight_autodump("recompile_storm")``) and publishes a
+``device.recompile_storm`` incident event on :mod:`.timeline`; not
+ported: the lifecycle eviction and ``cachelife`` (``ROADMAP.md`` (a)
+8.6).
 """
 
 from __future__ import annotations
@@ -522,9 +523,12 @@ def note_compile(fingerprint: str, kind: str, bucket: str) -> None:
             log.clear()
     if storm:
         metrics.inc("device.recompile_storm")
-        metrics.mark("recompile_storm")
+        metrics.mark("recompile_storm")  # the live /healthz bit
+        from . import timeline
+
+        timeline.event("device.recompile_storm", severity="incident",
+                       attrs={"schema": fingerprint})
         telemetry.annotate(recompile_storm=True)
-        # not ported: the storm's timeline event (ROADMAP.md (a) 8)
         telemetry._flight_autodump("recompile_storm")
         # a storming schema's device arm is withheld from the router for
         # the churn window: a hard penalty, not one the model must

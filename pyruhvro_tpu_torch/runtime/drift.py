@@ -19,8 +19,8 @@ key has **drifted**:
 
 After a detection the slow EWMA adopts the fast one and the detector
 re-arms. Fed by ``router.observe`` on clean calls only. A detection
-auto-dumps the flight recorder (``PYRUHVRO_TPU_FLIGHT_DIR``); not
-ported: its ``timeline`` event (``ROADMAP.md`` (a) 8).
+auto-dumps the flight recorder (``PYRUHVRO_TPU_FLIGHT_DIR``) and
+publishes a ``drift.detected`` incident event on :mod:`.timeline`.
 """
 
 from __future__ import annotations
@@ -86,10 +86,12 @@ def observe(schema: str, op: str, band: int, arm: str,
         return
     metrics.inc("drift.detected")
     metrics.mark("latency_drift")
-    from . import costmodel, telemetry
+    from . import costmodel, telemetry, timeline
 
+    timeline.event("drift.detected", severity="incident",
+                   attrs={"schema": schema, "arm": arm,
+                          "factor": round(factor, 3)})
     telemetry.annotate(drift_arm=arm)
-    # not ported: the timeline event (ROADMAP.md (a) 8)
     telemetry._flight_autodump("drift")
     costmodel.penalize_arm(schema, arm, _PENALTY_WINDOW_S,
                            factor=factor)

@@ -35,7 +35,10 @@ left out: nothing in the port degrades by it. ``pool_worker`` fails a
 spawn-pool chunk, which the ``process_pool`` breaker and the thread
 path handle (``runtime/pool.py``). The best-effort seams
 (``profile_load``, ``profile_save``, ``flight_dump``, ``slo_alert``)
-count the failure and leave the call unaffected, as in the reference.
+and the observers' (``audit_shadow``: ``audit.shadow_error``;
+``incident_capture``: ``incident.capture_failed``; ``obs_handler``: a
+500 and ``obs.handler_error``) count the failure and leave the call
+unaffected, as in the reference.
 
 Production cost when the knob is unset: one ``os.environ.get`` + a
 string compare per seam call.
@@ -76,11 +79,11 @@ SITES = (
     "profile_save",     # costmodel.save_profile
     "profile_load",     # costmodel.load_profile
     "flight_dump",      # telemetry.flight_dump file write
-    "obs_handler",      # obs server request handler (see below)
+    "obs_handler",      # obs_server: request handler (the 500 path)
     "slo_alert",        # slo alert_command hook
-    # obs_handler above and the sites below belong to planes not ported
-    # yet (ROADMAP.md (a) 8): they parse in a spec and fire nowhere
     "audit_shadow",     # audit: shadow re-execution through the oracle
+    # the three serve_* sites belong to the serving plane, not ported
+    # yet (ROADMAP.md (a) 8.9): they parse in a spec and fire nowhere
     "serve_enqueue",    # serving: admission seam
     "serve_worker",     # serving: coalesced micro-batch execution seam
     "serve_flight",     # serving/flight.py: Arrow Flight handler seam

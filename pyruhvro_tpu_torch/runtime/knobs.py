@@ -1,10 +1,10 @@
 """Environment knobs the port reads (copy of the parse rules of
 ``pyruhvro_tpu/runtime/knobs.py:396-437`` ``get_int``/``get_float``/
 ``get_bool``, ``get_tristate``, ``get_str``, ``get_raw``, ``is_set`` and
-``get_enum``, and of the knobs it registers at ``:82-100``, ``:146-150``,
-``:153-159``, ``:162-167``, ``:170-183``, ``:189-198``, ``:208``,
-``:211``, ``:220-226``, ``:237`` and ``:287-293``, with their
-defaults).
+``get_enum`` and ``registry``, and of the knobs it registers at
+``:82-100``, ``:146-150``, ``:153-159``, ``:162-167``, ``:170-183``,
+``:189-207``, ``:208``, ``:211``, ``:220-237``, ``:240-257`` and
+``:287-293``, with their defaults).
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
 ``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
@@ -25,7 +25,8 @@ from typing import Dict
 from . import metrics
 
 __all__ = ["get_bool", "get_tristate", "get_int", "get_float", "get_str",
-           "get_raw", "get_enum", "is_set", "DEFAULTS", "CHOICES"]
+           "get_raw", "get_enum", "is_set", "registry", "DEFAULTS",
+           "CHOICES"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -101,6 +102,27 @@ DEFAULTS = {
     "PYRUHVRO_TPU_FLIGHT_DIR": "",
     "PYRUHVRO_TPU_FLIGHT_N": 64,
     "PYRUHVRO_TPU_FLIGHT_MAX_FILES": 32,
+    # the obs server: its port at import (0 = any free port; unset: no
+    # server), its bind host, and how long a storm, drift or audit
+    # mismatch keeps /healthz unhealthy, in seconds
+    "PYRUHVRO_TPU_OBS_PORT": None,
+    "PYRUHVRO_TPU_OBS_HOST": "127.0.0.1",
+    "PYRUHVRO_TPU_HEALTH_WINDOW": 60.0,
+    # the differential audit: its share of wall time (<= 0 turns it
+    # off), the tiers it shadows (comma list; empty: every tier), and
+    # its kill switch
+    "PYRUHVRO_TPU_AUDIT_BUDGET": 0.005,
+    "PYRUHVRO_TPU_AUDIT_TIERS": "",
+    "PYRUHVRO_TPU_NO_AUDIT": False,
+    # the timeline: its tick interval in seconds (floored at 0.05), the
+    # ticks it keeps, and its kill switch
+    "PYRUHVRO_TPU_TIMELINE_INTERVAL_S": 10.0,
+    "PYRUHVRO_TPU_TIMELINE_RETENTION": 360,
+    "PYRUHVRO_TPU_NO_TIMELINE": False,
+    # incident bundles: their directory ("" turns capture off) and the
+    # bundles kept (0 = no limit; hand-saved files are never touched)
+    "PYRUHVRO_TPU_INCIDENT_DIR": "",
+    "PYRUHVRO_TPU_INCIDENT_MAX_FILES": 16,
 }
 
 # the accepted (lower-case) values of the enum knobs
@@ -127,6 +149,13 @@ def _flush_parse_errors() -> None:
 
 
 metrics.register_flush_hook(_flush_parse_errors)
+
+
+def registry() -> Dict[str, object]:
+    """A copy of the registered knobs, name → default, in registration
+    order (the reference's ``registry()`` maps each name to its typed
+    ``Knob``; the incident bundle reads only the names)."""
+    return dict(DEFAULTS)
 
 
 def _boolish(name: str):

@@ -19,8 +19,8 @@ annotates the span with ``on_error`` and ``quarantined``, and counts
 ``PYRUHVRO_TPU_QUARANTINE_STORM``, a knob the port does not read),
 ``<op>.quarantine_storms`` with the ``quarantine_storm`` mark
 (``quarantine.py:136-182``), and auto-dumps the flight recorder
-(``PYRUHVRO_TPU_FLIGHT_DIR``). The storm's timeline event waits for its
-plane (``ROADMAP.md`` (a) 8).
+(``PYRUHVRO_TPU_FLIGHT_DIR``), and publishes a ``quarantine.storm``
+incident event on :mod:`.timeline`.
 
 A call that fans out to the process pool opens :func:`collecting`: the
 workers' entries (re-based to the call's row indices by :func:`rebase`
@@ -151,6 +151,10 @@ def publish(entries: List[QuarantinedRecord], policy: str,
     if len(entries) >= STORM:
         # metric-key: <op>.quarantine_storms
         metrics.inc(op + ".quarantine_storms")
-        metrics.mark("quarantine_storm")
-        # not ported: the storm's timeline event (ROADMAP.md (a) 8)
+        metrics.mark("quarantine_storm")  # the live /healthz bit
+        from . import timeline
+
+        timeline.event("quarantine.storm", severity="incident",
+                       attrs={"op": op, "entries": len(entries),
+                              "policy": policy})
         telemetry._flight_autodump("quarantine")

@@ -29,8 +29,9 @@ sampled subset of calls:
 SIGUSR2 (:func:`install_toggle_signal`, installed at import when
 ``PYRUHVRO_TPU_FLIGHT_DIR`` is set) flips it live.
 
-The port has no audit plane yet (``ROADMAP.md`` (a) 8): the reference's
-subtraction of an audit shadow's seconds reads 0 here and is left out.
+An audited call's shadow re-execution (:mod:`.audit`) runs inside the
+scope: its seconds (``audit.tls_shadow_seconds()``) are subtracted from
+the call's before they feed the per-feature EWMAs.
 """
 
 from __future__ import annotations
@@ -378,10 +379,14 @@ class call_scope:
         global _deep_calls, _pending_resample
         if self._nested or getattr(_tls, "deep", None) is None:
             return False
-        # no audit plane yet: the reference subtracts its shadow
-        # re-execution's seconds here (audit.tls_shadow_seconds(), 0
-        # until ROADMAP.md (a) 8)
-        dt = max(1e-9, time.perf_counter() - self._t0)
+        dt = time.perf_counter() - self._t0
+        # an audited call's shadow re-execution ran inside this scope:
+        # its wall seconds are the audit plane's tax, not the call's
+        # cost (non-destructive peek; the root span consumes the TLS
+        # for the SLO feed after this scope exits)
+        from . import audit
+
+        dt = max(1e-9, dt - audit.tls_shadow_seconds())
         sampled = self.sampled
         deep_ran = bool(getattr(_tls, "deep_ran", False))
         arm = getattr(_tls, "arm", None)

@@ -35,10 +35,10 @@ auto-dumps (``PYRUHVRO_TPU_FLIGHT_DIR``), the objective's
 ``PYRUHVRO_SLO_NAME``/``PYRUHVRO_SLO_BURN`` in its environment, through
 the ``slo_alert`` fault seam (a failure counts ``slo.alert_error`` and
 the call goes on). :func:`breached` lists the breached objectives, for
-the obs server's ``/healthz`` (``ROADMAP.md`` (a) 8). Recovery (shortest
+the obs server's ``/healthz`` (:mod:`.obs_server`). Recovery (shortest
 window back under threshold) clears the bit and counts
-``slo.recovered``. The breach and recovery timeline events wait for the
-timeline plane (``ROADMAP.md`` (a) 8).
+``slo.recovered``. A breach publishes an ``slo.breach`` incident event
+and a recovery an ``slo.recovered`` event on :mod:`.timeline`.
 """
 
 from __future__ import annotations
@@ -356,8 +356,10 @@ def _sweep() -> None:
 def _fire_transitions(fired: List[tuple], recovered: int) -> None:
     if recovered:
         metrics.inc("slo.recovered", float(recovered))
-        # not ported: the timeline's slo.recovered event (ROADMAP.md
-        # (a) 8)
+        from . import timeline
+
+        timeline.event("slo.recovered",
+                       attrs={"objectives": recovered})
     for o, stats in fired:
         _on_breach(o, stats)
 
@@ -367,9 +369,12 @@ def _on_breach(o: _Objective, stats: List[Dict[str, Any]]) -> None:
     # breached() list (which auto-recovers by time decay)
     metrics.inc("slo.breach")
     metrics.inc(f"slo.breach.{o.name}")
-    from . import telemetry
+    from . import telemetry, timeline
 
-    # not ported: the timeline's slo.breach event (ROADMAP.md (a) 8)
+    timeline.event("slo.breach", severity="incident",
+                   attrs={"objective": o.name,
+                          "burn_rate": (stats[0].get("burn_rate")
+                                        if stats else None)})
     telemetry.annotate(slo_breach=o.name)
     telemetry._flight_autodump("slo_breach")
     if o.alert_command:

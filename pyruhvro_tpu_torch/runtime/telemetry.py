@@ -6,7 +6,8 @@
 ``set_enabled``/``enabled``, ``reset``, ``snapshot``, ``prometheus``,
 ``perfetto_trace``, the ``PYRUHVRO_TPU_TRACE`` JSON-lines sink, the
 flight recorder (``flight_dump``, ``install_flight_signal``, the
-auto-dumps and their rotation), ``render_report`` and ``main``).
+auto-dumps and their rotation), the import-time start of the obs server
+and the timeline's tick thread, ``render_report`` and ``main``).
 
 Layered on the flat counters of :mod:`.metrics`, which stay the
 always-on base: each public API call opens a **root span** carrying the
@@ -20,14 +21,17 @@ spans and histograms and keeps the counters.
 Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
 with p50/p95/p99, the last root span trees, and a ``device`` section of
 launch registry and memory watermarks from :mod:`.device_obs`, and the
-``routing``, ``breakers``, ``drift``, ``slo`` and ``sampling`` sections
-of :mod:`.router`, :mod:`.breaker`, :mod:`.drift`, :mod:`.slo` and
-:mod:`.sampling`, and the flight recorder's ``flight_records``),
+``routing``, ``breakers``, ``drift``, ``slo``, ``sampling``, ``audit``
+and ``timeline`` sections of :mod:`.router`, :mod:`.breaker`,
+:mod:`.drift`, :mod:`.slo`, :mod:`.sampling`, :mod:`.audit` and
+:mod:`.timeline`, and the flight recorder's ``flight_records``),
 :func:`prometheus` (text exposition), :func:`perfetto_trace` (Chrome
 trace-event JSON), and ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON
 line per finished root span. ``python -m pyruhvro_tpu_torch.telemetry
-report|prom|perfetto|route-report|what-if|slo-report <snapshot.json>``
-renders a saved snapshot.
+report|prom|perfetto|route-report|what-if|slo-report|audit-report|
+timeline|incident-report <file>`` renders a saved snapshot (or an
+incident bundle), ``serve <file>`` serves it over HTTP; a file that is
+missing or not a snapshot exits 2.
 
 **The flight recorder** keeps the last ``PYRUHVRO_TPU_FLIGHT_N`` root
 spans (default 64; read again by :func:`reset`) and makes each a compact
@@ -41,13 +45,18 @@ directory as ``flight_<pid>_<seq>_<tag>.json``, at most one a second,
 keeping the newest ``PYRUHVRO_TPU_FLIGHT_MAX_FILES`` such files (default
 32, 0 = no limit; other files are never touched); a failed dump counts
 ``flight.dump_error`` and never fails the call. The same variable arms
-SIGUSR1 (a dump) and SIGUSR2 (deep sampling on or off,
-:func:`.sampling.install_toggle_signal`) at import; the obs server's
-half of that opt-in waits for ``ROADMAP.md`` (a) 8.
+SIGUSR1 (a dump) at import; it and ``PYRUHVRO_TPU_OBS_PORT`` arm
+SIGUSR2 (deep sampling on or off, :func:`.sampling.install_toggle_signal`).
+
+At import, ``PYRUHVRO_TPU_OBS_PORT`` starts the obs server
+(:func:`.obs_server.start_from_env`) and the timeline's tick thread
+starts (:func:`.timeline.ensure_started`; ``PYRUHVRO_TPU_NO_TIMELINE=1``
+keeps it parked).
 
 Every finished root span feeds the SLO engine (:func:`.slo.record_root`)
-with its seconds corrected for the deep sampler's tax
-(:func:`.sampling.consume_last_correction`).
+with its seconds less an audit shadow's
+(:func:`.audit.consume_shadow_seconds`) and corrected for the deep
+sampler's tax (:func:`.sampling.consume_last_correction`).
 
 Keys are ``component.event``; keys ending ``_s`` are seconds and get
 histograms, every other key is a count or a byte counter.
@@ -111,8 +120,8 @@ _BUCKET_BOUNDS: tuple = tuple(
 _MAX_SPANS = 64  # root spans retained for snapshot(); older ones are counted
 
 # the reference's snapshot shape version 3, without the sections of the
-# planes the port does not have yet: timeline, memory, audit and serving
-# (ROADMAP.md (a) 8)
+# planes the port does not have yet: memory and serving (ROADMAP.md (a)
+# 8.6 and 8.9)
 SNAPSHOT_SCHEMA_VERSION = 3
 
 
@@ -352,14 +361,17 @@ class root_span:
             _maybe_trace(s)
             # every finished API call is one good/bad/errored event for
             # the matching SLO objectives; a deep-sampled call feeds its
-            # comparable cost, so the sampler's tax trips no breach (the
-            # reference also subtracts an audit shadow's seconds, which
-            # waits for that plane, ROADMAP.md (a) 8)
+            # comparable cost, so the sampler's tax trips no breach, and
+            # an audit shadow that ran inside this root is the audit's
+            # time, not the caller's: subtracted (destructive consume)
+            # before the sampler's correction
+            from . import audit as _audit
             from . import sampling as _sampling
 
             slo.record_root(
                 s.name, s.attrs.get("schema"),
-                _sampling.consume_last_correction(s.dur_s),
+                _sampling.consume_last_correction(
+                    max(0.0, s.dur_s - _audit.consume_shadow_seconds())),
                 exc_type is not None)
             if exc_type is not None:
                 # a failed decode/encode leaves a replayable artifact
@@ -711,16 +723,31 @@ def install_flight_signal() -> bool:
     return True
 
 
-# operators who configure a dump directory get the SIGUSR1 dump and the
-# SIGUSR2 deep-sampling toggle without any code change; everyone else
-# pays nothing (no handler installed). The obs server's half of the
-# reference's opt-in (PYRUHVRO_TPU_OBS_PORT) and the timeline start wait
-# for their planes (ROADMAP.md (a) 8)
-if knobs.get_str("PYRUHVRO_TPU_FLIGHT_DIR"):
-    install_flight_signal()
+# operators who configure a dump directory get the SIGUSR1 dump without
+# any code change; everyone else pays nothing (no handler installed).
+# SIGUSR2 (toggle deep sampling live) rides the same opt-in, plus the
+# obs server's: both are incident-time controls.
+if (knobs.get_str("PYRUHVRO_TPU_FLIGHT_DIR")
+        or knobs.get_raw("PYRUHVRO_TPU_OBS_PORT")):
+    if knobs.get_str("PYRUHVRO_TPU_FLIGHT_DIR"):
+        install_flight_signal()
     from . import sampling as _sampling
 
     _sampling.install_toggle_signal()
+
+# the live obs server: opt-in through PYRUHVRO_TPU_OBS_PORT, started once
+# at import so a service gets /metrics and /healthz without a code change
+if knobs.get_raw("PYRUHVRO_TPU_OBS_PORT"):
+    from . import obs_server as _obs_server
+
+    _obs_server.start_from_env()
+
+# the timeline's tick thread is on by default (one registry copy per 10 s
+# interval), so every process keeps a history without a code change;
+# PYRUHVRO_TPU_NO_TIMELINE keeps it parked
+from . import timeline as _timeline  # noqa: E402
+
+_timeline.ensure_started()
 
 
 # ---------------------------------------------------------------------------
@@ -862,10 +889,13 @@ def reset() -> None:
     """Clear spans, histograms, the flight recorder (and re-arm its
     auto-dump rate limit), the device registry, the router (ledger,
     cost model, capacity plans), the sampler, the SLO engine, the
-    breakers, drift AND the flat counters (test isolation); closes an
-    open trace file. Unlike the reference's, it resets the breakers
-    too, whose tests do that on their own; the fault injector's
-    counters stay (``faults.reset()``), as in the reference."""
+    breakers, drift, the audit, the timeline (rings and baselines; its
+    clock re-armed), the incident debounce AND the flat counters (test
+    isolation); closes an open trace file. Unlike the reference's, it
+    resets the breakers too, whose tests do that on their own; the
+    fault injector's counters stay (``faults.reset()``), and the
+    timeline's thread and the obs server keep running, as in the
+    reference."""
     global _roots_seen, _trace_memo, _flight_last_auto, _flight
     with _lock:
         _hists.clear()
@@ -874,14 +904,18 @@ def reset() -> None:
         _roots_seen = 0
         _flight_last_auto = 0.0  # re-arm the auto-dump rate limiter
     _flight_dropped.reset()
-    from . import breaker, device_obs, drift, router, sampling
+    from . import (audit, breaker, device_obs, drift, incident, router,
+                   sampling, timeline)
 
     device_obs.reset()
     router.reset()
     sampling.reset()
     drift.reset()
+    audit.reset()
     slo.reset()
     breaker.reset()
+    timeline.reset()
+    incident.reset()
     with _trace_lock:
         if _trace_memo is not None:
             fh = _trace_memo[1]
@@ -903,8 +937,10 @@ def snapshot() -> Dict[str, Any]:
     recorded (:mod:`.device_obs`), ``routing`` (the ledger and the cost
     model) once a call was routed, ``slo`` with an SLO file set,
     ``sampling`` once the sampler ran, ``drift`` once the detector saw a
-    call, ``breakers`` once a breaker was touched, and ``gauges`` when
-    any was set; ``flight_records`` counts the flight recorder's ring."""
+    call, ``audit`` once the audit saw a call, ``breakers`` once a
+    breaker was touched, ``timeline`` after its first tick or event,
+    and ``gauges`` when any was set; ``flight_records`` counts the
+    flight recorder's ring."""
     # rotation drops deferred from signal context surface on the next
     # export even if no further rotation ever runs
     _flight_dropped.flush()
@@ -922,7 +958,8 @@ def snapshot() -> Dict[str, Any]:
         "spans_dropped": dropped,
         "flight_records": flight_n,
     }
-    from . import breaker, device_obs, drift, router, sampling
+    from . import audit, breaker, device_obs, drift, router, sampling
+    from . import timeline
 
     dev = device_obs.snapshot()
     if dev:
@@ -939,11 +976,17 @@ def snapshot() -> Dict[str, Any]:
     dr = drift.snapshot_drift()
     if dr:
         out["drift"] = dr
+    aud = audit.snapshot_audit()
+    if aud:
+        out["audit"] = aud
     brs = breaker.snapshot_breakers()
     if brs:
         out["breakers"] = brs
-    # not ported: the audit, memory, serving and timeline sections
-    # (ROADMAP.md (a) 8)
+    # not ported: the memory and serving sections (ROADMAP.md (a) 8.6,
+    # 8.9)
+    tl = timeline.snapshot_timeline()
+    if tl:
+        out["timeline"] = tl
     g = metrics.gauges()
     if g:
         out["gauges"] = g
@@ -1289,10 +1332,9 @@ def _render_span(s: Dict[str, Any], indent: int, out: List[str]) -> None:
 def render_report(data: Dict[str, Any]) -> str:
     """Phase-breakdown table from a :func:`snapshot` dict, with the
     native profiler's per-opcode tables, the device tier, routing, SLO,
-    deep-sampling and drift sections. Not ported: the reference's
+    deep-sampling, drift and audit sections. Not ported: the reference's
     ``BENCH_DETAILS.json`` branch (the port has no bench yet) and the
-    memory and audit sections, whose planes wait for ``ROADMAP.md``
-    (a) 8."""
+    memory section, whose plane waits for ``ROADMAP.md`` (a) 8.6."""
     out: List[str] = []
     counters = data.get("counters", {})
     hists = data.get("histograms", {})
@@ -1359,6 +1401,14 @@ def render_report(data: Dict[str, Any]) -> str:
                 f"band={e.get('band', '?')} {e.get('arm')}: "
                 f"{e.get('detections')} detection(s), "
                 f"fast/slow={e.get('ratio')}")
+    aud = data.get("audit") or {}
+    if aud:
+        out += ["", "== differential audit =="]
+        out.append(
+            f"audited {aud.get('audited', 0)}/{aud.get('calls', 0)}"
+            f" call(s), {aud.get('mismatches', 0)} mismatch(es), "
+            f"coverage {(aud.get('coverage') or 0) * 100:.3f}% — "
+            "render with the audit-report subcommand")
     other = {k: v for k, v in counters.items()
              if not k.endswith("_s")
              and not k.startswith(("route.", "router."))
@@ -1384,8 +1434,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     trace-event timeline), ``route-report <file>`` (the routing ledger
     and the learned cost model), ``what-if <file>`` (the ledger replayed:
     where another arm would have won), ``slo-report <file>`` (objectives,
-    burn rates and breaches). ``<file>`` is a JSON dict saved from
-    :func:`snapshot`."""
+    burn rates and breaches), ``audit-report <file>`` (the audit's
+    coverage, mismatches and exported digests), ``timeline <file>
+    [--json]`` (the time-bucketed history), ``incident-report <file>``
+    (an incident bundle's post-mortem, or a snapshot's timeline) and
+    ``serve <file> [--port N]`` (a saved snapshot over HTTP). ``<file>``
+    is a JSON dict saved from :func:`snapshot` (or an incident bundle).
+    A file that cannot be read, is not JSON or is not a snapshot exits 2
+    with the problem named on stderr, as in the reference (the
+    reference's ``fleet``, ``diff``, ``knobs``, ``mem-report`` and
+    ``serve-report`` wait for their planes, ``ROADMAP.md`` (a) 8)."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -1420,29 +1478,156 @@ def main(argv: Optional[List[str]] = None) -> int:
         "slo-report", help="SLO objectives, burn rates and breach "
                            "state from a snapshot JSON")
     p_slo.add_argument("path")
+    p_audit = sub.add_parser(
+        "audit-report", help="differential-audit coverage, mismatch "
+                             "records and exported result digests "
+                             "from a snapshot JSON")
+    p_audit.add_argument("path")
+    p_tl = sub.add_parser(
+        "timeline", help="time-bucketed history from a snapshot JSON: "
+                         "per-interval counter deltas and histogram "
+                         "quantiles with state-transition events "
+                         "interleaved at their position in time")
+    p_tl.add_argument("path")
+    p_tl.add_argument("--json", action="store_true",
+                      help="emit the raw timeline section instead of "
+                           "the text rendering")
+    p_inc = sub.add_parser(
+        "incident-report", help="post-mortem rendering of an "
+                                "auto-captured incident bundle (also "
+                                "accepts a plain snapshot: renders its "
+                                "timeline section)")
+    p_inc.add_argument("path")
+    p_serve = sub.add_parser(
+        "serve", help="serve a SAVED snapshot over HTTP (/metrics "
+                      "/healthz /snapshot) — point dashboards at a "
+                      "post-mortem file; live services use "
+                      "PYRUHVRO_TPU_OBS_PORT instead")
+    p_serve.add_argument("path")
+    p_serve.add_argument("--port", type=int, default=0,
+                         help="bind port (default 0 = any free port)")
+    p_serve.add_argument("--host", default="127.0.0.1")
     args = ap.parse_args(argv)
-    with open(args.path, encoding="utf-8") as f:
-        snap = json.load(f)
-    if not isinstance(snap, dict):
-        ap.error(f"{args.path} holds a JSON {type(snap).__name__}, not a "
-                 f"snapshot dict")
-    if args.cmd == "report":
-        sys.stdout.write(render_report(snap))
-    elif args.cmd in ("route-report", "what-if"):
+
+    def _usage_error(msg: str) -> int:
+        # a missing or malformed snapshot is an operator mistake, not a
+        # crash: name the problem, show the usage, exit 2
+        print(f"error: {msg}", file=sys.stderr)
+        ap.print_usage(sys.stderr)
+        print("hint: <file> is a JSON dict saved from "
+              "telemetry.snapshot() (or an incident bundle)",
+              file=sys.stderr)
+        return 2
+
+    def _needs(keys, what: str) -> Optional[int]:
+        if keys & set(data):
+            return None
+        return _usage_error(f"not a telemetry snapshot (expected {what} "
+                            "keys)")
+
+    try:
+        with open(args.path, encoding="utf-8") as f:
+            data = json.load(f)
+    except OSError as e:
+        return _usage_error(f"cannot read {args.path}: {e}")
+    except ValueError as e:
+        return _usage_error(f"{args.path} is not valid JSON: {e}")
+    if not isinstance(data, dict):
+        return _usage_error(
+            f"{args.path} holds a JSON {type(data).__name__}, not a "
+            "snapshot object")
+    ver = data.get("schema_version")
+    if isinstance(ver, (int, float)) and ver > SNAPSHOT_SCHEMA_VERSION:
+        # a snapshot from a newer build renders best-effort
+        print(f"note: snapshot schema_version {ver:g} is newer than "
+              f"this CLI ({SNAPSHOT_SCHEMA_VERSION}); rendering "
+              "best-effort", file=sys.stderr)
+    if args.cmd in ("route-report", "what-if"):
+        bad = _needs({"routing", "counters", "histograms"},
+                     "'routing'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
         from . import router
 
         render = (router.render_route_report if args.cmd == "route-report"
                   else router.render_what_if)
-        sys.stdout.write(render(snap))
+        sys.stdout.write(render(data))
     elif args.cmd == "slo-report":
-        sys.stdout.write(slo.render_slo_report(snap))
-    elif args.cmd == "prom":
-        sys.stdout.write(prometheus(snap, exemplars=args.exemplars))
-    else:
-        doc = json.dumps(perfetto_trace(snap))
+        bad = _needs({"slo", "counters", "histograms"},
+                     "'slo'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        sys.stdout.write(slo.render_slo_report(data))
+    elif args.cmd == "audit-report":
+        bad = _needs({"audit", "counters", "histograms"},
+                     "'audit'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        from . import audit as _audit
+
+        sys.stdout.write(_audit.render_audit_report(data))
+        sys.stdout.write("\n")
+    elif args.cmd == "timeline":
+        bad = _needs({"timeline", "counters", "histograms"},
+                     "'timeline'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        # a snapshot without a timeline section renders a note
+        from . import timeline as _tl
+
+        if args.json:
+            json.dump(data.get("timeline") or {}, sys.stdout, indent=1,
+                      default=str)
+            sys.stdout.write("\n")
+        else:
+            sys.stdout.write(_tl.render_timeline(data))
+    elif args.cmd == "incident-report":
+        if not ({"timeline", "trigger", "counters", "histograms"}
+                & set(data)):
+            return _usage_error(
+                "not an incident bundle or telemetry snapshot "
+                "(expected 'trigger'/'timeline'/'counters'/"
+                "'histograms' keys)")
+        from . import incident as _incident
+
+        sys.stdout.write(_incident.render_incident_report(data))
+    elif args.cmd == "serve":
+        bad = _needs({"counters", "histograms", "spans"},
+                     "'counters'/'histograms'/'spans'")
+        if bad is not None:
+            return bad
+        from . import obs_server
+
+        srv = obs_server.ObsServer(port=args.port, host=args.host,
+                                   snapshot=data)
+        print(f"serving {args.path} on {srv.url} "
+              "(/metrics /healthz /snapshot) — Ctrl-C to stop",
+              file=sys.stderr, flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            srv.stop()
+    elif args.cmd == "report":
+        bad = _needs({"counters", "histograms"}, "'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        sys.stdout.write(render_report(data))
+    elif args.cmd == "perfetto":
+        bad = _needs({"spans", "counters", "histograms"},
+                     "'spans'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        doc = json.dumps(perfetto_trace(data))
         if args.out:
             with open(args.out, "w", encoding="utf-8") as f:
                 f.write(doc)
         else:
             sys.stdout.write(doc + "\n")
+    else:
+        bad = _needs({"counters", "histograms"}, "'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        sys.stdout.write(prometheus(data, exemplars=args.exemplars))
     return 0

@@ -34,9 +34,10 @@ one row in 100 replaced by ``b"\\x01"``, ``on_error="skip"``) and path 5
   ``device.launch_s`` per kernel kind for a call without the profiler
   and for the profiled call itself.
 
-* **seams**: the per-call work of the fault, sampling, SLO and flight
-  seams in this tree: how often each runs in one path 5 call, and its
-  microseconds alone, each over a loop of 100,000.
+* **seams**: the per-call work of the fault, sampling, SLO, flight and
+  audit seams in this tree: how often each runs in one path 5 call, and
+  its microseconds alone, each over a loop of 100,000; beside them a
+  timeline event's microseconds (one per state change, not per call).
 
 ``--cases`` picks the cases of A/B and on/off. ``--aa DIR`` adds a third
 worker on a second copy of the parent to the A/B turns, so that one call
@@ -213,11 +214,12 @@ def kernels():
 
 
 def seams():
-    """The per-call work of the fault, sampling, SLO and flight seams in
-    one path 5 call: how often each runs (``faults.fire`` counted by
-    site through one call), and its microseconds alone, over a loop."""
-    from pyruhvro_tpu_torch.runtime import (device_obs, faults, knobs,
-                                            sampling, slo)
+    """The per-call work of the fault, sampling, SLO, flight and audit
+    seams in one path 5 call: how often each runs (``faults.fire``
+    counted by site through one call), and its microseconds alone, over
+    a loop; and a timeline event's microseconds."""
+    from pyruhvro_tpu_torch.runtime import (audit, device_obs, faults, knobs,
+                                            router, sampling, slo, timeline)
     fired = {}
     fire = faults.fire
 
@@ -243,6 +245,20 @@ def seams():
         with sampling.call_scope("encode", schema, rows):
             pass
 
+    entry = port.api.get_or_parse_schema(schema)
+    dec = router.RouteDecision(
+        tier="device", impl=None, reason="backend_device", pool="none",
+        arm="device/c8/none", mode="static", explore=False, autotune=False,
+        schema=entry.fingerprint, op="encode", band=6, rows=rows, chunks=8,
+        predicted={})
+    # an audit tally that does not audit: the period far past the loop
+    audit.reset()
+    audit._period = 1 << 40
+    never = lambda: []  # noqa: E731
+
+    def tally():
+        audit.maybe_audit(dec, "encode", expected=never, shadow=never)
+
     got = {
         "fired": fired,
         "root_children": len(root.children),
@@ -254,7 +270,12 @@ def seams():
         "slo_record_root_us": us(lambda: slo.record_root(
             root.name, schema, 0.5, False)),
         "flight_record_us": us(lambda: telemetry._flight_record(root)),
+        "audit_tally_us": us(tally),
+        "timeline_event_us": us(lambda: timeline.event(
+            "seam.probe", attrs={"k": 1})),
     }
+    audit.reset()
+    timeline.reset()
     sampling.reset()
     return got
 
@@ -408,7 +429,8 @@ def main(argv=None) -> int:
             sm = out["seams"] = workers["this"].ask(mode="seams")
             launches = sm["fired"].get("device_launch", 0)
             per_call = (launches * (sm["fire_us"] + sm["sync_mode_us"])
-                        + sm["call_scope_us"] + sm["slo_record_root_us"])
+                        + sm["call_scope_us"] + sm["slo_record_root_us"]
+                        + sm.get("audit_tally_us", 0.0))
             print(f"seams path5: per call {sm['fired']} fault seams, "
                   f"{sm['root_children']} child spans; us each: "
                   f"faults.fire {sm['fire_us']:.3f}, the sync knob "
@@ -416,8 +438,11 @@ def main(argv=None) -> int:
                   f"{sm['sync_mode_us']:.3f}, call_scope "
                   f"{sm['call_scope_us']:.3f}, slo.record_root "
                   f"{sm['slo_record_root_us']:.3f}, a flight record (read "
-                  f"time) {sm['flight_record_us']:.3f}; at most "
-                  f"{per_call:.1f} us a call {card}", flush=True)
+                  f"time) {sm['flight_record_us']:.3f}, the audit's "
+                  f"tally {sm.get('audit_tally_us', float('nan')):.3f}; at "
+                  f"most {per_call:.1f} us a call; a timeline event "
+                  f"{sm.get('timeline_event_us', float('nan')):.3f} us "
+                  f"{card}", flush=True)
         this = workers["this"]
         for case in cases if "onoff" in sections else ():
             legs = {"on": [], "off": []}

@@ -281,7 +281,12 @@ def test_import_leaves_jax_and_the_reference_out():
         "pyruhvro_tpu_torch.ops.walk_decode, pyruhvro_tpu_torch.ops.decode, "
         "pyruhvro_tpu_torch.ops.codec, pyruhvro_tpu_torch.ops.encode, "
         "pyruhvro_tpu_torch.ops.encode_extract, "
-        "pyruhvro_tpu_torch.ops._build, pyruhvro_tpu_torch.utils.datagen\n"
+        "pyruhvro_tpu_torch.ops._build, pyruhvro_tpu_torch.utils.datagen, "
+        "pyruhvro_tpu_torch.runtime.timeline, "
+        "pyruhvro_tpu_torch.runtime.incident, "
+        "pyruhvro_tpu_torch.runtime.audit, "
+        "pyruhvro_tpu_torch.runtime.coldigest, "
+        "pyruhvro_tpu_torch.runtime.obs_server\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"
         "print(','.join(bad))\n"
