@@ -133,10 +133,22 @@ exits non-zero before the last line:
    a plain one in turns, with the sampler's overhead estimate; L1 an SLO breached by
    the card's calls, its flight dump holding the device launches'
    spans, its ``alert_command`` run;
-9. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
-   ``{"multichip": ...}``, ``{"planes": ...}``, ``{"paths": ...}`` and
-   ``{"kernels": [...]}`` JSON lines (K5 as ``sharded_fanout``), then
-   ``{"ok": true, "device": {...}}`` as the last line.
+9. the ``incident`` phase (:func:`incident_phase`, A1-A3, O1, I1, T1):
+   the audit shadow of the card's decode and encode, a planted byte, the
+   obs server, one incident bundle, the timeline's deltas;
+10. the ``memory`` phase (:func:`memory_phase`, G1-G6): the memory
+   accounting's planes at path 1's size against the card's allocator,
+   the phase's arenas and buckets evicted (``memory_allocated`` falls by
+   the arenas' card bytes; the next call launches them first again and
+   is equal), a pressure relief (``/healthz`` 503, RSS and the
+   allocators before and after), three tenants' decodes and encodes,
+   ``/memory`` and ``mem-report``, the OTLP export of those calls and
+   the fleet merge and diff;
+11. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
+   ``{"multichip": ...}``, ``{"planes": ...}``, ``{"incident": ...}``,
+   ``{"memory": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}``
+   JSON lines (K5 as ``sharded_fanout``), then ``{"ok": true, "device":
+   {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -166,6 +178,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 POLICY_EVERY = 100          # P1: one row in every 100 poisoned with b"\x01"
 POLICY_HOST_ROWS = 10_000   # P4: records through the host oracle
 POLICY_ENCODE_ROWS = 65_536  # P5: rows of the encode bisect
+POLICY_WARM_CALLS = 2       # P1: warm calls (fewer than WARM_CALLS: time)
 
 LADDER_SCHEMA = """{"type":"record","name":"Big","fields":[
   {"name":"xs","type":{"type":"array","items":"long"}}]}"""
@@ -888,6 +901,442 @@ def queued_ms(torch, fn, repeats: int, prepare=None) -> float:
         if i:
             best = min(best, start.elapsed_time(end))
     return best
+
+
+MEMORY_ROWS = 100_000       # G4-G6: Kafka records per tenant call
+MEMORY_TENANTS = ("t-alpha", "t-beta", "t-gamma")
+MEMORY_TP = "00-" + "5d" * 16 + "-" + "a1" * 8 + "-01"
+
+
+def round512(n: int) -> int:
+    """A request's size rounded as PyTorch's caching allocator rounds it
+    first: at least 512 bytes, a multiple of 512."""
+    return max(512, -(-n // 512) * 512)
+
+
+def block_sizes(torch, tensors):
+    """The caching allocator's own block size of each tensor (its
+    ``memory_snapshot()`` block at the tensor's address): what
+    ``memory_allocated`` counts for it. A large request takes a whole new
+    segment, rounded to 2 MiB, when the rest would be under 1 MiB."""
+    blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"}
+    return [blocks.get(t.data_ptr()) for t in tensors]
+
+
+def memory_phase(api, pa, torch, dm, em, data, schema, card):
+    """Memory accounting, the cache lifecycle, ``tenant=``, the OTLP
+    exporter and the fleet merge against the card's decode and encode,
+    under a schema string of its own (sticky caps after R5), from
+    ``telemetry.reset()``:
+
+    * G1: a cold and a warm ``deserialize_array_threaded`` of path 1's
+      records (8 chunks, R = 131,072), then ``snapshot_memory()``: every
+      plane's bytes and items, ``tracked_bytes`` against ``rss_bytes``,
+      the arenas' card bytes against ``torch.cuda.memory_allocated``
+      before the cold call and after the warm one;
+    * G2: an arena whose ``consumed`` event waits behind a spin kernel
+      is not evicted (``device.arena.evict_busy``); then the phase
+      decoder's arenas and buckets evicted through the hooks
+      registered with ``cachelife``: ``memory_allocated`` falls by the
+      arenas' card blocks as the allocator sized them (:func:`block_sizes`;
+      beside their bytes rounded to 512 B); RSS before and after
+      (the pinned blocks stay in PyTorch's host cache); the next call
+      launches its buckets as first launches and is equal to the call
+      before the eviction;
+    * G3: ``PYRUHVRO_TPU_MEM_HIGH_WATER=1`` and ``force_pressure_check()``:
+      ``mem.pressure``, ``cache.evict.*.pressure`` and one allocator
+      release counted, ``/healthz`` 503 with ``mem_pressure``; RSS,
+      ``memory_allocated`` and ``memory_reserved`` before and after; the
+      next call equal;
+    * G4: decode and encode of ``MEMORY_ROWS`` records under each of
+      ``MEMORY_TENANTS``: the sketch's rows, ``tenant`` on each root span,
+      ``/memory`` equal to ``snapshot_memory()`` on the same state, and
+      ``mem-report`` of the saved snapshot naming the tenants;
+    * G5: the OTLP exporter on a collector stub in this process over G4's
+      calls: every span under the caller's trace id, the
+      ``device.launch_s`` histogram with an exemplar;
+    * G6: the obs server's live snapshot merged with a saved copy of
+      itself (every counter exactly twice), and the diff of the phase's
+      first and last snapshots naming the phase's counters.
+
+    Every failure exits non-zero. Returns the phase's figures."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from pyruhvro_tpu_torch.ops.codec import get_device_codec
+    from pyruhvro_tpu_torch.runtime import (cachelife, device_obs, fleet,
+                                            memacct, metrics, obs_server,
+                                            otel, telemetry)
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    doc = json.loads(schema)
+    doc["doc"] = "memory phase"
+    schema = json.dumps(doc)
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    enc = {"encode_rows": em.encode_kernel.rows,
+           "encode_strings": em.encode_kernel.strings}
+    out = {}
+    telemetry.reset()
+    first = json.loads(json.dumps(telemetry.snapshot(), default=str))
+
+    def mem_now():
+        torch.cuda.synchronize()
+        return {"rss": memacct.rss_bytes(),
+                "allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved()}
+
+    def call(rows=data, **kw):
+        return api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS, **kw)
+
+    # G1: the probes at path 1's size
+    m0 = mem_now()
+    t0 = time.perf_counter()
+    call()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = call()
+    warm_s = time.perf_counter() - t0
+    m1 = mem_now()
+    dec = get_device_codec(get_or_parse_schema(schema), DEVICE).decoder
+    arenas = dict(dec._arenas)
+    card_bytes = [a.dev.nbytes for a in arenas.values()]
+    host_bytes = [a.host_t.nbytes for a in arenas.values()]
+    words = [a.dev.numel() for a in arenas.values()]
+    memacct.collect(force=True)  # not the phase start's memoized walk
+    snap = memacct.snapshot_memory()
+    caches = snap["caches"]
+    planes = {k: {kk: v.get(kk) for kk in ("bytes", "items", "device_bytes")
+                  if kk in v} for k, v in caches.items()}
+    missing = {"cache.schema", "cache.executables", "cache.arenas",
+               "cache.kernels", "capacity", "routing", "rings"} - set(caches)
+    if missing or len(arenas) != 2 or \
+            caches["cache.kernels"]["items"] < 3 or \
+            caches["cache.arenas"]["device_bytes"] < sum(card_bytes) or \
+            m1["allocated"] - m0["allocated"] < sum(card_bytes):
+        raise SystemExit(f"memory G1: planes {planes} (missing {missing}), "
+                         f"the phase's arenas {len(arenas)} of card bytes "
+                         f"{card_bytes}; memory_allocated {m0['allocated']}"
+                         f" -> {m1['allocated']}")
+    out["G1"] = {"cold_s": cold_s, "warm_s": warm_s, "planes": planes,
+                 "tracked_bytes": snap["tracked_bytes"],
+                 "rss_bytes": snap["rss_bytes"],
+                 "arena_keys": [list(k[:3]) for k in arenas],
+                 "arena_words": words, "arena_card_bytes": card_bytes,
+                 "arena_host_bytes": host_bytes, "before": m0, "after": m1,
+                 "devices": snap.get("devices")}
+    print(f"memory G1: deserialize_array_threaded({len(data)} records, "
+          f"{MAIN_CHUNKS}) cold {cold_s:.3f} s, warm {warm_s:.3f} s; the "
+          f"phase decoder's {len(arenas)} arenas {words} int32 words, "
+          f"{sum(host_bytes):,} pinned host bytes and {sum(card_bytes):,} "
+          f"card bytes; memory_allocated {m0['allocated']:,} -> "
+          f"{m1['allocated']:,} (+{m1['allocated'] - m0['allocated']:,}), "
+          f"reserved {m1['reserved']:,}; planes (bytes, items) "
+          + ", ".join(f"{k} {v.get('bytes'):,.0f} / {v.get('items')}"
+                      for k, v in planes.items())
+          + f"; tracked {snap['tracked_bytes']:,} of rss "
+          f"{snap['rss_bytes']:,} "
+          f"({snap['tracked_bytes'] / snap['rss_bytes'] * 100:.2f} %) "
+          f"{card}")
+
+    # G2: the phase's arenas and buckets evicted through cachelife's hooks
+    managed = cachelife._caches
+    fp = get_or_parse_schema(schema).fingerprint
+    arena_keys = [k for k, _t, _b in managed["arenas"].entries()
+                  if k[0] == id(dec)]
+    exe_keys = [k for k, _t, _b in managed["executables"].entries()
+                if k.startswith(fp + "|")]
+    buckets = set(dec._launched)
+    # an arena whose launch is still running on the card stays: its
+    # ``consumed`` event recorded behind a spin kernel
+    arena = dec._arenas[arena_keys[0][1]]
+    done = arena.consumed
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    arena.consumed = torch.cuda.Event()
+    arena.consumed.record()
+    busy0 = metrics.snapshot().get("device.arena.evict_busy", 0)
+    kept = not managed["arenas"].evict(arena_keys[0]) and \
+        dec._arenas.get(arena_keys[0][1]) is arena
+    busy = metrics.snapshot().get("device.arena.evict_busy", 0) - busy0
+    torch.cuda.synchronize()
+    arena.consumed = done
+    if not kept or busy != 1:
+        raise SystemExit(f"memory G2: an arena whose launch was running "
+                         f"was evicted (kept {kept}, evict_busy {busy})")
+    del arena, done
+    gc.collect()  # garbage of earlier phases is not the eviction's
+    blocks = block_sizes(torch, [a.dev for a in arenas.values()])
+    m2 = mem_now()
+    evicted_arenas = sum(managed["arenas"].evict(k) for k in arena_keys)
+    evicted_buckets = sum(managed["executables"].evict(k) for k in exe_keys)
+    del arenas  # the phase's own references; the decoder dropped its own
+    m3 = mem_now()
+    rounded = sum(round512(b) for b in card_bytes)
+    drop = m2["allocated"] - m3["allocated"]
+    if evicted_arenas != 2 or not evicted_buckets or dec._launched or \
+            None in blocks or drop != sum(blocks):
+        raise SystemExit(f"memory G2: evicted {evicted_arenas} arenas and "
+                         f"{evicted_buckets} buckets (launched left "
+                         f"{dec._launched}); memory_allocated fell by "
+                         f"{drop:,}, not the arenas' blocks {blocks} "
+                         f"(their bytes rounded to 512: {rounded:,})")
+    c0 = metrics.snapshot()
+    zero(pipe)
+    t0 = time.perf_counter()
+    got = call()
+    again_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in pipe.items()}
+    c1 = metrics.snapshot()
+    misses = c1.get("device.jit_cache.misses", 0) - \
+        c0.get("device.jit_cache.misses", 0)
+    if misses < 1 or not dec._launched or min(launches.values()) < 1:
+        raise SystemExit(f"memory G2: the next call counted {misses} first "
+                         f"launches, launched {launches}")
+    same_columns("memory G2", got, before)
+    del got
+    out["G2"] = {"evicted_arenas": evicted_arenas,
+                 "evicted_buckets": evicted_buckets,
+                 "busy_kept": kept, "allocated_drop": drop,
+                 "blocks": blocks,
+                 "rounded_512": rounded,
+                 "before": m2, "after": m3,
+                 "rss_change": m3["rss"] - m2["rss"],
+                 "first_launches": misses, "launches": launches,
+                 "next_call_s": again_s,
+                 "buckets_before": len(buckets),
+                 "buckets_after": len(dec._launched)}
+    print(f"memory G2: an arena whose launch was still running on the "
+          f"card was kept (device.arena.evict_busy {busy:.0f}); then "
+          f"{evicted_arenas} arenas and {evicted_buckets} "
+          f"buckets evicted through cachelife: memory_allocated fell by "
+          f"{drop:,} bytes, the arenas' blocks {blocks} as the allocator "
+          f"sized them (their bytes rounded to 512: {rounded:,}), "
+          f"reserved {m2['reserved']:,} -> "
+          f"{m3['reserved']:,}, RSS {m2['rss']:,} -> {m3['rss']:,} "
+          f"({m3['rss'] - m2['rss']:+,}); the next call {again_s:.3f} s "
+          f"counted {misses:.0f} first launches, launched {launches}, "
+          f"equal to the call before {card}")
+
+    # G3: pressure
+    srv = obs_server.ObsServer(port=0).start()
+    col = None
+    tmp = tempfile.mkdtemp(prefix="pyruhvro-memory-")
+    try:
+        os.environ["PYRUHVRO_TPU_MEM_HIGH_WATER"] = "1"
+        c0 = metrics.snapshot()
+        m4 = mem_now()
+        t0 = time.perf_counter()
+        try:
+            memacct.force_pressure_check()
+        finally:
+            os.environ.pop("PYRUHVRO_TPU_MEM_HIGH_WATER")
+        relief_s = time.perf_counter() - t0
+        m5 = mem_now()
+        c1 = metrics.snapshot()
+        delta = {k: c1[k] - c0.get(k, 0) for k in c1
+                 if k.startswith(("mem.", "cache.evict.", "device.arena.",
+                                  "device.jit_cache.", "schema_cache."))
+                 and c1[k] != c0.get(k, 0)}
+        code, body = http_get(srv.url + "/healthz")
+        health = json.loads(body)
+        evicted = {k: v for k, v in delta.items()
+                   if k.startswith("cache.evict.") and k.endswith(".pressure")}
+        if delta.get("mem.pressure") != 1 or not evicted or \
+                delta.get("mem.allocator_release") != 1 or code != 503 or \
+                not health["unhealthy_bits"]["mem_pressure"]:
+            raise SystemExit(f"memory G3: counters {delta}, /healthz {code} "
+                             f"{health.get('unhealthy_bits')}")
+        zero(pipe)
+        t0 = time.perf_counter()
+        got = call()
+        again3_s = time.perf_counter() - t0
+        launches3 = launched("memory G3", pipe)
+        same_columns("memory G3", got, before)
+        del got, before
+        out["G3"] = {"counters": delta, "before": m4, "after": m5,
+                     "rss_change": m5["rss"] - m4["rss"],
+                     "allocated_change": m5["allocated"] - m4["allocated"],
+                     "reserved_change": m5["reserved"] - m4["reserved"],
+                     "relief_s": relief_s, "healthz": code,
+                     "next_call_s": again3_s, "launches": launches3}
+        print(f"memory G3: PYRUHVRO_TPU_MEM_HIGH_WATER=1, one pressure pass "
+              f"in {relief_s:.3f} s evicted {evicted}; RSS {m4['rss']:,} -> "
+              f"{m5['rss']:,} ({m5['rss'] - m4['rss']:+,}), "
+              f"memory_allocated {m4['allocated']:,} -> "
+              f"{m5['allocated']:,}, reserved {m4['reserved']:,} -> "
+              f"{m5['reserved']:,}; /healthz 503 with mem_pressure; the "
+              f"next call {again3_s:.3f} s launched {launches3}, equal "
+              f"{card}")
+
+        # G4 and G5: three tenants' card calls, exported over OTLP
+        reqs = []
+
+        class Stub(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                reqs.append((self.path, json.loads(self.rfile.read(n))))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        col = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+        threading.Thread(target=col.serve_forever, daemon=True).start()
+        otel.start(f"http://127.0.0.1:{col.server_address[1]}",
+                   interval_s=3600)
+        rows = data[:MEMORY_ROWS]
+        zero(pipe)
+        zero(enc)
+        t0 = time.perf_counter()
+        for tenant in MEMORY_TENANTS:
+            batches = call(rows, tenant=tenant, trace_ctx=MEMORY_TP)
+            arrays = api.serialize_record_batch(
+                pa.Table.from_batches(batches), schema, MAIN_CHUNKS,
+                tenant=tenant, trace_ctx=MEMORY_TP)
+            if [d for a in arrays for d in a.to_pylist()] != list(rows):
+                raise SystemExit(f"memory G4: {tenant}'s wire is not the "
+                                 f"input")
+        tenants_s = time.perf_counter() - t0
+        launches4 = {**launched("memory G4", pipe),
+                     **launched("memory G4", enc)}
+        sketch = {r["tenant"]: r for r in memacct.tenant_hotlist()
+                  if r["schema"] == fp}
+        roots = [s.to_dict() for s in
+                 list(telemetry._spans)[-2 * len(MEMORY_TENANTS):]]
+        span_tenants = [s["attrs"].get("tenant") for s in roots]
+        bad = [t for t in MEMORY_TENANTS
+               if sketch.get(t, {}).get("calls") != 2
+               or sketch[t].get("decode_calls") != 1
+               or sketch[t].get("encode_calls") != 1
+               or sketch[t].get("rows") != 2 * len(rows)]
+        if bad or span_tenants != [t for t in MEMORY_TENANTS
+                                   for _ in range(2)]:
+            raise SystemExit(f"memory G4: sketch {sketch}, the root spans' "
+                             f"tenants {span_tenants}")
+        ttl = memacct._COLLECT_TTL_S
+        memacct._COLLECT_TTL_S = 1e9  # one probe walk serves both reads
+        try:
+            mem = json.loads(json.dumps(memacct.snapshot_memory()))
+            code, body = http_get(srv.url + "/memory")
+            scraped = json.loads(body)
+            mem2 = json.loads(json.dumps(memacct.snapshot_memory()))
+        finally:
+            memacct._COLLECT_TTL_S = ttl
+        peaks = (mem.pop("peak_rss_bytes"), scraped.pop("peak_rss_bytes"),
+                 mem2.pop("peak_rss_bytes"))
+        if code != 200 or scraped != mem or mem2 != mem or \
+                not peaks[0] <= peaks[1] <= peaks[2]:
+            raise SystemExit(f"memory G4: /memory {code} differs from "
+                             f"snapshot_memory() on the same state")
+        saved = telemetry.snapshot()
+        path = os.path.join(tmp, "snapshot.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(saved, f, default=str)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = telemetry.main(["mem-report", path])
+        report = text.getvalue()
+        if rc != 0 or not all(t in report for t in MEMORY_TENANTS) or \
+                "cache.arenas" not in report:
+            raise SystemExit(f"memory G4: mem-report exit {rc}:\n{report}")
+        out["G4"] = {"sketch": sketch, "calls_s": tenants_s,
+                     "launches": launches4, "memory_endpoint": code,
+                     "report_lines": len(report.splitlines())}
+        print(f"memory G4: {len(MEMORY_TENANTS)} tenants, each a decode "
+              f"and an encode of {len(rows)} records on the card in "
+              f"{tenants_s:.3f} s (launches {launches4}): the sketch's rows "
+              + ", ".join(f"{t} {sketch[t]['calls']} calls / "
+                          f"{sketch[t]['rows']} rows / "
+                          f"{sketch[t]['bytes']:,} B"
+                          for t in MEMORY_TENANTS)
+              + f"; tenant on each root span; /memory equal to "
+              f"snapshot_memory(); mem-report ({len(report.splitlines())} "
+              f"lines) names them")
+        print(report.rstrip())
+
+        otel.stop()  # the final flush
+        spans = [s for p_, b in reqs if p_.endswith("/v1/traces")
+                 for rs in b["resourceSpans"] for ss in rs["scopeSpans"]
+                 for s in ss["spans"]]
+        mets = {m["name"]: m for p_, b in reqs if p_.endswith("/v1/metrics")
+                for rm in b["resourceMetrics"] for sm in rm["scopeMetrics"]
+                for m in sm["metrics"]}
+        trace_id = MEMORY_TP.split("-")[1]
+        names = sorted({s["name"] for s in spans})
+        launch = mets.get("device.launch_s", {}).get("histogram", {}).get(
+            "dataPoints", [{}])[0]
+        exemplars = launch.get("exemplars") or []
+        kernel_attrs = sorted({a["key"] for s in spans
+                               if s["name"].startswith("device.")
+                               for a in s["attributes"]})
+        if not spans or {s["traceId"] for s in spans} != {trace_id} or \
+                "device.launch_s" not in names or not exemplars or \
+                len(exemplars[0].get("traceId", "")) != 32 or \
+                not {"walk_s", "finalize_s", "bytes"} <= set(kernel_attrs):
+            raise SystemExit(f"memory G5: {len(spans)} spans under "
+                             f"{sorted({s['traceId'] for s in spans})}, "
+                             f"names {names}, kernel attributes "
+                             f"{kernel_attrs}, exemplars {exemplars}")
+        c = metrics.snapshot()
+        out["G5"] = {"spans": len(spans), "names": names,
+                     "kernel_attrs": kernel_attrs,
+                     "exemplar": exemplars[0],
+                     "posts": len(reqs),
+                     "exported": c.get("otlp.spans_exported")}
+        print(f"memory G5: OTLP to a collector stub: {len(spans)} spans "
+              f"({', '.join(names)}) in {len(reqs)} POSTs, every one under "
+              f"trace {trace_id}; launch spans carry {kernel_attrs}; "
+              f"device.launch_s's exemplar {exemplars[0]}")
+
+        # G6: the fleet merge of the live snapshot and a saved copy
+        live = fleet.fetch_snapshot(f"{srv.host}:{srv.port}")
+        copy_path = os.path.join(tmp, "live.json")
+        with open(copy_path, "w", encoding="utf-8") as f:
+            json.dump(live, f)
+        with open(copy_path, encoding="utf-8") as f:
+            saved_copy = json.load(f)
+        merged = fleet.merge_snapshots([live, saved_copy], ["live", "copy"])
+        off = {k: (v, merged["counters"].get(k)) for k, v in
+               live["counters"].items() if merged["counters"].get(k) != 2 * v}
+        last = json.loads(json.dumps(telemetry.snapshot(), default=str))
+        d = fleet.diff_snapshots(first, last)
+        named = set(d["counters"]["new"]) | {
+            row[0] for row in d["counters"]["changed"]}
+        want = {"mem.pressure", "cache.evict.arenas.pressure",
+                "device.jit_cache.evictions", "device.arena.evictions",
+                "otlp.spans_exported", "mem.allocator_release"}
+        diff_text = fleet.render_diff(first, last)
+        if off or set(merged["counters"]) != set(live["counters"]) or \
+                not want <= named or "mem.pressure" not in diff_text:
+            raise SystemExit(f"memory G6: counters not doubled {off}; the "
+                             f"diff misses {want - named}")
+        out["G6"] = {"counters": len(live["counters"]),
+                     "tenants_merged": len(merged["memory"].get(
+                         "tenants", [])),
+                     "diff_new": len(d["counters"]["new"]),
+                     "diff_changed": len(d["counters"]["changed"])}
+        print(f"memory G6: the obs server's live snapshot merged with a "
+              f"saved copy: all {len(live['counters'])} counters exactly "
+              f"twice; the diff of the phase's first and last snapshot "
+              f"names {len(d['counters']['new'])} new and "
+              f"{len(d['counters']['changed'])} changed counters, "
+              f"{sorted(want)} among them")
+    finally:
+        otel.stop()
+        srv.stop()
+        if col is not None:
+            col.shutdown()
+            col.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def drive(label, data, schema, counters, deserialize, card):
@@ -2395,6 +2844,7 @@ ROUTE_TP = "00-" + "7e" * 16 + "-" + "c3" * 8 + "-01"
 # R2: every second autotuned call explores (the least-observed arm)
 ROUTE_EXPLORE = "0.5"
 ROUTE_CALLS = 6             # R2: autotuned calls per row band
+ROUTE_TURNS = 1             # R3: rounds of A B B A (one: the time limit)
 # R3's P1 on the host tier: its first records (1,000 poisoned). The native
 # tier's tolerant path decodes a chunk's tail again after each bad row, so
 # the whole P1 takes about 110 s a call on the shard arm (this phase with
@@ -2440,10 +2890,10 @@ print(json.dumps(out))
 """
 
 
-def turns_of(call_a, call_b, labels):
-    """Warm calls of two arms in turns, A B B A twice."""
+def turns_of(call_a, call_b, labels, rounds: int = 2):
+    """Warm calls of two arms in turns, A B B A ``rounds`` times."""
     times = {k: [] for k in labels}
-    for leg in [labels[0], labels[1], labels[1], labels[0]] * 2:
+    for leg in [labels[0], labels[1], labels[1], labels[0]] * rounds:
         t0 = time.perf_counter()
         out = (call_a if leg == labels[0] else call_b)()
         times[leg].append(time.perf_counter() - t0)
@@ -2600,7 +3050,8 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
     same_columns("route R3 path 1", got, shard)
     del got
     turns = turns_of(lambda: on_process(lambda: host(data)),
-                     lambda: host(data), ("process", "shard"))
+                     lambda: host(data), ("process", "shard"),
+                     rounds=ROUTE_TURNS)
     got_q = on_process(lambda: host(poisoned, on_error="skip",
                                     return_errors=True))
     want_q = host(poisoned, on_error="skip", return_errors=True)
@@ -2611,7 +3062,8 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
                          "differs from the shard arm's")
     p1_turns = turns_of(
         lambda: on_process(lambda: host(poisoned, on_error="skip")),
-        lambda: host(poisoned, on_error="skip"), ("process", "shard"))
+        lambda: host(poisoned, on_error="skip"), ("process", "shard"),
+        rounds=ROUTE_TURNS)
     errs = []
     for call in (lambda: on_process(lambda: host(poisoned)),
                  lambda: host(poisoned)):
@@ -2631,7 +3083,7 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
                  "parent_pid": os.getpid(), "malformed": list(errs[0])}
     print(f"route R3: PYRUHVRO_TPU_POOL=process, backend='host' on path 1: "
           f"cold call (spawning {len(worker_pids)} workers) {cold:.3f} s; "
-          f"warm in turns (A B B A twice) process median "
+          f"warm in turns (A B B A x{ROUTE_TURNS}) process median "
           f"{med['process']:.3f} s {[round(x, 3) for x in turns['process']]}"
           f", shard median {med['shard']:.3f} s "
           f"{[round(x, 3) for x in turns['shard']]}; P1's first "
@@ -2821,11 +3273,12 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
         raise SystemExit(f"P1: {len(got)} batches of {rows} rows")
     zero(pipe)
     warm = []
-    for _ in range(WARM_CALLS):
+    for _ in range(POLICY_WARM_CALLS):
         t0 = time.perf_counter()
         skip(poisoned)
         warm.append(time.perf_counter() - t0)
-    warm_launches = {k: c.launches / WARM_CALLS for k, c in pipe.items()}
+    warm_launches = {k: c.launches / POLICY_WARM_CALLS
+                     for k, c in pipe.items()}
     turns = {"poisoned": [], "clean": []}
     for leg in ("poisoned", "clean", "clean", "poisoned"):
         t0 = time.perf_counter()
@@ -2861,7 +3314,7 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
           f"{len(quar)} rows {slugs}, every entry tier 'device', batches and "
           f"entries equal to the CPU call ({cpu_s:.1f} s); launches: cold "
           f"{launches}, per warm call {warm_launches}; cold {cold:.3f} s, "
-          f"warm median of {WARM_CALLS} {med:.3f} s ({min(warm):.3f} .. "
+          f"warm median of {POLICY_WARM_CALLS} {med:.3f} s ({min(warm):.3f} .. "
           f"{max(warm):.3f}); in turns (A B B A) poisoned "
           f"{[round(x, 3) for x in turns['poisoned']]} clean "
           f"{[round(x, 3) for x in turns['clean']]}: a poisoned batch costs "
@@ -4452,6 +4905,13 @@ def main() -> int:
     incident["phase_s"] = time.perf_counter() - t0
     print(f"incident phase: {incident['phase_s']:.1f} s")
 
+    # 12. memory accounting, the cache lifecycle and tenant=, the OTLP
+    # exporter and the fleet merge, against the card's arenas and buckets
+    t0 = time.perf_counter()
+    memory = memory_phase(port, pa, torch, dm, em, data, kafka, card)
+    memory["phase_s"] = time.perf_counter() - t0
+    print(f"memory phase: {memory['phase_s']:.1f} s")
+
     regs = {f"pyruhvro_tpu_torch/csrc/{kernels[k].source}":
             "/".join(re.findall(r"Used (\d+) registers", lib.log))
             for k, lib in libs.items()}
@@ -4515,6 +4975,7 @@ def main() -> int:
     print(json.dumps({"multichip": multi}))
     print(json.dumps({"planes": planes}))
     print(json.dumps({"incident": incident}, default=str))
+    print(json.dumps({"memory": memory}, default=str))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -33,8 +33,17 @@ failed build or launch, or no card under ``device="cuda"``, raises under
 every backend (``ROADMAP.md`` (c) 9: the reference's per-schema
 device-failure latch, its ``device_backend`` breaker and its host retry
 are not ported). ``"tpu"`` raises ``ValueError``: the port has no TPU.
-``tenant=`` waits for memory accounting (``ROADMAP.md`` (a) 8) and
-raises ``TypeError``.
+``tenant=`` (an optional caller id; the reference's ``api.py:871-927``)
+feeds the memory accounting's heavy-hitter sketch keyed (tenant, schema
+fingerprint) with the call's rows and approximate input bytes before the
+root span opens (``memacct.attribute``; untagged calls pool under
+``"-"``), and rides on the root span as its ``tenant`` attribute. Inside
+the root span each call ticks the memory accounting (``memacct.tick``,
+throttled to one real pass a second: the TTL sweep and the
+``PYRUHVRO_TPU_MEM_HIGH_WATER`` check), so that a pressure relief
+annotates the call that ran it. The process arm's workers re-enter this
+API without a tenant, as the reference's do (``api.py:713-751``): the
+parent attributes the whole call once.
 
 Every call goes through ``router.decide`` and ends with
 ``router.observe``, which leaves one entry in the routing ledger
@@ -131,8 +140,8 @@ from .fallback.encoder import compile_encoder_plan, encode_record_batch
 from .fallback.io import max_datum_bytes
 from .ops.codec import _concat_batches, get_device_codec
 from .runtime import (audit, coldigest, deadline, device_obs, faults, knobs,
-                      metrics, quarantine, router, sampling, telemetry,
-                      traceprop)
+                      memacct, metrics, quarantine, router, sampling,
+                      telemetry, traceprop)
 from .runtime.deadline import DeadlineExceeded
 from .runtime.chunking import bounds_rows, chunk_bounds
 from .runtime.ingest import as_datum_input
@@ -760,7 +769,8 @@ def _maybe_audit_encode(dec, entry, batch, bounds, on_error, arrays, quar):
 def deserialize_array(
     data: Sequence[bytes], schema: str, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None, trace_ctx=None,
+    timeout_s: Optional[float] = None, tenant: Optional[str] = None,
+    trace_ctx=None,
 ) -> pa.RecordBatch:
     """Decode Avro datums into a single RecordBatch (≙ upstream's
     ``deserialize_array``, ``src/lib.rs:56-71``). The keywords are the
@@ -769,12 +779,16 @@ def deserialize_array(
     _check_on_error(on_error)
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
+    memacct.attribute(tenant, entry.fingerprint, "decode", len(data), data)
     with telemetry.root_span("api.deserialize_array", rows=len(data),
                              trace_ctx=trace_ctx, backend=backend,
-                             schema=entry.fingerprint), \
+                             schema=entry.fingerprint,
+                             **({"tenant": tenant} if tenant else {})), \
             sampling.call_scope("decode", entry.fingerprint,
                                 len(data)) as smp, \
             deadline.scope(timeout_s, op="deserialize_array"):
+        # inside the root span: a pressure relief annotates this call
+        memacct.tick()
         dec = _decide(entry, backend, len(data), device, op="decode")
         dec.sampled = smp.sampled
         try:
@@ -813,7 +827,7 @@ def deserialize_array_threaded(
     data: Sequence[bytes], schema: str, num_chunks: int, *,
     backend: str = "device", device="cuda", on_error: str = "raise",
     return_errors: bool = False, timeout_s: Optional[float] = None,
-    trace_ctx=None,
+    tenant: Optional[str] = None, trace_ctx=None,
 ) -> List[pa.RecordBatch]:
     """Decode into one RecordBatch per chunk, with upstream's chunk
     bounds (``len // num_chunks`` rows each, the remainder in the last;
@@ -827,14 +841,17 @@ def deserialize_array_threaded(
     _check_on_error(on_error)
     data = as_datum_input(data)
     entry = get_or_parse_schema(schema)
+    memacct.attribute(tenant, entry.fingerprint, "decode", len(data), data)
     bounds = chunk_bounds(len(data), num_chunks)
     with telemetry.root_span("api.deserialize_array_threaded",
                              rows=len(data), chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
-                             schema=entry.fingerprint), \
+                             schema=entry.fingerprint,
+                             **({"tenant": tenant} if tenant else {})), \
             sampling.call_scope("decode", entry.fingerprint,
                                 len(data)) as smp, \
             deadline.scope(timeout_s, op="deserialize_array_threaded"):
+        memacct.tick()  # inside the root span: pressure annotates it
         dec = _decide(entry, backend, len(data), device, op="decode",
                       chunks=len(bounds))
         dec.sampled = smp.sampled
@@ -904,7 +921,7 @@ def deserialize_array_threaded_spawn(
     data: Sequence[bytes], schema: str, num_chunks: int, *,
     backend: str = "device", device="cuda", on_error: str = "raise",
     return_errors: bool = False, timeout_s: Optional[float] = None,
-    trace_ctx=None,
+    tenant: Optional[str] = None, trace_ctx=None,
 ) -> List[pa.RecordBatch]:
     """Signature-parity alias of :func:`deserialize_array_threaded`
     (≙ ``src/lib.rs:108-128``; the thread-pool flavour is a host-side
@@ -912,13 +929,14 @@ def deserialize_array_threaded_spawn(
     return deserialize_array_threaded(
         data, schema, num_chunks, backend=backend, device=device,
         on_error=on_error, return_errors=return_errors, timeout_s=timeout_s,
-        trace_ctx=trace_ctx)
+        tenant=tenant, trace_ctx=trace_ctx)
 
 
 def serialize_record_batch(
     batch, schema: str, num_chunks: int, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None, trace_ctx=None,
+    timeout_s: Optional[float] = None, tenant: Optional[str] = None,
+    trace_ctx=None,
 ) -> List[pa.Array]:
     """Encode a RecordBatch (or a Table) into Avro datums, one
     ``BinaryArray`` per chunk with upstream's chunk bounds
@@ -937,14 +955,18 @@ def serialize_record_batch(
         batches = batch.combine_chunks().to_batches()
         batch = batches[0] if batches else pa.RecordBatch.from_pylist(
             [], schema=batch.schema)
+    memacct.attribute(tenant, entry.fingerprint, "encode", batch.num_rows,
+                      batch)
     bounds = chunk_bounds(batch.num_rows, num_chunks)
     with telemetry.root_span("api.serialize_record_batch",
                              rows=batch.num_rows, chunks=num_chunks,
                              trace_ctx=trace_ctx, backend=backend,
-                             schema=entry.fingerprint), \
+                             schema=entry.fingerprint,
+                             **({"tenant": tenant} if tenant else {})), \
             sampling.call_scope("encode", entry.fingerprint,
                                 batch.num_rows) as smp, \
             deadline.scope(timeout_s, op="serialize_record_batch"):
+        memacct.tick()  # inside the root span: pressure annotates it
         dec = _decide(entry, backend, batch.num_rows, device, op="encode",
                       chunks=len(bounds))
         dec.sampled = smp.sampled
@@ -1017,11 +1039,12 @@ def _serialize_chunks(dec, entry, batch, schema, num_chunks, bounds,
 def serialize_record_batch_spawn(
     batch, schema: str, num_chunks: int, *, backend: str = "device",
     device="cuda", on_error: str = "raise", return_errors: bool = False,
-    timeout_s: Optional[float] = None, trace_ctx=None,
+    timeout_s: Optional[float] = None, tenant: Optional[str] = None,
+    trace_ctx=None,
 ) -> List[pa.Array]:
     """Signature-parity alias of :func:`serialize_record_batch`
     (≙ ``src/lib.rs:130-147``)."""
     return serialize_record_batch(
         batch, schema, num_chunks, backend=backend, device=device,
         on_error=on_error, return_errors=return_errors, timeout_s=timeout_s,
-        trace_ctx=trace_ctx)
+        tenant=tenant, trace_ctx=trace_ctx)

@@ -4,7 +4,9 @@ Each source compiles on first use into a shared library with a plain C
 interface under ``build/pyruhvro_tpu_torch/`` at the repository root
 (file name keyed by the source's content hash, so an edited source
 rebuilds), for ``sm_90a`` (Hopper). The library is loaded with ctypes:
-every pointer and the CUDA stream pass as ``c_void_p``.
+every pointer and the CUDA stream pass as ``c_void_p``. The loaded
+libraries' file sizes are the memory accounting's ``cache.kernels``
+probe.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..runtime import memacct
 
 __all__ = ["load_kernel_library", "BUILD_DIR", "CSRC"]
 
@@ -91,3 +95,16 @@ def load_kernel_library(source: str) -> KernelLibrary:
             # carried by the first launch that uses it (device.compile_s)
             device_obs.note_build(source, build_s)
         return lib
+
+
+def _kernels_probe():
+    """The ``cache.kernels`` plane of the memory accounting: the loaded
+    libraries' ``.so`` file sizes. They are shared by every schema and
+    never evicted."""
+    with _lock:
+        libs = list(_libs.values())
+    return {"bytes": float(sum(lib.path.stat().st_size for lib in libs)),
+            "items": float(len(libs))}
+
+
+memacct.register_probe("cache.kernels", _kernels_probe)

@@ -1341,9 +1341,11 @@ class _Arena:
     ``host`` its uint32 numpy view, and ``dev``, the device buffer of the
     same shape (``host_t`` itself on the CPU). ``copied`` is the event of
     the last copy from ``host_t`` to ``dev``, ``consumed`` the event after
-    the last launch that read ``dev`` (None before the first)."""
+    the last launch that read ``dev`` (None before the first);
+    ``last_used`` the monotonic time of its last checkout (the lifecycle's
+    LRU clock, ``runtime/device_obs.py``)."""
 
-    __slots__ = ("host_t", "host", "dev", "copied", "consumed")
+    __slots__ = ("host_t", "host", "dev", "copied", "consumed", "last_used")
 
     def __init__(self, words: int, device: torch.device):
         card = device.type == "cuda"
@@ -1352,6 +1354,7 @@ class _Arena:
         self.dev = torch.empty(words, dtype=torch.int32, device=device) \
             if card else self.host_t
         self.copied = self.consumed = None
+        self.last_used = time.monotonic()
 
 
 class _Flight:
@@ -1410,6 +1413,7 @@ class DeviceDecoder:
         # its device.compile_s
         self._launched: set = set()
         self._lock = threading.Lock()
+        device_obs.track_holder(self)
 
     # -- capacity bookkeeping (copies of decode.py:723-773) ------------------
 
@@ -1596,6 +1600,7 @@ class DeviceDecoder:
                                                    self.device)
                 hit = False
             else:
+                arena.last_used = time.monotonic()
                 hit = True
         metrics.inc("device.arena.hits" if hit else "device.arena.misses")
         return arena

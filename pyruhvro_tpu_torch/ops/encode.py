@@ -1267,6 +1267,7 @@ class DeviceEncoder:
         self._launched: set = set()  # buckets launched (first = compile)
         self._lock = threading.Lock()
         self.prog = lower_encoder(ir)  # raises UnsupportedOnDevice
+        device_obs.track_holder(self)
 
     def launch(self, batch: pa.RecordBatch, timings=None) -> EncodeLaunch:
         """Extract, check the budget, pack and upload: the launch that

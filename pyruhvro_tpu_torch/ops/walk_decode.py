@@ -716,6 +716,7 @@ class WalkDecoder:
             )
         self._caps = None  # remembered successful cap-ladder rung
         self.n_regions = len(self.prog.regions)
+        device_obs.track_holder(self)
 
     def first_caps(self) -> Tuple[int, ...]:
         """The rung a decode starts at: the remembered one, else 8 items."""

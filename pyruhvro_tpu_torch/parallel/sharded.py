@@ -125,6 +125,7 @@ class ShardedDecoder:
                                                    self.devices[d])
                 hit = False
             else:
+                arena.last_used = time.monotonic()
                 hit = True
         metrics.inc("device.arena.hits" if hit else "device.arena.misses")
         return arena

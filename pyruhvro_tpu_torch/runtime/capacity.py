@@ -1,7 +1,8 @@
 """The capacity planner and its persistence (copy of
 ``pyruhvro_tpu/runtime/capacity.py:60-212``: ``persist_enabled``,
 ``lookup``, ``learn``, ``seed_decoder``, ``harvest_decoder``,
-``entries``, ``merge_entries``, ``snapshot``, ``reset``).
+``entries``, ``merge_entries``, ``snapshot``, ``reset``; and
+``footprint_bytes`` with its memory probe, ``:210-236``).
 
 Every converged ladder teaches the planner its final rung: the item cap
 of each region path, the item total of each (``R``, region path), and
@@ -31,12 +32,12 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import knobs, metrics
+from . import knobs, memacct, metrics
 from .pack import bucket_len
 
 __all__ = ["persist_enabled", "lookup", "learn", "seed_decoder",
            "harvest_decoder", "entries", "merge_entries", "snapshot",
-           "reset"]
+           "reset", "footprint_bytes"]
 
 _lock = threading.Lock()
 # (schema fingerprint, R) -> {"item_caps": {path: int},
@@ -168,3 +169,23 @@ def reset() -> None:
     The profile on disk stays."""
     with _lock:
         _plans.clear()
+
+
+def footprint_bytes() -> int:
+    """Approximate host bytes of the plans (explicit per-object overhead
+    estimates, as in the reference; the values are small ints)."""
+    with _lock:
+        n = 0
+        for (fp, _R), plan in _plans.items():
+            n += 160 + len(fp)
+            n += sum(len(p) + 64 for p in plan["item_caps"])
+            n += sum(len(p) + 64 for p in plan["tot_caps"])
+            n += 64 * len(plan["str_full_B"])
+        return n
+
+
+memacct.register_probe(
+    "capacity",
+    lambda: {"bytes": float(footprint_bytes()),
+             "items": float(len(_plans))},
+)

@@ -75,25 +75,58 @@ guard (:func:`note_compile`) counts first launches per schema in
 ``PYRUHVRO_TPU_RECOMPILE_WINDOW`` seconds and, at
 ``PYRUHVRO_TPU_RECOMPILE_STORM``, counts ``device.recompile_storm`` and
 penalizes the schema in the cost model (``costmodel.penalize``), so the
-router withholds its device arm for the window. :func:`track_holder`
-keeps (weakly) the objects that hold launch state across calls, the
-sharded decoder and encoder (:mod:`..parallel`), for the lifecycle
-planes. A storm also auto-dumps the flight recorder
-(``telemetry._flight_autodump("recompile_storm")``) and publishes a
-``device.recompile_storm`` incident event on :mod:`.timeline`; not
-ported: the lifecycle eviction and ``cachelife`` (``ROADMAP.md`` (a)
-8.6).
+router withholds its device arm for the window. A storm also auto-dumps
+the flight recorder (``telemetry._flight_autodump("recompile_storm")``)
+and publishes a ``device.recompile_storm`` incident event on
+:mod:`.timeline`.
+
+**Lifecycle** (the reference's ``_register_lifecycle``,
+``device_obs.py:575-700``). :func:`track_holder` keeps (weakly) the
+objects that hold launch state across calls: the one-card
+``DeviceDecoder``, ``WalkDecoder`` and ``DeviceEncoder`` and the sharded
+decoder and encoder. Two planes of :mod:`.cachelife` and
+:mod:`.memacct` read them:
+
+* ``executables``: the port's counterpart of an XLA executable is a
+  bucket's launch state, its registry rows (one a kernel) and its
+  holders' ``_launched`` entry; no per-bucket tensor stays on the card,
+  so its bytes are a stated estimate (:data:`_EXE_EST_BYTES` a row).
+  Evicting one drops every row of that (schema, bucket) and the bucket
+  from its schema's holders, so the next launch of the bucket is a first
+  launch again (``device.compile_s``, a counted miss: misses still equal
+  first launches) and counts ``device.jit_cache.evictions``. The
+  bucket's learned caps and the capacity planner's plans stay, as in
+  the reference. A first launch runs admission control
+  (``PYRUHVRO_TPU_CACHE_MAX_EXECUTABLES`` rows, LRU) once its rows
+  exist.
+* ``arenas``: the pipeline decoders' pinned launch inputs, each a
+  pinned host tensor and its card twin. The probe's ``bytes`` are the
+  pinned host bytes (what RSS sees), ``device_bytes`` the card's. An
+  arena whose last copy (``copied``) or last launch (``consumed``) has
+  not finished is never evicted: it is skipped and counted
+  ``device.arena.evict_busy``. An evicted arena that a call in flight
+  checked out stays alive through that call's own reference; its card
+  block returns to the caching allocator when the call drops it, on the
+  stream that allocated it, behind the launches that read it.
+
+The nvcc libraries are shared by every schema and never evicted;
+``ops/_build.py`` reports them as the ``cache.kernels`` probe. Freed
+blocks go back to PyTorch's caching allocators, not to CUDA or the
+OS: :func:`release_allocator_caches` hands them back, once after a
+pressure relief (:func:`.memacct.tick`; ``ROADMAP.md`` (c) 8).
 """
 
 from __future__ import annotations
 
+import gc
+import sys
 import threading
 import time
 import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import faults, knobs, metrics, telemetry, traceprop
+from . import cachelife, faults, knobs, memacct, metrics, telemetry, traceprop
 
 __all__ = [
     "launch",
@@ -109,6 +142,7 @@ __all__ = [
     "note_memory",
     "track_holder",
     "holders",
+    "release_allocator_caches",
     "snapshot",
     "reset",
 ]
@@ -171,9 +205,12 @@ def walked_bytes() -> bool:
 
 
 def track_holder(holder) -> None:
-    """Register an object that holds arenas, streams or kernel plans
-    across calls (the reference's ``track_holder``, for its lifecycle
-    planes); kept weakly, so registering keeps nothing alive."""
+    """Register an object that holds launch state or arenas across calls
+    (the reference's ``track_holder``, for the lifecycle planes); kept
+    weakly, so registering keeps nothing alive. The contract is duck-typed:
+    a ``_lock``, a ``_launched`` set of bucket labels and a
+    ``fingerprint`` (or a ``base`` with one), and/or an ``_arenas`` dict
+    of ``ops.decode._Arena``."""
     with _lock:
         _holders.add(holder)
 
@@ -477,6 +514,10 @@ def _resolve(L: Launch) -> None:
                 e["launch_s"] = round(e["launch_s"] + s, 9)
                 e["bytes"] += nbytes.get(kernel, 0)
             e["last_used"] = now
+    if L.first:
+        # admission control once the bucket's rows exist (outside _lock:
+        # an eviction takes it)
+        cachelife.admit("executables")
 
 
 # ---------------------------------------------------------------------------
@@ -540,10 +581,11 @@ def note_compile(fingerprint: str, kind: str, bucket: str) -> None:
 
 def note_memory(device) -> None:
     """The card's allocator watermarks (``torch.cuda.memory_stats``:
-    ``allocated_bytes.all.current`` and ``.peak``; ``bytes_limit``, the
-    card's total from ``torch.cuda.mem_get_info``, read once per card),
-    keyed ``cuda:<index>``, in the device snapshot. A no-op for a CPU
-    device."""
+    ``allocated_bytes.all.current`` and ``.peak``, and
+    ``reserved_bytes.all.current``, what the caching allocator holds;
+    ``bytes_limit``, the card's total from ``torch.cuda.mem_get_info``,
+    read once per card), keyed ``cuda:<index>``, in the device snapshot.
+    A no-op for a CPU device."""
     if device.type != "cuda":
         return
     import torch
@@ -553,6 +595,7 @@ def note_memory(device) -> None:
     ms = torch.cuda.memory_stats(index)
     in_use = int(ms.get("allocated_bytes.all.current", 0))
     peak = int(ms.get("allocated_bytes.all.peak", in_use))
+    reserved = int(ms.get("reserved_bytes.all.current", 0))
     key = f"cuda:{index}"
     with _lock:
         limit = _memory.get(key, {}).get("bytes_limit")
@@ -563,7 +606,31 @@ def note_memory(device) -> None:
         rec["bytes_in_use"] = in_use
         rec["peak_bytes_in_use"] = max(peak,
                                        rec.get("peak_bytes_in_use", 0))
+        rec["bytes_reserved"] = reserved
         rec["bytes_limit"] = limit
+
+
+def release_allocator_caches() -> bool:
+    """Free what an eviction unlinked and hand the blocks PyTorch's
+    caching allocators keep back: a garbage collection first (an evicted
+    schema entry and its device codec refer to each other, so their
+    decoders and arenas wait for the cycle collector), then the card's
+    cache (``torch.cuda.empty_cache``) and the pinned host allocator's
+    (where this PyTorch has a call for it). The allocators only in a
+    process whose CUDA is initialised (this never creates a context);
+    counts ``mem.allocator_release``. True when they were emptied."""
+    gc.collect()
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return False
+    empty_host = getattr(getattr(torch, "accelerator", None),
+                         "empty_host_cache", None) or \
+        getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()
+    torch.cuda.empty_cache()
+    metrics.inc("mem.allocator_release")
+    return True
 
 
 def snapshot() -> Dict[str, Any]:
@@ -591,3 +658,131 @@ def reset() -> None:
     pending = getattr(_tls, "pending", None)
     if pending:
         pending.clear()
+
+
+# ---------------------------------------------------------------------------
+# lifecycle planes: buckets' launch state and pinned arenas
+# ---------------------------------------------------------------------------
+
+# host bytes of one registry row and its holders' ``_launched`` entry (a
+# stated estimate: no per-bucket tensor stays on the card)
+_EXE_EST_BYTES = 512
+
+
+def _holder_fingerprint(h) -> str:
+    fp = getattr(h, "fingerprint", None)
+    if fp is None:
+        fp = getattr(getattr(h, "base", None), "fingerprint", None)
+    return fp or "?"
+
+
+def _exe_entries():
+    with _lock:
+        return [("|".join(k), e["last_used"], _EXE_EST_BYTES)
+                for k, e in _registry.items()]
+
+
+def _evict_executable(key_str: str) -> bool:
+    """Drop one bucket's launch state: every registry row of its (schema,
+    bucket), and the bucket from the ``_launched`` set of each holder of
+    that schema, so that its next launch is a first launch (a counted
+    miss) again."""
+    parts = key_str.split("|", 2)
+    if len(parts) != 3:
+        return False
+    fingerprint, _kernel, bucket = parts
+    with _lock:
+        rows = [k for k in _registry
+                if k[0] == fingerprint and k[2] == bucket]
+        for k in rows:
+            del _registry[k]
+        live = list(_holders)
+    if not rows:
+        return False
+    for h in live:
+        launched = getattr(h, "_launched", None)
+        if launched is None or _holder_fingerprint(h) != fingerprint:
+            continue
+        with h._lock:
+            launched.discard(bucket)
+    metrics.inc("device.jit_cache.evictions")
+    return True
+
+
+def _arena_holders():
+    with _lock:
+        return [h for h in _holders if getattr(h, "_arenas", None) is not None]
+
+
+def _arena_entries():
+    out = []
+    for h in _arena_holders():
+        with h._lock:
+            items = list(h._arenas.items())
+        out += [((id(h), key), a.last_used, a.host_t.nbytes)
+                for key, a in items]
+    return out
+
+
+def _arena_idle(arena) -> bool:
+    """Have the arena's last copy and the last launch that read it ended
+    (an event's ``query`` waits on nothing)?"""
+    return all(ev is None or ev.query()
+               for ev in (arena.copied, arena.consumed))
+
+
+def _evict_arena(ent_key) -> bool:
+    """Unlink one idle arena from its holder (``device.arena.evictions``);
+    an arena with a copy or a launch in flight stays
+    (``device.arena.evict_busy``)."""
+    hid, key = ent_key
+    for h in _arena_holders():
+        if id(h) != hid:
+            continue
+        with h._lock:
+            arena = h._arenas.get(key)
+            if arena is None:
+                return False
+            if not _arena_idle(arena):
+                metrics.inc("device.arena.evict_busy")
+                return False
+            del h._arenas[key]
+        metrics.inc("device.arena.evictions")
+        return True
+    return False
+
+
+def _exe_probe():
+    ents = _exe_entries()
+    return {"bytes": float(sum(b for _k, _t, b in ents)),
+            "items": float(len(ents))}
+
+
+def _arena_probe():
+    """Pinned host bytes (``bytes``) and the card twins' bytes
+    (``device_bytes``) of every live arena; on the CPU the twin is the
+    host tensor itself and counts once."""
+    host = card = n = 0
+    for h in _arena_holders():
+        with h._lock:
+            arenas = list(h._arenas.values())
+        for a in arenas:
+            n += 1
+            host += a.host_t.nbytes
+            if a.dev is not a.host_t:
+                card += a.dev.nbytes
+    return {"bytes": float(host), "items": float(n),
+            "device_bytes": float(card)}
+
+
+cachelife.register(
+    "executables",
+    entries=_exe_entries,
+    evict=_evict_executable,
+    capacity=lambda: knobs.get_int("PYRUHVRO_TPU_CACHE_MAX_EXECUTABLES"),
+)
+# arenas have no entry cap of their own (each decoder keeps only the
+# largest B per (R, slot, thread)); TTL and pressure manage them
+cachelife.register("arenas", entries=_arena_entries, evict=_evict_arena)
+memacct.register_probe("cache.executables", _exe_probe)
+memacct.register_probe("cache.arenas", _arena_probe)

@@ -93,6 +93,17 @@ class DatumView:
         MAX_DATUM_BYTES screen without materializing datums)."""
         return np.diff(self.offsets())
 
+    def total_bytes(self) -> int:
+        """The datums' bytes in all, ``lens().sum()``, read off the two
+        end offsets (no pass over the datums)."""
+        arr = self.arr
+        if len(arr) == 0 or arr.buffers()[1] is None:
+            return 0
+        dt = np.int64 if pa.types.is_large_binary(arr.type) else np.int32
+        offs = np.frombuffer(arr.buffers()[1], dtype=dt,
+                             count=arr.offset + len(arr) + 1)
+        return int(offs[-1]) - int(offs[arr.offset])
+
 
 def as_datum_input(data):
     """Normalize a deserialize call's ``data`` argument.

@@ -3,8 +3,12 @@
 ``get_bool``, ``get_tristate``, ``get_str``, ``get_raw``, ``is_set`` and
 ``get_enum`` and ``registry``, and of the knobs it registers at
 ``:82-100``, ``:146-150``, ``:153-159``, ``:162-167``, ``:170-183``,
-``:189-207``, ``:208``, ``:211``, ``:220-237``, ``:240-257`` and
-``:287-293``, with their defaults).
+``:189-207``, ``:208``, ``:211``, ``:215-219``, ``:220-237``,
+``:240-257``, ``:260-266``, ``:275-281`` and ``:287-293``, with their
+defaults), and ``render_text_table`` / ``render_markdown_table`` for
+the CLI's ``knobs`` command. The specialiser's
+``PYRUHVRO_TPU_CACHE_MAX_ENGINES`` waits for its plane
+(``ROADMAP.md`` (a) 9).
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
 ``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
@@ -26,7 +30,7 @@ from . import metrics
 
 __all__ = ["get_bool", "get_tristate", "get_int", "get_float", "get_str",
            "get_raw", "get_enum", "is_set", "registry", "DEFAULTS",
-           "CHOICES"]
+           "CHOICES", "render_text_table", "render_markdown_table"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -123,6 +127,19 @@ DEFAULTS = {
     # bundles kept (0 = no limit; hand-saved files are never touched)
     "PYRUHVRO_TPU_INCIDENT_DIR": "",
     "PYRUHVRO_TPU_INCIDENT_MAX_FILES": 16,
+    # the OTLP/HTTP exporter: the collector's base URL ("" turns it off)
+    # and its flush interval in seconds
+    "PYRUHVRO_TPU_OTLP_ENDPOINT": "",
+    "PYRUHVRO_TPU_OTLP_INTERVAL_S": 5.0,
+    # memory accounting and the cache lifecycle: the RSS high water in
+    # bytes (0 = off), the idle TTL of cache entries in seconds (0 = no
+    # TTL), the schema cache's and the launch-state registry's entry
+    # caps (0 = no limit) and the tenant sketch's size
+    "PYRUHVRO_TPU_MEM_HIGH_WATER": 0,
+    "PYRUHVRO_TPU_CACHE_TTL_S": 0.0,
+    "PYRUHVRO_TPU_CACHE_MAX_SCHEMAS": 4096,
+    "PYRUHVRO_TPU_CACHE_MAX_EXECUTABLES": 1024,
+    "PYRUHVRO_TPU_MEM_TOPK": 64,
 }
 
 # the accepted (lower-case) values of the enum knobs
@@ -233,3 +250,46 @@ def get_int(name: str) -> int:
 def get_float(name: str):
     """The float value; unset, empty or malformed → the default."""
     return _number(name, float)
+
+
+def _type_of(name: str) -> str:
+    if name in CHOICES:
+        return "enum"
+    default = DEFAULTS[name]
+    if default is None:
+        return "unset"
+    return type(default).__name__
+
+
+def _default_label(name: str) -> str:
+    default = DEFAULTS[name]
+    if default is None:
+        return "(unset)"
+    if default == "":
+        return '""'
+    return str(default)
+
+
+def render_text_table() -> str:
+    """The registry for ``python -m pyruhvro_tpu_torch.telemetry knobs``:
+    one line a knob, with its type, its default and, when set, its
+    value."""
+    out = []
+    for name in DEFAULTS:
+        line = f"{name}  [{_type_of(name)}, default {_default_label(name)}]"
+        raw = os.environ.get(name)
+        if raw is not None:
+            line += f"  (set: {raw!r})"
+        if name in CHOICES:
+            line += "  choices: " + "/".join(CHOICES[name])
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def render_markdown_table() -> str:
+    """The same registry as a markdown table (``knobs --markdown``)."""
+    lines = ["| knob | type | default |", "|---|---|---|"]
+    for name in DEFAULTS:
+        lines.append(f"| `{name}` | {_type_of(name)} | "
+                     f"`{_default_label(name)}` |")
+    return "\n".join(lines) + "\n"

@@ -1,6 +1,6 @@
 """The live observability server: /metrics /healthz /snapshot /flight
-/audit /timeline /incidents /serve (copy of
-``pyruhvro_tpu/runtime/obs_server.py``, whole but ``/memory``).
+/memory /audit /timeline /incidents /serve (copy of
+``pyruhvro_tpu/runtime/obs_server.py``, whole).
 
 An opt-in background HTTP server of the standard library
 (``http.server`` on a daemon thread, bound to 127.0.0.1 by default) that
@@ -14,13 +14,13 @@ renders the live registry on each request:
   breach or an audit mismatch makes it unhealthy;
 * ``GET /snapshot``: ``telemetry.snapshot()`` (``?compress=1`` gzips it);
 * ``GET /flight``: the flight recorder (``telemetry.flight_dump()``);
+* ``GET /memory``: the live memory accounting section
+  (``memacct.snapshot_memory()``: RSS, the planes' bytes, the lifecycle,
+  the card's watermarks, the tenants); a saved snapshot's own section;
 * ``GET /audit``, ``/timeline`` (``?tick=1`` ticks first) and
   ``/incidents``: :mod:`.audit`, :mod:`.timeline` and :mod:`.incident`;
 * ``GET /serve``: ``{}``, since no serving plane ran (``ROADMAP.md`` (a)
   8.9).
-
-``/memory`` answers 404 until memory accounting is ported
-(``ROADMAP.md`` (a) 8.6), and stays out of the endpoint list until then.
 
 ``PYRUHVRO_TPU_OBS_PORT=<port>`` (``0`` = any free port; the chosen port
 is printed to stderr and is ``server().port``) starts it at the import
@@ -65,9 +65,9 @@ __all__ = [
     "start_from_env",
 ]
 
-# the paths the server answers (the reference's, but /memory)
-ENDPOINTS = ("/metrics", "/healthz", "/snapshot", "/flight", "/audit",
-             "/serve", "/timeline", "/incidents")
+# the paths the server answers (the reference's)
+ENDPOINTS = ("/metrics", "/healthz", "/snapshot", "/flight", "/memory",
+             "/audit", "/serve", "/timeline", "/incidents")
 
 # how long (seconds) a storm/drift event keeps /healthz unhealthy after
 # it fired — long enough for a scraper on a normal interval to see it,
@@ -126,10 +126,8 @@ def health() -> Tuple[int, Dict[str, Any]]:
         "recompile_storm": recent("recompile_storm"),
         "latency_drift": recent("latency_drift"),
         "slo_breach": bool(slo_breached),
-        # RSS crossed the memory high-water mark within the window; no
-        # port module sets this mark until memory accounting is ported
-        # (ROADMAP.md (a) 8.6), as in a reference process that never
-        # came under memory pressure
+        # RSS crossed the memory high-water mark within the window
+        # (memacct.tick marks it)
         "mem_pressure": recent("mem_pressure"),
         # a differential-audit shadow caught a tier producing wrong
         # bytes within the window — the one bit that means
@@ -322,8 +320,20 @@ class _Handler(BaseHTTPRequestHandler):
                     from . import incident
 
                     self._send_json(200, incident.list_incidents())
+            elif path == "/memory":
+                if snap_doc is not None:
+                    mem = snap_doc.get("memory")
+                    self._send_json(
+                        200, mem if mem is not None else {
+                            "static": True,
+                            "note": "snapshot predates the memory "
+                                    "accounting plane",
+                        })
+                else:
+                    from . import memacct
+
+                    self._send_json(200, memacct.snapshot_memory())
             else:
-                # /memory too, until memory accounting is ported
                 self._send_json(404, {
                     "error": f"unknown path {path!r}",
                     "endpoints": list(ENDPOINTS),

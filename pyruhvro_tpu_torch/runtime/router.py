@@ -30,8 +30,9 @@ never ``thread``. A deep-sampled call (:mod:`.sampling`) carries
 ``RouteDecision.sampled``; :func:`observe` tells the sampler which arm
 served it (``sampling.note_arm``) and divides the deep path's estimated
 overhead out of its seconds (``sampling.corrected_seconds``) before the
-cost model learns them, as in the reference. The ledger's memory probe
-is not ported (memory accounting, ``ROADMAP.md`` (a) 8).
+cost model learns them, as in the reference. The ``routing`` probe of
+:mod:`.memacct` reports the ledger's and the cost model's bytes
+(stated estimates a row, the reference's ``router.py:390-414``).
 
 ``python -m pyruhvro_tpu_torch.telemetry route-report <snapshot>``
 renders the ledger and the model; ``what-if <snapshot>`` replays the
@@ -45,8 +46,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from . import (breaker, costmodel, deadline, drift, knobs, metrics, sampling,
-               telemetry)
+from . import (breaker, costmodel, deadline, drift, knobs, memacct, metrics,
+               sampling, telemetry)
 
 __all__ = [
     "RouteDecision",
@@ -520,3 +521,24 @@ def render_what_if(data: Dict[str, Any]) -> str:
     out.append("(estimates use the model AS OF each decision; rerun with "
                "the warm profile to act on them)")
     return "\n".join(out) + "\n"
+
+
+# the memory probe's estimates: a ledger entry is a small dict of scalars
+# (about 400 B with its overhead), a cost-model row a short list of
+# floats under a 4-tuple key (about 250 B)
+_LEDGER_ENTRY_EST_BYTES = 400
+_MODEL_ROW_EST_BYTES = 250
+
+
+def _probe():
+    with _lock:
+        n_ledger = len(_ledger)
+    n_model = len(costmodel._stats) + len(costmodel._loaded)
+    return {
+        "bytes": float(n_ledger * _LEDGER_ENTRY_EST_BYTES
+                       + n_model * _MODEL_ROW_EST_BYTES),
+        "items": float(n_ledger + n_model),
+    }
+
+
+memacct.register_probe("routing", _probe)

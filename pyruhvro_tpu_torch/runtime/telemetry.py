@@ -6,8 +6,9 @@
 ``set_enabled``/``enabled``, ``reset``, ``snapshot``, ``prometheus``,
 ``perfetto_trace``, the ``PYRUHVRO_TPU_TRACE`` JSON-lines sink, the
 flight recorder (``flight_dump``, ``install_flight_signal``, the
-auto-dumps and their rotation), the import-time start of the obs server
-and the timeline's tick thread, ``render_report`` and ``main``).
+auto-dumps and their rotation), the import-time start of the obs server,
+the timeline's tick thread and the OTLP exporter, the ``rings`` memory
+probe, ``render_report`` and ``main``).
 
 Layered on the flat counters of :mod:`.metrics`, which stay the
 always-on base: each public API call opens a **root span** carrying the
@@ -20,18 +21,21 @@ spans and histograms and keeps the counters.
 
 Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
 with p50/p95/p99, the last root span trees, and a ``device`` section of
-launch registry and memory watermarks from :mod:`.device_obs`, and the
-``routing``, ``breakers``, ``drift``, ``slo``, ``sampling``, ``audit``
-and ``timeline`` sections of :mod:`.router`, :mod:`.breaker`,
-:mod:`.drift`, :mod:`.slo`, :mod:`.sampling`, :mod:`.audit` and
-:mod:`.timeline`, and the flight recorder's ``flight_records``),
-:func:`prometheus` (text exposition), :func:`perfetto_trace` (Chrome
-trace-event JSON), and ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON
-line per finished root span. ``python -m pyruhvro_tpu_torch.telemetry
-report|prom|perfetto|route-report|what-if|slo-report|audit-report|
-timeline|incident-report <file>`` renders a saved snapshot (or an
-incident bundle), ``serve <file>`` serves it over HTTP; a file that is
-missing or not a snapshot exits 2.
+launch registry and memory watermarks from :mod:`.device_obs`, the
+``routing``, ``breakers``, ``drift``, ``slo``, ``sampling``, ``audit``,
+``memory`` and ``timeline`` sections of :mod:`.router`, :mod:`.breaker`,
+:mod:`.drift`, :mod:`.slo`, :mod:`.sampling`, :mod:`.audit`,
+:mod:`.memacct` and :mod:`.timeline`, the ``mem.*`` gauges, and the
+flight recorder's ``flight_records``), :func:`prometheus` (text
+exposition), :func:`perfetto_trace` (Chrome trace-event JSON), and
+``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON line per finished root
+span. ``python -m pyruhvro_tpu_torch.telemetry report|prom|perfetto|
+route-report|what-if|slo-report|audit-report|mem-report|timeline|
+incident-report <file>`` renders a saved snapshot (or an incident
+bundle), ``serve <file>`` serves it over HTTP, ``fleet`` merges
+replicas' snapshots (:mod:`.fleet`), ``diff <a> <b>`` attributes the
+change between two, and ``knobs`` lists the environment knobs; a file
+that is missing or not a snapshot exits 2.
 
 **The flight recorder** keeps the last ``PYRUHVRO_TPU_FLIGHT_N`` root
 spans (default 64; read again by :func:`reset`) and makes each a compact
@@ -49,9 +53,10 @@ SIGUSR1 (a dump) at import; it and ``PYRUHVRO_TPU_OBS_PORT`` arm
 SIGUSR2 (deep sampling on or off, :func:`.sampling.install_toggle_signal`).
 
 At import, ``PYRUHVRO_TPU_OBS_PORT`` starts the obs server
-(:func:`.obs_server.start_from_env`) and the timeline's tick thread
+(:func:`.obs_server.start_from_env`), the timeline's tick thread
 starts (:func:`.timeline.ensure_started`; ``PYRUHVRO_TPU_NO_TIMELINE=1``
-keeps it parked).
+keeps it parked) and ``PYRUHVRO_TPU_OTLP_ENDPOINT`` starts the OTLP
+exporter (:func:`.otel.start_from_env`, which takes the span sink).
 
 Every finished root span feeds the SLO engine (:func:`.slo.record_root`)
 with its seconds less an audit shadow's
@@ -64,9 +69,12 @@ histograms, every other key is a count or a byte counter.
 Departures from the reference (``ROADMAP.md`` (c)): nothing here catches
 an exception. A phase or root span records the error's type on its span
 and re-raises it; a span sink or a trace file that fails raises into the
-call, where the reference counts the failure and goes on. The device
-launches' spans are opened at launch and closed when their CUDA events
-are read (:mod:`.device_obs`), at the latest when the root span exits.
+call, where the reference counts the failure and goes on (the OTLP
+exporter's sink only appends to its queue, and its failed POSTs are
+counted behind its breaker on its own thread, as in the reference). The
+device launches' spans are opened at launch and closed when their CUDA
+events are read (:mod:`.device_obs`), at the latest when the root span
+exits.
 """
 
 from __future__ import annotations
@@ -81,7 +89,7 @@ from bisect import bisect_left
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-from . import knobs, metrics, slo, traceprop
+from . import knobs, memacct, metrics, slo, traceprop
 
 __all__ = [
     "SNAPSHOT_SCHEMA_VERSION",
@@ -119,9 +127,8 @@ _BUCKET_BOUNDS: tuple = tuple(
 
 _MAX_SPANS = 64  # root spans retained for snapshot(); older ones are counted
 
-# the reference's snapshot shape version 3, without the sections of the
-# planes the port does not have yet: memory and serving (ROADMAP.md (a)
-# 8.6 and 8.9)
+# the reference's snapshot shape version 3, without the section of the
+# plane the port does not have yet: serving (ROADMAP.md (a) 8.9)
 SNAPSHOT_SCHEMA_VERSION = 3
 
 
@@ -750,6 +757,19 @@ from . import timeline as _timeline  # noqa: E402
 _timeline.ensure_started()
 
 
+# the span and flight rings are long-lived state too: the memory
+# accounting counts them at a stated estimate a record (both rings are
+# bounded)
+def _ring_probe():
+    with _lock:
+        n = len(_spans) + len(_flight)
+    return {"bytes": float(n * memacct.RING_RECORD_EST_BYTES),
+            "items": float(n)}
+
+
+memacct.register_probe("rings", _ring_probe)
+
+
 # ---------------------------------------------------------------------------
 # cross-process worker telemetry
 # ---------------------------------------------------------------------------
@@ -889,9 +909,10 @@ def reset() -> None:
     """Clear spans, histograms, the flight recorder (and re-arm its
     auto-dump rate limit), the device registry, the router (ledger,
     cost model, capacity plans), the sampler, the SLO engine, the
-    breakers, drift, the audit, the timeline (rings and baselines; its
-    clock re-armed), the incident debounce AND the flat counters (test
-    isolation); closes an open trace file. Unlike the reference's, it
+    breakers, drift, the audit, the memory accounting (the tenant
+    sketch, the tick throttle and the collect memo), the timeline (rings
+    and baselines; its clock re-armed), the incident debounce AND the
+    flat counters (test isolation); closes an open trace file. Unlike the reference's, it
     resets the breakers too, whose tests do that on their own; the
     fault injector's counters stay (``faults.reset()``), and the
     timeline's thread and the obs server keep running, as in the
@@ -908,6 +929,7 @@ def reset() -> None:
                    sampling, timeline)
 
     device_obs.reset()
+    memacct.reset()
     router.reset()
     sampling.reset()
     drift.reset()
@@ -938,9 +960,11 @@ def snapshot() -> Dict[str, Any]:
     model) once a call was routed, ``slo`` with an SLO file set,
     ``sampling`` once the sampler ran, ``drift`` once the detector saw a
     call, ``audit`` once the audit saw a call, ``breakers`` once a
-    breaker was touched, ``timeline`` after its first tick or event,
-    and ``gauges`` when any was set; ``flight_records`` counts the
-    flight recorder's ring."""
+    breaker was touched, ``memory`` always (:func:`.memacct.snapshot_memory`:
+    RSS, the planes' bytes, the lifecycle, the card's watermarks and the
+    tenant sketch; its probes refresh the ``mem.*`` gauges), ``timeline``
+    after its first tick or event, and ``gauges`` when any was set;
+    ``flight_records`` counts the flight recorder's ring."""
     # rotation drops deferred from signal context surface on the next
     # export even if no further rotation ever runs
     _flight_dropped.flush()
@@ -958,8 +982,8 @@ def snapshot() -> Dict[str, Any]:
         "spans_dropped": dropped,
         "flight_records": flight_n,
     }
-    from . import audit, breaker, device_obs, drift, router, sampling
-    from . import timeline
+    from . import (audit, breaker, device_obs, drift, router, sampling,
+                   timeline)
 
     dev = device_obs.snapshot()
     if dev:
@@ -982,8 +1006,10 @@ def snapshot() -> Dict[str, Any]:
     brs = breaker.snapshot_breakers()
     if brs:
         out["breakers"] = brs
-    # not ported: the memory and serving sections (ROADMAP.md (a) 8.6,
-    # 8.9)
+    # always present: RSS exists before any cache does; the probes also
+    # refresh the mem.* gauges read below
+    out["memory"] = memacct.snapshot_memory()
+    # not ported: the serving section (ROADMAP.md (a) 8.9)
     tl = timeline.snapshot_timeline()
     if tl:
         out["timeline"] = tl
@@ -1332,9 +1358,9 @@ def _render_span(s: Dict[str, Any], indent: int, out: List[str]) -> None:
 def render_report(data: Dict[str, Any]) -> str:
     """Phase-breakdown table from a :func:`snapshot` dict, with the
     native profiler's per-opcode tables, the device tier, routing, SLO,
-    deep-sampling, drift and audit sections. Not ported: the reference's
-    ``BENCH_DETAILS.json`` branch (the port has no bench yet) and the
-    memory section, whose plane waits for ``ROADMAP.md`` (a) 8.6."""
+    deep-sampling, memory, drift and audit sections. Not ported: the
+    reference's ``BENCH_DETAILS.json`` branch (the port has no bench
+    yet)."""
     out: List[str] = []
     counters = data.get("counters", {})
     hists = data.get("histograms", {})
@@ -1389,6 +1415,17 @@ def render_report(data: Dict[str, Any]) -> str:
             f"{(samp.get('overhead_frac') or 0) * 100:.2f}% per "
             f"sampled call (budget "
             f"{(samp.get('budget') or 0) * 100:.2f}% of total)")
+    mem = data.get("memory") or {}
+    if mem:
+        rss = mem.get("rss_bytes") or 0
+        tracked = mem.get("tracked_bytes") or 0
+        out += ["", "== memory =="]
+        line = (f"rss {_fmt_bytes(rss)}, tracked "
+                f"{_fmt_bytes(tracked)} across "
+                f"{len(mem.get('caches') or {})} cache(s)")
+        if rss:
+            line += f" ({tracked / rss * 100:.1f}% of rss)"
+        out.append(line + " — render with the mem-report subcommand")
     dr = data.get("drift") or {}
     if dr.get("entries"):
         hot = [e for e in dr["entries"] if e.get("detections")]
@@ -1435,15 +1472,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     and the learned cost model), ``what-if <file>`` (the ledger replayed:
     where another arm would have won), ``slo-report <file>`` (objectives,
     burn rates and breaches), ``audit-report <file>`` (the audit's
-    coverage, mismatches and exported digests), ``timeline <file>
-    [--json]`` (the time-bucketed history), ``incident-report <file>``
-    (an incident bundle's post-mortem, or a snapshot's timeline) and
-    ``serve <file> [--port N]`` (a saved snapshot over HTTP). ``<file>``
-    is a JSON dict saved from :func:`snapshot` (or an incident bundle).
-    A file that cannot be read, is not JSON or is not a snapshot exits 2
-    with the problem named on stderr, as in the reference (the
-    reference's ``fleet``, ``diff``, ``knobs``, ``mem-report`` and
-    ``serve-report`` wait for their planes, ``ROADMAP.md`` (a) 8)."""
+    coverage, mismatches and exported digests), ``mem-report <file>``
+    (RSS against the tracked caches, eviction causes, the tenants),
+    ``timeline <file> [--json]`` (the time-bucketed history),
+    ``incident-report <file>`` (an incident bundle's post-mortem, or a
+    snapshot's timeline), ``serve <file> [--port N]`` (a saved snapshot
+    over HTTP), ``knobs [--markdown]`` (the environment knobs),
+    ``fleet <snap...|--scrape host:port...>`` (N replicas' snapshots
+    merged into one) and ``diff <a> <b> [--json] [--window A..B]`` (the
+    attribution of the change between two snapshots). ``<file>`` is a
+    JSON dict saved from :func:`snapshot` (or an incident bundle). A
+    file that cannot be read, is not JSON or is not a snapshot, and a
+    replica that cannot be scraped, exit 2 with the problem named on
+    stderr, as in the reference (its ``serve-report`` waits for the
+    serving plane, ``ROADMAP.md`` (a) 8.9)."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -1483,6 +1525,55 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "records and exported result digests "
                              "from a snapshot JSON")
     p_audit.add_argument("path")
+    p_mem = sub.add_parser(
+        "mem-report", help="memory accounting: RSS vs tracked cache "
+                           "footprints, eviction causes and per-tenant "
+                           "heavy hitters from a snapshot JSON")
+    p_mem.add_argument("path")
+    p_knobs = sub.add_parser(
+        "knobs", help="list the PYRUHVRO_TPU_* environment knobs "
+                      "(runtime/knobs.py) with their types and defaults")
+    p_knobs.add_argument("--markdown", action="store_true",
+                         help="emit a markdown table instead of the "
+                              "plain-text listing")
+    p_fleet = sub.add_parser(
+        "fleet", help="merge N replicas' snapshot JSONs (or live "
+                      "--scrape host:port pulls) into ONE fleet "
+                      "snapshot: counters sum, histogram buckets "
+                      "merge, gauges sum-or-max by kind, routing "
+                      "ledgers and SLO objectives concatenate with "
+                      "replica tags")
+    p_fleet.add_argument("paths", nargs="*",
+                         help="saved snapshot JSON files, one per "
+                              "replica")
+    p_fleet.add_argument("--scrape", action="append", default=[],
+                         metavar="HOST:PORT",
+                         help="pull a live /snapshot from this obs "
+                              "server (repeatable)")
+    p_fleet.add_argument("--tag", action="append", default=[],
+                         help="replica tag for the matching source, in "
+                              "order (default: file basename / "
+                              "host:port)")
+    p_fleet.add_argument("-o", "--out",
+                         help="write the merged snapshot here instead "
+                              "of stdout (render it with report / prom "
+                              "/ slo-report)")
+    p_diff = sub.add_parser(
+        "diff", help="regression attribution between two snapshots: "
+                     "per-key counter/gauge deltas, per-phase latency "
+                     "shift (p50/p95/p99), new/dead keys, routing-arm "
+                     "mix changes")
+    p_diff.add_argument("a", help="baseline snapshot JSON")
+    p_diff.add_argument("b", help="candidate snapshot JSON")
+    p_diff.add_argument("--json", action="store_true",
+                        help="emit the structured diff document "
+                             "instead of the text report")
+    p_diff.add_argument("--window", metavar="A..B",
+                        help="diff only the timeline window A..B of "
+                             "each snapshot: bounds are epoch seconds "
+                             "(>= 1e9), seconds from the first tick "
+                             "(>= 0), or seconds back from the newest "
+                             "tick (< 0); either side may be empty")
     p_tl = sub.add_parser(
         "timeline", help="time-bucketed history from a snapshot JSON: "
                          "per-interval counter deltas and histogram "
@@ -1509,6 +1600,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_serve.add_argument("--host", default="127.0.0.1")
     args = ap.parse_args(argv)
 
+    if args.cmd == "knobs":
+        # the registry needs no snapshot file
+        sys.stdout.write(knobs.render_markdown_table() if args.markdown
+                         else knobs.render_text_table())
+        return 0
+
     def _usage_error(msg: str) -> int:
         # a missing or malformed snapshot is an operator mistake, not a
         # crash: name the problem, show the usage, exit 2
@@ -1525,17 +1622,38 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _usage_error(f"not a telemetry snapshot (expected {what} "
                             "keys)")
 
-    try:
-        with open(args.path, encoding="utf-8") as f:
-            data = json.load(f)
-    except OSError as e:
-        return _usage_error(f"cannot read {args.path}: {e}")
-    except ValueError as e:
-        return _usage_error(f"{args.path} is not valid JSON: {e}")
-    if not isinstance(data, dict):
-        return _usage_error(
-            f"{args.path} holds a JSON {type(data).__name__}, not a "
-            "snapshot object")
+    def _load(path: str):
+        """A parsed JSON dict, or an exit code (2)."""
+        try:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+        except OSError as e:
+            return _usage_error(f"cannot read {path}: {e}")
+        except ValueError as e:
+            return _usage_error(f"{path} is not valid JSON: {e}")
+        if not isinstance(doc, dict):
+            return _usage_error(
+                f"{path} holds a JSON {type(doc).__name__}, not a "
+                "snapshot object")
+        return doc
+
+    def _load_snapshot(path: str):
+        """A parsed snapshot, or an exit code (2)."""
+        doc = _load(path)
+        if isinstance(doc, dict) and not (
+                {"counters", "histograms", "spans"} & set(doc)):
+            return _usage_error(
+                f"{path} is not a telemetry snapshot (expected "
+                "'counters'/'histograms'/'spans' keys)")
+        return doc
+
+    if args.cmd == "fleet":
+        return _fleet_cmd(args, _usage_error, _load_snapshot)
+    if args.cmd == "diff":
+        return _diff_cmd(args, _usage_error, _load_snapshot)
+    data = _load(args.path)
+    if isinstance(data, int):
+        return data
     ver = data.get("schema_version")
     if isinstance(ver, (int, float)) and ver > SNAPSHOT_SCHEMA_VERSION:
         # a snapshot from a newer build renders best-effort
@@ -1567,6 +1685,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         sys.stdout.write(_audit.render_audit_report(data))
         sys.stdout.write("\n")
+    elif args.cmd == "mem-report":
+        bad = _needs({"memory", "counters", "histograms"},
+                     "'memory'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        sys.stdout.write(memacct.render_mem_report(data))
     elif args.cmd == "timeline":
         bad = _needs({"timeline", "counters", "histograms"},
                      "'timeline'/'counters'/'histograms'")
@@ -1631,3 +1755,84 @@ def main(argv: Optional[List[str]] = None) -> int:
             return bad
         sys.stdout.write(prometheus(data, exemplars=args.exemplars))
     return 0
+
+
+def _fleet_cmd(args, usage_error, load_snapshot) -> int:
+    """``fleet``: saved snapshots and live scrapes merged into one."""
+    from . import fleet as _fleet
+
+    if not args.paths and not args.scrape:
+        return usage_error(
+            "fleet needs at least one snapshot file or --scrape host:port")
+    snaps: List[Dict[str, Any]] = []
+    tags: List[str] = []
+    for i, path in enumerate(args.paths):
+        doc = load_snapshot(path)
+        if isinstance(doc, int):
+            return doc
+        snaps.append(doc)
+        tags.append(args.tag[i] if i < len(args.tag)
+                    else os.path.basename(path))
+    for j, hostport in enumerate(args.scrape):
+        try:
+            doc = _fleet.fetch_snapshot(hostport)
+        except (OSError, ValueError) as e:
+            return usage_error(f"cannot scrape {hostport}: {e}")
+        snaps.append(doc)
+        k = len(args.paths) + j
+        tags.append(args.tag[k] if k < len(args.tag) else hostport)
+    merged = _fleet.merge_snapshots(snaps, tags)
+    if args.out:
+        from . import fsio
+
+        fsio.atomic_write_json(args.out, merged)
+        print(f"merged {len(snaps)} replica snapshot(s) -> {args.out} "
+              "(render with report / prom / slo-report)", file=sys.stderr)
+    else:
+        json.dump(merged, sys.stdout, indent=1, default=str)
+        sys.stdout.write("\n")
+    return 0
+
+
+def _diff_cmd(args, usage_error, load_snapshot) -> int:
+    """``diff``: the attribution of the change from snapshot a to b,
+    over a timeline window of each with ``--window``."""
+    from . import fleet as _fleet
+
+    a = load_snapshot(args.a)
+    if isinstance(a, int):
+        return a
+    b = load_snapshot(args.b)
+    if isinstance(b, int):
+        return b
+    if args.window:
+        try:
+            win = _fleet.parse_window(args.window)
+        except ValueError as e:
+            return usage_error(str(e))
+        for name, path, doc in (("a", args.a, a), ("b", args.b, b)):
+            w = _fleet.window_snapshot(doc, win)
+            if w is None:
+                # attribution still runs, on the whole snapshot
+                print(f"note: {path} has no timeline ticks — diffing the "
+                      f"whole snapshot for side '{name}'", file=sys.stderr)
+            elif name == "a":
+                a = w
+            else:
+                b = w
+    if args.json:
+        json.dump(_fleet.diff_snapshots(a, b), sys.stdout, indent=1,
+                  default=str)
+        sys.stdout.write("\n")
+    else:
+        sys.stdout.write(_fleet.render_diff(a, b))
+    return 0
+
+
+# the OTLP/HTTP exporter (runtime/otel.py): opt-in through
+# PYRUHVRO_TPU_OTLP_ENDPOINT, started once at import; last in the module,
+# because its start registers the span sink defined above
+if knobs.get_raw("PYRUHVRO_TPU_OTLP_ENDPOINT"):
+    from . import otel as _otel
+
+    _otel.start_from_env()

@@ -34,10 +34,13 @@ one row in 100 replaced by ``b"\\x01"``, ``on_error="skip"``) and path 5
   ``device.launch_s`` per kernel kind for a call without the profiler
   and for the profiled call itself.
 
-* **seams**: the per-call work of the fault, sampling, SLO, flight and
-  audit seams in this tree: how often each runs in one path 5 call, and
-  its microseconds alone, each over a loop of 100,000; beside them a
-  timeline event's microseconds (one per state change, not per call).
+* **seams**: the per-call work of the fault, sampling, SLO, flight,
+  audit and memory seams in this tree: how often each runs in one path 5
+  call, and its microseconds alone, each over a loop of 100,000; beside
+  them a timeline event's microseconds (one per state change, not per
+  call), ``memacct.attribute`` of path 5's batch, a throttled
+  ``memacct.tick`` and ``OtlpExporter.enqueue`` of path 5's root span
+  (the last only with OTLP on).
 
 ``--cases`` picks the cases of A/B and on/off. ``--aa DIR`` adds a third
 worker on a second copy of the parent to the A/B turns, so that one call
@@ -220,6 +223,10 @@ def seams():
     a loop; and a timeline event's microseconds."""
     from pyruhvro_tpu_torch.runtime import (audit, device_obs, faults, knobs,
                                             router, sampling, slo, timeline)
+    try:  # the memory and OTLP seams, in trees that have them
+        from pyruhvro_tpu_torch.runtime import memacct, otel
+    except ImportError:
+        memacct = otel = None
     fired = {}
     fire = faults.fire
 
@@ -235,11 +242,11 @@ def seams():
     root = telemetry._spans[-1]
     n = 100_000
 
-    def us(fn):
+    def us(fn, loops=n):
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(loops):
             fn()
-        return (time.perf_counter() - t0) / n * 1e6
+        return (time.perf_counter() - t0) / loops * 1e6
 
     def scope():
         with sampling.call_scope("encode", schema, rows):
@@ -274,6 +281,34 @@ def seams():
         "timeline_event_us": us(lambda: timeline.event(
             "seam.probe", attrs={"k": 1})),
     }
+    if memacct is not None:
+        memacct.reset()
+        memacct.tick()  # the loop's ticks all fall inside the throttle
+        # an exporter whose queue is drained by hand (no thread, no POST)
+        ex = otel.OtlpExporter("http://127.0.0.1:9", interval_s=3600)
+
+        def enqueue():
+            ex.enqueue(root)
+            if len(ex._q) > 1024:
+                ex._q.clear()
+
+        import numpy as np
+        import pyarrow as pa
+        from pyruhvro_tpu_torch.runtime.ingest import as_datum_input
+
+        view = as_datum_input(pa.array(data, pa.binary()))
+        got.update(
+            attribute_us=us(lambda: memacct.attribute(
+                "tenant", entry.fingerprint, "encode", rows, batch5)),
+            # path 1's records as a BinaryArray (P2's input): read off
+            # the end offsets, and the reference's pass over the lengths
+            attribute_arrow_us=us(lambda: memacct.attribute(
+                "tenant", entry.fingerprint, "decode", rows, view)),
+            lens_sum_us=us(lambda: int(np.diff(view.offsets()).sum()),
+                           loops=100),
+            tick_us=us(memacct.tick),
+            otlp_enqueue_us=us(enqueue))
+        memacct.reset()
     audit.reset()
     timeline.reset()
     sampling.reset()
@@ -430,7 +465,9 @@ def main(argv=None) -> int:
             launches = sm["fired"].get("device_launch", 0)
             per_call = (launches * (sm["fire_us"] + sm["sync_mode_us"])
                         + sm["call_scope_us"] + sm["slo_record_root_us"]
-                        + sm.get("audit_tally_us", 0.0))
+                        + sm.get("audit_tally_us", 0.0)
+                        + sm.get("attribute_us", 0.0)
+                        + sm.get("tick_us", 0.0))
             print(f"seams path5: per call {sm['fired']} fault seams, "
                   f"{sm['root_children']} child spans; us each: "
                   f"faults.fire {sm['fire_us']:.3f}, the sync knob "
@@ -439,8 +476,18 @@ def main(argv=None) -> int:
                   f"{sm['call_scope_us']:.3f}, slo.record_root "
                   f"{sm['slo_record_root_us']:.3f}, a flight record (read "
                   f"time) {sm['flight_record_us']:.3f}, the audit's "
-                  f"tally {sm.get('audit_tally_us', float('nan')):.3f}; at "
-                  f"most {per_call:.1f} us a call; a timeline event "
+                  f"tally {sm.get('audit_tally_us', float('nan')):.3f}, "
+                  f"memacct.attribute "
+                  f"{sm.get('attribute_us', float('nan')):.3f} (of path 1's "
+                  f"records as a BinaryArray "
+                  f"{sm.get('attribute_arrow_us', float('nan')):.3f}; the "
+                  f"reference's lens().sum() "
+                  f"{sm.get('lens_sum_us', float('nan')):.3f}), a throttled "
+                  f"memacct.tick {sm.get('tick_us', float('nan')):.3f}; at "
+                  f"most {per_call:.1f} us a call; with OTLP on "
+                  f"OtlpExporter.enqueue "
+                  f"{sm.get('otlp_enqueue_us', float('nan')):.3f} more; a "
+                  f"timeline event "
                   f"{sm.get('timeline_event_us', float('nan')):.3f} us "
                   f"{card}", flush=True)
         this = workers["this"]

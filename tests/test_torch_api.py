@@ -286,7 +286,11 @@ def test_import_leaves_jax_and_the_reference_out():
         "pyruhvro_tpu_torch.runtime.incident, "
         "pyruhvro_tpu_torch.runtime.audit, "
         "pyruhvro_tpu_torch.runtime.coldigest, "
-        "pyruhvro_tpu_torch.runtime.obs_server\n"
+        "pyruhvro_tpu_torch.runtime.obs_server, "
+        "pyruhvro_tpu_torch.runtime.memacct, "
+        "pyruhvro_tpu_torch.runtime.cachelife, "
+        "pyruhvro_tpu_torch.runtime.otel, "
+        "pyruhvro_tpu_torch.runtime.fleet\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"
         "print(','.join(bad))\n"

@@ -11,8 +11,8 @@ copy of the reference's) held against the reference on the CPU, bound to
 * **Endpoints.** ``/metrics`` is byte-identical to
   ``telemetry.prometheus()`` (and with ``?exemplars=1``); ``/healthz``,
   ``/snapshot`` (and ``?compress=1``), ``/flight``, ``/audit``,
-  ``/timeline`` (and ``?tick=1``), ``/incidents`` and ``/serve`` answer;
-  ``/memory`` and unknown paths answer 404; a handler error answers 500
+  ``/timeline`` (and ``?tick=1``), ``/incidents``, ``/serve`` and
+  ``/memory`` answer; unknown paths answer 404; a handler error answers 500
   and counts, through the ``obs_handler`` seam as in the reference.
 * **Start.** ``PYRUHVRO_TPU_OBS_PORT`` starts the server at import and
   never in a spawn-pool worker; a bad port counts; the CLI's ``serve``
@@ -323,12 +323,18 @@ def test_audit_timeline_incidents_and_serve(server, tmp_path, monkeypatch):
 
 
 def test_unknown_paths_and_memory_answer_404(server):
-    for path in ("/memory", "/nope", "/metrics/extra"):
+    # unknown paths answer 404 with the endpoint list; /memory, once
+    # answered 404 here, is served since memory accounting was ported
+    for path in ("/nope", "/metrics/extra"):
         code, body, _ = get(server.url + path)
         doc = json.loads(body)
         assert code == 404 and path in doc["error"]
         assert doc["endpoints"] == list(obs_server.ENDPOINTS)
-    assert "/memory" not in obs_server.ENDPOINTS
+    assert "/memory" in obs_server.ENDPOINTS
+    code, body, _ = get(server.url + "/memory")
+    doc = json.loads(body)
+    assert code == 200 and doc["rss_bytes"] > 0
+    assert {"tracked_bytes", "caches", "lifecycle"} <= set(doc)
 
 
 def test_a_handler_error_answers_500_as_the_reference(monkeypatch):

@@ -35,7 +35,7 @@ from pyruhvro_tpu.schema.cache import get_or_parse_schema as ref_entry  # noqa: 
 
 import pyruhvro_tpu_torch as port  # noqa: E402
 from pyruhvro_tpu_torch.ops import decode, encode  # noqa: E402
-from pyruhvro_tpu_torch.runtime import deadline  # noqa: E402
+from pyruhvro_tpu_torch.runtime import deadline, memacct  # noqa: E402
 from pyruhvro_tpu_torch.schema.parser import parse_schema  # noqa: E402
 from pyruhvro_tpu_torch.utils import datagen  # noqa: E402
 
@@ -454,8 +454,11 @@ def test_argument_checks():
         port.deserialize_array_threaded([], FLAT, 2, backend="gpu")
     with pytest.raises(ValueError, match="timeout_s must be"):
         port.deserialize_array([], FLAT, device="cpu", timeout_s=-1)
-    with pytest.raises(TypeError):
-        port.deserialize_array([], FLAT, device="cpu", tenant="a")
+    # tenant= is accepted and attributed (memory accounting)
+    assert port.deserialize_array([], FLAT, device="cpu",
+                                  tenant="a").num_rows == 0
+    rows = {r["tenant"]: r for r in memacct.snapshot_memory()["tenants"]}
+    assert rows["a"]["calls"] >= 1 and rows["a"]["decode_calls"] >= 1
 
 
 def test_timeout_zero_raises_before_any_decode(monkeypatch):

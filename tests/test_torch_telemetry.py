@@ -750,10 +750,14 @@ FLIGHT_BEST_EFFORT = {"_flight_records", "_rotate_flight_dir", "mtime",
 # reference's do (the caller's result is already complete): the timeline's
 # tick loop, each incident section, write, rotation and listing, the audit
 # shadow, the obs server's handler (the 500 path) and start; the CLI's
-# exit-2 contract; and coldigest's probes of a pyarrow type's byte width
-# and union type codes
+# exit-2 contract (its file loader and the fleet's scrapes); coldigest's
+# probes of a pyarrow type's byte width and union type codes; and the
+# memory plane's and the exporter's observers: a failed probe
+# (``mem.probe_error``), a failed lifecycle hook (``cache.hook_error``)
+# and the OTLP exporter's failed POST, counted behind its breaker
 BEST_EFFORT = {
-    "telemetry": FLIGHT_BEST_EFFORT | {"main"},
+    "telemetry": FLIGHT_BEST_EFFORT | {"main", "_load", "_fleet_cmd",
+                                       "_diff_cmd"},
     "device_obs": set(),
     "timeline": {"_run"},
     "incident": {"_section", "_rotate", "mtime", "capture_now",
@@ -761,12 +765,19 @@ BEST_EFFORT = {
     "audit": {"maybe_audit", "_run_shadow"},
     "obs_server": {"do_GET", "start_from_env"},
     "coldigest": {"_byte_width", "_update"},
+    "memacct": {"_collect_full", "tracked_bytes", "_device_memory",
+                "peak_rss_bytes", "rss_bytes", "_approx_bytes"},
+    "cachelife": {"_safe_entries", "_evict_one", "admit",
+                  "snapshot_lifecycle"},
+    "otel": {"_post", "flush"},
+    "fleet": {"num"},
 }
 
 
 @pytest.mark.parametrize("module", ["telemetry", "device_obs", "timeline",
                                     "incident", "audit", "obs_server",
-                                    "coldigest"])
+                                    "coldigest", "memacct", "cachelife",
+                                    "otel", "fleet"])
 def test_no_synchronise_and_no_swallowed_exception(module):
     path = REPO / "pyruhvro_tpu_torch" / "runtime" / f"{module}.py"
     src = path.read_text()
