@@ -15,7 +15,9 @@ exits non-zero before the last line:
    (``walk_decode.cu``, ``decode_walk.cu``, ``decode_finalize.cu``,
    ``encode.cu``) and one ``g++`` for each native host module (the record
    pack ``packer.cpp``, the host tier's VM ``host/host_codec.cpp`` and
-   extractor ``host/extract.cpp``), all started together, with ptxas
+   extractor ``host/extract.cpp``) and for the host tier's specialised
+   units of the Kafka and ``arr_rec_arr`` schemas
+   (``hostpath/specialize.py``), all started together, with ptxas
    registers and spills, and each ``g++`` command and its seconds;
 3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
    plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
@@ -53,7 +55,9 @@ exits non-zero before the last line:
    with ``device="cpu"``: P1 ``on_error="skip"`` on path 1's records with
    one row in every ``POLICY_EVERY`` replaced by ``b"\\x01"`` (every
    planted row quarantined with ``tier="device"``, the batches and entries
-   equal to the CPU call's, K1 and K2 launches counted from 0, the cold
+   equal to the CPU call's — ``equals()`` and the union columns' values on
+   every chunk, value by value on the first —, K1 and K2 launches
+   counted from 0, the cold
    and warm calls, the warm calls in turns with clean path 1, and once on
    the K4 engine), P2 the records as a ``BinaryArray`` (equal batches,
    ``pack_s`` in turns with the list), P3 ``timeout_s=0`` (raises before
@@ -72,8 +76,10 @@ exits non-zero before the last line:
    runner, H3 take the native extract and give the input datums), H4
    the crossover (Kafka batches of 1,000 to 1,000,000 records, card
    against host in turns), H5 P4's records on the oracle
-   (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier, and the lane
-   counters;
+   (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier, H6 path 1 on
+   the specialised engine against the VM (``PYRUHVRO_TPU_NO_SPECIALIZE=1``)
+   in turns, decode and encode, equal, with the unit's ``g++`` seconds,
+   and the lane counters;
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
    strings, d2h, wrap); on the overlapped paths the native pack against
@@ -136,19 +142,27 @@ exits non-zero before the last line:
 9. the ``incident`` phase (:func:`incident_phase`, A1-A3, O1, I1, T1):
    the audit shadow of the card's decode and encode, a planted byte, the
    obs server, one incident bundle, the timeline's deltas;
-10. the ``memory`` phase (:func:`memory_phase`, G1-G6): the memory
+10. the ``serving`` phase (:func:`serving_phase`, V1-V5) on the first
+   ``SERVING_ROWS`` of path 1's records: the micro-batching plane's
+   requests from several threads against one-shot calls on the card
+   (equal, K1/K2 launches per coalesced batch against per request, the
+   end-to-end latencies in turns), ``shed`` at depth 8, the brownout
+   ladder in ``/healthz``, a poisoned member rebased and a launch fault
+   in every member's future, encode requests and the Flight door;
+11. the ``memory`` phase (:func:`memory_phase`, G1-G6): the memory
    accounting's planes at path 1's size against the card's allocator,
    the phase's arenas and buckets evicted (``memory_allocated`` falls by
    the arenas' card bytes; the next call launches them first again and
-   is equal), a pressure relief (``/healthz`` 503, RSS and the
+   is equal) and the specialised host engines (re-admitted without a
+   second ``g++`` run), a pressure relief (``/healthz`` 503, RSS and the
    allocators before and after), three tenants' decodes and encodes,
    ``/memory`` and ``mem-report``, the OTLP export of those calls and
    the fleet merge and diff;
-11. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
+12. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
    ``{"multichip": ...}``, ``{"planes": ...}``, ``{"incident": ...}``,
-   ``{"memory": ...}``, ``{"paths": ...}`` and ``{"kernels": [...]}``
-   JSON lines (K5 as ``sharded_fanout``), then ``{"ok": true, "device":
-   {...}}`` as the last line.
+   ``{"serving": ...}``, ``{"memory": ...}``, ``{"paths": ...}`` and
+   ``{"kernels": [...]}`` JSON lines (K5 as ``sharded_fanout``), then
+   ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -906,6 +920,7 @@ def queued_ms(torch, fn, repeats: int, prepare=None) -> float:
 MEMORY_ROWS = 100_000       # G4-G6: Kafka records per tenant call
 MEMORY_TENANTS = ("t-alpha", "t-beta", "t-gamma")
 MEMORY_TP = "00-" + "5d" * 16 + "-" + "a1" * 8 + "-01"
+MEMORY_HOST_ROWS = 30_000   # G2/G3: host rows, past the specialiser's 20,000
 
 
 def round512(n: int) -> int:
@@ -943,12 +958,16 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
       beside their bytes rounded to 512 B); RSS before and after
       (the pinned blocks stay in PyTorch's host cache); the next call
       launches its buckets as first launches and is equal to the call
-      before the eviction;
+      before the eviction; then the specialised host engines evicted
+      after a ``backend="host"`` call of ``MEMORY_HOST_ROWS`` records:
+      the next host call re-admits its engine from the file, with no
+      ``g++`` run (``specialize.builds``), and is equal;
     * G3: ``PYRUHVRO_TPU_MEM_HIGH_WATER=1`` and ``force_pressure_check()``:
-      ``mem.pressure``, ``cache.evict.*.pressure`` and one allocator
-      release counted, ``/healthz`` 503 with ``mem_pressure``; RSS,
-      ``memory_allocated`` and ``memory_reserved`` before and after; the
-      next call equal;
+      ``mem.pressure``, ``cache.evict.*.pressure`` (the engines' among
+      them) and one allocator release counted, ``/healthz`` 503 with
+      ``mem_pressure``; RSS, ``memory_allocated`` and
+      ``memory_reserved`` before and after; the next call equal, and the
+      next host call on its engine's file, with no ``g++`` run;
     * G4: decode and encode of ``MEMORY_ROWS`` records under each of
       ``MEMORY_TENANTS``: the sketch's rows, ``tenant`` on each root span,
       ``/memory`` equal to ``snapshot_memory()`` on the same state, and
@@ -970,6 +989,7 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+    from pyruhvro_tpu_torch.api import _native_host_codec as native_host_codec
     from pyruhvro_tpu_torch.ops.codec import get_device_codec
     from pyruhvro_tpu_torch.runtime import (cachelife, device_obs, fleet,
                                             memacct, metrics, obs_server,
@@ -995,6 +1015,11 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
 
     def call(rows=data, **kw):
         return api.deserialize_array_threaded(rows, schema, MAIN_CHUNKS, **kw)
+
+    def host_call():
+        # past the specialiser's threshold (PYRUHVRO_TPU_SPECIALIZE_ROWS)
+        return api.deserialize_array(data[:MEMORY_HOST_ROWS], schema,
+                                     backend="host")
 
     # G1: the probes at path 1's size
     m0 = mem_now()
@@ -1123,6 +1148,33 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
           f"({m3['rss'] - m2['rss']:+,}); the next call {again_s:.3f} s "
           f"counted {misses:.0f} first launches, launched {launches}, "
           f"equal to the call before {card}")
+    # ... and the specialised host engines: a host call past the
+    # specialiser's threshold, its engines evicted, the next call
+    # re-admits the engine from its file without a g++ run
+    host_want = host_call()
+    hcodec = native_host_codec(get_or_parse_schema(schema))
+    eng_keys = [k for k, _t, _b in managed["engines"].entries()]
+    c0 = metrics.snapshot()
+    evicted_engines = sum(managed["engines"].evict(k) for k in eng_keys)
+    unhooked = hcodec._spec is None
+    host_got = host_call()
+    c1 = metrics.snapshot()
+    eng_delta = {k: c1.get(k, 0) - c0.get(k, 0)
+                 for k in ("specialize.evictions", "specialize.builds")}
+    if not evicted_engines or not unhooked or hcodec._spec is None or \
+            eng_delta["specialize.builds"] or \
+            eng_delta["specialize.evictions"] != evicted_engines:
+        raise SystemExit(f"memory G2: evicted {evicted_engines} engines "
+                         f"(the codec unhooked: {unhooked}, re-admitted: "
+                         f"{hcodec._spec is not None}), counters {eng_delta}")
+    same_columns("memory G2 (host)", [host_got], [host_want])
+    out["G2"]["engines"] = {"evicted": evicted_engines,
+                            "counters": eng_delta,
+                            "engine": hcodec._spec.__name__}
+    print(f"memory G2: {evicted_engines} specialised host engines evicted "
+          f"through cachelife ({eng_keys}); the next backend='host' call "
+          f"re-admitted {hcodec._spec.__name__} from its file with "
+          f"{eng_delta['specialize.builds']:.0f} g++ runs, equal {card}")
 
     # G3: pressure
     srv = obs_server.ObsServer(port=0).start()
@@ -1149,6 +1201,7 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
         evicted = {k: v for k, v in delta.items()
                    if k.startswith("cache.evict.") and k.endswith(".pressure")}
         if delta.get("mem.pressure") != 1 or not evicted or \
+                not evicted.get("cache.evict.engines.pressure") or \
                 delta.get("mem.allocator_release") != 1 or code != 503 or \
                 not health["unhealthy_bits"]["mem_pressure"]:
             raise SystemExit(f"memory G3: counters {delta}, /healthz {code} "
@@ -1160,20 +1213,32 @@ def memory_phase(api, pa, torch, dm, em, data, schema, card):
         launches3 = launched("memory G3", pipe)
         same_columns("memory G3", got, before)
         del got, before
+        # the relief dropped the schema entry and its host codec too: a
+        # fresh codec loads the engine from its file, no g++ run
+        b0 = metrics.snapshot().get("specialize.builds", 0)
+        same_columns("memory G3 (host)", [host_call()], [host_want])
+        hcodec = native_host_codec(get_or_parse_schema(schema))
+        builds3 = metrics.snapshot().get("specialize.builds", 0) - b0
+        if hcodec._spec is None or builds3:
+            raise SystemExit(f"memory G3: the host engine after the relief "
+                             f"{hcodec._spec}, {builds3} g++ runs")
         out["G3"] = {"counters": delta, "before": m4, "after": m5,
                      "rss_change": m5["rss"] - m4["rss"],
                      "allocated_change": m5["allocated"] - m4["allocated"],
                      "reserved_change": m5["reserved"] - m4["reserved"],
                      "relief_s": relief_s, "healthz": code,
-                     "next_call_s": again3_s, "launches": launches3}
+                     "next_call_s": again3_s, "launches": launches3,
+                     "host_engine": hcodec._spec.__name__,
+                     "host_builds": builds3}
         print(f"memory G3: PYRUHVRO_TPU_MEM_HIGH_WATER=1, one pressure pass "
               f"in {relief_s:.3f} s evicted {evicted}; RSS {m4['rss']:,} -> "
               f"{m5['rss']:,} ({m5['rss'] - m4['rss']:+,}), "
               f"memory_allocated {m4['allocated']:,} -> "
               f"{m5['allocated']:,}, reserved {m4['reserved']:,} -> "
               f"{m5['reserved']:,}; /healthz 503 with mem_pressure; the "
-              f"next call {again3_s:.3f} s launched {launches3}, equal "
-              f"{card}")
+              f"next call {again3_s:.3f} s launched {launches3}, equal; a "
+              f"host call re-admitted {hcodec._spec.__name__} with "
+              f"{builds3:.0f} g++ runs, equal {card}")
 
         # G4 and G5: three tenants' card calls, exported over OTLP
         reqs = []
@@ -2404,12 +2469,15 @@ def host_path(label, metrics, call_host, call_card, compare, rows, card):
             "turns_s": turns, "rows": rows}
 
 
-def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
+def host_phase(api, data, nested, large, kafka_batch, nested_schema, card,
+               units=None):
     """The native host tier (``backend="host"``, ``hostpath/``) against
     the card: H1 path 1, H2 paths 3 and 4, H3 path 5's encode, H4 the
     crossover over Kafka batch sizes, H5 P4's records on the oracle
-    (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier. Fails if path 1
-    did not take the fused decode lane or path 5 the native extract."""
+    (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier, H6 path 1 on
+    the specialised engine against the VM. Fails if path 1 did not take
+    the fused decode lane or path 5 the native extract. ``units`` holds
+    the specialised units' build of the script's build step."""
     import os
 
     from pyruhvro_tpu_torch.runtime import metrics
@@ -2523,8 +2591,73 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card):
               f"{statistics.median(enc[1:]):.4f} s; equal to the card's and "
               f"to the input datums {card}")
     out["h5"] = h5
+    out["h6"] = host_h6(api, metrics, codec_of, data, kafka_batch, kafka,
+                        units or {}, card)
     print(f"host lane counters (since H3): "
           f"{lane_counts(metrics, since_h3)}")
+    return out
+
+
+def host_h6(api, metrics, codec_of, data, kafka_batch, kafka, units, card):
+    """H6: path 1's records on ``backend="host"`` through the specialised
+    engine and through the VM (a codec built under
+    ``PYRUHVRO_TPU_NO_SPECIALIZE=1``), each under a schema string of its
+    own: decode and encode equal, then warm calls in turns (A B B A
+    twice); the Kafka unit's ``g++`` seconds from the build step."""
+    import os
+
+    schemas = {arm: json.dumps(dict(json.loads(kafka), doc=f"H6 {arm}"))
+               for arm in ("spec", "vm")}
+    os.environ["PYRUHVRO_TPU_NO_SPECIALIZE"] = "1"
+    try:
+        vm_codec = codec_of(schemas["vm"])
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_NO_SPECIALIZE")
+    spec_codec = codec_of(schemas["spec"])
+    builds0 = metrics.snapshot().get("specialize.builds", 0)
+
+    def dec(arm):
+        return lambda: api.deserialize_array_threaded(
+            data, schemas[arm], MAIN_CHUNKS, backend="host")
+
+    def enc(arm):
+        return lambda: api.serialize_record_batch(
+            kafka_batch, schemas[arm], MAIN_CHUNKS, backend="host")
+
+    t0 = time.perf_counter()
+    got = dec("spec")()
+    cold_s = time.perf_counter() - t0
+    if spec_codec._spec is None or vm_codec._spec is not None:
+        raise SystemExit(f"host H6: engines {spec_codec._spec} (specialised "
+                         f"arm) and {vm_codec._spec} (VM arm)")
+    same_columns("host H6", got, dec("vm")())
+    del got
+    spec_wire = wire_of(enc("spec")())
+    if spec_wire != wire_of(enc("vm")()) or spec_wire != data:
+        raise SystemExit("host H6: the specialised encode differs from the "
+                         "VM's or from the input datums")
+    del spec_wire
+    dec_turns = turns_of(dec("spec"), dec("vm"), ("spec", "vm"))
+    enc_turns = turns_of(enc("spec"), enc("vm"), ("spec", "vm"))
+    builds = metrics.snapshot().get("specialize.builds", 0) - builds0
+    out = {"cold_s": cold_s, "decode_turns_s": dec_turns,
+           "encode_turns_s": enc_turns, "units": units,
+           "builds_in_h6": builds, "engine": spec_codec._spec.__name__}
+    med = {k: {arm: statistics.median(v[arm]) for arm in v}
+           for k, v in (("decode", dec_turns), ("encode", enc_turns))}
+    print(f"host H6: path 1 on the specialised engine {out['engine']} "
+          f"against the VM, equal decode and encode (the input datums); "
+          f"the specialised arm's first call {cold_s:.3f} s ({builds:.0f} "
+          f"g++ runs); warm medians in turns (A B B A twice): decode "
+          f"specialised {med['decode']['spec']:.3f} s "
+          f"{[round(x, 3) for x in dec_turns['spec']]}, VM "
+          f"{med['decode']['vm']:.3f} s "
+          f"{[round(x, 3) for x in dec_turns['vm']]}; encode specialised "
+          f"{med['encode']['spec']:.3f} s "
+          f"{[round(x, 3) for x in enc_turns['spec']]}, VM "
+          f"{med['encode']['vm']:.3f} s "
+          f"{[round(x, 3) for x in enc_turns['vm']]}; units built in the "
+          f"build step {units} {card}")
     return out
 
 
@@ -3290,7 +3423,10 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     t0 = time.perf_counter()
     want, want_q = skip(poisoned, device="cpu")
     cpu_s = time.perf_counter() - t0
-    same_values("P1", got, want)
+    # equals() and the union columns' values on every chunk; value by
+    # value (to_pylist, about 35 s a million rows) on the first only
+    same_columns("P1", got, want)
+    same_values("P1 (first chunk)", got[:1], want[:1])
     check_quarantine("P1", quar, bad, want_q)
     import os
 
@@ -3312,7 +3448,8 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
     print(f"policy P1: deserialize_array_threaded({len(data)} records, "
           f"{len(bad)} poisoned, {MAIN_CHUNKS}, on_error='skip') quarantined "
           f"{len(quar)} rows {slugs}, every entry tier 'device', batches and "
-          f"entries equal to the CPU call ({cpu_s:.1f} s); launches: cold "
+          f"entries equal to the CPU call ({cpu_s:.1f} s; value by value on "
+          f"the first chunk); launches: cold "
           f"{launches}, per warm call {warm_launches}; cold {cold:.3f} s, "
           f"warm median of {POLICY_WARM_CALLS} {med:.3f} s ({min(warm):.3f} .. "
           f"{max(warm):.3f}); in turns (A B B A) poisoned "
@@ -4504,6 +4641,406 @@ def incident_phase(api, pa, dm, em, data, schema, card):
     return out
 
 
+SERVING_ROWS = 100_000      # the serving phase: Kafka records
+SERVING_REQUESTS = 64       # V1: requests of 1,000-4,000 records each
+SERVING_THREADS = 4         # V1: threads submitting them
+SERVING_TURNS = 2           # V1: rounds of A B B A (plane, one-shot calls)
+
+
+def quantile(xs, q: float) -> float:
+    """The ``q`` quantile of ``xs`` (nearest rank)."""
+    ys = sorted(xs)
+    return ys[min(len(ys) - 1, max(0, int(round(q * (len(ys) - 1)))))]
+
+
+def serving_phase(api, pa, dm, em, data, schema, card):
+    """The serving plane (``pyruhvro_tpu_torch/serving/``) on the card,
+    under a schema string of its own, from ``telemetry.reset()``:
+
+    * V1: ``SERVING_REQUESTS`` requests of 1,000-4,000 of ``data``'s
+      records, submitted from ``SERVING_THREADS`` threads to a plane of
+      two workers, against the same requests as one-shot
+      ``deserialize_array`` calls from as many threads, in turns (A B B
+      A, ``SERVING_TURNS`` times): every future equal to its one-shot
+      call; K1/K2 launches counted from 0 over each round (per coalesced
+      batch against per request); each request's end-to-end seconds
+      (``serve.e2e_s`` and this script's own clock) beside the one-shot
+      calls';
+    * V2: ``PYRUHVRO_TPU_SERVE_POLICY=shed`` at depth 8: 12 requests, 4
+      shed with ``Overloaded("queue_full")`` and a ``retry_after_s`` from
+      the cost model, the drain's accounting balanced, equal results and
+      ``serve.double_resolve`` 0;
+    * V3: the brownout ladder engaged by a full queue and released once
+      the workers drain it, seen in ``/healthz`` of the obs server both
+      ways, the audit switched off and back on;
+    * V4: three coalesced requests under ``on_error="skip"``, one with
+      two rows poisoned: its entries rebased to its own indices, every
+      member equal to its one-shot call; then a ``device_launch`` fault
+      in a coalesced batch: every member's future raises
+      ``FaultInjected``, and no call reaches the host tier;
+    * V5: encode requests (K3 launches counted from 0): each future's
+      wire equal to the one-shot call's and to the records; the Arrow
+      Flight door's DoPut / DoGet round trip, or a line saying
+      ``pyarrow.flight`` is unavailable.
+
+    Every failure exits non-zero. Returns the phase's figures."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from pyruhvro_tpu_torch import serving
+    from pyruhvro_tpu_torch.runtime import audit, faults, metrics, obs_server
+    from pyruhvro_tpu_torch.runtime import telemetry
+    from pyruhvro_tpu_torch.serving import Overloaded, ServePlane
+    from pyruhvro_tpu_torch.serving import flight as sfl
+
+    doc = json.loads(schema)
+    doc["doc"] = "serving phase"
+    schema = json.dumps(doc)
+    pipe = {"decode_walk": dm.walk_kernel,
+            "decode_finalize": dm.finalize_kernel}
+    enc = {"encode_rows": em.encode_kernel.rows,
+           "encode_strings": em.encode_kernel.strings}
+    host_keys = ("route.native", "route.fallback", "route.host",
+                 "device.host_answer", "fallback.")
+    out = {}
+    serving.reset()
+    telemetry.reset()
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(1_000, 4_001, SERVING_REQUESTS)
+    starts = rng.integers(0, len(data) - 4_000, SERVING_REQUESTS)
+    reqs = [data[a:a + n] for a, n in zip(starts.tolist(), sizes.tolist())]
+
+    def one_shot(rows, **kw):
+        return api.deserialize_array(rows, schema, device=DEVICE, **kw)
+
+    # V1: the plane against one-shot calls, in turns
+    wants = [one_shot(r) for r in reqs]  # warms the buckets
+
+    def fan(work):
+        """``work(i)`` for every request, from SERVING_THREADS threads."""
+        errors = []
+
+        def run(k):
+            try:
+                for i in range(k, len(reqs), SERVING_THREADS):
+                    work(i)
+            except BaseException as e:  # reported below, the phase fails
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(k,))
+                   for k in range(SERVING_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise SystemExit(f"serving V1: {errors[0]!r}")
+
+    plane = serving.start(workers=2)
+
+    def served_round():
+        e2e, futs = [None] * len(reqs), [None] * len(reqs)
+
+        def submit(i):
+            t0 = time.perf_counter()
+            f = plane.submit("decode", reqs[i], schema, device=DEVICE,
+                             timeout_s=120.0)
+
+            def done(_f, i=i, t0=t0):
+                e2e[i] = time.perf_counter() - t0
+
+            f.add_done_callback(done)
+            futs[i] = f
+
+        b0 = metrics.snapshot().get("serve.batches", 0)
+        zero(pipe)
+        t0 = time.perf_counter()
+        fan(submit)
+        got = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = launched("serving V1 (plane)", pipe)
+        batches = metrics.snapshot().get("serve.batches", 0) - b0
+        for i, (g, w) in enumerate(zip(got, wants)):
+            same_columns(f"serving V1 request {i}", [g], [w])
+        return {"wall_s": wall, "e2e_s": e2e, "launches": launches,
+                "batches": batches}
+
+    def one_shot_round():
+        lat = [None] * len(reqs)
+
+        def call(i):
+            t0 = time.perf_counter()
+            one_shot(reqs[i])
+            lat[i] = time.perf_counter() - t0
+
+        zero(pipe)
+        t0 = time.perf_counter()
+        fan(call)
+        wall = time.perf_counter() - t0
+        return {"wall_s": wall, "e2e_s": lat,
+                "launches": launched("serving V1 (one-shot)", pipe),
+                "batches": len(reqs)}
+
+    rounds = {"plane": [], "one_shot": []}
+    for leg in ["plane", "one_shot", "one_shot", "plane"] * SERVING_TURNS:
+        rounds[leg].append(served_round() if leg == "plane"
+                           else one_shot_round())
+    rep = serving.stop()
+    hist = telemetry.snapshot()["histograms"].get("serve.e2e_s", {})
+    v1 = {}
+    for leg, rs in rounds.items():
+        lat = [x for r in rs for x in r["e2e_s"]]
+        batches = sum(r["batches"] for r in rs)
+        k1 = sum(r["launches"]["decode_walk"] for r in rs)
+        k2 = sum(r["launches"]["decode_finalize"] for r in rs)
+        v1[leg] = {"p50_s": quantile(lat, 0.5), "p99_s": quantile(lat, 0.99),
+                   "wall_s": [r["wall_s"] for r in rs],
+                   "batches_per_round": batches / len(rs),
+                   "k1_per_batch": k1 / batches, "k2_per_batch": k2 / batches,
+                   "k1_per_request": k1 / (len(rs) * len(reqs)),
+                   "k2_per_request": k2 / (len(rs) * len(reqs))}
+    v1["serve_e2e_hist"] = {k: hist.get(k) for k in ("count", "p50", "p99")}
+    v1["drain"] = rep
+    v1["rows"] = int(sizes.sum())
+    if rep["accepted"] != rep["completed"] or rep["failed"] or \
+            metrics.snapshot().get("serve.double_resolve", 0):
+        raise SystemExit(f"serving V1: the drain's accounting {rep}")
+    out["V1"] = v1
+    pl, os_ = v1["plane"], v1["one_shot"]
+    print(f"serving V1: {SERVING_REQUESTS} requests of {sizes.min()}-"
+          f"{sizes.max()} records ({v1['rows']:,} rows a round) from "
+          f"{SERVING_THREADS} threads, equal to the one-shot calls; in turns "
+          f"(A B B A x{SERVING_TURNS}): the plane {pl['batches_per_round']:.1f}"
+          f" coalesced batches a round, K1/K2 {pl['k1_per_batch']:.2f}/"
+          f"{pl['k2_per_batch']:.2f} per batch = {pl['k1_per_request']:.3f}/"
+          f"{pl['k2_per_request']:.3f} per request, e2e p50 "
+          f"{pl['p50_s'] * 1e3:.2f} ms p99 {pl['p99_s'] * 1e3:.2f} ms, rounds "
+          f"{[round(x, 3) for x in pl['wall_s']]} s; one-shot K1/K2 "
+          f"{os_['k1_per_request']:.3f}/{os_['k2_per_request']:.3f} per "
+          f"request, p50 {os_['p50_s'] * 1e3:.2f} ms p99 "
+          f"{os_['p99_s'] * 1e3:.2f} ms, rounds "
+          f"{[round(x, 3) for x in os_['wall_s']]} s; serve.e2e_s "
+          f"histogram {v1['serve_e2e_hist']}; drain {rep} {card}")
+
+    knob_env = {}
+
+    def knob(name, value):
+        knob_env.setdefault(name, os.environ.get(name))
+        os.environ[name] = value
+
+    def restore():
+        for name, value in knob_env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        knob_env.clear()
+
+    # V2: shed at depth 8
+    try:
+        knob("PYRUHVRO_TPU_SERVE_POLICY", "shed")
+        knob("PYRUHVRO_TPU_SERVE_QUEUE", "8")
+        knob("PYRUHVRO_TPU_SERVE_TENANT_SHARE", "0")
+        p = ServePlane(autostart=False)
+        futs, shed = [], []
+        for i in range(12):
+            try:
+                futs.append((i, p.submit("decode", reqs[i], schema,
+                                         device=DEVICE, timeout_s=120.0)))
+            except Overloaded as e:
+                shed.append({"reason": e.reason, "queued": e.queued,
+                             "retry_after_s": e.retry_after_s})
+        t0 = time.perf_counter()
+        rep = p.drain()
+        drain_s = time.perf_counter() - t0
+    finally:
+        restore()
+    for i, f in futs:
+        same_columns(f"serving V2 request {i}", [f.result(timeout=0)],
+                     [wants[i]])
+    c = metrics.snapshot()
+    if len(shed) != 4 or {s["reason"] for s in shed} != {"queue_full"} or \
+            any(s["retry_after_s"] is None or s["retry_after_s"] <= 0
+                for s in shed) or rep["accepted"] != 8 or \
+            rep["completed"] != 8 or rep["drained"] != 8 or \
+            c.get("serve.double_resolve", 0):
+        raise SystemExit(f"serving V2: shed {shed}, drain {rep}")
+    out["V2"] = {"shed": shed, "drain": rep, "drain_s": drain_s,
+                 "double_resolve": c.get("serve.double_resolve", 0)}
+    print(f"serving V2: shed policy at depth 8, 12 requests: 8 accepted, 4 "
+          f"shed queue_full with retry_after_s "
+          f"{[round(s['retry_after_s'], 4) for s in shed]} (the cost model's "
+          f"drain estimate); the drain {drain_s:.3f} s {rep}, results equal, "
+          f"serve.double_resolve 0 {card}")
+
+    # V3: the brownout ladder, seen in /healthz
+    srv = obs_server.ObsServer(port=0).start()
+    try:
+        knob("PYRUHVRO_TPU_SERVE_POLICY", "shed")
+        knob("PYRUHVRO_TPU_SERVE_QUEUE", "4")
+        knob("PYRUHVRO_TPU_SERVE_BROWNOUT", "0.1")
+        knob("PYRUHVRO_TPU_SERVE_BROWNOUT_SUSTAIN", "1")
+        knob("PYRUHVRO_TPU_SERVE_TENANT_SHARE", "0")
+        audit_before = audit.enabled()
+        p = ServePlane(workers=2, autostart=False)
+        serving._plane = p  # the plane /healthz reads
+        for i in range(4):
+            p.submit("decode", reqs[i], schema, device=DEVICE,
+                     timeout_s=120.0)
+        time.sleep(0.05)  # past the ladder's tick throttle
+        try:
+            p.submit("decode", reqs[4], schema, device=DEVICE,
+                     timeout_s=120.0)
+            raise SystemExit("serving V3: a full queue admitted a request")
+        except Overloaded:
+            pass
+        code, body = http_get(srv.url + "/healthz")
+        engaged = json.loads(body)["degraded_bits"]["brownout"]
+        audit_off = audit.enabled()
+        t0 = time.perf_counter()
+        p.start_workers()
+        while p.engaged_rungs() and time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        released_s = time.perf_counter() - t0
+        code2, body2 = http_get(srv.url + "/healthz")
+        after = json.loads(body2)["degraded_bits"]["brownout"]
+        rep = p.drain()
+        c = metrics.snapshot()
+        counts = {k: c.get(k, 0) for k in c
+                  if k.startswith("serve.brownout")}
+    finally:
+        restore()
+        serving.reset()
+        srv.stop()
+    if engaged != list(serving.BROWNOUT_RUNGS) or after or audit_off or \
+            audit.enabled() != audit_before or rep["completed"] != 4 or \
+            any(counts.get(f"serve.brownout.{r}") != 1 or
+                counts.get(f"serve.brownout_release.{r}") != 1
+                for r in serving.BROWNOUT_RUNGS):
+        raise SystemExit(f"serving V3: /healthz brownout {engaged} then "
+                         f"{after}, audit {audit_before} -> {audit_off} -> "
+                         f"{audit.enabled()}, counters {counts}, drain {rep}")
+    out["V3"] = {"engaged": engaged, "released_after_s": released_s,
+                 "healthz": [code, code2], "counters": counts}
+    print(f"serving V3: a full queue (depth 4) engaged every brownout rung, "
+          f"/healthz {code} degraded_bits.brownout {engaged} (audit off); "
+          f"the workers drained it and every rung released in "
+          f"{released_s:.3f} s, /healthz {code2} brownout {after} (audit "
+          f"on again) {card}")
+
+    # V4: a poisoned member rebased; a launch fault in every member
+    members = [list(reqs[i]) for i in range(3)]
+    bad = [5, len(members[1]) - 7]
+    for j in bad:
+        members[1][j] = b"\x01"
+    p = ServePlane(autostart=False)
+    b0 = metrics.snapshot().get("serve.batches", 0)
+    futs = [p.submit("decode", m, schema, device=DEVICE, on_error="skip",
+                     return_errors=True, timeout_s=120.0) for m in members]
+    p.drain()
+    batches = metrics.snapshot().get("serve.batches", 0) - b0
+    entries = []
+    for i, (f, m) in enumerate(zip(futs, members)):
+        got, quar = f.result(timeout=0)
+        want, want_q = one_shot(m, on_error="skip", return_errors=True)
+        same_columns(f"serving V4 member {i}", [got], [want])
+        if entry_fields(quar) != entry_fields(want_q):
+            raise SystemExit(f"serving V4: member {i}'s entries "
+                             f"{entry_fields(quar)} against the one-shot "
+                             f"call's {entry_fields(want_q)}")
+        entries.append([(q.index, q.error, q.tier) for q in quar])
+    if batches != 1 or [e[0] for e in entries[1]] != bad or entries[0] or \
+            entries[2] or {e[2] for e in entries[1]} != {"device"}:
+        raise SystemExit(f"serving V4: {batches} batches, entries {entries}")
+    c0 = metrics.snapshot()
+    try:
+        knob("PYRUHVRO_TPU_FAULTS", "device_launch:error:1")
+        p = ServePlane(autostart=False)
+        futs = [p.submit("decode", reqs[i], schema, device=DEVICE,
+                         timeout_s=120.0) for i in range(3)]
+        rep = p.drain()
+    finally:
+        restore()
+        faults.reset()
+    raised = []
+    for f in futs:
+        e = f.exception(timeout=0)
+        raised.append(type(e).__name__)
+    c1 = metrics.snapshot()
+    delta = {k: c1[k] - c0.get(k, 0) for k in c1
+             if c1[k] != c0.get(k, 0) and k.startswith(
+                 ("serve.", "fault.", "route.", "device.host_answer",
+                  "fallback."))}
+    if raised != ["FaultInjected"] * 3 or rep["failed"] != 3 or \
+            delta.get("serve.worker_degraded") != 1 or \
+            delta.get("serve.serial_calls") != 3 or \
+            any(k.startswith(host_keys) for k in delta):
+        raise SystemExit(f"serving V4: a launch fault raised {raised}, "
+                         f"drain {rep}, counters {delta}")
+    out["V4"] = {"entries": entries, "fault_raised": raised,
+                 "fault_counters": delta}
+    print(f"serving V4: three requests under on_error='skip' coalesced into "
+          f"one batch, the poisoned member's entries {entries[1]} at its "
+          f"own indices, every member equal to its one-shot call; a "
+          f"device_launch fault in a coalesced batch: every future raised "
+          f"{raised[0]}, counters {delta}, nothing on the host {card}")
+
+    # V5: encode requests, and the Flight door
+    batch = one_shot(data[:16_000])
+    slices = [batch.slice(i * 2_000, 2_000) for i in range(8)]
+    p = serving.start(workers=2)
+    zero(enc)
+    futs = [p.submit("encode", b, schema, device=DEVICE, num_chunks=1,
+                     timeout_s=120.0) for b in slices]
+    got = [f.result(timeout=300) for f in futs]
+    launches = launched("serving V5", enc)
+    for i, (g, b) in enumerate(zip(got, slices)):
+        if wire_of(g) != wire_of(api.serialize_record_batch(
+                b, schema, 1, device=DEVICE)) \
+                or wire_of(g) != data[i * 2_000:(i + 1) * 2_000]:
+            raise SystemExit(f"serving V5: encode request {i}'s wire "
+                             f"differs")
+    out["V5"] = {"encode_launches": launches}
+    if sfl.flight_available():
+        import pyarrow.flight as fl
+
+        server = sfl.start_flight_server("grpc://127.0.0.1:0")
+        try:
+            client = fl.connect(f"grpc://127.0.0.1:{server.port}")
+            rows = data[:2_000]
+            wire = pa.record_batch([pa.array(rows, type=pa.binary())],
+                                   names=["wire"])
+            t0 = time.perf_counter()
+            writer, meta = client.do_put(fl.FlightDescriptor.for_command(
+                json.dumps({"schema": schema, "tenant": "flight",
+                            "device": DEVICE,
+                            "timeout_s": 120.0}).encode()), wire.schema)
+            writer.write_batch(wire)
+            writer.done_writing()
+            ticket = meta.read().to_pybytes()
+            writer.close()
+            table = client.do_get(fl.Ticket(ticket)).read_all()
+            flight_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+        want = pa.Table.from_batches([one_shot(rows)])
+        if table.to_pylist() != want.to_pylist():
+            raise SystemExit("serving V5: the Flight round trip differs")
+        out["V5"]["flight_s"] = flight_s
+        flight = (f"the Flight DoPut/DoGet round trip of {len(rows)} "
+                  f"records in {flight_s:.3f} s, equal")
+    else:
+        out["V5"]["flight_s"] = None
+        flight = "pyarrow.flight is unavailable: no Flight round trip"
+    out["V5"]["drain"] = serving.stop()
+    print(f"serving V5: 8 encode requests of 2,000 rows, launches "
+          f"{launches}, each wire equal to the one-shot call's and to the "
+          f"records; {flight} {card}")
+    return out
+
+
 def main() -> int:
     import os
 
@@ -4539,6 +5076,8 @@ def main() -> int:
     from pyruhvro_tpu_torch.ops import codec as codec_mod
     from pyruhvro_tpu_torch import parallel as par
     from pyruhvro_tpu_torch.parallel import sharded_encode as pse
+    from pyruhvro_tpu_torch.hostpath import specialize
+    from pyruhvro_tpu_torch.hostpath.program import lower_host
     from pyruhvro_tpu_torch.ops.arrow_build import build_record_batch
     from pyruhvro_tpu_torch.ops.codec import _concat_batches, get_device_codec
     import pyruhvro_tpu_torch as port
@@ -4585,10 +5124,30 @@ def main() -> int:
         except Exception as e:  # reported below, the smoke then fails
             failures.append(f"{key}: {e}")
 
+    # the host tier's specialised units of the paths' schemas (built at
+    # a codec's first call past PYRUHVRO_TPU_SPECIALIZE_ROWS otherwise)
+    spec_schemas = {"kafka": datagen.KAFKA_SCHEMA_JSON,
+                    "arr_rec_arr": PIPELINE_SHAPES["arr_rec_arr"]}
+    units = {}
+
+    def build_unit(key):
+        try:
+            prog = lower_host(parse_schema(spec_schemas[key]))
+            name = specialize.module_name(prog)
+            fresh = not list(specialize.spec_dir().glob(name + ".*so"))
+            t0 = time.perf_counter()
+            specialize.load_specialized(prog)
+            units[key] = {"module": name, "fresh": fresh,
+                          "s": time.perf_counter() - t0}
+        except Exception as e:  # reported below, the smoke then fails
+            failures.append(f"specialised unit {key}: {e}")
+
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
     threads += [threading.Thread(target=build_native, args=(k,))
                 for k in native.SOURCES]
+    threads += [threading.Thread(target=build_unit, args=(k,))
+                for k in spec_schemas]
     for t in threads:
         t.start()
     for t in threads:
@@ -4601,6 +5160,10 @@ def main() -> int:
         lib = libs.pop(key)
         print(f"build: {' '.join(lib.command)} ({lib.path.name}) in "
               f"{lib.build_s:.2f} s")
+    for key, u in units.items():
+        print(f"build: g++ specialised unit {u['module']} ({key}) "
+              f"{'built' if u['fresh'] else 'reused from build/'} in "
+              f"{u['s']:.2f} s")
     for key, lib in libs.items():
         print(f"build: nvcc {kernels[key].source} -> {lib.path.name} "
               f"(sm_90a) in {lib.build_s:.2f} s")
@@ -4765,7 +5328,8 @@ def main() -> int:
     # 5d. the native host tier against the card
     t0 = time.perf_counter()
     host = host_phase(port_api, data, nested, large,
-                      enc_batches["kafka_encode"][0], nested_schema, card)
+                      enc_batches["kafka_encode"][0], nested_schema, card,
+                      units)
     print(f"host phase: {time.perf_counter() - t0:.1f} s")
 
     # 6. phases and kernels at the main paths' shapes
@@ -4905,7 +5469,16 @@ def main() -> int:
     incident["phase_s"] = time.perf_counter() - t0
     print(f"incident phase: {incident['phase_s']:.1f} s")
 
-    # 12. memory accounting, the cache lifecycle and tenant=, the OTLP
+    # 12. the serving plane: coalesced requests against one-shot calls,
+    # shedding, the brownout ladder, a poisoned member and a launch fault,
+    # encode requests and the Flight door
+    t0 = time.perf_counter()
+    serve = serving_phase(port, pa, dm, em, data[:SERVING_ROWS], kafka,
+                          card)
+    serve["phase_s"] = time.perf_counter() - t0
+    print(f"serving phase: {serve['phase_s']:.1f} s")
+
+    # 13. memory accounting, the cache lifecycle and tenant=, the OTLP
     # exporter and the fleet merge, against the card's arenas and buckets
     t0 = time.perf_counter()
     memory = memory_phase(port, pa, torch, dm, em, data, kafka, card)
@@ -4975,6 +5548,7 @@ def main() -> int:
     print(json.dumps({"multichip": multi}))
     print(json.dumps({"planes": planes}))
     print(json.dumps({"incident": incident}, default=str))
+    print(json.dumps({"serving": serve}, default=str))
     print(json.dumps({"memory": memory}, default=str))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))

@@ -44,14 +44,24 @@ Fault seams (:mod:`..runtime.faults`, the reference's ``:193``, ``:371``,
 ``shard_worker`` once per chunk before a shard-runner decode or encode,
 ``native_extract`` before the native extractor's call.
 
-Departures from the reference (``ROADMAP.md`` (c)): a failed build, an
-error of the VM or the shard runner, and an injected fault at any of
-these seams raise (the reference degrades to the oracle or to its serial
-chunk loop, behind breakers the port has not). The specialiser and the
-superoptimizer are not ported: the raw program runs, the reference's
-``PYRUHVRO_TPU_NO_SPECIALIZE=1`` / ``PYRUHVRO_TPU_NO_OPT=1`` arm. The
-writer's bounds-checked debug mode (``PYRUHVRO_DEBUG_BOUNDS``) and the
-sanitizer builds are not ported (``ROADMAP.md`` (a) 9).
+The specialiser (the reference's ``hostpath/codec.py:138-153``,
+``:197-230``): after ``PYRUHVRO_TPU_SPECIALIZE_ROWS`` (20,000) rows
+decoded or encoded by one codec, its schema's program is unrolled into
+C++ and built (:mod:`.specialize`), and the engines serve in the order
+deep-sampled profiled build > specialised > VM; the specialised module
+also serves the fused ``encode_arrow`` lane and the ``host_mode``
+``encode``. ``host.vm_s`` and ``host.encode_vm_s`` carry
+``specialized=``. ``PYRUHVRO_TPU_NO_SPECIALIZE=1`` or
+``PYRUHVRO_TPU_NATIVE_PROF=1`` pins the VM.
+
+Departures from the reference (``ROADMAP.md`` (c)): a failed build (the
+specialiser's too), an error of the VM or the shard runner, and an
+injected fault at any of these seams raise (the reference degrades to
+the oracle, to the VM or to its serial chunk loop, behind breakers the
+port has not). The superoptimizer is not ported: the VM runs the raw
+program, the reference's ``PYRUHVRO_TPU_NO_OPT=1`` arm. The writer's
+bounds-checked debug mode (``PYRUHVRO_DEBUG_BOUNDS``) and the sanitizer
+builds are not ported (``ROADMAP.md`` (a) 9).
 """
 
 from __future__ import annotations
@@ -71,7 +81,8 @@ from ..ops.arrow_build import (
 )
 from ..ops.encode_extract import batch_to_struct, run_extractor
 from ..ops.varint import ERR_NAMES, ERR_SLUGS
-from ..runtime import deadline, faults, metrics, native, sampling, telemetry
+from ..runtime import (deadline, faults, knobs, metrics, native, sampling,
+                       telemetry)
 from ..runtime.chunking import bounds_rows, chunk_bounds
 from ..runtime.pool import fanout_stats, map_chunks
 from .program import (
@@ -82,6 +93,7 @@ from .program import (
     HostProgram,
     lower_host,
 )
+from .specialize import bind_engine_user, load_specialized, touch_engine
 
 __all__ = ["NativeHostCodec"]
 
@@ -135,10 +147,34 @@ class NativeHostCodec:
         self._plan = self.prog.buffer_plan()
         self._prof = native.prof_active()
         self._mod = native.load_host_codec().module  # raises RuntimeError
+        self._spec = None            # the specialized module, once built
+        self._spec_name = None       # its engine-registry key
+        # the per-opcode profiler lives in the VM's dispatch points; the
+        # specialized engines are straight-line code with nothing to
+        # attribute, so profiling pins the interpreter
+        self._spec_failed = (knobs.get_bool("PYRUHVRO_TPU_NO_SPECIALIZE")
+                             or self._prof)
+        self._spec_rows = knobs.get_int("PYRUHVRO_TPU_SPECIALIZE_ROWS")
+        self._rows_seen = 0
         self._extract_mod = None  # built at the first native extract
         # the last Arrow schema the native extractor declined on shape:
         # repeated encodes of that shape skip the doomed native probe
         self._extract_declined_schema = None
+
+    def _maybe_specialize(self, n: int) -> None:
+        """Count ``n`` rows toward the schema's threshold; past it, build
+        (or load) the specialized engine. A failed build raises."""
+        if self._spec is not None or self._spec_failed:
+            return
+        self._rows_seen += n
+        if self._rows_seen < self._spec_rows:
+            return
+        mod = load_specialized(self.prog)
+        self._spec = mod
+        # lifecycle hookup: the engine's LRU clock ticks per call and
+        # eviction can unhook this codec's reference
+        self._spec_name = mod.__name__
+        bind_engine_user(self._spec_name, self)
 
     # -- decode -----------------------------------------------------------
 
@@ -155,16 +191,33 @@ class NativeHostCodec:
         if not self._prof and sampling.deep_active():
             deep_mod = sampling.prof_codec_module()
         with telemetry.phase("host.decode_s", rows=n):
+            self._maybe_specialize(n)
             deadline.check(index=0, site="host.vm")
             faults.fire("vm_decode")
             native_data = (data.native_parts()
                            if hasattr(data, "native_parts") else data)
             prog = self.prog
-            eng = self._mod if deep_mod is None else deep_mod
-            with telemetry.phase("host.vm_s", specialized=False, fused=True):
-                payload, err_rec, err_bits = eng.decode_arrow(
-                    prog.ops, prog.coltypes, prog.op_aux, native_data,
-                    nthreads)
+            # the serving engine: deep-sampled prof build > specialized
+            # straight-line module > VM. Bind the specialized engine
+            # ONCE: a concurrent lifecycle eviction may null self._spec
+            # at any point (the module itself stays valid)
+            spec_eng = self._spec
+            if deep_mod is not None:
+                eng = deep_mod
+            elif spec_eng is not None:
+                eng = spec_eng
+                touch_engine(self._spec_name)
+            else:
+                eng = self._mod
+            spec = spec_eng is not None and deep_mod is None
+            with telemetry.phase("host.vm_s", specialized=spec, fused=True):
+                if spec:
+                    payload, err_rec, err_bits = eng.decode_arrow(
+                        prog.coltypes, native_data, nthreads)
+                else:
+                    payload, err_rec, err_bits = eng.decode_arrow(
+                        prog.ops, prog.coltypes, prog.op_aux, native_data,
+                        nthreads)
             if self._prof:
                 _drain_native_prof(self._mod)
             elif deep_mod is not None:
@@ -215,11 +268,12 @@ class NativeHostCodec:
         return build_record_batch(self.ir, self.arrow_schema, host, n, meta)
 
     def _drain_shard_stats(self) -> dict:
-        """Read and clear the shard runners' fan-out stats (each module
-        has its own pool and stats), summed."""
+        """Read and clear the shard runners' fan-out stats (each module,
+        the specialized engine's too, has its own pool and stats),
+        summed."""
         tot = {"fanouts": 0, "shards": 0, "shard_s": 0.0, "wall_s": 0.0,
                "threads": 0}
-        for m in (self._mod, self._extract_mod):
+        for m in (self._mod, self._spec, self._extract_mod):
             if m is None:
                 continue
             d = m.shard_stats()
@@ -283,7 +337,10 @@ class NativeHostCodec:
             metrics.inc("extract.fallback")
             metrics.inc("extract.fallback_shape")
             return None
-        if self._extract_mod is None:
+        spec = self._spec  # single read: eviction may null it
+        if spec is not None:
+            touch_engine(self._spec_name)
+        elif self._extract_mod is None:
             self._extract_mod = native.load_extract().module
         faults.fire("native_extract")
         try:
@@ -296,16 +353,21 @@ class NativeHostCodec:
         holder_s = np.zeros(9, np.uint64)
         struct._export_to_c(int(holder_a.ctypes.data),
                             int(holder_s.ctypes.data))
-        args = (self.prog.ops, self.prog.coltypes, self.prog.op_aux,
-                int(holder_a.ctypes.data), int(holder_s.ctypes.data), n, 0)
+        addrs = (int(holder_a.ctypes.data), int(holder_s.ctypes.data), n, 0)
+        if spec is not None:
+            fn = spec.encode_arrow
+            args = (self.prog.coltypes,) + addrs
+        else:
+            fn = self._extract_mod.encode
+            args = (self.prog.ops, self.prog.coltypes,
+                    self.prog.op_aux) + addrs
         try:
-            res = self._extract_mod.encode(
-                *(args + (nshards,) if nshards > 1 else args))
+            res = fn(*(args + (nshards,) if nshards > 1 else args))
         except OverflowError as e:
             if "decimal" in str(e):
                 raise _value_error(e)  # a batch split cannot help
             raise BatchTooLarge(n, -1)
-        if self._prof:
+        if self._prof:  # profiling pins the interpreter: spec is None
             _drain_native_prof(self._extract_mod)
         if isinstance(res, int):
             # 1 = an Arrow shape outside the native surface; 2 = a data
@@ -321,7 +383,7 @@ class NativeHostCodec:
         telemetry.observe("host.extract_s", t_ex, rows=n, native=True)
         telemetry.observe("host.extract_native_s", t_ex, rows=n)
         telemetry.observe("host.encode_vm_s", t_enc, fused=True,
-                          specialized=False)
+                          specialized=spec is not None)
         metrics.inc("extract.native")
         return self._wrap_blob(blob, offs, n)
 
@@ -365,6 +427,7 @@ class NativeHostCodec:
             except pa.lib.ArrowInvalid:
                 # each slice fit, but the concatenated offsets pass int32
                 raise BatchTooLarge(n, -1)
+        self._maybe_specialize(n)
         out = self._encode_native(batch, n)
         if out is not None:
             return out
@@ -383,11 +446,21 @@ class NativeHostCodec:
         # so the VM writes unchecked into one allocation of that size;
         # past 1 GiB hint=0 selects its capacity-checked growth instead
         hint = ex.bound if ex.bound <= (1 << 30) else 0
+        spec = self._spec  # single read: eviction may null it
+        if spec is not None:
+            # encode-only traffic through this lane stamps the engine's
+            # LRU clock too, or TTL/LRU would evict the hot engine
+            touch_engine(self._spec_name)
         try:
-            with telemetry.phase("host.encode_vm_s", specialized=False):
-                blob, offs = self._mod.encode(self.prog.ops,
-                                              self.prog.coltypes, bufs, n,
-                                              hint, 0)
+            with telemetry.phase("host.encode_vm_s",
+                                 specialized=spec is not None):
+                if spec is not None:
+                    blob, offs = spec.encode(self.prog.coltypes, bufs, n,
+                                             hint, 0)
+                else:
+                    blob, offs = self._mod.encode(self.prog.ops,
+                                                  self.prog.coltypes, bufs,
+                                                  n, hint, 0)
         except OverflowError as e:
             if "decimal" in str(e):
                 raise _value_error(e)  # the oracle's int.to_bytes overflow

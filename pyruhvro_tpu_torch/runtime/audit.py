@@ -125,8 +125,8 @@ _forced: Optional[bool] = None
 def set_enabled(flag: Optional[bool]) -> None:
     """Force the audit plane on/off in-process regardless of the env
     knobs; ``None`` restores knob-driven behavior (mirrors
-    ``sampling.set_enabled``; the reference's serving plane sheds the
-    audit through it, ``ROADMAP.md`` (a) 8.9)."""
+    ``sampling.set_enabled``; the serving plane's brownout ladder sheds
+    the audit through it, :mod:`..serving`)."""
     global _forced
     _forced = flag
 

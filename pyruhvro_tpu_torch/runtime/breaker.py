@@ -19,8 +19,9 @@ backoff seconds). State changes count ``breaker.<name>.opened`` /
 ``.half_open`` / ``.closed`` and mark ``breaker_open``; the live state
 is ``telemetry.snapshot()["breakers"]``.
 
-In the port only the ``process_pool`` breaker is fed (by
-:func:`.pool.map_chunks_proc`). The reference's ``device_backend``
+In the port the ``process_pool`` breaker is fed by
+:func:`.pool.map_chunks_proc`, ``otlp_export`` by :mod:`.otel` and
+``serve_worker`` by the serving plane (:mod:`..serving`). The reference's ``device_backend``
 breaker and its feeds are not ported: a failure of the card raises
 (``ROADMAP.md`` (c) 9). The ``breaker.acquire`` / ``.record`` /
 ``.release`` yield points of :mod:`.schedtest` sit just outside the
@@ -258,6 +259,11 @@ _registry: Dict[str, CircuitBreaker] = {}  # guarded-by: _lock
 # pool is costly to find again: every attempt spawns workers)
 _DEFAULTS = {
     "process_pool": (1, 1.0),
+    # the serving plane's coalesced micro-batch seam: its fallback —
+    # per-request serial execution on the same backend and card — is
+    # warm and gives the same result, so a couple of failures may probe
+    # before batching is withheld
+    "serve_worker": (2, 1.0),
 }
 
 

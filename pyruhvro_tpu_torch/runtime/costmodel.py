@@ -48,6 +48,7 @@ __all__ = [
     "PROFILE_VERSION",
     "PACKAGE",
     "autotune_enabled",
+    "set_explore_override",
     "explore_rate",
     "profile_path",
     "row_band",
@@ -68,6 +69,8 @@ __all__ = [
     "load_profile",
     "save_profile",
     "arm_persistence",
+    "persistence_armed",
+    "predict_drain",
     "reset",
 ]
 
@@ -122,14 +125,29 @@ def autotune_enabled() -> bool:
     return knobs.get_bool("PYRUHVRO_TPU_AUTOTUNE")
 
 
+# lock-free-ok(single GIL-atomic store; flipped by the serving plane's
+# brownout ladder from worker threads — a few explore ticks either side
+# of the flip are harmless)
+_explore_override: Optional[float] = None
+
+
+def set_explore_override(rate: Optional[float]) -> None:
+    """Force the exploration rate in-process regardless of
+    ``PYRUHVRO_TPU_EXPLORE``; ``None`` restores knob-driven behavior.
+    The serving plane's brownout ladder suppresses explore arms under
+    sustained pressure through this."""
+    global _explore_override
+    _explore_override = rate
+
+
 def explore_rate() -> float:
     """Exploration rate in [0, 1] (``PYRUHVRO_TPU_EXPLORE``, default
     0.05): roughly this fraction of autotuned calls try the
     least-observed candidate arm instead of the predicted-best one.
-    0 disables exploration (pure exploitation of the warm profile). The
-    reference's in-process override (``set_explore_override``, for its
-    serving plane's brownout) waits for that plane (``ROADMAP.md``
-    (a) 8)."""
+    0 disables exploration (pure exploitation of the warm profile)."""
+    ov = _explore_override
+    if ov is not None:
+        return min(1.0, max(0.0, ov))
     return min(1.0, max(0.0, knobs.get_float("PYRUHVRO_TPU_EXPLORE")))
 
 
@@ -238,6 +256,14 @@ def predict_drain(schema: str, op: str, rows: int) -> Optional[float]:
             if best is None or est < best:
                 best = est
     return best
+
+
+def persistence_armed() -> bool:
+    """Has :func:`arm_persistence` run (profile loaded + exit-time save
+    registered)? The serving plane's drain flushes the profile only
+    when this is armed — never creating files nobody asked for."""
+    with _lock:
+        return _persist_armed
 
 
 def tick(schema: str, op: str, band: int) -> int:
@@ -651,6 +677,8 @@ def reset() -> None:
     """Clear the in-memory model, schedules and penalties (test
     isolation; called from ``telemetry.reset()``). Does not touch the
     on-disk profile."""
+    global _explore_override
+    _explore_override = None
     with _lock:
         _stats.clear()
         _loaded.clear()

@@ -38,7 +38,12 @@ path handle (``runtime/pool.py``). The best-effort seams
 and the observers' (``audit_shadow``: ``audit.shadow_error``;
 ``incident_capture``: ``incident.capture_failed``; ``obs_handler``: a
 500 and ``obs.handler_error``) count the failure and leave the call
-unaffected, as in the reference.
+unaffected, as in the reference. The serving plane's seams keep the
+reference's behaviour, because each degraded path runs the same API
+call on the same backend and card (``ROADMAP.md`` (c) 11):
+``serve_enqueue`` serves the request by a direct call, ``serve_worker``
+sends a coalesced batch to the per-request serial path, and
+``serve_flight`` fails one Flight RPC.
 
 Production cost when the knob is unset: one ``os.environ.get`` + a
 string compare per seam call.
@@ -82,8 +87,6 @@ SITES = (
     "obs_handler",      # obs_server: request handler (the 500 path)
     "slo_alert",        # slo alert_command hook
     "audit_shadow",     # audit: shadow re-execution through the oracle
-    # the three serve_* sites belong to the serving plane, not ported
-    # yet (ROADMAP.md (a) 8.9): they parse in a spec and fire nowhere
     "serve_enqueue",    # serving: admission seam
     "serve_worker",     # serving: coalesced micro-batch execution seam
     "serve_flight",     # serving/flight.py: Arrow Flight handler seam

@@ -4,11 +4,10 @@
 ``get_enum`` and ``registry``, and of the knobs it registers at
 ``:82-100``, ``:146-150``, ``:153-159``, ``:162-167``, ``:170-183``,
 ``:189-207``, ``:208``, ``:211``, ``:215-219``, ``:220-237``,
-``:240-257``, ``:260-266``, ``:275-281`` and ``:287-293``, with their
+``:240-257``, ``:260-266``, ``:271``, ``:275-281``, ``:287-293`` and
+``:297-330``, and the specialiser's at ``:111-118``, with their
 defaults), and ``render_text_table`` / ``render_markdown_table`` for
-the CLI's ``knobs`` command. The specialiser's
-``PYRUHVRO_TPU_CACHE_MAX_ENGINES`` waits for its plane
-(``ROADMAP.md`` (a) 9).
+the CLI's ``knobs`` command.
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
 ``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
@@ -140,11 +139,36 @@ DEFAULTS = {
     "PYRUHVRO_TPU_CACHE_MAX_SCHEMAS": 4096,
     "PYRUHVRO_TPU_CACHE_MAX_EXECUTABLES": 1024,
     "PYRUHVRO_TPU_MEM_TOPK": 64,
+    # the host tier's specialiser: the cumulative rows after which a
+    # schema's program is unrolled into C++ (0 = at once), its kill
+    # switch, and the engines plane's entry cap (0 = no limit)
+    "PYRUHVRO_TPU_SPECIALIZE_ROWS": 20_000,
+    "PYRUHVRO_TPU_NO_SPECIALIZE": False,
+    "PYRUHVRO_TPU_CACHE_MAX_ENGINES": 256,
+    # the serving plane: a queue's depth in requests, the policy on a
+    # full queue (block or shed), its worker threads, a coalesced
+    # batch's row cap, the coalescing window in seconds, the block
+    # policy's longest wait for space, a coalesced batch's stall
+    # watchdog in seconds, one tenant's share of the queued requests
+    # past half full (<= 0 off), the queue pressure at which the
+    # brownout ladder starts (> 1 off) and the evaluations over it
+    # before a rung engages
+    "PYRUHVRO_TPU_SERVE_QUEUE": 256,
+    "PYRUHVRO_TPU_SERVE_POLICY": "block",
+    "PYRUHVRO_TPU_SERVE_WORKERS": 2,
+    "PYRUHVRO_TPU_SERVE_MAX_BATCH_ROWS": 32768,
+    "PYRUHVRO_TPU_SERVE_COALESCE_S": 0.002,
+    "PYRUHVRO_TPU_SERVE_ENQUEUE_WAIT_S": 1.0,
+    "PYRUHVRO_TPU_SERVE_BATCH_TIMEOUT_S": 30.0,
+    "PYRUHVRO_TPU_SERVE_TENANT_SHARE": 0.5,
+    "PYRUHVRO_TPU_SERVE_BROWNOUT": 0.7,
+    "PYRUHVRO_TPU_SERVE_BROWNOUT_SUSTAIN": 3,
 }
 
 # the accepted (lower-case) values of the enum knobs
 CHOICES = {
     "PYRUHVRO_TPU_POOL": ("thread", "process"),
+    "PYRUHVRO_TPU_SERVE_POLICY": ("block", "shed"),
 }
 
 # parse errors count through DeferredCounts, as in the reference

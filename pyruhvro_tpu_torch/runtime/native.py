@@ -26,6 +26,10 @@ failed profiled build raises like any other, where the reference warns
 and loads the plain module (``ROADMAP.md`` (c) 7). The sanitizer
 flavours (``PYRUHVRO_TPU_NATIVE_SAN``, ``_TSAN``) are not ported.
 
+The specialiser (:mod:`..hostpath.specialize`) builds its generated
+units with the same recipe (:func:`compile_extension`), into
+``build/pyruhvro_tpu_torch/_spec/``.
+
 The ``native_build`` fault seam (:mod:`.faults`) fires at every
 :func:`load` and raises into the caller; it is not memoized, so the
 module loads again once the spec clears.
@@ -48,7 +52,8 @@ from pathlib import Path
 
 __all__ = ["load_packer", "load_host_codec", "load_host_codec_prof",
            "load_extract", "load", "loaded", "build_path", "source_files",
-           "cpu_tag", "prof_active", "NativeModule", "SOURCES"]
+           "compile_extension", "import_extension", "cpu_tag",
+           "prof_active", "NativeModule", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyruhvro_tpu_torch"
@@ -159,43 +164,62 @@ def load(name: str, prof: bool = False) -> NativeModule:
         if key in _loaded:
             return _loaded[key]
         rel, module_name = SOURCES[name]
-        src = CSRC / rel
         out = build_path(name, prof)
-        cxx = _cxx()
-        include = sysconfig.get_paths()["include"]
-        base = [cxx, *CXX_FLAGS, *(PROF_FLAGS if prof else []),
-                f"-I{include}", str(src), "-o"]
-        cmd = [cxx, *NATIVE_FLAGS, *base[1:], str(out)]
-        build_s = 0.0
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd[:-1] + [str(tmp)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                # a compiler without -march=native (or refusing it here):
-                # the generic flags, as the reference falls back
-                cmd = base + [str(out)]
-                proc = subprocess.run(base + [str(tmp)], capture_output=True,
-                                      text=True)
-            build_s = time.perf_counter() - t0
-            if proc.returncode != 0:
-                if tmp.exists():
-                    tmp.unlink()
-                raise RuntimeError(f"g++ failed ({proc.returncode}) on {src}:"
-                                   f"\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        spec = importlib.util.spec_from_file_location(module_name, out)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        _loaded[key] = NativeModule(module, out, cmd, build_s)
+        cmd, build_s = compile_extension(CSRC / rel, out, prof=prof)
+        _loaded[key] = NativeModule(import_extension(module_name, out), out,
+                                    cmd, build_s)
         if build_s and not prof:
             from . import device_obs
 
             # carried by the first device launch that uses it
             device_obs.note_build(name, build_s)
         return _loaded[key]
+
+
+def compile_extension(src: Path, out: Path, includes=(), prof=False):
+    """Build the CPython extension ``out`` from ``src`` unless it exists:
+    ``g++`` with :data:`CXX_FLAGS` (and :data:`PROF_FLAGS` with
+    ``prof``), Python's include directory and ``-I`` of each of
+    ``includes``, ``-march=native`` first and the generic flags where the
+    compiler refuses it. Written to a temporary name and moved into
+    place, so that processes building the same file never read half of
+    it. Returns the command line that built it and its seconds (0.0 when
+    ``out`` was there); raises ``RuntimeError`` when the build fails."""
+    cxx = _cxx()
+    include = sysconfig.get_paths()["include"]
+    base = [cxx, *CXX_FLAGS, *(PROF_FLAGS if prof else []),
+            f"-I{include}", *(f"-I{d}" for d in includes), str(src), "-o"]
+    cmd = [cxx, *NATIVE_FLAGS, *base[1:], str(out)]
+    if out.exists():
+        return cmd, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd[:-1] + [str(tmp)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        # a compiler without -march=native (or refusing it here): the
+        # generic flags, as the reference falls back
+        cmd = base + [str(out)]
+        proc = subprocess.run(base + [str(tmp)], capture_output=True,
+                              text=True)
+    build_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        if tmp.exists():
+            tmp.unlink()
+        raise RuntimeError(f"g++ failed ({proc.returncode}) on {src}:"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return cmd, build_s
+
+
+def import_extension(module_name: str, path: Path):
+    """Import the extension at ``path`` (its ``PyInit_`` name is
+    ``module_name``) through ``importlib``, outside ``sys.modules``."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def loaded(name: str, prof: bool = False) -> bool:

@@ -19,8 +19,9 @@ renders the live registry on each request:
   the card's watermarks, the tenants); a saved snapshot's own section;
 * ``GET /audit``, ``/timeline`` (``?tick=1`` ticks first) and
   ``/incidents``: :mod:`.audit`, :mod:`.timeline` and :mod:`.incident`;
-* ``GET /serve``: ``{}``, since no serving plane ran (``ROADMAP.md`` (a)
-  8.9).
+* ``GET /serve``: the live serving-plane section (queues, pressure,
+  brownout, accounting; :func:`..serving.snapshot_serving`), ``{}``
+  while no plane ran; a saved snapshot's own section.
 
 ``PYRUHVRO_TPU_OBS_PORT=<port>`` (``0`` = any free port; the chosen port
 is printed to stderr and is ``server().port``) starts it at the import
@@ -134,8 +135,8 @@ def health() -> Tuple[int, Dict[str, Any]]:
         # "answers may be silently wrong", which outranks every
         # latency condition above
         "audit_mismatch": recent("audit_mismatch"),
-        # a serving-plane queue hit its depth cap within the window
-        # (the serving plane is not ported yet: ROADMAP.md (a) 8.9)
+        # a serving-plane queue hit its depth cap within the window —
+        # the front door is refusing work
         "queue_saturated": recent("queue_saturated"),
     }
     # non-closed circuit breakers are degradation facts: the process

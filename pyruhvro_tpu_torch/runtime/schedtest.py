@@ -13,9 +13,9 @@ registered thread runs next. Same seed, same interleaving, same failure.
 The port's seams: ``costmodel.observe`` and ``costmodel.save``
 (:mod:`.costmodel`), ``breaker.acquire`` / ``.record`` / ``.release``
 (:mod:`.breaker`), ``arena.checkout`` (``ops/decode.py``
-``DeviceDecoder._arena``) and ``schema_cache.get`` / ``.insert`` /
-``.memo`` (``schema/cache.py``). The reference's ``schema_cache.evict``
-waits for the schema cache's eviction (``ROADMAP.md`` (a) 8).
+``DeviceDecoder._arena``), ``schema_cache.get`` / ``.insert`` /
+``.memo`` / ``.evict`` (``schema/cache.py``) and ``engine.note`` /
+``.memo`` / ``.evict`` (``hostpath/specialize.py``).
 
 Production cost: ``yield_point`` is ONE module-global read + a None
 check when no harness is active.

@@ -271,7 +271,6 @@ _ROOT_OPS = {
     "api.deserialize_array_threaded": "decode",
     "api.serialize_record_batch": "encode",
     # the serving plane's end-to-end latency, fed by serving._resolve
-    # once that plane is ported (ROADMAP.md (a) 8)
     "serve.request": "serve",
 }
 

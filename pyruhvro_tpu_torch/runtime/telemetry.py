@@ -23,15 +23,16 @@ Exporters: :func:`snapshot` (counters, fixed-bucket latency histograms
 with p50/p95/p99, the last root span trees, and a ``device`` section of
 launch registry and memory watermarks from :mod:`.device_obs`, the
 ``routing``, ``breakers``, ``drift``, ``slo``, ``sampling``, ``audit``,
-``memory`` and ``timeline`` sections of :mod:`.router`, :mod:`.breaker`,
-:mod:`.drift`, :mod:`.slo`, :mod:`.sampling`, :mod:`.audit`,
-:mod:`.memacct` and :mod:`.timeline`, the ``mem.*`` gauges, and the
+``memory``, ``serving`` and ``timeline`` sections of :mod:`.router`,
+:mod:`.breaker`, :mod:`.drift`, :mod:`.slo`, :mod:`.sampling`,
+:mod:`.audit`, :mod:`.memacct`, :mod:`..serving` and :mod:`.timeline`,
+the ``mem.*`` gauges, and the
 flight recorder's ``flight_records``), :func:`prometheus` (text
 exposition), :func:`perfetto_trace` (Chrome trace-event JSON), and
 ``PYRUHVRO_TPU_TRACE=<path or stderr>``, one JSON line per finished root
 span. ``python -m pyruhvro_tpu_torch.telemetry report|prom|perfetto|
-route-report|what-if|slo-report|audit-report|mem-report|timeline|
-incident-report <file>`` renders a saved snapshot (or an incident
+route-report|what-if|slo-report|audit-report|mem-report|serve-report|
+timeline|incident-report <file>`` renders a saved snapshot (or an incident
 bundle), ``serve <file>`` serves it over HTTP, ``fleet`` merges
 replicas' snapshots (:mod:`.fleet`), ``diff <a> <b>`` attributes the
 change between two, and ``knobs`` lists the environment knobs; a file
@@ -127,8 +128,7 @@ _BUCKET_BOUNDS: tuple = tuple(
 
 _MAX_SPANS = 64  # root spans retained for snapshot(); older ones are counted
 
-# the reference's snapshot shape version 3, without the section of the
-# plane the port does not have yet: serving (ROADMAP.md (a) 8.9)
+# the reference's snapshot shape version 3
 SNAPSHOT_SCHEMA_VERSION = 3
 
 
@@ -962,8 +962,9 @@ def snapshot() -> Dict[str, Any]:
     call, ``audit`` once the audit saw a call, ``breakers`` once a
     breaker was touched, ``memory`` always (:func:`.memacct.snapshot_memory`:
     RSS, the planes' bytes, the lifecycle, the card's watermarks and the
-    tenant sketch; its probes refresh the ``mem.*`` gauges), ``timeline``
-    after its first tick or event, and ``gauges`` when any was set;
+    tenant sketch; its probes refresh the ``mem.*`` gauges), ``serving``
+    once a serving plane started, ``timeline`` after its first tick or
+    event, and ``gauges`` when any was set;
     ``flight_records`` counts the flight recorder's ring."""
     # rotation drops deferred from signal context surface on the next
     # export even if no further rotation ever runs
@@ -1009,7 +1010,13 @@ def snapshot() -> Dict[str, Any]:
     # always present: RSS exists before any cache does; the probes also
     # refresh the mem.* gauges read below
     out["memory"] = memacct.snapshot_memory()
-    # not ported: the serving section (ROADMAP.md (a) 8.9)
+    # the serving plane: read through sys.modules, so that exporting
+    # never imports it; left out when no plane ever started
+    serving_mod = sys.modules.get("pyruhvro_tpu_torch.serving")
+    if serving_mod is not None:
+        sv = serving_mod.snapshot_serving()
+        if sv:
+            out["serving"] = sv
     tl = timeline.snapshot_timeline()
     if tl:
         out["timeline"] = tl
@@ -1426,6 +1433,14 @@ def render_report(data: Dict[str, Any]) -> str:
         if rss:
             line += f" ({tracked / rss * 100:.1f}% of rss)"
         out.append(line + " — render with the mem-report subcommand")
+    sv = data.get("serving") or {}
+    if sv:
+        out += ["", "== serving plane =="]
+        out.append(
+            f"accepted {sv.get('accepted', 0)}, shed {sv.get('shed', 0)}, "
+            f"completed {sv.get('completed', 0)}, failed "
+            f"{sv.get('failed', 0)}, queued {sv.get('queued', 0)} — "
+            "render with the serve-report subcommand")
     dr = data.get("drift") or {}
     if dr.get("entries"):
         hot = [e for e in dr["entries"] if e.get("detections")]
@@ -1474,6 +1489,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     burn rates and breaches), ``audit-report <file>`` (the audit's
     coverage, mismatches and exported digests), ``mem-report <file>``
     (RSS against the tracked caches, eviction causes, the tenants),
+    ``serve-report <file>`` (the serving plane: admission, shed and
+    brownout accounting, queue pressure, end-to-end latency),
     ``timeline <file> [--json]`` (the time-bucketed history),
     ``incident-report <file>`` (an incident bundle's post-mortem, or a
     snapshot's timeline), ``serve <file> [--port N]`` (a saved snapshot
@@ -1484,8 +1501,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     JSON dict saved from :func:`snapshot` (or an incident bundle). A
     file that cannot be read, is not JSON or is not a snapshot, and a
     replica that cannot be scraped, exit 2 with the problem named on
-    stderr, as in the reference (its ``serve-report`` waits for the
-    serving plane, ``ROADMAP.md`` (a) 8.9)."""
+    stderr, as in the reference."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -1530,6 +1546,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                            "footprints, eviction causes and per-tenant "
                            "heavy hitters from a snapshot JSON")
     p_mem.add_argument("path")
+    p_srvrep = sub.add_parser(
+        "serve-report", help="serving-plane report: admission/shed/"
+                             "brownout accounting, queue pressure and "
+                             "e2e latency from a snapshot JSON")
+    p_srvrep.add_argument("path")
     p_knobs = sub.add_parser(
         "knobs", help="list the PYRUHVRO_TPU_* environment knobs "
                       "(runtime/knobs.py) with their types and defaults")
@@ -1691,6 +1712,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         if bad is not None:
             return bad
         sys.stdout.write(memacct.render_mem_report(data))
+    elif args.cmd == "serve-report":
+        bad = _needs({"serving", "counters", "histograms"},
+                     "'serving'/'counters'/'histograms'")
+        if bad is not None:
+            return bad
+        # a snapshot without a serving section renders a note
+        from ..serving import render_serve_report
+
+        sys.stdout.write(render_serve_report(data))
     elif args.cmd == "timeline":
         bad = _needs({"timeline", "counters", "histograms"},
                      "'timeline'/'counters'/'histograms'")

@@ -290,7 +290,9 @@ def test_import_leaves_jax_and_the_reference_out():
         "pyruhvro_tpu_torch.runtime.memacct, "
         "pyruhvro_tpu_torch.runtime.cachelife, "
         "pyruhvro_tpu_torch.runtime.otel, "
-        "pyruhvro_tpu_torch.runtime.fleet\n"
+        "pyruhvro_tpu_torch.runtime.fleet, "
+        "pyruhvro_tpu_torch.serving, pyruhvro_tpu_torch.serving.flight, "
+        "pyruhvro_tpu_torch.hostpath.specialize\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"
         "print(','.join(bad))\n"

@@ -771,15 +771,32 @@ BEST_EFFORT = {
                   "snapshot_lifecycle"},
     "otel": {"_post", "flush"},
     "fleet": {"num"},
+    # the serving plane's future-carrying catches (a request's error ends
+    # in its future: the direct call, the coalesced batch's
+    # classification, the serial call), the drain's counted flush
+    # (``serve.flush_error``) and the signal arming's; the Flight door's
+    # RPC-scoped ones (one RPC fails, the server stays) and its probe of
+    # ``pyarrow.flight``; the specialiser's size probe of an engine file
+    "serving": {"_direct_future", "_run_requests", "_exec_serial",
+                "_flush_saves", "drainer", "install_drain_signal"},
+    "flight": {"flight_available", "do_put", "do_get"},
+    "specialize": {"_note_engine"},
 }
+
+# the modules outside runtime/
+MODULE_PATHS = {"serving": "serving/__init__.py",
+                "flight": "serving/flight.py",
+                "specialize": "hostpath/specialize.py"}
 
 
 @pytest.mark.parametrize("module", ["telemetry", "device_obs", "timeline",
                                     "incident", "audit", "obs_server",
                                     "coldigest", "memacct", "cachelife",
-                                    "otel", "fleet"])
+                                    "otel", "fleet", "serving", "flight",
+                                    "specialize"])
 def test_no_synchronise_and_no_swallowed_exception(module):
-    path = REPO / "pyruhvro_tpu_torch" / "runtime" / f"{module}.py"
+    path = REPO / "pyruhvro_tpu_torch" / MODULE_PATHS.get(
+        module, f"runtime/{module}.py")
     src = path.read_text()
     tree = ast.parse(src)
     assert "torch.cuda.synchronize" not in src
