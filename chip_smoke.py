@@ -79,7 +79,14 @@ exits non-zero before the last line:
    (``PYRUHVRO_TPU_NO_NATIVE=1``) beside the native tier, H6 path 1 on
    the specialised engine against the VM (``PYRUHVRO_TPU_NO_SPECIALIZE=1``)
    in turns, decode and encode, equal, with the unit's ``g++`` seconds,
-   and the lane counters;
+   H7 the superoptimizer on the VM (:func:`host_h7`: path 1's records
+   and ``H7_ROWS`` records of :data:`RUN_SCHEMA`, the optimized program
+   against ``PYRUHVRO_TPU_NO_OPT=1`` in turns, equal, with the
+   optimizer's stats; the card's decode of the run schema equal to the
+   host's with K1/K2 counted from 0, then held against their plain
+   versions at every rung), and the lane counters; then the ``analysis``
+   step (:func:`analysis_phase`: the IR verifier and the contract
+   checker on this tree, failing on any finding);
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
    strings, d2h, wrap); on the overlapped paths the native pack against
@@ -160,7 +167,8 @@ exits non-zero before the last line:
    the fleet merge and diff;
 12. ``{"host": ...}``, ``{"telemetry": ...}``, ``{"route": ...}``,
    ``{"multichip": ...}``, ``{"planes": ...}``, ``{"incident": ...}``,
-   ``{"serving": ...}``, ``{"memory": ...}``, ``{"paths": ...}`` and
+   ``{"serving": ...}``, ``{"memory": ...}``, ``{"analysis": ...}``,
+   ``{"paths": ...}`` and
    ``{"kernels": [...]}`` JSON lines (K5 as ``sharded_fanout``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -193,6 +201,28 @@ POLICY_EVERY = 100          # P1: one row in every 100 poisoned with b"\x01"
 POLICY_HOST_ROWS = 10_000   # P4: records through the host oracle
 POLICY_ENCODE_ROWS = 65_536  # P5: rows of the encode bisect
 POLICY_WARM_CALLS = 2       # P1: warm calls (fewer than WARM_CALLS: time)
+H7_ROWS = 200_000           # H7 (b): records of RUN_SCHEMA
+
+# the host tier's superoptimizer (H7 and tests/test_torch_optimize.py): a
+# sensor reading with a run of exact-width fields (fused into one
+# span-checked member run, always present), a run of varints (fused,
+# read member by member) and strings between them; and a track whose run
+# of exact-width fields sits inside a nullable record (fused, never
+# always present) beside an array of strings (string items decided at
+# compile time)
+RUN_SCHEMA = """{"type":"record","name":"Reading","fields":[
+  {"name":"device","type":"string"},
+  {"name":"lat","type":"double"},{"name":"lon","type":"double"},
+  {"name":"alt","type":"float"},{"name":"speed","type":"float"},
+  {"name":"valid","type":"boolean"},
+  {"name":"note","type":"string"},
+  {"name":"seq","type":"long"},{"name":"level","type":"int"}]}"""
+NULLABLE_RUN_SCHEMA = """{"type":"record","name":"Track","fields":[
+  {"name":"id","type":"string"},
+  {"name":"fix","type":["null",{"type":"record","name":"Fix","fields":[
+    {"name":"x","type":"double"},{"name":"y","type":"double"},
+    {"name":"acc","type":"float"},{"name":"locked","type":"boolean"}]}]},
+  {"name":"tags","type":{"type":"array","items":"string"}}]}"""
 
 LADDER_SCHEMA = """{"type":"record","name":"Big","fields":[
   {"name":"xs","type":{"type":"array","items":"long"}}]}"""
@@ -2593,6 +2623,7 @@ def host_phase(api, data, nested, large, kafka_batch, nested_schema, card,
     out["h5"] = h5
     out["h6"] = host_h6(api, metrics, codec_of, data, kafka_batch, kafka,
                         units or {}, card)
+    out["h7"] = host_h7(api, codec_of, data, kafka, card)
     print(f"host lane counters (since H3): "
           f"{lane_counts(metrics, since_h3)}")
     return out
@@ -2658,6 +2689,180 @@ def host_h6(api, metrics, codec_of, data, kafka_batch, kafka, units, card):
           f"{med['encode']['vm']:.3f} s "
           f"{[round(x, 3) for x in enc_turns['vm']]}; units built in the "
           f"build step {units} {card}")
+    return out
+
+
+def run_records(pa, np, api, n: int, seed: int):
+    """``n`` records of :data:`RUN_SCHEMA` from a numpy seed: a batch of
+    random columns written to the wire by the host tier's encode on the
+    VM, under a schema string of its own (in bulk; the Python writer
+    would take seconds)."""
+    import os
+
+    from pyruhvro_tpu_torch.schema.cache import get_or_parse_schema
+
+    rng = np.random.default_rng(seed)
+    devices = np.array([f"sensor-{i:04d}" for i in range(1000)])
+    notes = np.array(["", "ok", "calibrating", "battery low", "moved"])
+    cols = [devices[rng.integers(0, len(devices), n)].tolist(),
+            rng.uniform(-90, 90, n), rng.uniform(-180, 180, n),
+            rng.uniform(-50, 9000, n).astype(np.float32),
+            rng.exponential(10, n).astype(np.float32),
+            rng.random(n) < 0.97,
+            notes[rng.integers(0, len(notes), n)].tolist(),
+            np.arange(n, dtype=np.int64) * 7919 + int(rng.integers(1 << 40)),
+            rng.integers(-1 << 20, 1 << 20, n).astype(np.int32)]
+    schema = get_or_parse_schema(RUN_SCHEMA).arrow_schema
+    batch = pa.RecordBatch.from_arrays(
+        [pa.array(c, type=f.type) for c, f in zip(cols, schema)],
+        schema=schema)
+    source = json.dumps(dict(json.loads(RUN_SCHEMA), doc="H7 source"))
+    os.environ["PYRUHVRO_TPU_NO_SPECIALIZE"] = "1"
+    try:
+        return batch, wire_of(api.serialize_record_batch(
+            batch, source, 1, backend="host"))
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_NO_SPECIALIZE")
+
+
+def host_h7(api, codec_of, data, kafka, card):
+    """H7: the host tier's superoptimizer. Every arm runs on the VM
+    (codecs built under ``PYRUHVRO_TPU_NO_SPECIALIZE=1``), each under a
+    schema string of its own: (a) path 1's Kafka records and (b)
+    ``H7_ROWS`` records of :data:`RUN_SCHEMA`, (c) each decoded with the
+    optimized program and with the raw one (``PYRUHVRO_TPU_NO_OPT=1``),
+    equal, with the optimizer's stats; (b) also equal to the batch it
+    was written from; (d) the card's decode of (b) equal to the host's,
+    K1/K2 counted from 0 over that call, then K1/K2 bit-equal to their
+    plain versions at every rung of a fresh decoder on (b); warm calls
+    in turns, A B B A twice, for (a) and (b)."""
+    import os
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from pyruhvro_tpu_torch.hostpath.program import OP_FIXED_RUN
+    from pyruhvro_tpu_torch.ops import decode as dm
+    from pyruhvro_tpu_torch.schema.parser import parse_schema
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    run_batch, run_data = run_records(pa, np, api, H7_ROWS, seed=7)
+    gen_s = time.perf_counter() - t0
+    arms = {"a": (kafka, data), "b": (RUN_SCHEMA, run_data)}
+    out = {"gen_s": gen_s}
+    for key, (base, rows) in arms.items():
+        schemas = {arm: json.dumps(dict(json.loads(base), doc=f"H7 {arm}"))
+                   for arm in ("opt", "raw")}
+        codecs = {}
+        os.environ["PYRUHVRO_TPU_NO_SPECIALIZE"] = "1"
+        try:
+            codecs["opt"] = codec_of(schemas["opt"])
+            os.environ["PYRUHVRO_TPU_NO_OPT"] = "1"
+            codecs["raw"] = codec_of(schemas["raw"])
+        finally:
+            os.environ.pop("PYRUHVRO_TPU_NO_SPECIALIZE")
+            os.environ.pop("PYRUHVRO_TPU_NO_OPT", None)
+        st = codecs["opt"].opt_stats
+        if codecs["raw"].oprog is not codecs["raw"].prog or \
+                st is None or not st.applied or st.rejected:
+            raise SystemExit(f"host H7 ({key}): the optimizer's stats {st}; "
+                             f"the raw arm must run the raw program")
+
+        def dec(arm, s=schemas, r=rows):
+            return lambda: api.deserialize_array_threaded(
+                r, s[arm], MAIN_CHUNKS, backend="host")
+
+        t0 = time.perf_counter()
+        got = dec("opt")()
+        cold_s = time.perf_counter() - t0
+        same_columns(f"host H7 ({key})", got, dec("raw")())
+        if any(c._spec is not None for c in codecs.values()):
+            raise SystemExit(f"host H7 ({key}): a specialised engine served")
+        turns = turns_of(dec("opt"), dec("raw"), ("opt", "raw"))
+        out[key] = {"rows": len(rows), "cold_s": cold_s, "turns_s": turns,
+                    "opt_stats": {k: getattr(st, k) for k in (
+                        "fused_runs", "fused_members", "always_present",
+                        "str_items", "rejected")},
+                    "fixed_run_ops": [
+                        [int(x) for x in op] for op in codecs["opt"].oprog.ops
+                        if int(op[0]) == OP_FIXED_RUN]}
+        if key == "b":
+            if not pa.Table.from_batches(got).equals(
+                    pa.Table.from_batches([run_batch])):
+                raise SystemExit("host H7 (b): the decode differs from the "
+                                 "batch the records were written from")
+            host_b, run_schema = got, schemas["opt"]
+            # the VM on one thread: the fused lane's own share
+            one = turns_of(*(lambda c=codecs[arm]: c.decode(rows, nthreads=1)
+                             for arm in ("opt", "raw")), ("opt", "raw"))
+            out[key]["one_thread_turns_s"] = one
+            print(f"host H7 (b): the VM on one thread, warm medians in "
+                  f"turns: optimized {statistics.median(one['opt']):.4f} s "
+                  f"{[round(x, 4) for x in one['opt']]}, raw "
+                  f"{statistics.median(one['raw']):.4f} s "
+                  f"{[round(x, 4) for x in one['raw']]} {card}")
+        del got
+        med = {arm: statistics.median(v) for arm, v in turns.items()}
+        print(f"host H7 ({key}): {len(rows)} records, optimizer "
+              f"{out[key]['opt_stats']}, fused runs {out[key]['fixed_run_ops']}; "
+              f"optimized equal to raw; first call {cold_s:.3f} s; warm "
+              f"medians in turns (A B B A twice): optimized {med['opt']:.4f} s "
+              f"{[round(x, 4) for x in turns['opt']]}, raw {med['raw']:.4f} s "
+              f"{[round(x, 4) for x in turns['raw']]} {card}")
+    # (d) the card on the run schema: the public call, then K1/K2 held
+    counters = {"decode_walk": dm.walk_kernel,
+                "decode_finalize": dm.finalize_kernel}
+    zero(counters)
+    got = api.deserialize_array_threaded(run_data, run_schema, MAIN_CHUNKS)
+    launches = launched("host H7 (d)", counters)
+    same_columns("host H7 (d)", got, host_b)
+    del got, host_b
+    t0 = time.perf_counter()
+    dec = dm.DeviceDecoder(parse_schema(RUN_SCHEMA), DEVICE)
+    rungs, blocks = hold_kernels(torch, dm, dec, "host H7 (d)")
+    dec.decode_to_columns(run_data)
+    del dec
+    out["d"] = {"launches": launches, "rungs": rungs, "blocks": blocks,
+                "hold_s": time.perf_counter() - t0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"host H7 (d): the card's decode of (b) launched {launches}, equal "
+          f"to the host's; decode_walk and decode_finalize bit-equal to their "
+          f"plain versions at every rung (max cap, compact) {rungs}, blocks "
+          f"staged/device memory {blocks[0]}/{blocks[1]}, in "
+          f"{out['d']['hold_s']:.1f} s; H7 {out['phase_s']:.1f} s (records "
+          f"written in {gen_s:.2f} s) {card}")
+    return out
+
+
+def analysis_phase(here):
+    """The host tier's IR verifier and contract checker on this tree:
+    finding counts, lattice points, mutations caught; fails on any
+    finding."""
+    from pyruhvro_tpu_torch.analysis import contracts, irverify
+
+    t0 = time.perf_counter()
+    findings, report = irverify.run_ir_verification(str(here))
+    ir_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfind = contracts.check_contracts(str(here))
+    out = {"irverify_findings": len(findings),
+           "contract_findings": len(cfind),
+           "lattice": report["lattice"]["coverage"],
+           "mutations": len(report["mutation"]["cases"]),
+           "mutations_caught": sum(c["caught"]
+                                   for c in report["mutation"]["cases"]),
+           "guards": sum(report["guards"].values()),
+           "irverify_s": ir_s, "contracts_s": time.perf_counter() - t0}
+    print(f"analysis: irverify {out['irverify_findings']} findings over "
+          f"{out['lattice']['points']} lattice points ({out['lattice']}), "
+          f"{out['mutations_caught']}/{out['mutations']} mutations caught, "
+          f"{out['guards']} guards anchored, {ir_s:.2f} s; contracts "
+          f"{out['contract_findings']} findings, {out['contracts_s']:.2f} s")
+    if findings or cfind:
+        raise SystemExit("analysis: " + "; ".join(
+            str(f) for f in (findings + cfind)[:10]))
     return out
 
 
@@ -5331,6 +5536,7 @@ def main() -> int:
                       enc_batches["kafka_encode"][0], nested_schema, card,
                       units)
     print(f"host phase: {time.perf_counter() - t0:.1f} s")
+    analysis = analysis_phase(here)
 
     # 6. phases and kernels at the main paths' shapes
     os.environ["PYRUHVRO_TPU_PALLAS"] = "1"
@@ -5550,6 +5756,7 @@ def main() -> int:
     print(json.dumps({"incident": incident}, default=str))
     print(json.dumps({"serving": serve}, default=str))
     print(json.dumps({"memory": memory}, default=str))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

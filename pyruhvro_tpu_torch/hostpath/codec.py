@@ -51,17 +51,39 @@ C++ and built (:mod:`.specialize`), and the engines serve in the order
 deep-sampled profiled build > specialised > VM; the specialised module
 also serves the fused ``encode_arrow`` lane and the ``host_mode``
 ``encode``. ``host.vm_s`` and ``host.encode_vm_s`` carry
-``specialized=``. ``PYRUHVRO_TPU_NO_SPECIALIZE=1`` or
-``PYRUHVRO_TPU_NATIVE_PROF=1`` pins the VM.
+``specialized=``. ``PYRUHVRO_TPU_NO_SPECIALIZE=1``,
+``PYRUHVRO_TPU_NATIVE_PROF=1`` or either sanitizer flavour
+(``PYRUHVRO_TPU_NATIVE_SAN``, ``PYRUHVRO_TPU_TSAN``, whose builds the
+engine cache does not key) pins the VM.
+
+The superoptimizer (the reference's ``hostpath/codec.py:97-110`` and
+``:231-255``): each codec's program goes through
+:func:`.optimize.optimize_program` once (fused runs of fixed-width
+fields, elided validity tests, string-item loops decided at compile
+time), and the rewrite is kept only when the IR verifier proves its
+effects equal to the raw program's. The optimized program (``oprog``,
+with ``opt_stats``) serves the VM's ``decode_arrow``, the deep-sampled
+profiled VM's too; the raw program (``prog``) stays the source of the
+specialiser, the plan buffers, the assembly and every encode lane.
+``PYRUHVRO_TPU_NO_OPT=1`` keeps the raw program everywhere.
+
+The bounds-checked writer (the reference's ``:677-734``, ``:772``):
+under ``PYRUHVRO_DEBUG_BOUNDS=1``, read once per encode call, every
+native encode (the extractor's and the specialised ``encode_arrow``,
+the ``host_mode`` VM and specialised ``encode``, the shard encode)
+checks each store against the extractor's bound, and an under-estimate
+raises ``RuntimeError`` (``bound violated``) where the unchecked writer
+would run past its allocation.
 
 Departures from the reference (``ROADMAP.md`` (c)): a failed build (the
 specialiser's too), an error of the VM or the shard runner, and an
 injected fault at any of these seams raise (the reference degrades to
 the oracle, to the VM or to its serial chunk loop, behind breakers the
-port has not). The superoptimizer is not ported: the VM runs the raw
-program, the reference's ``PYRUHVRO_TPU_NO_OPT=1`` arm. The writer's
-bounds-checked debug mode (``PYRUHVRO_DEBUG_BOUNDS``) and the sanitizer
-builds are not ported (``ROADMAP.md`` (a) 9).
+port has not). The reference probes for a stale module (one without
+``shard_stats`` pins the raw program; one without the checked writer's
+argument raises or retries with fewer arguments); the port's modules
+are keyed by the hash of their sources (:func:`..runtime.native.build_path`),
+so no stale module loads and there is no probe (``ROADMAP.md`` (c) 12).
 """
 
 from __future__ import annotations
@@ -85,6 +107,7 @@ from ..runtime import (deadline, faults, knobs, metrics, native, sampling,
                        telemetry)
 from ..runtime.chunking import bounds_rows, chunk_bounds
 from ..runtime.pool import fanout_stats, map_chunks
+from .optimize import optimize_program
 from .program import (
     COL_F64,
     COL_I64,
@@ -114,6 +137,12 @@ def _drain_native_prof(*mods, scale: float = 1.0) -> None:
                 metrics.inc(key, float(hits) * scale)
             if ns:
                 metrics.inc(key + "_s", ns * 1e-9 * scale)
+
+
+def _checked() -> int:
+    """The native writers' mode for one encode call: 1 checks every store
+    against the extractor's bound (``PYRUHVRO_DEBUG_BOUNDS``)."""
+    return 1 if knobs.get_bool("PYRUHVRO_DEBUG_BOUNDS") else 0
 
 
 def _value_error(e: Exception) -> Exception:
@@ -147,13 +176,22 @@ class NativeHostCodec:
         self._plan = self.prog.buffer_plan()
         self._prof = native.prof_active()
         self._mod = native.load_host_codec().module  # raises RuntimeError
+        # the superoptimizer's program serves the VM's generic decode;
+        # the raw one stays the specialiser's, the plan's and encode's
+        self.oprog: HostProgram = self.prog
+        self.opt_stats = None
+        if not knobs.get_bool("PYRUHVRO_TPU_NO_OPT"):
+            self.oprog, self.opt_stats = optimize_program(self.prog)
         self._spec = None            # the specialized module, once built
         self._spec_name = None       # its engine-registry key
         # the per-opcode profiler lives in the VM's dispatch points; the
         # specialized engines are straight-line code with nothing to
-        # attribute, so profiling pins the interpreter
+        # attribute, so profiling pins the interpreter; a sanitized
+        # session pins it too, since the engine cache does not key the
+        # flavour
         self._spec_failed = (knobs.get_bool("PYRUHVRO_TPU_NO_SPECIALIZE")
-                             or self._prof)
+                             or self._prof or native.san_active()
+                             or native.tsan_active())
         self._spec_rows = knobs.get_int("PYRUHVRO_TPU_SPECIALIZE_ROWS")
         self._rows_seen = 0
         self._extract_mod = None  # built at the first native extract
@@ -196,7 +234,7 @@ class NativeHostCodec:
             faults.fire("vm_decode")
             native_data = (data.native_parts()
                            if hasattr(data, "native_parts") else data)
-            prog = self.prog
+            prog = self.oprog
             # the serving engine: deep-sampled prof build > specialized
             # straight-line module > VM. Bind the specialized engine
             # ONCE: a concurrent lifecycle eviction may null self._spec
@@ -211,9 +249,9 @@ class NativeHostCodec:
                 eng = self._mod
             spec = spec_eng is not None and deep_mod is None
             with telemetry.phase("host.vm_s", specialized=spec, fused=True):
-                if spec:
+                if spec:  # compiled from the raw program
                     payload, err_rec, err_bits = eng.decode_arrow(
-                        prog.coltypes, native_data, nthreads)
+                        self.prog.coltypes, native_data, nthreads)
                 else:
                     payload, err_rec, err_bits = eng.decode_arrow(
                         prog.ops, prog.coltypes, prog.op_aux, native_data,
@@ -325,13 +363,13 @@ class NativeHostCodec:
              pa.py_buffer(np.frombuffer(blob, np.uint8))],
         )
 
-    def _encode_native(self, batch: pa.RecordBatch, n: int,
+    def _encode_native(self, batch: pa.RecordBatch, n: int, checked: int,
                        nshards: int = 1):
         """The fused Arrow-native encode: the column-matched struct goes
         through the Arrow C data interface, and extraction and the wire
-        write run in one native call. None when the lane declines (a shape
-        outside the native surface, or a data error the Python extractor
-        words)."""
+        write run in one native call (``checked`` 1: the bounds-checked
+        writer). None when the lane declines (a shape outside the native
+        surface, or a data error the Python extractor words)."""
         if (self._extract_declined_schema is not None
                 and batch.schema.equals(self._extract_declined_schema)):
             metrics.inc("extract.fallback")
@@ -353,7 +391,8 @@ class NativeHostCodec:
         holder_s = np.zeros(9, np.uint64)
         struct._export_to_c(int(holder_a.ctypes.data),
                             int(holder_s.ctypes.data))
-        addrs = (int(holder_a.ctypes.data), int(holder_s.ctypes.data), n, 0)
+        addrs = (int(holder_a.ctypes.data), int(holder_s.ctypes.data), n,
+                 checked)
         if spec is not None:
             fn = spec.encode_arrow
             args = (self.prog.coltypes,) + addrs
@@ -428,14 +467,17 @@ class NativeHostCodec:
                 # each slice fit, but the concatenated offsets pass int32
                 raise BatchTooLarge(n, -1)
         self._maybe_specialize(n)
-        out = self._encode_native(batch, n)
+        checked = _checked()
+        out = self._encode_native(batch, n, checked)
         if out is not None:
             return out
-        return self._encode_host_mode(batch, n)
+        return self._encode_host_mode(batch, n, checked)
 
-    def _encode_host_mode(self, batch: pa.RecordBatch, n: int) -> pa.Array:
+    def _encode_host_mode(self, batch: pa.RecordBatch, n: int,
+                          checked: int = 0) -> pa.Array:
         """The lane for a batch the native extractor declines: the Python
-        extractor's ``host_mode`` layout fed to the VM's ``encode``."""
+        extractor's ``host_mode`` layout fed to the VM's ``encode``
+        (``checked`` 1: the bounds-checked writer)."""
         with telemetry.phase("host.extract_s", rows=n, native=False):
             try:
                 ex = run_extractor(self.ir, batch, host_mode=True)
@@ -456,11 +498,11 @@ class NativeHostCodec:
                                  specialized=spec is not None):
                 if spec is not None:
                     blob, offs = spec.encode(self.prog.coltypes, bufs, n,
-                                             hint, 0)
+                                             hint, checked)
                 else:
                     blob, offs = self._mod.encode(self.prog.ops,
                                                   self.prog.coltypes, bufs,
-                                                  n, hint, 0)
+                                                  n, hint, checked)
         except OverflowError as e:
             if "decimal" in str(e):
                 raise _value_error(e)  # the oracle's int.to_bytes overflow
@@ -480,7 +522,7 @@ class NativeHostCodec:
         self._drain_shard_stats()  # discard counts from other callers
         try:
             with fanout_stats(len(bounds), native=True, op="encode") as stats:
-                arr = self._encode_native(batch, batch.num_rows,
+                arr = self._encode_native(batch, batch.num_rows, _checked(),
                                           nshards=len(bounds))
                 d = self._drain_shard_stats()
                 if d["fanouts"]:

@@ -10,10 +10,10 @@ column-type codes are the C++ side's contract
 
 ≙ the role of ``make_decoder`` (``ruhvro/src/fast_decode.rs:176-420``):
 the schema compiles once into a flat program, executed by switch
-dispatch. ``OP_FIXED_RUN``, the flags and ``OP_EFFECTS`` belong to the
-reference's superoptimizer and IR verifier, which the port does not
-have (``ROADMAP.md``): ``lower_host`` never emits them, and they are
-kept so that the opcode table stays the C++ side's.
+dispatch. ``lower_host`` never emits ``OP_FIXED_RUN`` or the flags:
+the superoptimizer (:mod:`.optimize`) rewrites a lowered program into
+them, and the IR verifier (:mod:`..analysis.irverify`) proves each
+rewrite against ``OP_EFFECTS``.
 """
 
 from __future__ import annotations

@@ -38,9 +38,12 @@ Departures from the reference (``ROADMAP.md`` (c) 7):
 * A failed ``g++`` build raises ``RuntimeError`` into the call, as
   every native build of the port does; the reference returns ``None``
   and pins the interpreter.
-* The sanitizer flavours are not ported, so there is no sanitizer
-  branch; ``PYRUHVRO_TPU_NATIVE_PROF=1`` pins the interpreter, as in
-  the reference (``codec.NativeHostCodec``).
+* Under either sanitizer flavour (``PYRUHVRO_TPU_NATIVE_SAN``,
+  ``PYRUHVRO_TPU_TSAN``) :func:`load_specialized` raises
+  ``RuntimeError``, where the reference returns ``None``: the engine
+  cache does not key the flavour, so an instrumented engine would serve
+  later plain runs. ``codec.NativeHostCodec`` pins the interpreter under
+  either knob, as it does under ``PYRUHVRO_TPU_NATIVE_PROF=1``.
 * The generated unit's first line names this module.
 """
 
@@ -954,9 +957,15 @@ def load_specialized(prog: HostProgram):
     Disk-cached: the module name is a content hash of the generated
     source and the shared headers (:func:`module_name`), so any change
     to either regenerates, and repeat processes just dlopen. Raises
-    ``RuntimeError`` when ``g++`` fails."""
+    ``RuntimeError`` when ``g++`` fails, and under either sanitizer
+    flavour (the cache is keyed by the source only)."""
     from ..runtime import cachelife, metrics, native
 
+    if native.san_active() or native.tsan_active():
+        raise RuntimeError("a sanitizer flavour is active "
+                           "(PYRUHVRO_TPU_NATIVE_SAN / PYRUHVRO_TPU_TSAN): "
+                           "the specialised engines have no sanitized "
+                           "build; the VM serves such a session")
     mod_name = module_name(prog)
     so = spec_dir() / (mod_name + (sysconfig.get_config_var("EXT_SUFFIX")
                                    or ".so"))

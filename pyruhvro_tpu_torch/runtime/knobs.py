@@ -5,8 +5,9 @@
 ``:82-100``, ``:146-150``, ``:153-159``, ``:162-167``, ``:170-183``,
 ``:189-207``, ``:208``, ``:211``, ``:215-219``, ``:220-237``,
 ``:240-257``, ``:260-266``, ``:271``, ``:275-281``, ``:287-293`` and
-``:297-330``, and the specialiser's at ``:111-118``, with their
-defaults), and ``render_text_table`` / ``render_markdown_table`` for
+``:297-330``, the specialiser's at ``:111-118``, and the
+superoptimizer's, the checked writer's and the sanitizer flavours' at
+``:131-143`` and ``:283-286``, with their defaults), and ``render_text_table`` / ``render_markdown_table`` for
 the CLI's ``knobs`` command.
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
@@ -96,6 +97,14 @@ DEFAULTS = {
     "PYRUHVRO_TPU_SCHED_POINTS": "",
     # the native host modules' per-opcode-profiled build (vm.op.* keys)
     "PYRUHVRO_TPU_NATIVE_PROF": False,
+    # the host modules' ASan+UBSan and ThreadSanitizer builds (ASan wins
+    # when both are set; run Python under the runtime's preload)
+    "PYRUHVRO_TPU_NATIVE_SAN": False,
+    "PYRUHVRO_TPU_TSAN": False,
+    # the host tier's superoptimizer off: the VM runs the raw program
+    "PYRUHVRO_TPU_NO_OPT": False,
+    # the native encoders check every write against the extractor's bound
+    "PYRUHVRO_DEBUG_BOUNDS": False,
     # the deep sampler's share of wall time (<= 0 turns it off)
     "PYRUHVRO_TPU_SAMPLE_BUDGET": 0.01,
     # the JSON file of latency and error objectives for the SLO engine

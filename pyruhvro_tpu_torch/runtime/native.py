@@ -23,8 +23,20 @@ nanoseconds, ``vm.op.*`` / ``vm.encop.*`` / ``extract.op.*``). Under
 :func:`load_extract` return it; :func:`load_host_codec_prof` returns it
 whatever the knob says, for the deep sampler (:mod:`.sampling`). A
 failed profiled build raises like any other, where the reference warns
-and loads the plain module (``ROADMAP.md`` (c) 7). The sanitizer
-flavours (``PYRUHVRO_TPU_NATIVE_SAN``, ``_TSAN``) are not ported.
+and loads the plain module (``ROADMAP.md`` (c) 7).
+
+The sanitizer flavours (the reference's ``build.py:40-83`` and
+``:157-245``): under ``PYRUHVRO_TPU_NATIVE_SAN=1`` every host module
+builds with :data:`SAN_FLAGS` (ASan + UBSan) into ``<stem>.san-<hash>``,
+under ``PYRUHVRO_TPU_TSAN=1`` with :data:`TSAN_FLAGS` into
+``<stem>.tsan-<hash>``; either combines with ``.prof``, and the two
+runtimes cannot share a process, so ASan wins when both are set
+(:func:`san_active`, :func:`tsan_active`). The flags are part of
+:func:`build_path`'s hash and each flavour has its own build lock. An
+instrumented module loads only in a Python started under its runtime's
+preload (``LD_PRELOAD`` of ``g++ -print-file-name=libasan.so`` and
+``libubsan.so``, or of ``libtsan.so``). A failed sanitized build raises,
+as every build does. The ``nvcc`` kernels have no sanitizer flavour.
 
 The specialiser (:mod:`..hostpath.specialize`) builds its generated
 units with the same recipe (:func:`compile_extension`), into
@@ -53,13 +65,18 @@ from pathlib import Path
 __all__ = ["load_packer", "load_host_codec", "load_host_codec_prof",
            "load_extract", "load", "loaded", "build_path", "source_files",
            "compile_extension", "import_extension", "cpu_tag",
-           "prof_active", "NativeModule", "SOURCES"]
+           "prof_active", "san_active", "tsan_active", "flavour_flags",
+           "NativeModule", "SOURCES", "SAN_FLAGS", "TSAN_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyruhvro_tpu_torch"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 NATIVE_FLAGS = ["-march=native"]
 PROF_FLAGS = ["-DPYRUHVRO_NATIVE_PROF=1"]
+# the ASan+UBSan flavour and the ThreadSanitizer flavour
+SAN_FLAGS = ["-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
+             "-fno-omit-frame-pointer", "-g"]
+TSAN_FLAGS = ["-fsanitize=thread", "-fno-omit-frame-pointer", "-g"]
 
 # name → (source under csrc/, the PyInit_ name it exports)
 SOURCES = {
@@ -71,9 +88,9 @@ SOURCES = {
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict = {}   # guarded-by: _locks[key]
-# one build lock per flavour: "<name>" and "<name>@prof"
-_locks = {name + sfx: threading.Lock() for name in SOURCES
-          for sfx in ("", "@prof")}
+# one build lock per flavour: "<name>" with "@san" or "@tsan" and "@prof"
+_locks = {name + san + prof: threading.Lock() for name in SOURCES
+          for san in ("", "@san", "@tsan") for prof in ("", "@prof")}
 
 
 class NativeModule:
@@ -134,41 +151,85 @@ def prof_active() -> bool:
     return knobs.get_bool("PYRUHVRO_TPU_NATIVE_PROF")
 
 
-def build_path(name: str, prof: bool = False) -> Path:
+def san_active() -> bool:
+    """Do the host modules load as their ASan+UBSan flavour
+    (``PYRUHVRO_TPU_NATIVE_SAN``)?"""
+    from . import knobs
+
+    return knobs.get_bool("PYRUHVRO_TPU_NATIVE_SAN")
+
+
+def tsan_active() -> bool:
+    """Do the host modules load as their ThreadSanitizer flavour
+    (``PYRUHVRO_TPU_TSAN``, unless the ASan flavour is also asked for:
+    the two runtimes cannot share a process)?"""
+    from . import knobs
+
+    return knobs.get_bool("PYRUHVRO_TPU_TSAN") and not san_active()
+
+
+def _flavour(san, tsan):
+    """``(san, tsan)`` with each ``None`` read from its knob; ASan wins."""
+    san = san_active() if san is None else san
+    tsan = tsan_active() if tsan is None else tsan
+    return san, tsan and not san
+
+
+def flavour_flags(prof: bool = False, san: bool = False,
+                  tsan: bool = False) -> list:
+    """The compiler flags a flavour adds to :data:`CXX_FLAGS`."""
+    return ((PROF_FLAGS if prof else []) + (SAN_FLAGS if san else [])
+            + (TSAN_FLAGS if tsan and not san else []))
+
+
+def _key(name: str, prof: bool, san: bool, tsan: bool) -> str:
+    return (name + ("@san" if san else "@tsan" if tsan else "")
+            + ("@prof" if prof else ""))
+
+
+def build_path(name: str, prof: bool = False, san: bool = False,
+               tsan: bool = False) -> Path:
     """Where the build of ``SOURCES[name]`` lives: its name carries a hash
     of the source and its headers, the interpreter, the flags and
-    :func:`cpu_tag`; the profiled flavour's stem ends ``.prof``."""
+    :func:`cpu_tag`; the sanitizer flavours' stems end ``.san`` or
+    ``.tsan``, the profiled flavour's ``.prof`` after that."""
     src = CSRC / SOURCES[name][0]
     include = sysconfig.get_paths()["include"]
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     key = hashlib.sha256()
     for path in source_files(src):
         key.update(path.name.encode() + b"\0" + path.read_bytes())
-    flags = CXX_FLAGS + (PROF_FLAGS if prof else [])
+    tsan = tsan and not san
+    flags = CXX_FLAGS + flavour_flags(prof, san, tsan)
     key.update(f"{sys.version}|{include}|{flags}|{NATIVE_FLAGS}|"
                f"{cpu_tag()}".encode())
-    stem = src.stem + (".prof" if prof else "")
+    stem = (src.stem + (".san" if san else ".tsan" if tsan else "")
+            + (".prof" if prof else ""))
     return BUILD_DIR / f"{stem}-{key.hexdigest()[:16]}{suffix}"
 
 
-def load(name: str, prof: bool = False) -> NativeModule:
+def load(name: str, prof: bool = False, san=None, tsan=None) -> NativeModule:
     """Compile the source ``SOURCES[name]`` (once per content of it and
     its headers, interpreter, CPU and flavour) and import it; ``prof``
-    selects the profiled flavour. Raises ``RuntimeError`` when the build
-    fails, and ``FaultInjected`` under a ``native_build`` fault."""
+    selects the profiled flavour, ``san`` and ``tsan`` the sanitizer
+    flavours (``None``: as :func:`san_active` / :func:`tsan_active`
+    say). Raises ``RuntimeError`` when the build fails, and
+    ``FaultInjected`` under a ``native_build`` fault."""
     from . import faults
 
     faults.fire("native_build")
-    key = name + ("@prof" if prof else "")
+    san, tsan = _flavour(san, tsan)
+    key = _key(name, prof, san, tsan)
     with _locks[key]:
         if key in _loaded:
             return _loaded[key]
         rel, module_name = SOURCES[name]
-        out = build_path(name, prof)
-        cmd, build_s = compile_extension(CSRC / rel, out, prof=prof)
+        out = build_path(name, prof, san, tsan)
+        cmd, build_s = compile_extension(
+            CSRC / rel, out, flags=flavour_flags(prof, san, tsan))
         _loaded[key] = NativeModule(import_extension(module_name, out), out,
                                     cmd, build_s)
-        if build_s and not prof:
+        if build_s and key == name:
             from . import device_obs
 
             # carried by the first device launch that uses it
@@ -176,10 +237,10 @@ def load(name: str, prof: bool = False) -> NativeModule:
         return _loaded[key]
 
 
-def compile_extension(src: Path, out: Path, includes=(), prof=False):
+def compile_extension(src: Path, out: Path, includes=(), flags=()):
     """Build the CPython extension ``out`` from ``src`` unless it exists:
-    ``g++`` with :data:`CXX_FLAGS` (and :data:`PROF_FLAGS` with
-    ``prof``), Python's include directory and ``-I`` of each of
+    ``g++`` with :data:`CXX_FLAGS` and a flavour's ``flags``
+    (:func:`flavour_flags`), Python's include directory and ``-I`` of each of
     ``includes``, ``-march=native`` first and the generic flags where the
     compiler refuses it. Written to a temporary name and moved into
     place, so that processes building the same file never read half of
@@ -187,7 +248,7 @@ def compile_extension(src: Path, out: Path, includes=(), prof=False):
     ``out`` was there); raises ``RuntimeError`` when the build fails."""
     cxx = _cxx()
     include = sysconfig.get_paths()["include"]
-    base = [cxx, *CXX_FLAGS, *(PROF_FLAGS if prof else []),
+    base = [cxx, *CXX_FLAGS, *flags,
             f"-I{include}", *(f"-I{d}" for d in includes), str(src), "-o"]
     cmd = [cxx, *NATIVE_FLAGS, *base[1:], str(out)]
     if out.exists():
@@ -222,10 +283,11 @@ def import_extension(module_name: str, path: Path):
     return module
 
 
-def loaded(name: str, prof: bool = False) -> bool:
-    """Is ``SOURCES[name]`` (the profiled flavour with ``prof``) built
-    and imported in this process? Never builds."""
-    return name + ("@prof" if prof else "") in _loaded
+def loaded(name: str, prof: bool = False, san=None, tsan=None) -> bool:
+    """Is ``SOURCES[name]`` (the profiled flavour with ``prof``; the
+    sanitizer flavours as :func:`load` reads them) built and imported in
+    this process? Never builds."""
+    return _key(name, prof, *_flavour(san, tsan)) in _loaded
 
 
 def load_packer() -> NativeModule:

@@ -292,7 +292,14 @@ def test_import_leaves_jax_and_the_reference_out():
         "pyruhvro_tpu_torch.runtime.otel, "
         "pyruhvro_tpu_torch.runtime.fleet, "
         "pyruhvro_tpu_torch.serving, pyruhvro_tpu_torch.serving.flight, "
-        "pyruhvro_tpu_torch.hostpath.specialize\n"
+        "pyruhvro_tpu_torch.hostpath.specialize, "
+        "pyruhvro_tpu_torch.hostpath.optimize, pyruhvro_tpu_torch.analysis, "
+        "pyruhvro_tpu_torch.analysis.irverify, "
+        "pyruhvro_tpu_torch.analysis.contracts\n"
+        # the passes import what they run inside their functions
+        "pyruhvro_tpu_torch.analysis.irverify.run_ir_verification("
+        "'.', depths=(1,))\n"
+        "pyruhvro_tpu_torch.analysis.contracts.check_contracts('.')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pyruhvro_tpu' or m.startswith('pyruhvro_tpu.')]\n"
         "print(','.join(bad))\n"

@@ -781,19 +781,35 @@ BEST_EFFORT = {
                 "_flush_saves", "drainer", "install_drain_signal"},
     "flight": {"flight_available", "do_put", "do_get"},
     "specialize": {"_note_engine"},
+    # the analysis plane's catches, each turning what it caught into a
+    # finding or an absent anchor, as the reference's do: a source file
+    # that cannot be read (the guard, consumer and test scans), a trailer
+    # or a constant that does not parse, a rewrite that does not strip
+    # back, a lattice point that does not lower or optimize, a seeded
+    # mutation whose pass crashed; the superoptimizer catches nothing
+    # (an error of the verifier propagates)
+    "optimize": set(),
+    "irverify": {"scan_native_guards", "scan_aux_consumers",
+                 "_effects_trailer", "verify_optimized", "run_lattice",
+                 "run_mutation_selftest"},
+    "contracts": {"check_error_taxonomy", "_cpp_const_eval"},
 }
 
 # the modules outside runtime/
 MODULE_PATHS = {"serving": "serving/__init__.py",
                 "flight": "serving/flight.py",
-                "specialize": "hostpath/specialize.py"}
+                "specialize": "hostpath/specialize.py",
+                "optimize": "hostpath/optimize.py",
+                "irverify": "analysis/irverify.py",
+                "contracts": "analysis/contracts.py"}
 
 
 @pytest.mark.parametrize("module", ["telemetry", "device_obs", "timeline",
                                     "incident", "audit", "obs_server",
                                     "coldigest", "memacct", "cachelife",
                                     "otel", "fleet", "serving", "flight",
-                                    "specialize"])
+                                    "specialize", "optimize", "irverify",
+                                    "contracts"])
 def test_no_synchronise_and_no_swallowed_exception(module):
     path = REPO / "pyruhvro_tpu_torch" / MODULE_PATHS.get(
         module, f"runtime/{module}.py")
