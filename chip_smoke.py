@@ -66,7 +66,12 @@ exits non-zero before the last line:
    card's), P5 the encode bisect on ``POLICY_ENCODE_ROWS`` one-byte
    decimals with 4 that do not fit under ``"skip"`` and ``"null"`` (the
    planted rows quarantined, the wire equal to the CPU call's, the
-   ``encode_rows`` launches it took); then the ``host`` phase, the
+   ``encode_rows`` launches it took), P6 ``P6_ROWS`` records of
+   :data:`UUID_SCHEMA` with one row in every ``POLICY_EVERY`` holding
+   text that is not a UUID under ``on_error="skip"`` (the planted rows
+   quarantined as ``("bad_value", "fallback")``, batches and entries equal
+   to the CPU call's, K1 and K2 launches counted from 0, beside the clean
+   records' call); then the ``host`` phase, the
    native host tier (``backend="host"``) against the card, with the
    host's CPU model, ``os.cpu_count()`` and affinity: H1 path 1, H2
    paths 3 and 4, H3 path 5's encode (each: the codec's lane counts
@@ -85,8 +90,9 @@ exits non-zero before the last line:
    optimizer's stats; the card's decode of the run schema equal to the
    host's with K1/K2 counted from 0, then held against their plain
    versions at every rung), and the lane counters; then the ``analysis``
-   step (:func:`analysis_phase`: the IR verifier and the contract
-   checker on this tree, failing on any finding);
+   step (:func:`analysis_phase`: the IR verifier, the contract
+   checker, the AST lints and the concurrency pass on this tree, failing
+   on any finding);
 6. per path, the phases (pack, h2d, walk, finalize or compaction, d2h,
    Arrow assembly; for encode extract, pack, h2d, size, cumsum, write,
    strings, d2h, wrap); on the overlapped paths the native pack against
@@ -201,6 +207,7 @@ POLICY_EVERY = 100          # P1: one row in every 100 poisoned with b"\x01"
 POLICY_HOST_ROWS = 10_000   # P4: records through the host oracle
 POLICY_ENCODE_ROWS = 65_536  # P5: rows of the encode bisect
 POLICY_WARM_CALLS = 2       # P1: warm calls (fewer than WARM_CALLS: time)
+P6_ROWS = 100_000           # P6: records of UUID_SCHEMA
 H7_ROWS = 200_000           # H7 (b): records of RUN_SCHEMA
 
 # the host tier's superoptimizer (H7 and tests/test_torch_optimize.py): a
@@ -317,6 +324,12 @@ GLOBAL_BOUND_SCHEMA = """{"type":"record","name":"GB","fields":[
   {"name":"s","type":"string"}]}"""
 
 
+# P6: a uuid column between a long and a string, under a schema string of
+# its own (no codec of an earlier phase serves it)
+UUID_SCHEMA = ('{"type":"record","name":"P6Uuid","fields":['
+               '{"name":"id","type":"long"},'
+               '{"name":"u","type":{"type":"string","logicalType":"uuid"}},'
+               '{"name":"tag","type":"string"}]}')
 # P5: one byte of decimal, so 200..999 do not fit
 # (``tests/test_error_policy.py:205-223``); and a nullable copy for "null"
 DECIMAL_SCHEMA = ('{"type":"record","name":"D","fields":[{"name":"d","type":'
@@ -2837,10 +2850,12 @@ def host_h7(api, codec_of, data, kafka, card):
 
 
 def analysis_phase(here):
-    """The host tier's IR verifier and contract checker on this tree:
-    finding counts, lattice points, mutations caught; fails on any
+    """The host tier's IR verifier and contract checker, the AST lints
+    and the concurrency pass on this tree: finding counts, lattice
+    points, mutations caught, the lock inventory; fails on any
     finding."""
-    from pyruhvro_tpu_torch.analysis import contracts, irverify
+    from pyruhvro_tpu_torch.analysis import (concurrency, contracts,
+                                             irverify, lints)
 
     t0 = time.perf_counter()
     findings, report = irverify.run_ir_verification(str(here))
@@ -2855,14 +2870,31 @@ def analysis_phase(here):
                                    for c in report["mutation"]["cases"]),
            "guards": sum(report["guards"].values()),
            "irverify_s": ir_s, "contracts_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    lfind = lints.run_lints(str(here))
+    out["lint_findings"] = len(lfind)
+    out["lints_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conc, info = concurrency.analyze(str(here))
+    out["concurrency_findings"] = len(conc)
+    out["concurrency_s"] = time.perf_counter() - t0
+    out["locks"] = len(info["locks"])
+    out["lock_edges"] = len(info["edges"])
+    out["guarded_globals"] = len(info["guarded"])
+    out["waivers"] = len(info["waivers"])
     print(f"analysis: irverify {out['irverify_findings']} findings over "
           f"{out['lattice']['points']} lattice points ({out['lattice']}), "
           f"{out['mutations_caught']}/{out['mutations']} mutations caught, "
           f"{out['guards']} guards anchored, {ir_s:.2f} s; contracts "
-          f"{out['contract_findings']} findings, {out['contracts_s']:.2f} s")
-    if findings or cfind:
+          f"{out['contract_findings']} findings, {out['contracts_s']:.2f} s; "
+          f"lints {out['lint_findings']} findings, {out['lints_s']:.2f} s; "
+          f"concurrency {out['concurrency_findings']} findings over "
+          f"{out['locks']} locks, {out['lock_edges']} edges, "
+          f"{out['guarded_globals']} guarded globals, {out['waivers']} "
+          f"waivers, {out['concurrency_s']:.2f} s")
+    if findings or cfind or lfind or conc:
         raise SystemExit("analysis: " + "; ".join(
-            str(f) for f in (findings + cfind)[:10]))
+            str(f) for f in (findings + cfind + lfind + conc)[:10]))
     return out
 
 
@@ -3790,9 +3822,80 @@ def policy_phase(api, pa, np, dm, wd, em, ingest, data, schema, card):
         p5[label] = {"encode_rows_launches": rows_launches, "s": t5,
                      "rows_out": len(got5)}
     out["p5"] = p5
+    out["p6"] = policy_p6(api, pipe, card)
     # the paths line reads a warm median from every entry
     out["warm_s"] = warm
     return out
+
+
+def uuid_datums(n: int, every: int, offset: int = 13):
+    """``n`` records of :data:`UUID_SCHEMA`, one row in every ``every``
+    with 36 characters of uuid text that are not hex (valid on the wire,
+    not a UUID), and those rows."""
+    bad = list(range(offset, n, every))
+    planted = set(bad)
+    out = []
+    for i in range(n):
+        if i in planted:
+            text = b"zzzzzzzz-zzzz-zzzz-zzzz-%012d" % i
+        else:
+            text = b"%08x-%04x-4%03x-8%03x-%012x" % (
+                i, i & 0xFFFF, (i * 7) & 0xFFF, (i * 13) & 0xFFF,
+                (i * 2654435761) & 0xFFFFFFFFFFFF)
+        tag = b"row%d" % i
+        out.append(zz(i) + zz(len(text)) + text + zz(len(tag)) + tag)
+    return out, bad
+
+
+def policy_p6(api, pipe, card):
+    """P6: uuid text that is valid on the wire but is not a UUID, under
+    ``on_error="skip"`` on the card. The assembly's error names no row,
+    so each chunk goes to the oracle, which quarantines the planted rows
+    as ``("bad_value", "fallback")``; the batches and entries must equal
+    the ``device="cpu"`` call's. The clean records' call beside it."""
+    data, bad = uuid_datums(P6_ROWS, POLICY_EVERY)
+    clean, _ = uuid_datums(P6_ROWS, P6_ROWS + 1, offset=P6_ROWS)
+
+    def skip(rows, **kw):
+        return api.deserialize_array_threaded(
+            rows, UUID_SCHEMA, MAIN_CHUNKS, on_error="skip",
+            return_errors=True, **kw)
+
+    api.deserialize_array_threaded(clean, UUID_SCHEMA, MAIN_CHUNKS)  # warm
+    zero(pipe)
+    t0 = time.perf_counter()
+    got, quar = skip(data)
+    skip_s = time.perf_counter() - t0
+    launches = launched("P6", pipe)
+    zero(pipe)
+    t0 = time.perf_counter()
+    whole = api.deserialize_array_threaded(clean, UUID_SCHEMA, MAIN_CHUNKS)
+    clean_s = time.perf_counter() - t0
+    clean_launches = launched("P6 (clean)", pipe)
+    t0 = time.perf_counter()
+    want, want_q = skip(data, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if [q.index for q in quar] != bad or \
+            {(q.error, q.tier) for q in quar} != {("bad_value", "fallback")}:
+        raise SystemExit(f"P6: quarantined {entry_fields(quar)[:5]}, not the "
+                         f"{len(bad)} planted rows as bad_value/fallback")
+    if entry_fields(quar) != entry_fields(want_q):
+        raise SystemExit("P6: quarantine differs from the CPU call's")
+    same_columns("P6", got, want)
+    same_values("P6", got, want)
+    rows = sum(b.num_rows for b in got)
+    if rows != P6_ROWS - len(bad) or \
+            sum(b.num_rows for b in whole) != P6_ROWS:
+        raise SystemExit(f"P6: {rows} rows kept")
+    print(f"policy P6: deserialize_array_threaded({P6_ROWS} uuid records, "
+          f"{len(bad)} with text that is not a UUID, {MAIN_CHUNKS}, "
+          f"on_error='skip') quarantined {len(quar)} rows as "
+          f"('bad_value', 'fallback'), batches and entries equal to the CPU "
+          f"call ({cpu_s:.2f} s); launches {launches}, {skip_s:.3f} s; the "
+          f"clean records: launches {clean_launches}, {clean_s:.3f} s {card}")
+    return {"rows": P6_ROWS, "quarantined": len(quar), "launches": launches,
+            "s": skip_s, "clean_launches": clean_launches,
+            "clean_s": clean_s, "cpu_s": cpu_s}
 
 
 MULTI_SHARDS = 8            # M2-M5: shards on one card (repeated device)

@@ -326,8 +326,15 @@ class _Assembler:
             import uuid as _uuid_mod
 
             for i in rest:
-                s = values[voff[i] : voff[i + 1]].tobytes().decode("utf-8")
-                out[i] = np.frombuffer(_uuid_mod.UUID(s).bytes, np.uint8)
+                try:
+                    s = values[voff[i] : voff[i + 1]].tobytes().decode(
+                        "utf-8")
+                    out[i] = np.frombuffer(_uuid_mod.UUID(s).bytes,
+                                           np.uint8)
+                except ValueError as e:  # UnicodeDecodeError included
+                    # a value error that names no row: the tolerant
+                    # policies send the chunk to the oracle
+                    raise mark_value_error(e)
         return pa.Array.from_buffers(
             dt, count,
             [vbuf, pa.py_buffer(np.ascontiguousarray(out).reshape(-1))],

@@ -57,7 +57,6 @@ raises. A backend fault (``RuntimeError``, ``OSError``,
 
 from __future__ import annotations
 
-import os
 from typing import List, Sequence
 
 import pyarrow as pa
@@ -65,7 +64,7 @@ import torch
 
 from ..errors import (BatchTooLarge, DeviceCapacityExceeded, MalformedAvro,
                       mark_value_error, shift_malformed)
-from ..runtime import deadline, metrics, telemetry
+from ..runtime import deadline, knobs, metrics, telemetry
 from ..runtime.chunking import chunk_bounds
 from ..schema.cache import SchemaEntry
 from . import UnsupportedOnDevice
@@ -98,9 +97,10 @@ def pallas_mode() -> str:
     ``codec.py:496-507``): ``"mosaic"`` for ``1``/``true``/``mosaic``, the
     row-padded walk; ``"off"`` for anything else. The reference's
     ``interpret`` has no counterpart: ``device="cpu"`` runs each kernel's
-    plain version."""
-    raw = os.environ.get("PYRUHVRO_TPU_PALLAS", "").lower()
-    return "mosaic" if raw in ("1", "true", "mosaic") else "off"
+    plain version. Read through ``knobs``, so a value that is none of
+    these counts ``knob.parse_error``."""
+    return "mosaic" if knobs.get_enum("PYRUHVRO_TPU_PALLAS") == "mosaic" \
+        else "off"
 
 
 class DeviceCodec:

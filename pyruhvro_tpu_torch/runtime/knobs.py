@@ -7,8 +7,11 @@
 ``:240-257``, ``:260-266``, ``:271``, ``:275-281``, ``:287-293`` and
 ``:297-330``, the specialiser's at ``:111-118``, and the
 superoptimizer's, the checked writer's and the sanitizer flavours' at
-``:131-143`` and ``:283-286``, with their defaults), and ``render_text_table`` / ``render_markdown_table`` for
-the CLI's ``knobs`` command.
+``:131-143`` and ``:283-286``, and ``PYRUHVRO_TPU_PALLAS`` (``:103``),
+``PYRUHVRO_TPU_SHARD_THREADS`` (``:125``) and
+``PYRUHVRO_TPU_QUARANTINE_STORM`` (``:184``), with their defaults), and
+``render_text_table`` / ``render_markdown_table`` for the CLI's ``knobs``
+command.
 
 One default departs: ``PYRUHVRO_TPU_ROUTING_PROFILE`` is
 ``ROUTING_PROFILE.torch.json``, so that the port and the reference, whose
@@ -30,7 +33,8 @@ from . import metrics
 
 __all__ = ["get_bool", "get_tristate", "get_int", "get_float", "get_str",
            "get_raw", "get_enum", "is_set", "registry", "DEFAULTS",
-           "CHOICES", "render_text_table", "render_markdown_table"]
+           "CHOICES", "ALIASES", "render_text_table",
+           "render_markdown_table"]
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
@@ -75,10 +79,15 @@ DEFAULTS = {
     "PYRUHVRO_TPU_ROUTING_PROFILE": "ROUTING_PROFILE.torch.json",
     # entries of the routing decision ledger kept
     "PYRUHVRO_TPU_LEDGER_N": 256,
+    # the row-padded walk (K4) for eligible schemas: 1/true/mosaic; the
+    # reference's interpret has no counterpart, and anything else is off
+    "PYRUHVRO_TPU_PALLAS": "off",
     # failures that open a circuit breaker (overrides each one's default)
     "PYRUHVRO_TPU_BREAKER_THRESHOLD": None,
     # the breakers' base backoff in seconds (overrides the default)
     "PYRUHVRO_TPU_BREAKER_BACKOFF": None,
+    # quarantined rows of one call that count as a storm
+    "PYRUHVRO_TPU_QUARANTINE_STORM": 100,
     # the fast/slow EWMA ratio that counts as latency drift
     "PYRUHVRO_TPU_DRIFT_RATIO": 1.5,
     # drifted observations in a row before a detection fires
@@ -97,6 +106,9 @@ DEFAULTS = {
     "PYRUHVRO_TPU_SCHED_POINTS": "",
     # the native host modules' per-opcode-profiled build (vm.op.* keys)
     "PYRUHVRO_TPU_NATIVE_PROF": False,
+    # the native shard runner's worker cap (0 = auto: the hardware's
+    # threads, at most 16); read by csrc/host/shard_runner.h itself
+    "PYRUHVRO_TPU_SHARD_THREADS": 0,
     # the host modules' ASan+UBSan and ThreadSanitizer builds (ASan wins
     # when both are set; run Python under the runtime's preload)
     "PYRUHVRO_TPU_NATIVE_SAN": False,
@@ -178,9 +190,18 @@ DEFAULTS = {
 CHOICES = {
     "PYRUHVRO_TPU_POOL": ("thread", "process"),
     "PYRUHVRO_TPU_SERVE_POLICY": ("block", "shed"),
+    "PYRUHVRO_TPU_PALLAS": ("off", "mosaic", "interpret"),
+}
+
+# spellings an enum knob folds onto one of its choices before the check
+# (the reference's ``ops/codec.py:_pallas_mode`` folding)
+ALIASES = {
+    "PYRUHVRO_TPU_PALLAS": {"1": "mosaic", "true": "mosaic", "0": "off",
+                            "false": "off"},
 }
 
 # parse errors count through DeferredCounts, as in the reference
+# lock-free-ok(setdefault is GIL-atomic and DeferredCount absorbs racing bumps)
 _parse_error_counts: Dict[str, metrics.DeferredCount] = {}
 
 
@@ -252,12 +273,13 @@ def is_set(name: str) -> bool:
 
 
 def get_enum(name: str) -> str:
-    """The lower-cased value when it is one of the knob's choices; unset
-    or empty gives the default, anything else the default and a parse
-    error."""
+    """The lower-cased value, its alias folded (:data:`ALIASES`), when it
+    is one of the knob's choices; unset or empty gives the default,
+    anything else the default and a parse error."""
     raw = os.environ.get(name, "").strip().lower()
     if not raw:
         return DEFAULTS[name]
+    raw = ALIASES.get(name, {}).get(raw, raw)
     if raw in CHOICES[name]:
         return raw
     _parse_error(name)

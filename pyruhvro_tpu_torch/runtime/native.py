@@ -87,8 +87,12 @@ SOURCES = {
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
-_loaded: dict = {}   # guarded-by: _locks[key]
+# the loaded modules; the per-flavour locks below serialise the builds,
+# this one only the dict's stores
+_loaded_lock = threading.Lock()
+_loaded: dict = {}   # guarded-by: _loaded_lock
 # one build lock per flavour: "<name>" with "@san" or "@tsan" and "@prof"
+# lock-free-ok(built once at import, never mutated)
 _locks = {name + san + prof: threading.Lock() for name in SOURCES
           for san in ("", "@san", "@tsan") for prof in ("", "@prof")}
 
@@ -221,20 +225,23 @@ def load(name: str, prof: bool = False, san=None, tsan=None) -> NativeModule:
     san, tsan = _flavour(san, tsan)
     key = _key(name, prof, san, tsan)
     with _locks[key]:
-        if key in _loaded:
-            return _loaded[key]
+        mod = _loaded.get(key)
+        if mod is not None:
+            return mod
         rel, module_name = SOURCES[name]
         out = build_path(name, prof, san, tsan)
         cmd, build_s = compile_extension(
             CSRC / rel, out, flags=flavour_flags(prof, san, tsan))
-        _loaded[key] = NativeModule(import_extension(module_name, out), out,
-                                    cmd, build_s)
+        mod = NativeModule(import_extension(module_name, out), out, cmd,
+                           build_s)
+        with _loaded_lock:
+            _loaded[key] = mod
         if build_s and key == name:
             from . import device_obs
 
             # carried by the first device launch that uses it
             device_obs.note_build(name, build_s)
-        return _loaded[key]
+        return mod
 
 
 def compile_extension(src: Path, out: Path, includes=(), flags=()):

@@ -15,12 +15,11 @@ error slug and the tier that found it. Callers read them through
 (``traceprop.current()``), orders the entries, sets :func:`last`,
 annotates the span with ``on_error`` and ``quarantined``, and counts
 ``<op>.quarantined``, ``<op>.quarantine.<slug>`` and, at
-:data:`STORM` entries (the reference's default of its
-``PYRUHVRO_TPU_QUARANTINE_STORM``, a knob the port does not read),
-``<op>.quarantine_storms`` with the ``quarantine_storm`` mark
-(``quarantine.py:136-182``), and auto-dumps the flight recorder
-(``PYRUHVRO_TPU_FLIGHT_DIR``), and publishes a ``quarantine.storm``
-incident event on :mod:`.timeline`.
+``PYRUHVRO_TPU_QUARANTINE_STORM`` entries (read at each call; its
+default is :data:`STORM`), ``<op>.quarantine_storms`` with the
+``quarantine_storm`` mark (``quarantine.py:133-182``), and auto-dumps
+the flight recorder (``PYRUHVRO_TPU_FLIGHT_DIR``), and publishes a
+``quarantine.storm`` incident event on :mod:`.timeline`.
 
 A call that fans out to the process pool opens :func:`collecting`: the
 workers' entries (re-based to the call's row indices by :func:`rebase`
@@ -35,7 +34,7 @@ from __future__ import annotations
 import threading
 from typing import List, NamedTuple, Optional
 
-from . import metrics, telemetry, traceprop
+from . import knobs, metrics, telemetry, traceprop
 
 __all__ = [
     "QuarantinedRecord",
@@ -47,8 +46,13 @@ __all__ = [
     "STORM",
 ]
 
-# quarantined rows of one call that count as a storm
-STORM = 100
+# the default of PYRUHVRO_TPU_QUARANTINE_STORM: quarantined rows of one
+# call that count as a storm
+STORM = knobs.DEFAULTS["PYRUHVRO_TPU_QUARANTINE_STORM"]
+
+
+def _storm_threshold() -> int:
+    return knobs.get_int("PYRUHVRO_TPU_QUARANTINE_STORM")
 
 
 class QuarantinedRecord(NamedTuple):
@@ -148,7 +152,7 @@ def publish(entries: List[QuarantinedRecord], policy: str,
         # mixed sources (no call of the port has both): count the rest
         # without their slugs
         metrics.inc(op + ".quarantined", float(len(entries) - merged))
-    if len(entries) >= STORM:
+    if len(entries) >= _storm_threshold():
         # metric-key: <op>.quarantine_storms
         metrics.inc(op + ".quarantine_storms")
         metrics.mark("quarantine_storm")  # the live /healthz bit

@@ -250,6 +250,40 @@ def test_codec_memo_key_carries_the_engine_mode(monkeypatch):
     assert get_device_codec(entry, "cpu") is padded
 
 
+@pytest.mark.parametrize("setting,want", [
+    ("", "off"), ("0", "off"), ("false", "off"), ("off", "off"),
+    ("1", "mosaic"), ("TRUE", "mosaic"), ("mosaic", "mosaic"),
+    ("interpret", "off")])
+def test_pallas_mode_folds_the_reference_aliases(setting, want,
+                                                monkeypatch):
+    """``PYRUHVRO_TPU_PALLAS`` goes through the registered knob with the
+    reference's alias folding, and no accepted spelling counts a parse
+    error."""
+    from pyruhvro_tpu_torch.ops.codec import pallas_mode
+    from pyruhvro_tpu_torch.runtime import metrics
+
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", setting)
+    before = metrics.snapshot().get("knob.parse_error.PYRUHVRO_TPU_PALLAS",
+                                    0)
+    assert pallas_mode() == want
+    assert metrics.snapshot().get(
+        "knob.parse_error.PYRUHVRO_TPU_PALLAS", 0) == before
+
+
+def test_a_bad_pallas_value_counts_a_parse_error_and_reads_off(monkeypatch):
+    from pyruhvro_tpu_torch.ops.codec import pallas_mode
+    from pyruhvro_tpu_torch.runtime import metrics
+
+    monkeypatch.setenv("PYRUHVRO_TPU_PALLAS", "bogus")
+    snap = metrics.snapshot()
+    total = snap.get("knob.parse_error", 0)
+    named = snap.get("knob.parse_error.PYRUHVRO_TPU_PALLAS", 0)
+    assert pallas_mode() == "off"
+    snap = metrics.snapshot()
+    assert snap.get("knob.parse_error", 0) == total + 1
+    assert snap.get("knob.parse_error.PYRUHVRO_TPU_PALLAS", 0) == named + 1
+
+
 def test_nested_schema_decodes_under_either_setting(monkeypatch):
     """A nested schema decodes on the default engine, and under
     ``PYRUHVRO_TPU_PALLAS=1`` too (the pipeline engine serves it)."""

@@ -47,7 +47,6 @@ from pyruhvro_tpu_torch.runtime import (  # noqa: E402
     faults,
     metrics,
     pool,
-    quarantine,
     router,
     schedtest,
     telemetry,
@@ -290,7 +289,7 @@ def test_profile_faults_are_cold_starts_as_in_the_reference(monkeypatch,
 def test_a_flight_dump_fault_leaves_the_call_unchanged(monkeypatch,
                                                        tmp_path, data):
     monkeypatch.setenv("PYRUHVRO_TPU_FLIGHT_DIR", str(tmp_path))
-    monkeypatch.setattr(quarantine, "STORM", 2)
+    monkeypatch.setenv("PYRUHVRO_TPU_QUARANTINE_STORM", "2")
     bad = list(data)
     for i in (1, 2, 3):
         bad[i] = b"\xff\xff\xff"

@@ -207,6 +207,8 @@ KNOB_DEPARTURES = {
 def test_knob_defaults_are_the_reference():
     registry = ref_knobs.registry()
     assert "PYRUHVRO_TPU_NO_NATIVE" in knobs.DEFAULTS
+    assert {"PYRUHVRO_TPU_PALLAS", "PYRUHVRO_TPU_SHARD_THREADS",
+            "PYRUHVRO_TPU_QUARANTINE_STORM"} <= set(knobs.registry())
     for name, default in knobs.DEFAULTS.items():
         if name in KNOB_DEPARTURES:
             assert (default, registry[name].default) == \

@@ -214,6 +214,61 @@ def test_assembly_errors_under_skip_go_to_the_oracle(case, chunks):
     assert all(q.tier == "fallback" for q in got_q)
 
 
+UUID = """{"type":"record","name":"Uu","fields":[
+  {"name":"x","type":"long"},
+  {"name":"u","type":{"type":"string","logicalType":"uuid"}}]}"""
+
+
+def _uuid_datums(n: int = 40):
+    """Records with canonical uuid text, but for row 7 (text that is not a
+    UUID), row 21 (32 hex digits, no dashes: a UUID, not canonical) and
+    row 30 (bytes that are not UTF-8)."""
+    w = datagen.compile_writer(parse_schema(UUID))
+    out = []
+    for i in range(n):
+        buf = bytearray()
+        w(buf, {"x": i, "u": "%08x-0000-4000-8000-%012x" % (i, i * 977)})
+        out.append(bytes(buf))
+    for i, text in ((7, b"not-a-uuid"), (21, b"%032x" % 21),
+                    (30, b"\xff\xfe" * 18)):
+        buf = bytearray()
+        w(buf, {"x": i, "u": ""})
+        out[i] = bytes(buf[:-1]) + bytes([2 * len(text)]) + text
+    return out
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_invalid_uuid_text_under_skip_goes_to_the_oracle(tier, chunks):
+    """A uuid column's text that is valid on the wire but is not a UUID
+    names no row: the chunk goes to the oracle, which quarantines the
+    row with ``tier="fallback"``, as in the reference (its device tier,
+    or its native host tier against the port's); under ``"raise"`` the
+    error is the reference's."""
+    datums = _uuid_datums()
+    ours, theirs = (({"device": "cpu"}, {"backend": "tpu"})
+                    if tier == "device" else
+                    ({"backend": "host"}, {"backend": "host"}))
+    got, got_q = port.deserialize_array_threaded(
+        datums, UUID, chunks, on_error="skip", return_errors=True, **ours)
+    want, want_q = ref.deserialize_array_threaded(
+        datums, UUID, chunks, on_error="skip", return_errors=True, **theirs)
+    same_batches(got, want)
+    assert fields(got_q) == fields(want_q)
+    assert [q.index for q in got_q] == [7, 30]
+    assert got_q[0].error == "bad_value"
+    assert all(q.tier == "fallback" for q in got_q)
+    # the bad UTF-8 raises first; without it, the uuid's own error
+    for case in (datums, datums[:30] + datums[31:]):
+        with pytest.raises(ValueError) as want_e:
+            ref.deserialize_array(case, UUID, **theirs)
+        with pytest.raises(ValueError) as got_e:
+            port.deserialize_array(case, UUID, **ours)
+        assert type(got_e.value).__name__ == type(want_e.value).__name__
+        assert str(got_e.value) == str(want_e.value)
+    assert str(got_e.value) == "badly formed hexadecimal UUID string"
+
+
 # -- the narrowed except --------------------------------------------------------
 
 

@@ -415,9 +415,9 @@ def test_quarantine_entries_carry_the_reference_trace_id(chunks):
 
 @pytest.mark.parametrize("n", [99, 100])
 def test_quarantine_storm_at_the_reference_default(n, monkeypatch):
-    """A call with ``quarantine.STORM`` entries (the reference's default
-    threshold, which the port does not make a knob) counts one storm and
-    marks it; one entry fewer counts none."""
+    """A call with ``quarantine.STORM`` entries (the default of
+    ``PYRUHVRO_TPU_QUARANTINE_STORM``, the reference's default) counts one
+    storm and marks it; one entry fewer counts none."""
     from pyruhvro_tpu.runtime import knobs as ref_knobs
     from pyruhvro_tpu_torch.runtime import quarantine
 
@@ -432,6 +432,24 @@ def test_quarantine_storm_at_the_reference_default(n, monkeypatch):
     assert c.get("decode.quarantined") == n
     assert c.get("decode.quarantine_storms", 0) == (n >= 100)
     assert (metrics.mark_age("quarantine_storm") is not None) == (n >= 100)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_the_storm_knob_moves_the_threshold(n, monkeypatch):
+    """``PYRUHVRO_TPU_QUARANTINE_STORM=3`` (read at each call, as the
+    reference's ``_storm_threshold``): three entries count a storm, two
+    do not."""
+    from pyruhvro_tpu_torch.runtime import quarantine
+
+    monkeypatch.setenv("PYRUHVRO_TPU_QUARANTINE_STORM", "3")
+    entries = [quarantine.QuarantinedRecord(i, b"\x01", "malformed",
+                                            "device") for i in range(n)]
+    with telemetry.root_span("api.test"):
+        quarantine.publish(entries, "skip", op="decode")
+    c = metrics.snapshot()
+    assert c.get("decode.quarantined") == n
+    assert c.get("decode.quarantine_storms", 0) == (n >= 3)
+    assert (metrics.mark_age("quarantine_storm") is not None) == (n >= 3)
 
 
 # -- (f) disabled mode -------------------------------------------------------------
@@ -793,6 +811,12 @@ BEST_EFFORT = {
                  "_effects_trailer", "verify_optimized", "run_lattice",
                  "run_mutation_selftest"},
     "contracts": {"check_error_taxonomy", "_cpp_const_eval"},
+    # the lints' unreadable tables and README (a finding, or no drain
+    # keys in a fixture tree) and a path that has no relative form; the
+    # concurrency pass catches nothing
+    "lints": {"_rel", "metric_key_registry", "port_section",
+              "lint_metric_keys"},
+    "concurrency": set(),
 }
 
 # the modules outside runtime/
@@ -801,7 +825,9 @@ MODULE_PATHS = {"serving": "serving/__init__.py",
                 "specialize": "hostpath/specialize.py",
                 "optimize": "hostpath/optimize.py",
                 "irverify": "analysis/irverify.py",
-                "contracts": "analysis/contracts.py"}
+                "contracts": "analysis/contracts.py",
+                "lints": "analysis/lints.py",
+                "concurrency": "analysis/concurrency.py"}
 
 
 @pytest.mark.parametrize("module", ["telemetry", "device_obs", "timeline",
@@ -809,7 +835,7 @@ MODULE_PATHS = {"serving": "serving/__init__.py",
                                     "coldigest", "memacct", "cachelife",
                                     "otel", "fleet", "serving", "flight",
                                     "specialize", "optimize", "irverify",
-                                    "contracts"])
+                                    "contracts", "lints", "concurrency"])
 def test_no_synchronise_and_no_swallowed_exception(module):
     path = REPO / "pyruhvro_tpu_torch" / MODULE_PATHS.get(
         module, f"runtime/{module}.py")
