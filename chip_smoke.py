@@ -26,8 +26,10 @@ exits non-zero before the last line:
    same message on both;
 4. ``decode_walk`` (K1) and ``decode_finalize`` (K2, the default engine)
    against their plain versions on ``pipeline_fixtures`` at every rung the
-   card decoder's ladder visits, and on ``block_edge_fixtures`` (reads
-   that leave a K1 block's staged span, a block over its staging budget):
+   card decoder's ladder visits, on ``block_edge_fixtures`` (reads
+   that leave a K1 block's staged span, a block over its staging budget)
+   and on ``finalize_edge_fixtures`` (K2's item tiles and spans at their
+   edges, a whole tile of empty entries, an entry over a span):
    every buffer, ``#err`` and the blob bit-equal (K2's blob filled with
    0xA5 first), the blocks K1 counts staged and reading device memory
    equal to its host mirror's plan at every launch (both kinds must
@@ -113,9 +115,10 @@ exits non-zero before the last line:
    staged and reading device memory, its shared memory and blocks per
    SM; ptxas per instantiation; the host's enqueue), and on path 3's
    shapes on each loop stack (``walk_stacks``);
-   K2's breakdown at path 1's shapes (each pass, each item region's
-   offsets, the epilogue, the host's enqueue, ``torch.take`` per item
-   pass); the string copy's two modes in turns on paths 5 and 4e;
+   K2's breakdown at path 1's shapes (the whole run, each of its
+   launches by the profiler's trace, the device operations of a run with
+   copies and fills, the host's enqueue, ``torch.take`` per item region);
+   the string copy's two modes in turns on paths 5 and 4e;
    then the ``telemetry`` phase (T1-T4) and the ``route`` phase
    (:func:`route_phase`): R1 ``backend="auto"`` on paths 1 and 5 (the
    static verdict ``device_selected``, the device path's launches, equal
@@ -254,9 +257,9 @@ WIDE_SCHEMA = """{"type":"record","name":"Wide","fields":[
               {"name":"t","type":{"type":"int","logicalType":"date"}}]}}},
   {"name":"ab","type":{"type":"array","items":"bytes"}}]}"""
 
-# more job descriptors in one gather pass than K2's blocks resolve at once
-# (kJobChunk = 32 in csrc/decode_finalize.cu): 36 longs in the row pass,
-# a record of 20 longs in an item pass
+# more job descriptors in one segment than K2's blocks resolve at once
+# (kJobChunk = 32 in csrc/decode_finalize.cu): 36 longs in the row
+# payload, a record of 20 longs in an item region
 MANY_FIELDS_SCHEMA = json.dumps({"type": "record", "name": "Many", "fields": [
     *({"name": f"l{i}", "type": "long"} for i in range(36)),
     {"name": "rs", "type": {"type": "array", "items": {
@@ -591,6 +594,57 @@ def block_edge_fixtures(datagen, parse_schema, rows: int):
     return cases
 
 
+def finalize_edge_fixtures(datagen, parse_schema, tile: int):
+    """(name, schema, datums, must_fail) for ``decode_finalize``'s item
+    tiles of ``tile`` entries (``decode.FIN_ROWS``) and staged spans of
+    2,048 positions: rows at a tile's multiple and one either side; a
+    whole tile of empty entries between full ones; one entry whose items
+    fill more than a span; counts above the first rung's 8 items per
+    record in every row; and a nested region whose entries (the parent's
+    items) cross a tile."""
+    shapes = PIPELINE_SHAPES
+    rng = random.Random(31)
+
+    def writer(schema):
+        w = datagen.compile_writer(parse_schema(schema))
+
+        def encode(value) -> bytes:
+            out = bytearray()
+            w(out, value)
+            return bytes(out)
+        return encode
+
+    ar = writer(shapes["arr_rec"])
+
+    def items(n):
+        return {"rs": [{"k": "k" * rng.randrange(0, 5),
+                        "v": None if rng.random() < 0.3
+                        else (1, rng.randrange(-2**40, 2**40))}
+                       for _ in range(n)]}
+
+    cases = []
+    for n in (tile - 1, tile, tile + 1):
+        cases.append((f"tile_edge_{n}", shapes["arr_rec"],
+                      [ar(items(rng.randrange(0, 4))) for _ in range(n)],
+                      False))
+    cases.append(("empty_tile", shapes["arr_rec"], [
+        ar(items(0 if tile <= i < 2 * tile else rng.randrange(1, 4)))
+        for i in range(3 * tile)], False))
+    over = [ar(items(rng.randrange(0, 3))) for _ in range(16)]
+    over[5] = ar(items(2100))
+    cases.append(("entry_over_a_span", shapes["arr_rec"], over, False))
+    cases.append(("over_icap_first_rung", shapes["arr_rec"],
+                  [ar(items(rng.randrange(9, 31))) for _ in range(64)],
+                  False))
+    ara = writer(shapes["arr_rec_arr"])
+    cases.append(("nested_tile_edge", shapes["arr_rec_arr"], [ara({"rs": [{
+        "name": "n" * rng.randrange(0, 3),
+        "vals": [rng.randrange(-99, 99) for _ in range(rng.randrange(0, 4))],
+        "nm": None} for _ in range(rng.randrange(0, 4))]})
+        for _ in range(tile + 1)], False))
+    return cases
+
+
 def int128_extremes(pa, batch, names):
     """``batch`` with rows 0 and 1 of each decimal column ``names`` set to
     the int128 minimum and maximum (raw Decimal128 buffers: the values lie
@@ -805,7 +859,7 @@ def hold_kernels(torch, dm, dec, label):
         pb, pe = dm.walk_plain(words, starts, lengths, n_act, prog,
                                item_caps)
         plan = dm.FinalizePlan(kb, ke, prog, R, B, item_caps, tot_caps,
-                               compact)
+                               compact, dec._finalize)
         plan.blob.fill_(0xA5)  # every byte must be written by K2
         kblob = dm.finalize_kernel.run(plan)
         pblob = dm.finalize_plain(pb, pe, prog, R, B, item_caps, tot_caps,
@@ -1886,39 +1940,159 @@ def walk_stacks(torch, dm, dec, data, label, card):
 
 
 def plan_totals(plan):
-    """Region id -> the item total of the finalize run just made (its
-    ``#offsets``' last entry, read on the card): what
+    """Region id -> the item total of the finalize run just made (what its
+    regions' last tiles left in the scratch, read on the host): what
     ``decode.finalize_bytes`` reads from the blob's ``#red:sum`` on the
     decode path."""
-    return {rid: int(off[-1]) for rid, off in plan.offsets.items()}
+    return plan.item_totals()
+
+
+# what one K2 run on path 1's chunk shapes enqueued before the scan and
+# the placement moved into its tiles (the zero fill of the maxima, the
+# row pass, per item region an offsets fill, a torch.cumsum and its
+# gather pass, the epilogue)
+K2_OPS_BEFORE = 9
+
+
+# cycles of the spin that keeps a side stream's K2 run waiting while the
+# host evicts its rung (about 50 ms at the H100's clock)
+STREAMS_SPIN_CYCLES = 100_000_000
+
+
+def hold_finalize_streams(torch, dm, dec, data, label):
+    """K2's tables shared across streams: a rung's tables built on the
+    current stream, then a run on a side stream held back by a spin, the
+    rung evicted and the plan dropped while that run waits, and tensors
+    of the table's size allocated and filled on the first stream. Fails
+    if one of them takes the table's block before the run has ended, or
+    if the run's blob differs from the plain finalize's. Returns the
+    spin's device ms (how long the run stayed in flight)."""
+    flat, lanes, n, R, B = dec.pack(data)
+    packed = dec.launch_buffer(flat, lanes, B, DEVICE)
+    item_caps, tot_caps = dec.caps_snapshot(R)
+    compact = (R, B) not in dec._str_full
+    prog = dec.prog
+    words, starts, lengths = dec.launch_views(packed, R, B)
+    L = dm.WalkLaunch(words, starts, lengths, n, prog, item_caps)
+    bufs, err = dm.walk_kernel.run(L)
+    want = dm.finalize_plain(bufs, err, prog, R, B, item_caps, tot_caps,
+                             compact)
+    dm.finalize_kernel.library()  # built before the spin starts
+    cache = dm.FinalizeCache()
+    rung = (R, B, tuple(item_caps), tuple(tot_caps), bool(compact))
+    tables, _scratch = cache.get(prog, rung, bufs[0].device)
+    tab_ptr, tab_n = tables.tab.data_ptr(), tables.tab.numel()
+    del tables, _scratch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        # one run first: the side stream's scratch and a blob's block in
+        # the allocator's cache, so that the run behind the spin needs no
+        # cudaMalloc (which would wait for the spin)
+        dm.finalize_kernel.run(dm.FinalizePlan(
+            bufs, err, prog, R, B, item_caps, tot_caps, compact, cache))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(STREAMS_SPIN_CYCLES)
+        end.record()
+        t0 = time.perf_counter()
+        plan = dm.FinalizePlan(bufs, err, prog, R, B, item_caps, tot_caps,
+                               compact, cache)
+        blob = dm.finalize_kernel.run(plan)
+    # where the host stood against the spin: after the run's enqueue, the
+    # eviction and the allocations (host ms, spin still on)
+    marks = [((time.perf_counter() - t0) * 1e3, not end.query())]
+    if not cache.evict((rung, bufs[0].device)):
+        raise SystemExit(f"{label}: the rung was not in the finalize cache")
+    del plan
+    marks.append(((time.perf_counter() - t0) * 1e3, not end.query()))
+    taken = []
+    for _ in range(4):
+        t = torch.empty(tab_n, dtype=torch.int64, device=DEVICE)
+        t.fill_(-1)
+        taken.append(t)
+    marks.append(((time.perf_counter() - t0) * 1e3, not end.query()))
+    torch.cuda.synchronize()
+    if not marks[-1][1]:
+        raise SystemExit(f"{label}: the side stream's spin ended before "
+                         f"the tensors were allocated (host ms, spin on: "
+                         f"{marks}; spin {start.elapsed_time(end):.1f} ms)")
+    if any(t.data_ptr() == tab_ptr for t in taken):
+        raise SystemExit(f"{label}: the finalize table's block was handed "
+                         "on while a run on another stream still read it")
+    if max_abs_diff(torch, blob, want):
+        raise SystemExit(f"{label}: decode_finalize on a side stream, its "
+                         "rung evicted in flight, != plain finalize")
+    spin_ms = start.elapsed_time(end)
+    print(f"decode_finalize across streams at {label}: tables built on one "
+          f"stream, run on another behind a {spin_ms:.1f} ms spin, rung "
+          f"evicted in flight: the table's block not handed on, blob "
+          f"bit-equal to the plain finalize")
+    return spin_ms
+
+
+def device_ops(torch, call, runs: int = 4) -> list:
+    """Every device operation that ``runs`` calls of ``call`` enqueue, from
+    one ``torch.profiler`` trace with CUDA activity: kernels, library
+    calls, copies and fills, as ``(name, device us)`` in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+    ops = [(e.time_range.start, e.name, e.time_range.elapsed_us())
+           for e in prof.events()
+           if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    return [(name, us) for _t, name, us in sorted(ops)]
+
+
+def ops_per_run(torch, call, runs: int = 4) -> float:
+    """The device operations of one ``call`` (:func:`device_ops` over
+    ``runs`` calls, divided)."""
+    return len(device_ops(torch, call, runs)) / runs
 
 
 def finalize_breakdown(torch, dm, plan, takes, card):
-    """K2's parts at one plan's shapes, each by CUDA events (best of 5):
-    the reduction slots' zero-fill, the row pass, each item pass's offsets
-    (fill + ``torch.cumsum``) and its gather pass, the epilogue; the host's
-    enqueue of ``finalize_kernel.run(plan)`` (``perf_counter``, no
-    synchronise inside); ``torch.take`` over each item pass's own gathers
-    (``takes``: region id -> [(source, index), ...])."""
+    """K2's parts at one plan's shapes: the whole run by CUDA events (best
+    of 5; back to back behind a spin, and on an idle stream); each of its
+    launches (every level's tiles, the tail) by its profiler trace's
+    kernel time (best of 5 runs); the device operations one run
+    enqueues, copies and fills included; the host's enqueue of
+    ``finalize_kernel.run(plan)`` (``perf_counter``, median of 5, no
+    synchronise inside); ``torch.take`` over each item region's own
+    gathers (``takes``: region id -> [(source, index), ...]) and each
+    region's bound."""
     fk = dm.finalize_kernel
-    out = {"zero_red": cuda_ms(torch, plan.red.zero_, 5)}
-    passes, jobs = {}, {}
+    out = {"ms": cuda_ms(torch, lambda: fk.run(plan), 5),
+           "queued_ms": queued_ms(torch, lambda: fk.run(plan), 5)}
+    launches = plan.tables.launches
+    best = [float("inf")] * launches
+    ks = device_ops(torch, lambda: fk.run(plan), 5)
+    out["ops"] = [n for n, _us in ks[:launches]]
+    out["ops_per_run"] = len(ks) / 5
+    if len(ks) == 5 * launches:
+        for i, (_n, us) in enumerate(ks):
+            best[i % launches] = min(best[i % launches], us / 1e3)
+    else:  # the trace lost or added an event: no launch is named
+        print(f"decode_finalize breakdown: 5 runs traced {len(ks)} device "
+              f"operations, its tables say {launches} a run")
+    out["launch_ms"] = best
+    regions = {}
     totals = plan_totals(plan)
-    for p, spec in zip(plan.passes, dm.finalize_spec(plan)[1]):
-        rid = p["rid"]
+    for spec in dm.finalize_spec(plan)[1]:
+        rid = spec[0]
         name = "rows" if rid == 0 else plan.prog.regions[rid]
-        got = {"ms": cuda_ms(torch, lambda: fk.launch_pass(plan, p), 5),
-               "bound_ms": dm.finalize_pass_bytes(spec, totals.get(
-                   rid, p["n_pos"])) / HBM_BYTES_PER_S * 1e3}
+        got = {"bound_ms": dm.finalize_pass_bytes(spec, totals.get(
+            rid, spec[1])) / HBM_BYTES_PER_S * 1e3, "jobs": len(spec[3])}
         if rid:
-            got["offsets_ms"] = cuda_ms(
-                torch, lambda: fk.prepare_offsets(plan, p), 5)
             got["take_ms"] = cuda_ms(torch, lambda: [
                 torch.take(src, idx) for src, idx in takes[rid]], 5)
-        passes[name] = got
-        jobs[name] = len(p["jobs"])
-    out["passes"] = passes
-    out["epilogue"] = cuda_ms(torch, lambda: fk.launch_epilogue(plan), 5)
+        regions[name] = got
+    out["regions"] = regions
     enqueue = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -1927,20 +2101,19 @@ def finalize_breakdown(torch, dm, plan, takes, card):
         enqueue.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
     out["enqueue_ms"] = statistics.median(enqueue[1:])
-    out["parts_ms"] = out["zero_red"] + out["epilogue"] + sum(
-        v["ms"] + v.get("offsets_ms", 0.0) for v in passes.values())
-    print("decode_finalize breakdown at path 1's chunk shapes, ms (CUDA "
-          "events, best of 5): zero red " + f"{out['zero_red']:.4f}; "
-          + "; ".join(
-              f"pass {k} {v['ms']:.4f} ({jobs[k]} jobs, bound "
-              f"{v['bound_ms']:.4f}"
-              + (f"; offsets fill + cumsum {v['offsets_ms']:.4f}, "
-                 f"torch.take over its gathers {v['take_ms']:.4f}"
-                 if "take_ms" in v else "") + ")"
-              for k, v in passes.items())
-          + f"; epilogue {out['epilogue']:.4f}; parts summed "
-          f"{out['parts_ms']:.4f}; host enqueue of run(plan) "
-          f"{out['enqueue_ms']:.4f} (median of 5, host clock) {card}")
+    tiles = [f"level {i + 1} tiles {ms:.4f}" for i, ms in
+             enumerate(best[:-1])]
+    print("decode_finalize breakdown at path 1's chunk shapes, ms: run "
+          f"{out['ms']:.4f} (CUDA events, idle stream), {out['queued_ms']:.4f}"
+          f" (back to back behind a spin); launches by trace (best of 5): "
+          + ", ".join(tiles) + f", tail and reductions {best[-1]:.4f}; "
+          f"{out['ops_per_run']:g} device operations a run ({K2_OPS_BEFORE} "
+          f"before the redesign): {out['ops']}; " + "; ".join(
+              f"{k}: {v['jobs']} jobs, bound {v['bound_ms']:.4f}"
+              + (f", torch.take over its gathers {v['take_ms']:.4f}"
+                 if "take_ms" in v else "") for k, v in regions.items())
+          + f"; host enqueue of run(plan) {out['enqueue_ms']:.4f} (median "
+          f"of 5, host clock) {card}")
     return out
 
 
@@ -1973,9 +2146,10 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
             raise SystemExit(f"{label}: decode_walk != plain walk in "
                              f"{key!r}")
     plan = dm.FinalizePlan(L.bufs, L.err, prog, R, B, item_caps, tot_caps,
-                           compact)
+                           compact, dec._finalize)
     fin_ms = cuda_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
-    fin_launches = len(plan.passes) + 1
+    fin_launches = plan.tables.launches
+    fin_ops = ops_per_run(torch, lambda: dm.finalize_kernel.run(plan))
     kblob = plan.blob.clone()
     pblob = []
     plain_fin_ms = cuda_ms(torch, lambda: pblob.__setitem__(
@@ -2017,12 +2191,9 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
     parts = finalize_breakdown(torch, dm, plan, takes, card) \
         if breakdown else None
     # the launches the launch registry times, their host enqueue hidden:
-    # the walk; the gather passes and the epilogue (the offsets made by
-    # the last run are read again, the blob is not read after this)
+    # the walk; K2's run (every level's tiles and the tail)
     walk_queued = queued_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
-    fin_queued = queued_ms(torch, lambda: [
-        dm.finalize_kernel.launch_pass(plan, p) for p in plan.passes
-    ] + [dm.finalize_kernel.launch_epilogue(plan)], 5)
+    fin_queued = queued_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
     print(f"decode_walk at {label} (R={R}, B={B}, caps="
           f"{item_caps}, {walk_launches} launch(es) to settle): launch "
           f"{walk_ms:.3f} ms (best of 5, CUDA events, status reset "
@@ -2031,8 +2202,9 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
           f"{walk_written / 1e6:.1f} MB written at 3.35 TB/s), "
           f"{walk_ms / walk_bound:.2f}x the bound {card}")
     print(f"decode_finalize at {label} (totals {tot_caps}, "
-          f"compact={compact}, {len(plan.passes)} passes + epilogue = "
-          f"{fin_launches} launches, cumsums included): {fin_ms:.3f} ms "
+          f"compact={compact}, {fin_launches} launches, {fin_ops:g} device "
+          f"operations with copies and fills; {K2_OPS_BEFORE} on path 1's "
+          f"chunk before the redesign): {fin_ms:.3f} ms "
           f"(best of 5), bit-equal to the plain finalize ({plain_fin_ms:.1f} "
           f"ms); bound {fin_bound:.3f} ms ({fin_moved / 1e6:.1f} MB moved), "
           f"{fin_ms / fin_bound:.2f}x the bound; torch.take over the same "
@@ -2043,6 +2215,7 @@ def pipeline_kernels(torch, dm, dec, data, card, label, breakdown=False):
              "bound_ms": walk_bound, "library_ms": None, "shape": shape},
             {"ms": fin_ms, "queued_ms": fin_queued, "plain_ms": plain_fin_ms,
              "bound_ms": fin_bound, "library_ms": take_ms, "shape": shape,
+             "launches_per_run": fin_launches, "device_ops": fin_ops,
              **({"parts": parts} if breakdown else {})})
 
 
@@ -2939,8 +3112,8 @@ def registry_by_kernel(snap):
 
 # the device kernels of each registry kind, by name in a profiler trace
 TRACE_KERNELS = {"walk": ("decode_walk_kernel",),
-                 "finalize": ("finalize_pass_kernel",
-                              "finalize_epilogue_kernel"),
+                 "finalize": ("finalize_tiles_kernel",
+                              "finalize_tail_kernel"),
                  "walk_decode": ("walk_decode_kernel",),
                  "encode_rows": ("encode_rows_kernel",),
                  "encode_strings": ("encode_strings_kernel",)}
@@ -2967,8 +3140,7 @@ def traced_kernels(torch, call):
 
 def trace_us_by_kind(ks):
     """Device us per registry kind in a trace: the kernels each kind
-    times, by name (K2's gather passes and epilogue, not the library's
-    cumsums and fills between them)."""
+    times, by name (K2's tiles launches and its tail)."""
     return {kind: sum(us for name, _start, us in ks
                       if any(key in name for key in keys))
             for kind, keys in TRACE_KERNELS.items()}
@@ -3953,21 +4125,22 @@ def hold_shards(torch, dm, sd, label, one_card=True):
                                  layout)
             totals = {rid: int(host["#red:sum:" + path][0])
                       for rid, path in enumerate(prog.regions) if rid}
-            plan = dm.FinalizePlan(pb, pe, prog, R, B, caps, tots, compact)
+            spec = dm.FinalizeTables(prog, R, B, caps, tots, compact,
+                                     "cpu").spec
             record_bytes = int(lengths[:n].to(torch.int64).sum())
             moved = dm.walk_bytes(record_bytes, R, dm.walk_out_bytes(
-                prog, R, caps)) + dm.finalize_bytes(dm.finalize_spec(plan),
-                                                    totals)
+                prog, R, caps)) + dm.finalize_bytes(spec, totals)
             out.append((record_bytes, moved))
-            del pb, pe, pblob, plan, want
+            del pb, pe, pblob, want
     return out
 
 
 def shard_kernel_ms(torch, dm, sd, plain_of=None):
     """Per shard of ``sd``'s last rung, ``(K1, K2)`` ms by CUDA events on
     its card, best of 5 after one warm run, as :func:`pipeline_kernels`
-    times them (K1 one launch of the settled walk, K2 every pass and the
-    epilogue); with ``plain_of`` a shard's index, also that shard's plain
+    times them (K1 one launch of the settled walk, K2 one run: every
+    level's tiles and the tail); with ``plain_of`` a shard's index, also
+    that shard's plain
     K1 + K2 (best of 2), as ``(per shard, plain ms)``."""
     r = sd.last_rung
     prog, R, B = sd.base.prog, r["R"], r["B"]
@@ -3980,7 +4153,8 @@ def shard_kernel_ms(torch, dm, sd, plain_of=None):
             bufs, err = dm.walk_kernel.run(L)
             k1 = cuda_ms(torch, lambda: dm.walk_kernel.launch(L), 5)
             plan = dm.FinalizePlan(bufs, err, prog, R, B, caps,
-                                   r["tot_caps"], r["compact"])
+                                   r["tot_caps"], r["compact"],
+                                   sd.base._finalize)
             k2 = cuda_ms(torch, lambda: dm.finalize_kernel.run(plan), 5)
             out.append((k1, k2))
             if d == plain_of:
@@ -4476,17 +4650,21 @@ def planes_phase(api, torch, dm, em, data, schema, here, card):
         sampling._period = 1 if deep else 1 << 16
         sampling._pending_resample = False
         zero(pipe)
+        runs0 = {k: getattr(c, "runs", None) for k, c in pipe.items()}
         w0 = metrics.snapshot().get("device.sync_waits", 0.0)
         got = api.deserialize_array_threaded(data, schema, MAIN_CHUNKS)
-        # a deep call waits once on each launch's end, a plain one never
-        # (and the CPU's plain versions of a rehearsal have nothing to
-        # wait on)
+        # a deep call waits once at the end of each timed launch call
+        # (K2's one call launches all of a run's kernels), a plain one
+        # never (and the CPU's plain versions of a rehearsal have nothing
+        # to wait on)
         waited = metrics.snapshot().get("device.sync_waits", 0.0) - w0
         launched = sum(c.launches for c in pipe.values())
-        if waited != (launched if deep and DEVICE != "cpu" else 0):
+        calls = sum(c.launches if runs0[k] is None else c.runs - runs0[k]
+                    for k, c in pipe.items())
+        if waited != (calls if deep and DEVICE != "cpu" else 0):
             raise SystemExit(f"planes S1: a {'deep' if deep else 'plain'} "
                              f"call waited {waited:.0f} times on its "
-                             f"{launched} launches")
+                             f"{calls} launch calls ({launched} launches)")
         waits["deep" if deep else "plain"].append(waited)
         if deep:
             launches.append({k: c.launches for k, c in pipe.items()})
@@ -5491,7 +5669,8 @@ def main() -> int:
     perrors = (MalformedAvro, UnsupportedOnDevice, DeviceCapacityExceeded)
     walk_blocks = [0, 0]
     for fx in pipeline_fixtures(datagen, parse_schema, PIPELINE_ROWS) + \
-            block_edge_fixtures(datagen, parse_schema, PIPELINE_ROWS):
+            block_edge_fixtures(datagen, parse_schema, PIPELINE_ROWS) + \
+            finalize_edge_fixtures(datagen, parse_schema, dm.FIN_ROWS):
         w, blocks = check_pipeline_fixture(torch, np, dm, *fx, parse_schema,
                                            perrors)
         worst["decode_walk"] = max(worst["decode_walk"], w)
@@ -5704,6 +5883,8 @@ def main() -> int:
                                         DEVICE).decoder,
             rows[a:b], card, f"{label}'s chunk shapes",
             breakdown=key == "kafka")
+    hold_finalize_streams(torch, dm, dm.DeviceDecoder(
+        parse_schema(kafka), DEVICE), data[:20_000], "path 1's rows")
     k1, k2 = dict(at_chunks["kafka"][0]), dict(at_chunks["kafka"][1])
     k1["chunk_shapes"] = {key: v[0] for key, v in at_chunks.items()}
     k2["chunk_shapes"] = {key: v[1] for key, v in at_chunks.items()}

@@ -16,7 +16,8 @@ up to 2^20 items per record, string descriptors widened after
 * K2 ``decode_finalize`` (``csrc/decode_finalize.cu``) ≙
   ``build_pipeline.pipeline`` (``decode.py:456-542``); plain version
   :func:`finalize_plain`, the same steps in PyTorch (the reference's
-  scatter-max + cummax ``row_of``; the kernel binary-searches);
+  scatter-max + cummax ``row_of``; the kernel places each entry's items
+  at its scanned offset and searches nothing);
 * K2b, the error lanes (``_err_fn``, ``decode.py:647-666``): K1's
   ``#err`` stays on the device at the same caps and is copied back only
   when ``#red:err`` is set.
@@ -81,6 +82,7 @@ measurement: ``pack_s`` is ``decode.pack_s`` (the records joined), and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 import time
@@ -120,7 +122,7 @@ __all__ = ["DeviceDecoder", "walk", "walk_plain", "walk_kernel",
            "finalize", "finalize_plain", "finalize_kernel", "split_blob",
            "blob_layout", "cap_of", "STATUS_BYTES", "overlap_chunks",
            "raise_aggregated_malformed", "walk_bytes", "walk_out_bytes",
-           "finalize_spec",
+           "finalize_spec", "FinalizeTables", "FinalizeCache", "FinalizePlan",
            "finalize_pass_bytes", "finalize_bytes", "bucket_label"]
 
 _BIG = 1 << 30              # slot past the cap: dropped (``fieldprog.py:72``)
@@ -999,126 +1001,206 @@ def walk(words, starts, lengths, n: int, prog: Program, item_caps):
 
 # -- K2: the finalize kernel --------------------------------------------------------
 
-# job kinds of one gather pass (csrc/decode_finalize.cu)
+# job kinds (csrc/decode_finalize.cu). J_REDUCE is no job of the kernel's:
+# it stands in finalize_spec for the read of a row-level region's counts,
+# which that region's own tiles make and fold into #red:max
 J_COPY32, J_BITS8, J_SL32, J_START_LENC, J_REDUCE, J_ERRFLAG = range(6)
-# entries of the reduction epilogue
+# entries of the reductions (the tail kernel's block 0)
 E_MAX, E_SUM, E_ERR, E_STRFIT, E_STATUS = range(5)
+# segments of a tiles launch: the row payload, or one item region
+SEG_ROWS, SEG_ITEMS = range(2)
+_HEAD_WORDS = 14
+_SEG_WORDS = 18
 _JOB_WORDS = 8
 _ENTRY_WORDS = 5
+FIN_TILE = 2048     # kTile: rows of a row tile, positions of a staged span
+FIN_ROWS = 1024     # kRows: entries of an item tile
+FIN_SRC_MAX = 4000  # kSrcMax: source pointers in a launch's parameters
+FIN_ROW_JOBS = 4    # row payload jobs a block takes (a row segment's icap)
+_TAIL_BLOCKS = 264  # the tail kernel's largest grid (two blocks an SM)
 
 
-class FinalizePlan:
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def region_levels(prog: Program) -> List[int]:
+    """Each region's nesting level: 0 for the row region, 1 for a region
+    whose parent is the row, one more per item region above it."""
+    lv = [0]
+    for rid in range(1, len(prog.regions)):
+        lv.append(lv[prog.region_parents[rid]] + 1)
+    return lv
+
+
+class FinalizeTables:
     """What ``decode_finalize`` does for one (R, B, caps, tot_caps,
-    compact) rung, on the device: one gather pass over the row region,
-    one per item region (parents first, each preceded by ``torch.cumsum``
-    of its counts into its ``#offsets``), then the reduction epilogue.
-    Every blob byte is written by exactly one of them."""
+    compact) rung on one device, built once per rung: the blob layout,
+    the segments of each level's tiles launch (the row payload and every
+    row-level region on level 1, each nested region on its level), their
+    jobs, the reductions' entries and the sources' lengths, packed into
+    one int64 table (``tab``) copied to the device once; the launch plan
+    (``plan``: levels, tail blocks, each level's segments and blocks) on
+    the host; and the layout of a run's scratch (tickets, maxima, totals,
+    look-back words, then the nested regions' counts, the slot maps and
+    the bit-packed item lanes' bytes). ``passes`` describes the work per
+    region for :func:`finalize_spec` (the bound). Every blob byte is
+    written by exactly one launch."""
 
-    def __init__(self, bufs, err, prog: Program, R: int, B: int, item_caps,
-                 tot_caps, compact: bool = True):
-        dev = err.device
+    def __init__(self, prog: Program, R: int, B: int, item_caps, tot_caps,
+                 compact: bool, dev):
+        n_src = len(prog.out_keys) + 1
+        if n_src > FIN_SRC_MAX:
+            raise DeviceCapacityExceeded(
+                f"{n_src} walk buffers (decode_finalize limit {FIN_SRC_MAX})")
+        nr = len(prog.regions)
         key_of = {k: i for i, k in enumerate(prog.out_keys)}
-        for k, b in zip(prog.out_keys, bufs):
-            want = cap_of(prog, R, item_caps, prog.buffers[k].region)
-            _check(b, _dtype(prog, k), (want,), dev, k)
-        _check(err, torch.int32, (R,), dev, "#err")
         self.prog, self.R, self.dev = prog, R, dev
         self.layout = blob_layout(prog, R, B, item_caps, tot_caps, compact)
         at, self.nbytes = layout_offsets(self.layout)
         str_mode = _str_mode(prog, B, compact)
-        nr = len(prog.regions)
-        self.blob = torch.empty(self.nbytes + STATUS_BYTES,
-                                dtype=torch.uint8, device=dev)
-        strings = {sc.path for sc in prog.string_cols}
-        # reduction slots: red:max per region, then #red:err, then one
-        # per string column (its largest length)
-        self.red = torch.zeros(nr + 1 + len(strings), dtype=torch.int32,
-                               device=dev)
+        # the sources: the walk's buffers, then #err
+        self.shapes = [(_dtype(prog, k),
+                        cap_of(prog, R, item_caps, prog.buffers[k].region))
+                       for k in prog.out_keys] + [(torch.int32, R)]
+        self.names = list(prog.out_keys) + ["#err"]
+        strings = sorted({sc.path for sc in prog.string_cols})
+        # maxima: red[rid] per region, then #red:err, then one per string
+        # column (its largest length)
         red_err = nr
-        red_str = {p: nr + 1 + i for i, p in enumerate(sorted(strings))}
-        self.srcs = list(bufs) + [err]
+        red_str = {p: nr + 1 + i for i, p in enumerate(strings)}
+        n_red = nr + 1 + len(strings)
+        levels = region_levels(prog)
+        n_lvl = max(max(levels), 1)
+        children = {rid: [c for c in range(rid + 1, nr)
+                          if prog.region_parents[c] == rid]
+                    for rid in range(nr)}
+        n_entries = {rid: R if prog.region_parents[rid] == ROWS
+                     else tot_caps[prog.region_parents[rid]]
+                     for rid in range(1, nr)}
+        if min(n_entries.values(), default=1) < 1:
+            # a segment with no tile would leave its #offsets unwritten
+            # and the last run's total in tot
+            raise ValueError("finalize takes a rung whose every item "
+                             "region has at least one entry")
+        tiles = {rid: -(-n_entries[rid] // FIN_ROWS) for rid in range(1, nr)}
+        # the scratch: counters that start at 0 (the tail kernel resets
+        # the tickets, maxima and look-back words), the totals (each
+        # region's last tile writes its own every run), then buffers
+        # every run writes before it reads them
+        sc = {}
+        pos = 0
+        for name, nbytes in (("ticket", 4 * n_lvl), ("red", 4 * n_red),
+                             ("tot", 8 * nr),
+                             ("flag", 8 * sum(tiles.values()))):
+            sc[name] = pos
+            pos += _align16(nbytes)
+        counts_off, slot_off = {}, {}
+        for rid in range(1, nr):
+            if prog.region_parents[rid] != ROWS:
+                counts_off[rid] = pos
+                pos += _align16(4 * n_entries[rid])
+            if children[rid]:
+                slot_off[rid] = pos
+                pos += _align16(4 * tot_caps[rid])
         covered = set()
+        bit_lanes = {}
 
-        def jobs_for(keys, scratch=None):
+        def jobs_for(keys, rid=ROWS):
+            nonlocal pos
             jobs = []
             for key in keys:
                 path, _, leaf = key.rpartition("#")
-                if leaf == "len" and path in strings:
+                if leaf == "len" and path in red_str:
                     continue
                 src = key_of[key]
-                if leaf == "start" and path in strings:
+                if leaf == "start" and path in red_str:
                     ln = key_of[path + "#len"]
                     if str_mode == "sl32":
                         jobs.append([J_SL32, src, ln, at[path + "#sl"], 0,
-                                     0, red_str[path], 4])
+                                     -1, red_str[path], 4])
                         covered.add(path + "#sl")
                     elif str_mode == "len16":
                         jobs.append([J_START_LENC, src, ln, at[key],
-                                     at[path + "#lenc"], 0, red_str[path], 4])
+                                     at[path + "#lenc"], -1, red_str[path],
+                                     4])
                         covered.update((key, path + "#lenc"))
                     else:
-                        jobs.append([J_COPY32, src, -1, at[key], 0, 0, -1, 4])
+                        jobs.append([J_COPY32, src, -1, at[key], 0, -1, -1,
+                                     4])
                         jobs.append([J_COPY32, ln, -1, at[path + "#len"], 0,
-                                     0, -1, 4])
+                                     -1, -1, 4])
                         covered.update((key, path + "#len"))
                 elif prog.buffers[key].dtype.itemsize == 1:
-                    jobs.append([J_BITS8, src, -1, at[key + "@bits"], 0, 0,
-                                 -1, 1])
+                    lane = -1
+                    if rid != ROWS:  # an item tile's bytes, packed later
+                        lane = bit_lanes[key] = pos
+                        pos += _align16(tot_caps[rid])
+                    jobs.append([J_BITS8, src, -1, at[key + "@bits"], 0,
+                                 lane, -1, 1])
                     covered.add(key + "@bits")
                 else:
-                    sc, red = (scratch or {}).get(key, (None, -1))
+                    child = [c for c in children[rid]
+                             if prog.regions[c] + "#count" == key]
                     jobs.append([J_COPY32, src, -1, at[key], 0,
-                                 0 if sc is None else sc.data_ptr(), red, 4])
+                                 counts_off[child[0]] if child else -1, -1,
+                                 4])
                     covered.add(key)
             return jobs
 
-        # the row pass: row payload, row-level counts' max, the error flag
+        # segments, level by level: on level 1 the row-level regions, then
+        # the row payload; tile_first counts tickets within the launch
+        segs, jobs, self.passes = [], [], []
         row_jobs = jobs_for([k for k in prog.out_keys
                              if _is_row_payload(prog, k)])
-        for rid in range(1, nr):
-            if prog.region_parents[rid] == ROWS:
-                row_jobs.append([J_REDUCE, key_of[prog.regions[rid]
-                                                  + "#count"], -1, 0, 0, 0,
-                                 rid, 4])
-        row_jobs.append([J_ERRFLAG, len(bufs), -1, 0, 0, 0, red_err, 4])
-        self.passes = [dict(rid=ROWS, n_pos=R, jobs=row_jobs)]
-        # one pass per item region; a child's counts are gathered by its
-        # parent's pass into an aligned scratch, its slot map likewise
-        self.counts_in = {}
-        self.slot_map = {}
-        self.offsets = {}
+        row_jobs.append([J_ERRFLAG, len(prog.out_keys), -1, 0, 0, -1,
+                         red_err, 4])
+        self.passes.append(dict(rid=ROWS, n_pos=R, jobs=row_jobs + [
+            [J_REDUCE, key_of[prog.regions[rid] + "#count"], -1, 0, 0, -1,
+             rid, 4] for rid in range(1, nr) if levels[rid] == 1]))
+        plan = [n_lvl, 0]
+        flag_first = aux_first = 0
         items = _item_buffers(prog)
-        for rid in range(1, nr):
-            parent = prog.region_parents[rid]
-            n_entries = R if parent == ROWS else tot_caps[parent]
-            self.offsets[rid] = torch.empty(n_entries + 1, dtype=torch.int64,
-                                            device=dev)
-            scratch = {}
-            for child in range(rid + 1, nr):
-                if prog.region_parents[child] == rid:
-                    sc = torch.empty(tot_caps[rid], dtype=torch.int32,
-                                     device=dev)
-                    self.counts_in[child] = sc
-                    scratch[prog.regions[child] + "#count"] = (sc, child)
-            if any(prog.region_parents[c] == rid for c in range(rid + 1, nr)):
-                self.slot_map[rid] = torch.empty(tot_caps[rid],
-                                                 dtype=torch.int32, device=dev)
-            if parent == ROWS:
-                self.counts_in[rid] = bufs[key_of[prog.regions[rid]
-                                                  + "#count"]]
-            self.passes.append(dict(
-                rid=rid, n_pos=tot_caps[rid], n_entries=n_entries,
-                icap=item_caps[rid], jobs=jobs_for(items[rid], scratch),
-                off_at=at[prog.regions[rid] + "#offsets"]))
-            covered.add(prog.regions[rid] + "#offsets")
-        # the epilogue: reductions and the status byte
+        for lv in range(1, n_lvl + 1):
+            seg_first, tile_first = len(segs), 0
+            for rid in range(1, nr):
+                if levels[rid] != lv:
+                    continue
+                parent = prog.region_parents[rid]
+                rjobs = jobs_for(items[rid], rid)
+                n_aux = -(-tot_caps[rid] // FIN_TILE)
+                segs.append([
+                    SEG_ITEMS, rid, n_entries[rid], tot_caps[rid],
+                    item_caps[rid],
+                    key_of[prog.regions[rid] + "#count"] if parent == ROWS
+                    else -1, counts_off.get(rid, -1), parent,
+                    slot_off.get(parent, -1), slot_off.get(rid, -1),
+                    at[prog.regions[rid] + "#offsets"], len(jobs),
+                    len(jobs) + len(rjobs), tile_first, tiles[rid],
+                    flag_first, aux_first, n_aux])
+                covered.add(prog.regions[rid] + "#offsets")
+                self.passes.append(dict(
+                    rid=rid, n_pos=tot_caps[rid], n_entries=n_entries[rid],
+                    icap=item_caps[rid], jobs=rjobs))
+                jobs += rjobs
+                tile_first += tiles[rid]
+                flag_first += tiles[rid]
+                aux_first += n_aux
+            if lv == 1:
+                n_rt = -(-R // FIN_TILE) * -(-len(row_jobs) // FIN_ROW_JOBS)
+                segs.append([SEG_ROWS, ROWS, R, R, FIN_ROW_JOBS, -1, -1, -1,
+                             -1, -1, -1, len(jobs), len(jobs) + len(row_jobs),
+                             tile_first, n_rt, -1, -1, 0])
+                jobs += row_jobs
+                tile_first += n_rt
+            plan += [seg_first, len(segs), tile_first]
+        plan[1] = max(1, min(aux_first, _TAIL_BLOCKS))
+        # the reductions and the status bytes
         entries = []
         for rid in range(1, nr):
             path = prog.regions[rid]
             entries.append([E_MAX, at["#red:max:" + path], rid, 0, 0])
-            n_entries = self.offsets[rid].numel() - 1
-            entries.append([E_SUM, at["#red:sum:" + path],
-                            self.offsets[rid].data_ptr(), n_entries, 0])
+            entries.append([E_SUM, at["#red:sum:" + path], rid, 0, 0])
             covered.update(("#red:max:" + path, "#red:sum:" + path))
         entries.append([E_ERR, at["#red:err"], red_err, 0, 0])
         covered.add("#red:err")
@@ -1127,149 +1209,251 @@ class FinalizePlan:
             entries.append([E_STRFIT, at["#red:strfit"], nr + 1,
                             len(strings), limit])
             covered.add("#red:strfit")
-        entries.append([E_STATUS, self.nbytes, 0, 0, 0])
+        entries.append([E_STATUS, self.nbytes, nr, 0, 0])
         if covered != {k for k, _dt, _ln in self.layout}:
-            raise AssertionError("finalize plan does not cover the blob")
-        self.entries = torch.tensor(entries, dtype=torch.int64, device=dev)
-        for p in self.passes:
-            p["jobs_d"] = torch.tensor(p["jobs"] or [[0] * _JOB_WORDS],
-                                       dtype=torch.int64, device=dev)
-        self.src_ptrs = torch.tensor([s.data_ptr() for s in self.srcs],
-                                     dtype=torch.int64, device=dev)
-        self.src_lens = torch.tensor([s.numel() for s in self.srcs],
-                                     dtype=torch.int64, device=dev)
+            raise AssertionError("finalize tables do not cover the blob")
+        head = [len(segs), 0, 0, 0, len(entries), 0, n_red,
+                flag_first, aux_first, n_lvl, sc["red"], sc["tot"],
+                sc["flag"], sc["ticket"]]
+        words = head
+        head[1] = len(words)
+        words = words + [w for s in segs for w in s]
+        head[2] = len(words)
+        words = words + [w for j in jobs for w in j]
+        head[3] = len(words)
+        words = words + [w for e in entries for w in e]
+        head[5] = len(words)
+        words = words + [n for _dt, n in self.shapes]
+        words[:_HEAD_WORDS] = head
+        self.words = np.array(words, dtype=np.int64)
+        self.scratch_at = dict(sc, counts=counts_off, slot=slot_off,
+                               bits=bit_lanes)
+        self.scratch_bytes = pos
+        self.plan = np.array(plan, dtype=np.int64)
+        self.launches = n_lvl + 1
+        self.tab = torch.from_numpy(self.words).to(dev)
+        # the stream the table's block was allocated on: a run on another
+        # stream marks it used there (record_stream), so that an eviction
+        # during that run does not hand the block on before it ends
+        self.stream = torch.cuda.current_stream(dev).cuda_stream \
+            if torch.device(dev).type == "cuda" else 0
+        # what a launch passes (the host plan's address stays valid as
+        # long as these tables hold it)
+        self.tab_ptr = self.tab.data_ptr()
+        self.plan_ptr = self.plan.__array_interface__["data"][0]
+        self.spec = (self.nbytes + STATUS_BYTES, tuple(
+            (p["rid"], p["n_pos"], p.get("n_entries", 0),
+             tuple(j[0] for j in p["jobs"])) for p in self.passes))
+
+    @property
+    def device_bytes(self) -> int:
+        return self.tab.numel() * 8
+
+    def new_scratch(self) -> torch.Tensor:
+        """A run's scratch, zeroed once: the tail kernel leaves its counters
+        at 0 again for the next run on it."""
+        return torch.zeros(self.scratch_bytes, dtype=torch.uint8,
+                           device=self.dev)
+
+
+class FinalizeCache:
+    """K2's per-rung tables (:class:`FinalizeTables`, one per rung and
+    device) and their scratch (one per rung, device, thread and stream,
+    as :meth:`DeviceDecoder._arena` keys arenas: two threads, or two
+    streams, never share look-back words or maxima). ``last_used`` per
+    rung; the lifecycle plane ``finalize`` (:mod:`..runtime.device_obs`)
+    lists and evicts whole rungs, and the probe ``cache.finalize`` counts
+    their card bytes."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # (rung, device) -> [FinalizeTables, last_used, {scratch key ->
+        # scratch tensor}]
+        self._rungs: Dict[tuple, list] = {}  # guarded-by: _lock
+
+    def get(self, prog: Program, rung: tuple, dev):
+        """``(tables, scratch)`` of ``rung`` (``(R, B, item_caps,
+        tot_caps, compact)``) on ``dev`` for this thread's current
+        stream, built on first use."""
+        stream = torch.cuda.current_stream(dev).cuda_stream \
+            if dev.type == "cuda" else 0
+        skey = (threading.get_ident(), stream)
+        key = (rung, dev)
+        with self._lock:
+            ent = self._rungs.get(key)
+            if ent is not None:
+                ent[1] = time.monotonic()
+                scratch = ent[2].get(skey)
+                if scratch is not None:
+                    return ent[0], scratch
+        if ent is None:
+            tables = FinalizeTables(prog, *rung, dev)
+            with self._lock:
+                ent = self._rungs.setdefault(
+                    key, [tables, time.monotonic(), {}])
+        scratch = ent[0].new_scratch()
+        with self._lock:
+            scratch = ent[2].setdefault(skey, scratch)
+        return ent[0], scratch
+
+    def drop_scratch(self, rung: tuple, dev, scratch) -> None:
+        """Forget a scratch whose run failed part way (its counters may
+        not be back at 0)."""
+        with self._lock:
+            ent = self._rungs.get((rung, dev))
+            if ent is not None:
+                for k in [k for k, s in ent[2].items() if s is scratch]:
+                    del ent[2][k]
+
+    def entries(self) -> List[tuple]:
+        """``[(key, last_used, card bytes)]`` per rung."""
+        with self._lock:
+            return [(k, e[1], e[0].device_bytes + sum(
+                s.numel() for s in e[2].values()))
+                for k, e in self._rungs.items()]
+
+    def evict(self, key) -> bool:
+        """Drop a rung's tables and scratch. A scratch is used only on the
+        stream it was allocated on, and the tables are marked used on every
+        other stream that runs them, so the caching allocator hands their
+        blocks on only behind the launches already enqueued."""
+        with self._lock:
+            return self._rungs.pop(key, None) is not None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rungs.clear()
+
+
+class FinalizePlan:
+    """One ``decode_finalize`` run: the rung's tables and this thread's
+    scratch (from ``cache``, built there once per rung), a new blob
+    (``torch.empty``: every byte is written by the kernel) and the
+    sources' pointers, which the launch takes by value."""
+
+    def __init__(self, bufs, err, prog: Program, R: int, B: int, item_caps,
+                 tot_caps, compact: bool, cache: FinalizeCache):
+        dev = err.device
+        self.rung = (R, B, tuple(item_caps), tuple(tot_caps), bool(compact))
+        self.tables, self.scratch = cache.get(prog, self.rung, dev)
+        self.cache = cache
+        t = self.tables
+        self.srcs = list(bufs) + [err]
+        if len(self.srcs) != len(t.shapes):
+            raise RuntimeError(f"finalize takes {len(t.shapes) - 1} walk "
+                               f"buffers and #err, got {len(self.srcs)}")
+        for name, s, (dt, n) in zip(t.names, self.srcs, t.shapes):
+            if s.dtype != dt or s.numel() != n or not s.is_contiguous() \
+                    or s.device != dev or s.dim() != 1:
+                _check(s, dt, (n,), dev, name)
+        self.prog, self.R, self.dev = prog, R, dev
+        self.layout, self.nbytes, self.passes = t.layout, t.nbytes, t.passes
+        self.blob = torch.empty(self.nbytes + STATUS_BYTES,
+                                dtype=torch.uint8, device=dev)
+        self.ptrs = np.fromiter((s.data_ptr() for s in self.srcs),
+                                dtype=np.int64, count=len(self.srcs))
+
+    def view(self, name: str, dtype, n: int, off: int = None) -> torch.Tensor:
+        """A typed view of the scratch: ``name`` one of the counters'
+        offsets (``ticket``, ``red``, ``tot``, ``flag``) or ``off``."""
+        at = self.tables.scratch_at[name] if off is None else off
+        return self.scratch[at:at + n * torch.tensor(
+            [], dtype=dtype).element_size()].view(dtype)
+
+    def item_totals(self) -> Dict[int, int]:
+        """Region id -> the item total of the last run on this scratch
+        (exact, int64; read on the host)."""
+        tot = self.view("tot", torch.int64, len(self.prog.regions)).cpu()
+        return {rid: int(tot[rid]) for rid in range(1, len(self.prog.regions))}
 
 
 class _FinalizeKernel:
     """Launches ``csrc/decode_finalize.cu``. ``launches`` counts kernel
-    launches (gather passes and epilogues); it grows only in
-    :meth:`launch_pass` and :meth:`launch_epilogue`."""
+    launches (each level's tiles and the tail) and ``runs`` the calls
+    that enqueued them (one timed launch call each); both grow only in
+    :meth:`run`, once its call has launched."""
 
     source = "decode_finalize.cu"
 
     def __init__(self):
         self.launches = 0
+        self.runs = 0
         self._lock = threading.Lock()
 
     def library(self):
         from ._build import load_kernel_library
 
         lib = load_kernel_library(self.source)
-        fn = lib.cdll.decode_finalize_pass
+        fn = lib.cdll.decode_finalize_run
         if fn.argtypes is None:
-            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [P, P, I, I, I,      # offsets parent_slot
-                                               # n_entries icap n_pos
-                           P, P, I,            # slot_out jobs n_jobs
-                           P, P,               # src_ptrs src_lens
-                           P, LL, P,           # blob offsets_at red
-                           P, P, P]            # stream ev0 ev1
+            P, I = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [P, P, P, P,   # tab plan scratch blob
+                           P, I,         # srcs n_src
+                           P, P, P]      # stream ev0 ev1
             fn.restype = ctypes.c_int
-            ep = lib.cdll.decode_finalize_epilogue
-            ep.argtypes = [P, I, P, P, P,      # entries n blob red stream
-                           P, P]               # ev0 ev1
-            ep.restype = ctypes.c_int
         return lib
 
-    def _count(self) -> None:
+    def _count(self, n: int) -> None:
         with self._lock:
-            self.launches += 1
-
-    @staticmethod
-    def prepare_offsets(plan: FinalizePlan, p) -> None:
-        """An item pass's int64 offsets: 0, then ``torch.cumsum`` of the
-        region's counts (two PyTorch launches, no kernel of this file)."""
-        off = plan.offsets[p["rid"]]
-        off[0] = 0
-        torch.cumsum(plan.counts_in[p["rid"]], 0, dtype=torch.int64,
-                     out=off[1:])
-
-    def launch_pass(self, plan: FinalizePlan, p) -> None:
-        """One gather pass; an item pass reads the offsets that
-        :meth:`prepare_offsets` made."""
-        if plan.dev.type != "cuda":
-            raise RuntimeError("finalize_kernel takes CUDA tensors")
-        fn = self.library().cdll.decode_finalize_pass
-        st = torch.cuda.current_stream(plan.dev)
-        stream = st.cuda_stream
-        rid = p["rid"]
-        if rid == ROWS:
-            args = (None, None, plan.R, 1, p["n_pos"], None, -1)
-        else:
-            parent = plan.prog.region_parents[rid]
-            off = plan.offsets[rid]
-            pslot = None if parent == ROWS else \
-                plan.slot_map[parent].data_ptr()
-            smap = plan.slot_map.get(rid)
-            args = (off.data_ptr(), pslot, p["n_entries"], p["icap"],
-                    p["n_pos"], None if smap is None else smap.data_ptr(),
-                    p["off_at"])
-        off_p, pslot, n_entries, icap, n_pos, smap, off_at = args
-        args = (off_p, pslot, n_entries, icap, n_pos, smap,
-                p["jobs_d"].data_ptr(), len(p["jobs"]),
-                plan.src_ptrs.data_ptr(), plan.src_lens.data_ptr(),
-                plan.blob.data_ptr(), off_at, plan.red.data_ptr(), stream)
-        with torch.cuda.device(plan.dev), \
-                device_obs.timed("finalize", plan.dev, st) as t:
-            rc = fn(*args, *t.events)
-            if rc != 0:
-                raise RuntimeError(f"decode_finalize launch failed: CUDA "
-                                   f"error {rc}")
-        self._count()
-
-    def launch_epilogue(self, plan: FinalizePlan) -> None:
-        fn = self.library().cdll.decode_finalize_epilogue
-        st = torch.cuda.current_stream(plan.dev)
-        args = (plan.entries.data_ptr(), plan.entries.shape[0],
-                plan.blob.data_ptr(), plan.red.data_ptr(), st.cuda_stream)
-        with torch.cuda.device(plan.dev), \
-                device_obs.timed("finalize", plan.dev, st) as t:
-            rc = fn(*args, *t.events)
-            if rc != 0:
-                raise RuntimeError(f"decode_finalize epilogue failed: CUDA "
-                                   f"error {rc}")
-        self._count()
+            self.launches += n
+            self.runs += 1
 
     def run(self, plan: FinalizePlan) -> torch.Tensor:
-        """Every pass and the epilogue, enqueued. Inside a
-        :func:`..runtime.device_obs.launch` each launch call is timed as
-        ``finalize`` (the zero fill and the offsets' library calls are
-        not), with the bytes of :func:`finalize_bytes` at the launch's
-        item totals."""
+        """Every level's tiles and the tail, enqueued by one call on the
+        current stream, with no copy to the card and no synchronise.
+        Inside a :func:`..runtime.device_obs.launch` the call is timed as
+        ``finalize`` (from before the first launch to after the last),
+        with the bytes of :func:`finalize_bytes` at the launch's item
+        totals."""
+        if plan.dev.type != "cuda":
+            raise RuntimeError("finalize_kernel takes CUDA tensors")
+        t = plan.tables
         if device_obs.recording():
-            spec = finalize_spec(plan)
+            spec = t.spec
             device_obs.add_bytes("finalize", lambda L: finalize_bytes(
                 spec, L.info.get("item_totals", {})))
-        plan.red.zero_()  # the passes fold maxima into it
-        for p in plan.passes:
-            if p["rid"] != ROWS:
-                self.prepare_offsets(plan, p)
-            self.launch_pass(plan, p)
-        self.launch_epilogue(plan)
+        fn = self.library().cdll.decode_finalize_run
+        st = torch.cuda.current_stream(plan.dev)
+        if st.cuda_stream != t.stream:
+            t.tab.record_stream(st)
+        args = (t.tab_ptr, t.plan_ptr, plan.scratch.data_ptr(),
+                plan.blob.data_ptr(), plan.ptrs.__array_interface__["data"][0],
+                len(plan.ptrs), st.cuda_stream)
+        on_card = torch.cuda.device(plan.dev) \
+            if torch.cuda.current_device() != plan.dev.index \
+            else contextlib.nullcontext()
+        with on_card, device_obs.timed("finalize", plan.dev, st) as ev:
+            rc = fn(*args, *ev.events)
+        if rc != 0:
+            plan.cache.drop_scratch(plan.rung, plan.dev, plan.scratch)
+            raise RuntimeError(f"decode_finalize launch failed: CUDA error "
+                               f"{rc}")
+        self._count(t.launches)
         return plan.blob
 
     def __call__(self, bufs, err, prog: Program, R: int, B: int, item_caps,
-                 tot_caps, compact: bool = True) -> torch.Tensor:
+                 tot_caps, compact: bool,
+                 cache: FinalizeCache) -> torch.Tensor:
         return self.run(FinalizePlan(bufs, err, prog, R, B, item_caps,
-                                     tot_caps, compact))
+                                     tot_caps, compact, cache))
 
 
 finalize_kernel = _FinalizeKernel()
 
 
 def finalize(bufs, err, prog: Program, R: int, B: int, item_caps, tot_caps,
-             compact: bool = True) -> torch.Tensor:
-    """K2 for the tensors' device: the kernel for CUDA tensors, the plain
-    finalize for CPU tensors. Returns the blob and its status bytes."""
+             compact: bool, cache: FinalizeCache) -> torch.Tensor:
+    """K2 for the tensors' device: the kernel for CUDA tensors (its tables
+    and scratch from ``cache``), the plain finalize for CPU tensors.
+    Returns the blob and its status bytes."""
     if err.device.type == "cuda":
         return finalize_kernel(bufs, err, prog, R, B, item_caps, tot_caps,
-                               compact)
+                               compact, cache)
     if err.device.type == "cpu":
         with device_obs.timed("finalize", err.device):
             return finalize_plain(bufs, err, prog, R, B, item_caps,
                                   tot_caps, compact)
     raise RuntimeError(f"no finalize for device {err.device}")
-
 
 # -- the bytes each kernel must move (PERF.md's bounds; chip_smoke.py and
 # device_obs read the same functions) ------------------------------------------
@@ -1298,10 +1482,10 @@ def walk_bytes(record_bytes: int, R: int, out_bytes: int) -> int:
 def finalize_spec(plan: FinalizePlan) -> tuple:
     """What :func:`finalize_bytes` needs of a plan, as host values (so a
     pending launch does not hold the plan's device buffers): the blob's
-    bytes and, per pass, ``(region, positions, entries, job kinds)``."""
-    return (plan.blob.numel(), tuple(
-        (p["rid"], p["n_pos"], p.get("n_entries", 0),
-         tuple(j[0] for j in p["jobs"])) for p in plan.passes))
+    bytes and, per region (the row payload first), ``(region, positions,
+    entries, job kinds)``, the row region's kinds with one ``J_REDUCE``
+    per row-level region's counts (built once, with the tables)."""
+    return plan.tables.spec
 
 
 def finalize_pass_bytes(p: tuple, n_items: int, written: bool = True) -> int:
@@ -1412,6 +1596,8 @@ class DeviceDecoder:
         # the buckets this decoder launched: a bucket's first launch is
         # its device.compile_s
         self._launched: set = set()
+        # K2's per-rung tables and per-thread scratch
+        self._finalize = FinalizeCache()
         self._lock = threading.Lock()
         device_obs.track_holder(self)
 
@@ -1708,7 +1894,7 @@ class DeviceDecoder:
         bufs, err = walk(words, starts, lengths, n, self.prog, item_caps)
         t1 = time.perf_counter()
         blob = finalize(bufs, err, self.prog, R, B, item_caps, tot_caps,
-                        compact)
+                        compact, self._finalize)
         if sync and blob.device.type == "cuda":
             torch.cuda.synchronize(blob.device)
         if timings is not None:

@@ -316,12 +316,12 @@ class ShardedDecoder:
             t2 = time.perf_counter()
             if err.device.type == "cuda":
                 plan = FinalizePlan(bufs, err, prog, R, B, item_caps,
-                                    tot_caps, compact)
+                                    tot_caps, compact, self.base._finalize)
                 blobs.append(finalize_kernel.run(plan))
                 spec = finalize_spec(plan)  # the same for every shard
             else:
                 blobs.append(finalize(bufs, err, prog, R, B, item_caps,
-                                      tot_caps, compact))
+                                      tot_caps, compact, self.base._finalize))
             errs.append(err)
             timings["walk_s"] += t2 - t1
             timings["finalize_s"] += time.perf_counter() - t2

@@ -29,8 +29,8 @@ passes and epilogue), ``walk_decode``, ``encode_rows``,
 library records on the launch's own stream right before and right
 after the kernel, so no host work (argument set-up, the binding's own
 call, status reads, the next call's enqueue) falls between them even
-when the stream is idle. The ``torch.cumsum`` and fills between K2's
-passes are library calls and are not timed. The events come from a
+when the stream is idle (K2's one call enqueues all of its launches
+between the two events). The events come from a
 small pool per stream, and nothing synchronises: they are read
 (:func:`flush`) only once the call has already waited past them (its
 device-to-host wait), and at the latest when the root span exits.
@@ -84,7 +84,7 @@ and publishes a ``device.recompile_storm`` incident event on
 ``device_obs.py:575-700``). :func:`track_holder` keeps (weakly) the
 objects that hold launch state across calls: the one-card
 ``DeviceDecoder``, ``WalkDecoder`` and ``DeviceEncoder`` and the sharded
-decoder and encoder. Two planes of :mod:`.cachelife` and
+decoder and encoder. Three planes of :mod:`.cachelife` and
 :mod:`.memacct` read them:
 
 * ``executables``: the port's counterpart of an XLA executable is a
@@ -108,6 +108,9 @@ decoder and encoder. Two planes of :mod:`.cachelife` and
   checked out stays alive through that call's own reference; its card
   block returns to the caching allocator when the call drops it, on the
   stream that allocated it, behind the launches that read it.
+* ``finalize``: K2's per-rung tables and per-thread scratch
+  (``FinalizeCache`` of each pipeline decoder), card bytes only
+  (``device_bytes``); an evicted rung is built again at its next run.
 
 The nvcc libraries are shared by every schema and never evicted;
 ``ops/_build.py`` reports them as the ``cache.kernels`` probe. Freed
@@ -786,3 +789,39 @@ cachelife.register(
 cachelife.register("arenas", entries=_arena_entries, evict=_evict_arena)
 memacct.register_probe("cache.executables", _exe_probe)
 memacct.register_probe("cache.arenas", _arena_probe)
+
+
+def _finalize_caches():
+    with _lock:
+        return [h._finalize for h in _holders
+                if getattr(h, "_finalize", None) is not None]
+
+
+def _finalize_entries():
+    return [((id(c), key), used, nbytes) for c in _finalize_caches()
+            for key, used, nbytes in c.entries()]
+
+
+def _evict_finalize(ent_key) -> bool:
+    """Drop one rung's finalize tables and scratch from its decoder; a run
+    in flight keeps its own references."""
+    cid, key = ent_key
+    for c in _finalize_caches():
+        if id(c) == cid:
+            return c.evict(key)
+    return False
+
+
+def _finalize_probe():
+    """The card bytes of every decoder's finalize tables and scratch
+    (``device_bytes``; nothing of them is on the host)."""
+    ents = _finalize_entries()
+    return {"bytes": 0.0, "items": float(len(ents)),
+            "device_bytes": float(sum(b for _k, _t, b in ents))}
+
+
+# K2's per-rung tables and per-thread scratch (``ops/decode.py``
+# ``FinalizeCache``): no entry cap of their own; TTL and pressure
+cachelife.register("finalize", entries=_finalize_entries,
+                   evict=_evict_finalize)
+memacct.register_probe("cache.finalize", _finalize_probe)

@@ -389,4 +389,5 @@ def test_walk_kernel_wrapper_refuses_cpu_tensors():
         decode.walk_kernel(words, lanes, lanes, 1, prog, (0, 8))
     bufs, err = decode.walk_plain(words, lanes, lanes, 0, prog, (0, 8))
     with pytest.raises(RuntimeError, match="CUDA"):
-        decode.finalize_kernel(bufs, err, prog, 8, 16, (0, 8), (0, 8))
+        decode.finalize_kernel(bufs, err, prog, 8, 16, (0, 8), (0, 8), True,
+                               decode.FinalizeCache())

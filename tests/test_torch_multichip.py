@@ -515,6 +515,8 @@ def test_every_launch_and_query_runs_on_its_tensors_card(monkeypatch):
     kept per card."""
     import types
 
+    import numpy as np
+
     from pyruhvro_tpu_torch.ops import decode as dm
     from pyruhvro_tpu_torch.ops import encode as em
     from pyruhvro_tpu_torch.ops import walk_decode as wd
@@ -544,8 +546,7 @@ def test_every_launch_and_query_runs_on_its_tensors_card(monkeypatch):
         decode_walk=entry("decode_walk"),
         decode_walk_smem_bytes=lambda *a: 1024,
         decode_walk_blocks_per_sm=entry("decode_walk_blocks_per_sm", 8),
-        decode_finalize_pass=entry("decode_finalize_pass"),
-        decode_finalize_epilogue=entry("decode_finalize_epilogue"),
+        decode_finalize_run=entry("decode_finalize_run"),
         walk_decode=entry("walk_decode"),
         encode_rows=entry("encode_rows"),
         encode_strings=entry("encode_strings"),
@@ -575,11 +576,11 @@ def test_every_launch_and_query_runs_on_its_tensors_card(monkeypatch):
     assert calls[-1] == ("decode_walk_blocks_per_sm", torch.device("cuda:2"))
     calls[n_queries:] = []
     plan = types.SimpleNamespace(
-        dev=torch.device(card), R=8, prog=prog, blob=t, red=t, src_ptrs=t,
-        src_lens=t, entries=_OnCard(card, 2))
-    fin_k.launch_pass(plan, {"rid": 0, "n_pos": 8, "jobs_d": t,
-                             "jobs": [[0] * 8]})
-    fin_k.launch_epilogue(plan)
+        dev=torch.device(card), blob=t, scratch=t, ptrs=np.zeros(2, np.int64),
+        cache=None, tables=types.SimpleNamespace(
+            tab_ptr=0, plan_ptr=0, launches=2, spec=(8, ()), stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    fin_k.run(plan)
     wd.walk_kernel.launch(types.SimpleNamespace(
         flat=t, offs=t, act=t, base=t, BW=4, table=t, prog=prog, bufs=[t],
         n_regions=2, ptrs=t, tile_r=128, fixed_upto=0, in_budget=0,
@@ -592,8 +593,7 @@ def test_every_launch_and_query_runs_on_its_tensors_card(monkeypatch):
     names = [name for name, _dev in calls]
     queries = names.count("decode_walk_blocks_per_sm")
     assert names == ["decode_walk"] + ["decode_walk_blocks_per_sm"] * \
-        queries + ["decode_finalize_pass", "decode_finalize_epilogue",
-                   "walk_decode"] + ["encode_rows_blocks_per_sm"] * \
+        queries + ["decode_finalize_run", "walk_decode"] + ["encode_rows_blocks_per_sm"] * \
         names.count("encode_rows_blocks_per_sm") + ["encode_rows",
                                                     "encode_strings"]
     assert queries and {dev for _name, dev in calls} == \

@@ -741,12 +741,15 @@ def test_finalize_bytes_from_the_blob_totals_are_the_plan_offsets():
     blob = dm.finalize_plain(bufs, err, dec.prog, R, B, item_caps, tot_caps)
     host = dec._split(blob.numpy(), dm.blob_layout(
         dec.prog, R, B, item_caps, tot_caps, True), n)
-    plan = dm.FinalizePlan(bufs, err, dec.prog, R, B, item_caps, tot_caps)
+    plan = dm.FinalizePlan(bufs, err, dec.prog, R, B, item_caps, tot_caps,
+                           True, dm.FinalizeCache())
     assert len(plan.passes) > 1  # item regions, each under the rows
+    tot = plan.view("tot", torch.int64, len(dec.prog.regions))
     for p in plan.passes:
         assert dec.prog.region_parents[p["rid"]] == 0 or p["rid"] == 0
-        if p["rid"]:
-            dm.finalize_kernel.prepare_offsets(plan, p)
+        if p["rid"]:  # what the region's last tile leaves in the scratch
+            tot[p["rid"]] = bufs[dec.prog.out_keys.index(
+                dec.prog.regions[p["rid"]] + "#count")].sum()
     spec = dm.finalize_spec(plan)
     assert dm.finalize_bytes(spec, dec._item_totals(host)) == \
         dm.finalize_bytes(spec, chip_smoke.plan_totals(plan)) > spec[0]
