@@ -20,7 +20,7 @@ exits non-zero before the last line:
    (``hostpath/specialize.py``), all started together, with ptxas
    registers and spills, and each ``g++`` command and its seconds;
 3. ``walk_decode`` (K4, the ``PYRUHVRO_TPU_PALLAS`` engine) against its
-   plain walk on 15 fixtures: every buffer and ``#err`` bit-equal at every
+   plain walk on 16 fixtures (the last, ints past int32): every buffer and ``#err`` bit-equal at every
    rung of the item-cap ladder under each shared-memory plan (``PLANS``),
    the card's decode equal to the CPU's, malformed batches raising the
    same message on both;
@@ -29,7 +29,8 @@ exits non-zero before the last line:
    card decoder's ladder visits, on ``block_edge_fixtures`` (reads
    that leave a K1 block's staged span, a block over its staging budget)
    and on ``finalize_edge_fixtures`` (K2's item tiles and spans at their
-   edges, a whole tile of empty entries, an entry over a span):
+   edges, a whole tile of empty entries, an entry over a span) and on
+   :func:`int_range_fixture` (ints past int32, ``ERR_INT_RANGE``):
    every buffer, ``#err`` and the blob bit-equal (K2's blob filled with
    0xA5 first), the blocks K1 counts staged and reading device memory
    equal to its host mirror's plan at every launch (both kinds must
@@ -38,6 +39,20 @@ exits non-zero before the last line:
    against the plain encode on ``encode_fixtures`` (row sizes, every
    ``#dst`` lane and ``[0, total)`` bit-equal), the card's encode equal
    to the CPU's and the wire a fixed point of decode and encode;
+   then the ``fuzz`` phase (:func:`fuzz_phase`): the fuzz and malformed
+   soaks' own checks (``scripts/torch_fuzz_soak.py``,
+   ``torch_malformed_soak.py``) on ``FUZZ_SEEDS`` random schemas
+   (``datagen.random_schema``) of ``FUZZ_ROWS`` records each, with
+   every launch count set to 0 before and read after: each decode and
+   encode on the card (``backend="device"``, held to the device tier)
+   equal to the oracle's batch and the input wire, K4 on the schemas it
+   takes (its ``UnsupportedOnDevice`` counted), the mutated corpora
+   (``datagen.mutate_corpus``) of ``FUZZ_MUTATED`` schemas under
+   ``"raise"`` and ``"skip"`` rejected where the oracle rejects, on the
+   card and ``backend="host"`` alike, equal surviving rows; then each
+   kernel held bit-equal to its plain version on these shapes, the
+   mutated corpora's too (K1/K2 through :func:`hold_kernels`, K4 at
+   every rung, K3 through :func:`held_encode`); one summary line;
 5. four decode main paths through ``deserialize_array_threaded(..., 8)``,
    each with every launch count set to 0 before its cold call and read
    after it, and its batches equal to the same call on the CPU by value:
@@ -204,12 +219,15 @@ NESTED_ROWS = 262_144       # main path 3 (Python data generation bounds it)
 LARGE_ROWS = 16_384         # main path 4: records of 4 to 16 KiB
 PIPELINE_ROWS = 2_000       # rows of the pipeline engine's fixtures
 WARM_CALLS = 5              # timed warm calls of each main path
-PHASE_RUNS = 3              # decodes whose phase times give the medians
+PHASE_RUNS = 2              # decodes whose phase times give the medians
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 POLICY_EVERY = 100          # P1: one row in every 100 poisoned with b"\x01"
 POLICY_HOST_ROWS = 10_000   # P4: records through the host oracle
 POLICY_ENCODE_ROWS = 65_536  # P5: rows of the encode bisect
 POLICY_WARM_CALLS = 2       # P1: warm calls (fewer than WARM_CALLS: time)
+FUZZ_SEEDS = range(100, 124)  # the fuzz phase's random schemas
+FUZZ_ROWS = 2_000           # records per random schema
+FUZZ_MUTATED = 8            # schemas whose mutated corpora run too
 P6_ROWS = 100_000           # P6: records of UUID_SCHEMA
 H7_ROWS = 200_000           # H7 (b): records of RUN_SCHEMA
 
@@ -383,6 +401,45 @@ def smi_name_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# an int, a date, a time-millis, an array and a map of ints, a nullable
+# int and a long: the fixture of ints past int32
+INT_RANGE_SCHEMA = json.dumps({"type": "record", "name": "IntRange",
+                               "fields": [
+    {"name": "i", "type": "int"},
+    {"name": "d", "type": {"type": "int", "logicalType": "date"}},
+    {"name": "t", "type": {"type": "int", "logicalType": "time-millis"}},
+    {"name": "arr", "type": {"type": "array", "items": "int"}},
+    {"name": "m", "type": {"type": "map", "values": "int"}},
+    {"name": "u", "type": ["null", "int"]},
+    {"name": "l", "type": "long"}]})
+INT_RANGE_FIELDS = ("i", "d", "t", "arr", "m", "u")
+INT32_BOUNDS = (0, 1, -1, (1 << 31) - 1, -(1 << 31))
+PAST_INT32 = (1 << 31, -(1 << 31) - 1, 1 << 40, -(1 << 62))
+
+
+def int_range_datum(field: str = None, value: int = 0) -> bytes:
+    """One ``INT_RANGE_SCHEMA`` record: every int 7 but ``field``, which
+    holds ``value``; the long holds 2^40, which is legal there."""
+    def v(name):
+        return value if name == field else 7
+
+    return (zz(v("i")) + zz(v("d")) + zz(v("t"))
+            + zz(2) + zz(5) + zz(v("arr")) + zz(0)
+            + zz(1) + zz(1) + b"k" + zz(v("m")) + zz(0)
+            + zz(1) + zz(v("u")) + zz(1 << 40))
+
+
+def int_range_fixture():
+    """``("int_past_int32", schema, datums, True)``: a record of 7s, one
+    per field at each of int32's bounds, then one per field past int32
+    (``PAST_INT32``), each of which every engine rejects (``#err`` bit
+    ``ERR_INT_RANGE``, slug ``int_range``)."""
+    datums = [int_range_datum()] + [
+        int_range_datum(f, x) for xs in (INT32_BOUNDS, PAST_INT32)
+        for f in INT_RANGE_FIELDS for x in xs]
+    return "int_past_int32", INT_RANGE_SCHEMA, datums, True
+
+
 def fixtures(datagen, parse_schema):
     """(name, schema, datums, must_fail) for the kernel-vs-plain phase."""
     kafka = datagen.KAFKA_SCHEMA_JSON
@@ -442,6 +499,7 @@ def fixtures(datagen, parse_schema):
         deep.append((zz(len(xs)) + b"".join(map(zz, xs)) if xs else b"")
                     + zz(0))
     cases.append(("item_staging_overflow", LADDER_SCHEMA, deep, False))
+    cases.append(int_range_fixture())
     return cases
 
 
@@ -2481,14 +2539,11 @@ def payload_map(torch, L):
     return idx, idx.numel(), placed
 
 
-def hold_encode_path(torch, em, encoder, batch, card, label):
-    """K3 against its plain version on one encode main path's launch (row
-    sizes, every ``#dst``, ``[0, total)`` bit-equal), the ``encode_rows``
-    write blocks that staged their span and those that stored directly,
-    and ``encode_strings`` beside ``torch.take`` over this path's payload
-    byte map, timed in turns (strings, take, take, strings; best of 5
-    each), the copy bit-equal after every turn."""
-    L = encoder.launch(batch)
+def held_encode(torch, em, L, label):
+    """K3 on the launch ``L`` against its plain version on the same
+    buffer: the row sizes, every ``#dst`` lane and ``[0, total)``
+    bit-equal, or fail. Returns the kernel's output and sizes, ``total``
+    and the plain version's ``[0, total)``."""
     out, sizes = em.encode_kernel.run(L)
     dv = L.dv()
     p_out, p_sizes, p_dst = em.rows_plain(dv, L.prog, L.cap)
@@ -2501,8 +2556,18 @@ def hold_encode_path(torch, em, encoder, batch, card, label):
     if worst:
         raise SystemExit(f"{label}: encode kernels != plain (max abs diff "
                          f"{worst})")
-    want = p_out[:total]
-    del p_out, p_dst, dv
+    return out, sizes, total, p_out[:total]
+
+
+def hold_encode_path(torch, em, encoder, batch, card, label):
+    """K3 against its plain version on one encode main path's launch (row
+    sizes, every ``#dst``, ``[0, total)`` bit-equal), the ``encode_rows``
+    write blocks that staged their span and those that stored directly,
+    and ``encode_strings`` beside ``torch.take`` over this path's payload
+    byte map, timed in turns (strings, take, take, strings; best of 5
+    each), the copy bit-equal after every turn."""
+    L = encoder.launch(batch)
+    out, sizes, total, want = held_encode(torch, em, L, label)
     spans = em.span_plan(sizes, L.n, L.span_budget)
     idx, payload, placed = payload_map(torch, L)
     ms = {}
@@ -2528,7 +2593,156 @@ def hold_encode_path(torch, em, encoder, batch, card, label):
     return {"staged_blocks": spans[0], "direct_blocks": spans[1],
             "windows": windows, "strings_ms": ms["strings"],
             "take_ms": ms["take"], "strings_bound_ms": bound,
-            "payload_bytes": payload, "max_abs_err": worst}
+            "payload_bytes": payload, "max_abs_err": 0}
+
+
+def held_walk(torch, np, wd, dec, datums, label) -> int:
+    """K4 against its plain walk on ``dec``'s launches over ``datums`` at
+    every rung of its item-cap ladder (the default shared-memory plan):
+    every buffer and ``#err`` bit-equal, or fail. Returns the rungs."""
+    prog, n = dec.prog, len(datums)
+    caps, rungs = dec.first_caps(), 0
+    while True:
+        *args, tile_r = dec.launch_inputs(datums, caps)
+        pb, pe = wd.walk_plain(*args, prog, caps, tile_r)
+        kb, ke = wd.walk_kernel.run(wd.KernelLaunch(*args, prog, caps,
+                                                    tile_r))
+        torch.cuda.synchronize()
+        for key, k, p in zip(prog.out_keys + ["#err"], kb + [ke],
+                             pb + [pe]):
+            if max_abs_diff(torch, k, p):
+                raise SystemExit(f"{label}: walk_decode != plain walk in "
+                                 f"{key!r} at caps {caps}")
+        rungs += 1
+        err = pe[:n].cpu().numpy().view(np.uint32)
+        if not (err & wd.ERR_ITEM_OVERFLOW).any() or max(caps) >= wd._MAX_CAP:
+            return rungs
+        caps = tuple(0 if c == 0 else 2 * c for c in caps)
+
+
+def soak_module(name: str):
+    """``scripts/torch_<name>.py`` of this checkout, imported once."""
+    import importlib.util
+
+    mod = sys.modules.get(f"torch_{name}")
+    if mod is None:
+        path = Path(__file__).resolve().parent / "scripts" / \
+            f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def fuzz_phase(torch, np, dm, wd, em, card):
+    """The ``fuzz`` phase: the fuzz and malformed soaks' own checks
+    (``scripts/torch_fuzz_soak.py`` and ``torch_malformed_soak.py``,
+    ``check_seed``) at ``FUZZ_ROWS`` records, with every launch count
+    set to 0 before and read after. ``FUZZ_SEEDS`` random schemas (unions,
+    maps of records, decimals, fixed, enums, uuid): the card's decode
+    and encode (``backend="device"``, held to the device tier) equal to
+    the oracle's batch and the input wire, K4 on the schemas it takes
+    (its ``UnsupportedOnDevice`` counted), the VM and the truncations;
+    the mutated corpora of the first ``FUZZ_MUTATED`` seeds: the card
+    and the VM quarantine the oracle's rejects under ``"skip"`` with
+    equal surviving rows, and raise under ``"raise"`` exactly when it
+    rejects one (the soak's one-record calls and its leg against the
+    plain versions are left to the soak: the kernels are held below).
+    Then K1/K2 (every rung, :func:`hold_kernels`; the mutated corpora's
+    too), K4 (every rung, :func:`held_walk`) and K3
+    (:func:`held_encode`) held bit-equal to their plain versions on these
+    shapes. The schemas are the phase's own strings, so no other phase's
+    cache state reaches it."""
+    import os
+
+    from pyruhvro_tpu_torch import MalformedAvro, UnsupportedOnDevice
+    from pyruhvro_tpu_torch.runtime import metrics
+
+    fuzz, malformed = soak_module("fuzz_soak"), soak_module("malformed_soak")
+    counters = {"decode_walk": dm.walk_kernel,
+                "decode_finalize": dm.finalize_kernel,
+                "walk_decode": wd.walk_kernel,
+                "encode_rows": em.encode_kernel.rows,
+                "encode_strings": em.encode_kernel.strings}
+    tally = {"max_sources": 0, "k2_small_block": 0, "k2_large_block": 0,
+             "past_k2_sources": 0, "k4_seeds": 0, "k4_declined": 0,
+             "k4_declined_why": {}, "truncations": 0}
+    mutated = {"records": 0, "rejects": 0, "quarantined": 0}
+    clean, bad = [], []
+    t0 = time.perf_counter()
+    answers = metrics.snapshot().get("device.host_answer", 0)
+    zero(counters)
+    seed = None
+    # the host tier's tolerant path decodes a corpus's tail again after
+    # each bad row: past PYRUHVRO_TPU_SPECIALIZE_ROWS that would build a
+    # specialised engine (a g++ run) per schema, which this phase does
+    # not test. A host codec reads the knob when it is built, in the
+    # clean corpora's calls, so it is set for both parts (set for the
+    # mutated part only, it cost 8 builds, 73 s, on an H100's host)
+    os.environ["PYRUHVRO_TPU_NO_SPECIALIZE"] = "1"
+    try:
+        for seed in FUZZ_SEEDS:
+            got = fuzz.check_seed(seed, FUZZ_ROWS, DEVICE, tally)
+            if got is None:
+                raise SystemExit(f"fuzz seed {seed}: the schema passes "
+                                 f"K2's sources, the card cannot take it")
+            clean.append((seed, *got))
+        clean_s = time.perf_counter() - t0
+        for seed in FUZZ_SEEDS[:FUZZ_MUTATED]:
+            bad.append((seed, *malformed.check_seed(
+                seed, FUZZ_ROWS, DEVICE, mutated, batch_only=True)))
+    except fuzz.soak.Divergence as ex:
+        raise SystemExit(f"fuzz seed {seed}: {ex}") from None
+    finally:
+        os.environ.pop("PYRUHVRO_TPU_NO_SPECIALIZE")
+    launches = launched("fuzz phase", counters)
+    if metrics.snapshot().get("device.host_answer", 0) != answers:
+        raise SystemExit("fuzz phase: a host tier answered a device call")
+    calls_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    errors = (MalformedAvro, UnsupportedOnDevice)
+    held = {"k1_k2_rungs": 0, "k4_rungs": 0, "k3_launches": 0}
+    for seed, e, datums, want, k4 in clean:
+        label = f"fuzz seed {seed}"
+        dec = dm.DeviceDecoder(e.ir, DEVICE)
+        rungs, _blocks = hold_kernels(torch, dm, dec, label)
+        pipeline_outcome(dec, datums, errors)
+        held["k1_k2_rungs"] += len(rungs)
+        if k4:
+            held["k4_rungs"] += held_walk(
+                torch, np, wd, wd.WalkDecoder(e.ir, DEVICE), datums, label)
+        enc = em.DeviceEncoder(e.ir, e.arrow_schema, DEVICE)
+        held_encode(torch, em, enc.launch(want), label)
+        held["k3_launches"] += 1
+        del dec, enc
+    for seed, _schema, e, corpus in bad:
+        dec = dm.DeviceDecoder(e.ir, DEVICE)
+        rungs, _blocks = hold_kernels(torch, dm, dec,
+                                      f"fuzz seed {seed} (mutated)")
+        pipeline_outcome(dec, corpus, errors)
+        held["k1_k2_rungs"] += len(rungs)
+        del dec
+    held_s = time.perf_counter() - t0
+    out = {"schemas": len(FUZZ_SEEDS), "records": len(FUZZ_SEEDS) * FUZZ_ROWS,
+           "mutated_schemas": FUZZ_MUTATED, "mutated": mutated,
+           **{k: tally[k] for k in ("k4_seeds", "k4_declined",
+                                    "k4_declined_why", "max_sources",
+                                    "k2_small_block", "k2_large_block",
+                                    "truncations")},
+           "launches": launches, "held": held, "differences": 0,
+           "clean_s": clean_s, "calls_s": calls_s, "held_s": held_s}
+    print(f"fuzz phase: {out['schemas']} random schemas (seeds "
+          f"{FUZZ_SEEDS.start}..{FUZZ_SEEDS.stop - 1}) x {FUZZ_ROWS} records "
+          f"and {FUZZ_MUTATED} mutated corpora ({mutated['rejects']} of "
+          f"{mutated['records']} records rejected); K4 took "
+          f"{tally['k4_seeds']} schemas (declined {tally['k4_declined']}: "
+          f"{tally['k4_declined_why']}); K2's 64-pointer block "
+          f"{tally['k2_small_block']}, 4,000 {tally['k2_large_block']}; "
+          f"launches {launches}; held bit-equal {held}; differences 0; "
+          f"{calls_s + held_s:.1f} s (clean corpora {clean_s:.1f}, "
+          f"mutated {calls_s - clean_s:.1f}, held {held_s:.1f}) {card}")
+    return out
 
 
 def poison(data, every: int, offset: int = 37):
@@ -3385,7 +3599,9 @@ def telemetry_phase(api, torch, telemetry, traceprop, dm, em, data,
 ROUTE_TP = "00-" + "7e" * 16 + "-" + "c3" * 8 + "-01"
 # R2: every second autotuned call explores (the least-observed arm)
 ROUTE_EXPLORE = "0.5"
-ROUTE_CALLS = 6             # R2: autotuned calls per row band
+ROUTE_CALLS = 4             # R2: autotuned calls per row band (the fewest
+                            # that observe all three arms: cold start,
+                            # explore, model, explore)
 ROUTE_TURNS = 1             # R3: rounds of A B B A (one: the time limit)
 # R3's P1 on the host tier: its first records (1,000 poisoned). The native
 # tier's tolerant path decodes a chunk's tail again after each bad row, so
@@ -3651,6 +3867,7 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
         for n, want in wants.items():
             overrides = metrics.snapshot().get("router.override", 0)
             rows, seen = data[:n], []
+            t_band = time.perf_counter()
             for _ in range(ROUTE_CALLS):
                 got = api.deserialize_array_threaded(rows, schema,
                                                      MAIN_CHUNKS,
@@ -3678,7 +3895,9 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
                     raise SystemExit(f"route R2 {n}: the model picked the "
                                      f"unobserved arm {e['arm']}")
             settled = min(per_arm, key=lambda a: per_arm[a]["predicted_s"])
+            band_s = time.perf_counter() - t_band
             r2[str(n)] = {"arms": per_arm, "settled": settled,
+                          "seconds": band_s,
                           "modes": [(e["arm"], e["mode"]) for e in seen],
                           "override": metrics.snapshot().get(
                               "router.override", 0) - overrides}
@@ -3690,7 +3909,8 @@ def route_phase(api, pa, dm, em, data, schema, kafka_batch, large,
                               for a, v in per_arm.items())
                   + f"; the model settles on {settled}; router.override "
                   f"{r2[str(n)]['override']:.0f}; every result equal to the "
-                  f"device call's {card}")
+                  f"device call's; the band's calls and comparisons "
+                  f"{band_s:.1f} s {card}")
         saved = costmodel.save_profile()
         doc = json.loads(Path(saved).read_text())
         if doc.get("package") != "pyruhvro_tpu_torch" or not doc["entries"]:
@@ -5670,7 +5890,8 @@ def main() -> int:
     walk_blocks = [0, 0]
     for fx in pipeline_fixtures(datagen, parse_schema, PIPELINE_ROWS) + \
             block_edge_fixtures(datagen, parse_schema, PIPELINE_ROWS) + \
-            finalize_edge_fixtures(datagen, parse_schema, dm.FIN_ROWS):
+            finalize_edge_fixtures(datagen, parse_schema, dm.FIN_ROWS) + \
+            [int_range_fixture()]:
         w, blocks = check_pipeline_fixture(torch, np, dm, *fx, parse_schema,
                                            perrors)
         worst["decode_walk"] = max(worst["decode_walk"], w)
@@ -5703,6 +5924,8 @@ def main() -> int:
         spans[1] += direct
     print(f"encode fixtures: {time.perf_counter() - t0:.1f} s; encode_rows "
           f"write blocks {spans[0]} staged, {spans[1]} direct")
+    # 4c. random schemas and mutated corpora on the card
+    fuzz = fuzz_phase(torch, np, dm, wd, em, card)
 
     # 5. the main paths
     kafka = datagen.KAFKA_SCHEMA_JSON
@@ -6041,6 +6264,7 @@ def main() -> int:
     print(json.dumps({"serving": serve}, default=str))
     print(json.dumps({"memory": memory}, default=str))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"fuzz": fuzz}))
     print(json.dumps({"paths": {k: {**v, "warm_median_s": statistics.median(
         v["warm_s"])} for k, v in results.items()}}))
     print(json.dumps({"kernels": rows}))

@@ -22,10 +22,20 @@ from .api import (
     serialize_record_batch_spawn,
 )
 from .errors import BatchTooLarge, DeviceCapacityExceeded, MalformedAvro
+from .gate import device_supported, host_supported, is_supported
 from .ops import UnsupportedOnDevice
+from .runtime import metrics
 from .runtime.deadline import DeadlineExceeded
 from .runtime.quarantine import QuarantinedRecord
 from .runtime.quarantine import last as last_quarantine
+# bound from runtime (not the .telemetry CLI shim): `-m
+# pyruhvro_tpu_torch.telemetry` must find its module un-imported, or
+# runpy warns about double execution; both names expose the same
+# functions
+from .runtime import telemetry
+from .schema import parse_schema, to_arrow_schema
+
+__version__ = "0.1.0"
 
 __all__ = [
     "deserialize_array",
@@ -33,6 +43,9 @@ __all__ = [
     "deserialize_array_threaded_spawn",
     "serialize_record_batch",
     "serialize_record_batch_spawn",
+    "is_supported",
+    "host_supported",
+    "device_supported",
     "last_quarantine",
     "BatchTooLarge",
     "DeadlineExceeded",
@@ -40,4 +53,9 @@ __all__ = [
     "MalformedAvro",
     "QuarantinedRecord",
     "UnsupportedOnDevice",
+    "parse_schema",
+    "to_arrow_schema",
+    "metrics",
+    "telemetry",
+    "__version__",
 ]

@@ -184,11 +184,15 @@ class ProgramModel:
 # breaks the declaration in hostpath/program.py OP_EFFECTS and the gate
 # goes red — the declaration cannot rot into a rubber stamp.
 GUARD_ANCHORS: Dict[str, List[Tuple[str, str]]] = {
-    # OP_INT truncates the 64-bit zigzag to its low 32 bits BY CONTRACT
-    # (matches the device walk); the audited note is the anchor
-    "int_low32_by_design": [
+    # OP_INT rejects a zigzag past int32 (ERR_INT_RANGE) in the reader
+    # both engines call: the VM's op and the specialiser's codegen
+    "int_range_i32": [
+        ("pyruhvro_tpu_torch/csrc/host/host_vm_core.h",
+         r"v < INT32_MIN \|\| v > INT32_MAX"),
         ("pyruhvro_tpu_torch/csrc/host/host_codec.cpp",
-         r"low-32 like the device walk"),
+         r"present \? r\.read_int\(\) : 0"),
+        ("pyruhvro_tpu_torch/hostpath/specialize.py",
+         r'v = "r\.read_int\(\)"'),
     ],
     # rd_string: length bounded by the remaining span...
     "string_len_span": [

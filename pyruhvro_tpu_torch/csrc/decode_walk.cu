@@ -133,6 +133,7 @@
 #define ERR_TRAILING 32u
 #define ERR_BAD_BOOL 64u
 #define ERR_ITEM_OVERFLOW 128u
+#define ERR_INT_RANGE 512u  // an int past int32 (ERR_DEC_RANGE, 256, is the VM's)
 
 namespace {
 
@@ -569,6 +570,8 @@ __device__ void run_row(const Params& P, const Tabs& T, Lane<D>& L,
       case OP_INT: {
         uint32_t lo, hi;
         read_long(P, T, L, lo, hi);
+        // past int32 when the high word is not the low one's sign
+        if (hi != (0u - (lo >> 31))) L.err |= ERR_INT_RANGE;
         put(P, T, L, code[pc + 1], lo);
         pc += 2;
         break;

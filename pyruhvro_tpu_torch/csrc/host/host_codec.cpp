@@ -57,8 +57,8 @@ class Vm {
         return p;
       }
       case OP_INT: {
-        int64_t v = present ? r.read_zigzag() : 0;
-        (*cols_)[op.col].i32.push_back((int32_t)v);  // low-32 like the device walk
+        int32_t v = present ? r.read_int() : 0;  // int32-range checked
+        (*cols_)[op.col].i32.push_back(v);
         return pc + 1;
       }
       case OP_LONG: {

@@ -220,6 +220,7 @@ enum Err : int32_t {
   ERR_TRAILING = 1 << 5,
   ERR_BAD_BOOL = 1 << 6,
   ERR_DEC_RANGE = 1 << 8,  // decimal outside decimal128's 128-bit range
+  ERR_INT_RANGE = 1 << 9,  // an Avro int whose varint lies past int32
 };
 
 struct Op {
@@ -399,6 +400,17 @@ struct Reader {
   inline int64_t read_zigzag() {
     uint64_t u = read_raw_varint();
     return (int64_t)(u >> 1) ^ -(int64_t)(u & 1);
+  }
+
+  // An Avro int: a zigzag varint that must lie in int32, as the oracle
+  // and the device walks hold it (ERR_INT_RANGE past it, value 0).
+  inline int32_t read_int() {
+    int64_t v = read_zigzag();
+    if (v < INT32_MIN || v > INT32_MAX) {
+      err |= ERR_INT_RANGE;
+      return 0;
+    }
+    return (int32_t)v;
   }
 
   inline bool read_fixed(void* dst, size_t nbytes) {

@@ -51,6 +51,7 @@ from .io import (
     read_bytes,
     read_double,
     read_float,
+    read_int,
     read_long,
 )
 
@@ -116,7 +117,7 @@ def compile_reader(t: AvroType, _depth: int = 0) -> Callable:
         if name in ("int", "long"):
             if t.logical == "decimal":  # bytes-decimal handled under bytes
                 raise NotImplementedError
-            return read_long
+            return read_int if name == "int" else read_long
         if name == "float":
             return read_float
         if name == "double":

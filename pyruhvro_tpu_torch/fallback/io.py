@@ -30,6 +30,7 @@ __all__ = [
     "max_datum_bytes",
     "MAX_ZERO_WIDTH_ITEMS",
     "read_varint",
+    "read_int",
     "read_long",
     "read_float",
     "read_double",
@@ -114,6 +115,17 @@ def read_long(buf, pos: int):
         value -= 1 << 64
     elif value < -(1 << 63):
         value += 1 << 64
+    return value, pos
+
+
+def read_int(buf, pos: int):
+    """Read an Avro ``int``: a zig-zag varint that must lie in int32
+    (≙ apache-avro's ``zag_i32``, which rejects a wider value); returns
+    (value, new_pos)."""
+    value, pos = read_long(buf, pos)
+    if not -(1 << 31) <= value < (1 << 31):
+        raise MalformedAvro(f"int {value} outside the int32 range",
+                            err_name="int_range")
     return value, pos
 
 

@@ -1,5 +1,10 @@
-"""Schema gates (port of ``device_supported`` and ``host_supported``,
-``pyruhvro_tpu/gate.py:94-115``).
+"""Schema gates (port of ``is_supported``, ``device_supported`` and
+``host_supported``, ``pyruhvro_tpu/gate.py:31-36, 88-115``).
+
+:func:`is_supported` is upstream's fast subset
+(``fast_decode.rs:38-61``), exactly as the reference keeps it for parity
+documentation, with a table of its own (``_FAST_LOGICAL``): it gates
+nothing in the port.
 
 The device walk covers upstream's full type surface: its fast subset
 (``fast_decode.rs:38-61``: record top level; null/boolean/int/long/
@@ -26,7 +31,15 @@ from .schema.model import (
     Union,
 )
 
-__all__ = ["device_supported", "host_supported"]
+__all__ = ["is_supported", "device_supported", "host_supported"]
+
+# upstream's fast subset (the reference's ``_SUPPORTED_LOGICAL``)
+_FAST_LOGICAL = {
+    None: ("null", "boolean", "int", "long", "float", "double", "string"),
+    "date": ("int",),
+    "timestamp-millis": ("long",),
+    "timestamp-micros": ("long",),
+}
 
 _SUPPORTED_LOGICAL = {
     None: ("null", "boolean", "int", "long", "float", "double", "string",
@@ -66,6 +79,31 @@ def _inner(t: AvroType) -> bool:
             return 1 <= t.size <= 16 and t.precision <= 38
         return t.logical in (None, "duration")
     return False
+
+
+def _fast(t: AvroType) -> bool:
+    if isinstance(t, Primitive):
+        allowed = _FAST_LOGICAL.get(t.logical)
+        return allowed is not None and t.name in allowed
+    if isinstance(t, Enum):
+        return True
+    if isinstance(t, Record):
+        return all(_fast(f.type) for f in t.fields)
+    if isinstance(t, Union):
+        return all(_fast(v) for v in t.variants)
+    if isinstance(t, Array):
+        return _fast(t.items)
+    if isinstance(t, Map):
+        return _fast(t.values)
+    return False  # fixed (incl. decimal and duration), unknown
+
+
+def is_supported(t: AvroType) -> bool:
+    """True if the top-level schema is in upstream's fast subset
+    (``fast_decode.rs:38-61``): a record of null/boolean/int/long/
+    float/double/string, date and timestamp-millis/micros, enum,
+    record, union, array and map."""
+    return isinstance(t, Record) and _fast(t)
 
 
 def device_supported(t: AvroType) -> bool:

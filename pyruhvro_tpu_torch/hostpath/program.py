@@ -104,9 +104,9 @@ OP_EFFECTS = {
     OP_RECORD: dict(ctype=None, min_wire=0, pushes=(), sinks=(),
                     aux=(None,)),
     OP_INT: dict(ctype=COL_I32, min_wire=1, pushes=("i32",),
-                 # the 64-bit zigzag is truncated to its low 32 bits by
-                 # contract (matches the device walk)
-                 sinks=(("int_value", ("int_low32_by_design",)),),
+                 # a zigzag past int32 is an error (ERR_INT_RANGE), as in
+                 # the oracle and the device walks
+                 sinks=(("int_value", ("int_range_i32",)),),
                  aux=(None,)),
     OP_LONG: dict(ctype=COL_I64, min_wire=1, pushes=("i64",), sinks=(),
                   aux=(None,)),

@@ -214,7 +214,7 @@ class _Gen(_GenBase):
             return q
 
         if kind == OP_INT:
-            v = "(int32_t)r.read_zigzag()"
+            v = "r.read_int()"
             self.w(f"{self.c(col)}.i32.push_back("
                    + (v if present is True else f"{p} ? {v} : 0") + ");")
             return pc + 1

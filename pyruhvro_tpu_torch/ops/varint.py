@@ -41,6 +41,7 @@ __all__ = [
     "read_varint64",
     "read_varint32",
     "zigzag_decode_pair",
+    "outside_i32",
     "read_f32",
     "read_f64_pair",
     "read_bool_byte",
@@ -53,6 +54,7 @@ __all__ = [
     "ERR_BAD_BOOL",
     "ERR_ITEM_OVERFLOW",
     "ERR_DEC_RANGE",
+    "ERR_INT_RANGE",
     "ERR_NAMES",
     "ERR_SLUGS",
 ]
@@ -69,6 +71,7 @@ ERR_TRAILING = 1 << 5      # datum not fully consumed (trailing bytes)
 ERR_BAD_BOOL = 1 << 6      # boolean byte not 0/1
 ERR_ITEM_OVERFLOW = 1 << 7 # array/map items exceeded the slot cap (retry)
 ERR_DEC_RANGE = 1 << 8     # decimal outside decimal128 (host VM only)
+ERR_INT_RANGE = 1 << 9     # an Avro int whose varint lies past int32
 
 ERR_NAMES = {
     ERR_VARINT: "varint longer than 10 bytes",
@@ -80,6 +83,7 @@ ERR_NAMES = {
     ERR_BAD_BOOL: "invalid boolean byte",
     ERR_ITEM_OVERFLOW: "array/map item capacity overflow",
     ERR_DEC_RANGE: "decimal outside decimal128 range",
+    ERR_INT_RANGE: "int outside the int32 range",
 }
 
 # short machine-stable slugs (MalformedAvro.err_name)
@@ -93,6 +97,7 @@ ERR_SLUGS = {
     ERR_BAD_BOOL: "bad_bool",
     ERR_ITEM_OVERFLOW: "item_overflow",
     ERR_DEC_RANGE: "dec_range",
+    ERR_INT_RANGE: "int_range",
 }
 
 
@@ -196,6 +201,13 @@ def zigzag_decode_pair(lo, hi):
     lo1 = (lo >> 1) | ((hi << 31) & U32)
     hi1 = hi >> 1
     return lo1 ^ m, hi1 ^ m
+
+
+def outside_i32(lo, hi):
+    """True where a zig-zag decoded u32 pair lies past int32: its high
+    word is not the sign extension of its low one (an Avro ``int`` read
+    there sets ERR_INT_RANGE)."""
+    return hi != (lo >> 31) * U32
 
 
 def read_f32(words: Words, cursor, mask):

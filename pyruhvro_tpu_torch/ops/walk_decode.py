@@ -91,6 +91,7 @@ from .fieldprog import (
 from .varint import (
     ERR_BAD_BRANCH,
     ERR_BAD_ENUM,
+    ERR_INT_RANGE,
     ERR_ITEM_OVERFLOW,
     ERR_NAMES,
     ERR_NEG_LEN,
@@ -99,6 +100,7 @@ from .varint import (
     ERR_TRAILING,
     U32,
     RowWords,
+    outside_i32,
     read_bool_byte,
     read_f32,
     read_f64_pair,
@@ -335,6 +337,7 @@ class _PlainWalk:
                     self.put(code[pc + 2], slot, hi, mask)
                     pc += 3
                 else:
+                    self.err_where(mask & outside_i32(lo, hi), ERR_INT_RANGE)
                     pc += 2
             elif op == OP_FLOAT:
                 v, self.cursor = read_f32(self.words, self.cursor, mask)

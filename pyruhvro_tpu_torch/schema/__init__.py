@@ -14,7 +14,7 @@ from .model import (
 )
 from .parser import SchemaParseError, parse_schema
 from .arrow_map import to_arrow_schema, to_arrow_field
-from .cache import SchemaEntry, get_or_parse_schema
+from .cache import SchemaEntry, clear_schema_cache, get_or_parse_schema
 
 __all__ = [
     "Array",
@@ -31,5 +31,6 @@ __all__ = [
     "to_arrow_schema",
     "to_arrow_field",
     "SchemaEntry",
+    "clear_schema_cache",
     "get_or_parse_schema",
 ]

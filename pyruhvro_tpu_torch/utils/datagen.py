@@ -1,10 +1,15 @@
-"""Seeded test data for the port (copy of ``pyruhvro_tpu/utils/datagen.py:111,127,150,181``).
+"""Seeded test data for the port (copy of ``pyruhvro_tpu/utils/datagen.py``,
+and of ``mutate_corpus`` in ``tests/test_fuzz_malformed.py:39``).
 
 ``random_value`` produces value trees (record→dict, map→list[(k, v)],
 union→(branch, value)); ``compile_writer``, the host oracle's writer
 (:mod:`..fallback.encoder`), turns them into Avro wire bytes.
 ``kafka_style_datums`` is the 9-field Kafka workload of upstream's
-``scripts/generate_avro.py`` (Faker-free).
+``scripts/generate_avro.py`` (Faker-free). ``synthetic_schema_variant``,
+``random_schema``, ``WIDENED_SCHEMA_JSON`` and ``widened_datums`` draw
+from their ``random.Random`` in the reference's order, so every seed
+gives the reference's strings and bytes; ``mutate_corpus`` corrupts a
+corpus as the reference's malformed fuzz does.
 """
 
 from __future__ import annotations
@@ -31,7 +36,12 @@ __all__ = [
     "random_datums",
     "kafka_style_datums",
     "compile_writer",
+    "synthetic_schema_variant",
+    "random_schema",
+    "mutate_corpus",
+    "widened_datums",
     "KAFKA_SCHEMA_JSON",
+    "WIDENED_SCHEMA_JSON",
     "CRITERION_SHAPES",
 ]
 
@@ -221,4 +231,237 @@ def kafka_style_datums(n: int, seed: int = 0) -> List[bytes]:
         buf = bytearray()
         writer(buf, rec)
         out.append(bytes(buf))
+    return out
+
+
+def synthetic_schema_variant(i: int) -> str:
+    """Schema #i of the schema-churn population: thousands
+    of DISTINCT schema strings (distinct fingerprints, distinct cache
+    entries) that are individually cheap to parse, lower and decode —
+    the "millions of users means thousands of schemas" traffic shape
+    the cache-lifecycle soak (``scripts/torch_mem_soak.py``) drives. Field
+    names vary with ``i`` so no two variants share a schema string."""
+    import json
+
+    return json.dumps({
+        "type": "record", "name": f"Churn{i}",
+        "fields": [
+            {"name": f"id_{i % 7}", "type": "long"},
+            {"name": f"label_{i % 5}", "type": "string"},
+            {"name": f"score_{i % 3}", "type": "double"},
+            {"name": "flag", "type": "boolean"},
+        ],
+    })
+
+
+# ---------------------------------------------------------------------------
+# Random schema generation (differential-fuzz harness)
+# ---------------------------------------------------------------------------
+
+def random_schema(seed: int, max_depth: int = 3) -> str:
+    """A random record schema drawn from the native host subset (the
+    differential strategy, extended from fixed shapes to generated
+    ones). Respects Avro's union rules: no nested unions, at
+    most one variant per unnamed kind. ``duration`` is excluded — its
+    random 12-byte fixeds overflow the oracle's Duration(ms) int64 by
+    construction (covered by targeted tests instead); decimals stay
+    within precision so both paths are exact."""
+    import json as _json
+
+    rng = random.Random(seed)
+    counter = [0]
+
+    def fresh(prefix):
+        counter[0] += 1
+        return f"{prefix}{counter[0]}"
+
+    LEAVES = [
+        "string", "bytes", "int", "long", "float", "double", "boolean",
+        {"type": "int", "logicalType": "date"},
+        {"type": "long", "logicalType": "timestamp-millis"},
+        {"type": "long", "logicalType": "timestamp-micros"},
+        {"type": "int", "logicalType": "time-millis"},
+        {"type": "long", "logicalType": "time-micros"},
+        {"type": "long", "logicalType": "local-timestamp-millis"},
+        {"type": "long", "logicalType": "local-timestamp-micros"},
+        {"type": "string", "logicalType": "uuid"},
+    ]
+
+    def gen_type(depth, allow_union=True):
+        roll = rng.random()
+        if depth >= max_depth or roll < 0.45:
+            leaf = rng.choice(LEAVES + [None, None])  # None → named leaf
+            if leaf is not None:
+                return leaf
+            named = rng.random()
+            if named < 0.34:
+                return {"type": "enum", "name": fresh("E"),
+                        "symbols": ["A", "B", "C", "D"][: rng.randint(2, 4)]}
+            if named < 0.67:
+                return {"type": "fixed", "name": fresh("F"),
+                        "size": rng.randint(1, 16)}
+            prec = rng.randint(1, 18)
+            if rng.random() < 0.5:
+                return {"type": "bytes", "logicalType": "decimal",
+                        "precision": prec, "scale": rng.randint(0, prec)}
+            return {"type": "fixed", "name": fresh("FD"), "size": 16,
+                    "logicalType": "decimal", "precision": prec,
+                    "scale": rng.randint(0, prec)}
+        if roll < 0.60:
+            return {"type": "array", "items": gen_type(depth + 1)}
+        if roll < 0.72:
+            return {"type": "map", "values": gen_type(depth + 1)}
+        if roll < 0.84:
+            return {"type": "record", "name": fresh("R"), "fields": [
+                {"name": f"f{i}", "type": gen_type(depth + 1)}
+                for i in range(rng.randint(1, 3))
+            ]}
+        if allow_union:
+            if rng.random() < 0.6:  # nullable pair
+                inner = gen_type(depth + 1, allow_union=False)
+                pair = ["null", inner]
+                rng.shuffle(pair)
+                return pair
+            # sparse union: distinct kinds only
+            kinds = rng.sample(
+                ["null", "string", "long", "boolean", "double"],
+                rng.randint(2, 4),
+            )
+            return kinds
+        return rng.choice(["string", "long", "double"])
+
+    fields = [
+        {"name": f"c{i}", "type": gen_type(0)}
+        for i in range(rng.randint(1, 6))
+    ]
+    return _json.dumps(
+        {"type": "record", "name": f"Fuzz{seed}", "fields": fields}
+    )
+
+
+# ---------------------------------------------------------------------------
+# widened-surface workload (beyond the reference's fast subset)
+# ---------------------------------------------------------------------------
+
+WIDENED_SCHEMA_JSON = """\
+{
+  "type": "record",
+  "name": "Wide",
+  "fields": [
+    {"name": "b", "type": "bytes"},
+    {"name": "nb", "type": ["null", "bytes"]},
+    {"name": "f8", "type": {"type": "fixed", "name": "F8", "size": 8}},
+    {"name": "nf", "type": ["null", {"type": "fixed", "name": "F3", "size": 3}]},
+    {"name": "uid", "type": {"type": "string", "logicalType": "uuid"}},
+    {"name": "dur", "type": {"type": "fixed", "name": "Dur", "size": 12,
+                             "logicalType": "duration"}},
+    {"name": "dec", "type": {"type": "bytes", "logicalType": "decimal",
+                             "precision": 20, "scale": 4}},
+    {"name": "ndec", "type": ["null", {"type": "bytes", "logicalType": "decimal",
+                              "precision": 10, "scale": 2}]},
+    {"name": "decf", "type": {"type": "fixed", "name": "DF", "size": 9,
+                              "logicalType": "decimal", "precision": 16,
+                              "scale": 2}},
+    {"name": "tm", "type": {"type": "int", "logicalType": "time-millis"}},
+    {"name": "tu", "type": {"type": "long", "logicalType": "time-micros"}},
+    {"name": "lts", "type": {"type": "long",
+                             "logicalType": "local-timestamp-micros"}},
+    {"name": "ab", "type": {"type": "array", "items": "bytes"}}
+  ]
+}
+"""
+
+
+def widened_datums(n: int, seed: int = 0) -> List[bytes]:
+    """Wire datums over the WIDENED type surface — the types the
+    reference serves only via its Value-tree fallback (bytes, fixed,
+    uuid, duration, decimal, time-*), here first-class on every backend.
+    Values stay in-range (duration under int64 ms, decimals within
+    precision) so all paths and the oracle agree exactly."""
+    import uuid as _uuid
+
+    rng = random.Random(seed)
+    out = []
+
+    def vint(buf, v):
+        z = (v << 1) ^ (v >> 63) if v < 0 else v << 1
+        while z >= 0x80:
+            buf.append((z & 0x7F) | 0x80)
+            z >>= 7
+        buf.append(z)
+
+    def wbytes(buf, b):
+        vint(buf, len(b))
+        buf += b
+
+    for _ in range(n):
+        buf = bytearray()
+        wbytes(buf, rng.randbytes(rng.randrange(0, 24)))          # b
+        if rng.random() < 0.3:
+            vint(buf, 0)                                          # nb null
+        else:
+            vint(buf, 1)
+            wbytes(buf, rng.randbytes(5))
+        buf += rng.randbytes(8)                                   # f8
+        if rng.random() < 0.5:
+            vint(buf, 0)                                          # nf null
+        else:
+            vint(buf, 1)
+            buf += rng.randbytes(3)
+        wbytes(buf, str(_uuid.UUID(int=rng.getrandbits(128)))
+               .encode())                                         # uid
+        for comp in (rng.randrange(0, 12), rng.randrange(0, 28),
+                     rng.randrange(0, 86_400_000)):               # dur
+            buf += comp.to_bytes(4, "little")
+        v = rng.randrange(-(10 ** 19), 10 ** 19)                  # dec
+        nb_ = max((abs(v).bit_length() + 8) // 8, 1)
+        wbytes(buf, v.to_bytes(nb_, "big", signed=True))
+        if rng.random() < 0.4:
+            vint(buf, 0)                                          # ndec null
+        else:
+            vint(buf, 1)
+            v = rng.randrange(-(10 ** 9), 10 ** 9)
+            nb_ = max((abs(v).bit_length() + 8) // 8, 1)
+            wbytes(buf, v.to_bytes(nb_, "big", signed=True))
+        v = rng.randrange(-(10 ** 15), 10 ** 15)                  # decf
+        buf += v.to_bytes(9, "big", signed=True)
+        vint(buf, rng.randrange(0, 86_400_000))                   # tm
+        vint(buf, rng.randrange(0, 86_400_000_000))               # tu
+        vint(buf, rng.randrange(0, 2 ** 50))                      # lts
+        cnt = rng.randrange(0, 4)                                 # ab
+        if cnt:
+            vint(buf, cnt)
+            for _i in range(cnt):
+                wbytes(buf, rng.randbytes(rng.randrange(0, 6)))
+        vint(buf, 0)
+        out.append(bytes(buf))
+    return out
+
+
+def mutate_corpus(datums: List[bytes], seed: int,
+                  rate: float = 0.35) -> List[bytes]:
+    """Deterministically corrupt about ``rate`` of the corpus:
+    truncations, bit flips, and splices of bytes from sibling datums
+    (the reference's ``tests/test_fuzz_malformed.py:39``)."""
+    rng = random.Random(seed)
+    out = []
+    for d in datums:
+        if rng.random() >= rate or not d:
+            out.append(d)
+            continue
+        kind = rng.randrange(3)
+        b = bytearray(d)
+        if kind == 0:  # truncate
+            b = b[: rng.randrange(len(b))]
+        elif kind == 1:  # bit-flip 1..3 bytes
+            for _ in range(rng.randint(1, 3)):
+                i = rng.randrange(len(b))
+                b[i] ^= 1 << rng.randrange(8)
+        else:  # splice a window from another datum (or noise)
+            src = datums[rng.randrange(len(datums))] or b"\xff\x80\x7f"
+            a = rng.randrange(len(b))
+            w = rng.randint(1, min(8, len(src)))
+            s = rng.randrange(max(len(src) - w, 0) + 1)
+            b[a : a + w] = src[s : s + w]
+        out.append(bytes(b))
     return out

@@ -356,8 +356,11 @@ def _imported_modules(path: Path):
 
 
 def test_sources_import_neither_jax_nor_the_reference():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    scripts = sorted((REPO / "scripts").glob("torch_*.py")) + [
+        REPO / "scripts" / "k2_param_block.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + \
+        scripts
+    assert len(files) > 10 and len(scripts) >= 8
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]

@@ -192,6 +192,13 @@ def test_contracts_catch_kops_table_drift(monkeypatch):
 # -- the parsers read the port's files as the reference's read its own -------------
 
 
+# the port's one error bit the reference lacks: an Avro int past int32 is
+# an error where it is read (apache-avro's zag_i32), not wrapped
+PORT_ERR = {"ERR_INT_RANGE": 1 << 9}
+PORT_ERR_TEXT = {"ERR_NAMES": {"ERR_INT_RANGE": "int outside the int32 range"},
+                 "ERR_SLUGS": {"ERR_INT_RANGE": "int_range"}}
+
+
 @pytest.mark.parametrize("header,enum", [
     ("host_vm_core.h", "OpKind"), ("host_vm_core.h", "ColType"),
     ("host_vm_core.h", "Err"), ("extract_core.h", "AuxLane")])
@@ -200,6 +207,8 @@ def test_cpp_enums_are_the_references(header, enum):
         str(REPO / "pyruhvro_tpu_torch/csrc/host" / header), enum)
     ref = ref_contracts.parse_cpp_enum(
         str(REPO / "pyruhvro_tpu/runtime/native" / header), enum)
+    if enum == "Err":
+        ref = {**ref, **PORT_ERR}
     assert port and port == ref
 
 
@@ -227,10 +236,11 @@ def test_string_tables_and_tags_are_the_references():
         ref_contracts.parse_py_aux_tags(
             str(REPO / "pyruhvro_tpu/hostpath/program.py")) == \
         set(contracts.EXPECTED_AUX_TAGS)
+    ref = ref_contracts.parse_err_mappings(
+        str(REPO / "pyruhvro_tpu/ops/varint.py"))
     assert contracts.parse_err_mappings(
         str(REPO / "pyruhvro_tpu_torch/ops/varint.py")) == \
-        ref_contracts.parse_err_mappings(
-            str(REPO / "pyruhvro_tpu/ops/varint.py"))
+        {k: {**v, **PORT_ERR_TEXT[k]} for k, v in ref.items()}
 
 
 def test_every_checked_path_is_the_ports(fixture_tree):

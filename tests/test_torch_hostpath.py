@@ -697,12 +697,45 @@ def test_build_reads_only_the_ports_sources():
                 assert csrc in (path.parent / inc).resolve().parents, inc
 
 
+# the VM's one departure: an Avro int past int32 is an error
+# (ERR_INT_RANGE, read through Reader::read_int), not its low 32 bits
+INT_RANGE_EDITS = {
+    "host_codec.cpp": [(
+        "        int64_t v = present ? r.read_zigzag() : 0;\n"
+        "        (*cols_)[op.col].i32.push_back((int32_t)v);  "
+        "// low-32 like the device walk",
+        "        int32_t v = present ? r.read_int() : 0;  "
+        "// int32-range checked\n"
+        "        (*cols_)[op.col].i32.push_back(v);")],
+    "host_vm_core.h": [(
+        "  ERR_DEC_RANGE = 1 << 8,  // decimal outside decimal128's 128-bit "
+        "range\n",
+        "  ERR_DEC_RANGE = 1 << 8,  // decimal outside decimal128's 128-bit "
+        "range\n"
+        "  ERR_INT_RANGE = 1 << 9,  // an Avro int whose varint lies past "
+        "int32\n"), (
+        "    return (int64_t)(u >> 1) ^ -(int64_t)(u & 1);\n  }\n",
+        "    return (int64_t)(u >> 1) ^ -(int64_t)(u & 1);\n  }\n\n"
+        "  // An Avro int: a zigzag varint that must lie in int32, as the "
+        "oracle\n"
+        "  // and the device walks hold it (ERR_INT_RANGE past it, value 0).\n"
+        "  inline int32_t read_int() {\n"
+        "    int64_t v = read_zigzag();\n"
+        "    if (v < INT32_MIN || v > INT32_MAX) {\n"
+        "      err |= ERR_INT_RANGE;\n"
+        "      return 0;\n"
+        "    }\n"
+        "    return (int32_t)v;\n"
+        "  }\n")],
+}
 # the only edits of the copies besides their first comment: the module
-# names, and comments that cited the reference's own issue numbers
+# names, comments that cited the reference's own ticket numbers, and
+# INT_RANGE_EDITS
 COPY_EDITS = {
     "host_codec.cpp": [('"_pyruhvro_hostcodec"', '"_pyruhvro_torch_hostcodec"'),
                        ("PyInit__pyruhvro_hostcodec",
-                        "PyInit__pyruhvro_torch_hostcodec")],
+                        "PyInit__pyruhvro_torch_hostcodec")]
+    + INT_RANGE_EDITS["host_codec.cpp"],
     "extract.cpp": [('"_pyruhvro_extract"', '"_pyruhvro_torch_extract"'),
                     ("PyInit__pyruhvro_extract", "PyInit__pyruhvro_torch_extract")],
     "arrow_decode_core.h": [("extract_core.h (ISSUE 9\n// tentpole). The VM's",
@@ -710,7 +743,7 @@ COPY_EDITS = {
     "extract_core.h": [("(ISSUE 2 tentpole; Zerrow-style", "(Zerrow-style")],
     "shard_runner.h": [("(PR 13 discipline; the TSan flavor runs this)",
                         "(the TSan flavor runs this)")],
-    "host_vm_core.h": [],
+    "host_vm_core.h": INT_RANGE_EDITS["host_vm_core.h"],
 }
 
 

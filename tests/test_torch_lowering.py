@@ -89,10 +89,24 @@ def test_arrow_schema_matches_reference():
 
 
 def test_error_tables_match_reference():
+    """The reference's error bits, names and slugs, and one bit of the
+    port's own: ``ERR_INT_RANGE`` (an Avro int past int32)."""
     names = [n for n in dir(ref_varint) if n.startswith("ERR_")]
     assert names
+    extra = {varint.ERR_INT_RANGE: None}
+    assert {n for n in dir(varint) if n.startswith("ERR_")} - set(names) \
+        == {"ERR_INT_RANGE"}
+    assert varint.ERR_INT_RANGE == 1 << 9
     for name in names:
-        assert getattr(varint, name) == getattr(ref_varint, name), name
+        want = getattr(ref_varint, name)
+        if name in ("ERR_NAMES", "ERR_SLUGS"):
+            got = getattr(varint, name)
+            assert {k: v for k, v in got.items() if k not in extra} == want
+            assert got[varint.ERR_INT_RANGE] == {
+                "ERR_NAMES": "int outside the int32 range",
+                "ERR_SLUGS": "int_range"}[name]
+            continue
+        assert getattr(varint, name) == want, name
 
 
 def test_code_references_every_buffer_once_per_write():

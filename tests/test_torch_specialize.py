@@ -159,10 +159,15 @@ def vm_codec(monkeypatch, schema: str) -> NativeHostCodec:
 
 
 def ref_text(schema, name="M", **kw):
+    """The reference's generated text under the port's name, with the
+    port's one departure: an int is read through ``r.read_int()``
+    (int32-range checked) where the reference keeps the low 32 bits."""
     text = ref_specialize.generate_source(ref_lower(ref_entry(schema).ir),
                                           name, **kw)
-    return text.replace("// AUTO-GENERATED by pyruhvro_tpu.hostpath.",
-                        "// AUTO-GENERATED by pyruhvro_tpu_torch.hostpath.", 1)
+    return text.replace(
+        "// AUTO-GENERATED by pyruhvro_tpu.hostpath.",
+        "// AUTO-GENERATED by pyruhvro_tpu_torch.hostpath.", 1).replace(
+        "(int32_t)r.read_zigzag()", "r.read_int()")
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
